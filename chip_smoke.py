@@ -13,12 +13,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    the codec's shapes, max abs error <= 1e-5 (f32, TF32 off).
 4. K2 (decode attention) against its plain version, bf16 KV cache, max abs
    error <= 2e-2 (one bf16 ulp at |x| in [2, 4) is 1.6e-2).
-5. assets: synthetic GGUFs from a seed: the 24 kHz MioCodec at full width
-   and the 0.1B LLM (qwen2, dim 768, 12 layers, ~151.8k vocab).
-6. requests: three text -> WAV runs through ``miotts_tpu_torch.cli.main``;
-   each WAV parses, has the sample count its codes imply, is not silent,
-   and both kernels' launch counters grew.
-7. fidelity: the same 250 codes decoded on the card and on the CPU
+5. K3 (Q8_0 dequant matmul) against its plain version at every (K, N) of
+   the 0.1B LLM's quantized leaves, T in {1, 8, 64}, bf16 and f32 x. Both
+   sum the same exact bf16 x bf16 products in f32, only in another order,
+   so each output may differ by at most 2 * K * 2^-24 * sum_k |x_k w_k|
+   (the worst-case rounding of two K-term f32 sums).
+6. assets: synthetic GGUFs from a seed: the 24 kHz MioCodec at full width
+   and the 0.1B LLM (qwen2, dim 768, 12 layers, ~151.8k vocab), once with
+   f32 and once with Q8_0 matmul weights (the shipped storage).
+7. requests: three text -> WAV runs through ``miotts_tpu_torch.cli.main``
+   on the dense bf16 path; each WAV parses, has the sample count its codes
+   imply, is not silent, and the K1 and K2 launch counters grew.
+8. quantized requests on the Q8_0 GGUF: ``--llm-quant q8_0`` and
+   ``output`` (K1, K2 and K3 launch counters grew), and ``int8`` (W8A8 on
+   exact int8 dots: K1 and K2 grew, K3 did not).
+9. fidelity: the same 250 codes decoded on the card and on the CPU
    (plain versions, f32): mel-L1 < 1e-2.
 
 Before the last line it prints one JSON object with each kernel's launch
@@ -49,19 +58,28 @@ from miotts_tpu_torch.device import select_device
 from miotts_tpu_torch.ops.cuda import banded_attention as k1
 from miotts_tpu_torch.ops.cuda import build
 from miotts_tpu_torch.ops.cuda import decode_attention as k2
+from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.pipeline import MioTTSPipeline
 from miotts_tpu_torch.testing import (
-    full_codec_config, mel_l1, save_embedding_gguf, write_synthetic_llm_gguf,
+    full_codec_config, mel_l1, save_embedding_gguf, synthetic_vocab, write_synthetic_llm_gguf,
     write_synthetic_miocodec_gguf)
 
 K1_TOL = 1e-5
 K2_TOL = 2e-2
 MEL_L1_MAX = 1e-2
+LLM_WIDTHS = dict(n_audio=12800, dim=768, n_layers=12, n_heads=12, n_kv_heads=2, ffn=2048,
+                  seed=0, n_filler_vocab=138_700, audio_logit_scale=3.0)
 REQUESTS = (  # (prompt, n_predict, extra flags)
     ("Hello there.", 120, ["--temp", "0"]),
     ("The quick brown fox jumps over the lazy dog, twice.", 250, ["--seed", "1"]),
     ("A longer request: it reads a whole paragraph of text aloud, clause by clause, "
      "so that the codec decodes a long bucket of codes.", 400, ["--seed", "2", "--top-p", "0.9"]),
+)
+QUANT_REQUESTS = (  # (prompt, n_predict, extra flags, kernels that must launch)
+    ("The quick brown fox jumps over the lazy dog, twice.", 250,
+     ["--llm-quant", "q8_0", "--seed", "1"], (k1, k2, k3)),
+    ("Hello there.", 120, ["--llm-quant", "output", "--temp", "0"], (k1, k2, k3)),
+    ("Hello there.", 120, ["--llm-quant", "int8", "--temp", "0"], (k1, k2)),
 )
 
 
@@ -137,6 +155,62 @@ def check_k2(dev, gen) -> dict:
     return {"max_abs_err": worst, **at}
 
 
+def k3_shapes() -> list[tuple[str, int, int]]:
+    """(leaf, K, N) of every Q8_0 matmul of the 0.1B LLM at LLM_WIDTHS; the
+    head's N is the vocab padded to a multiple of 128, as the loader pads."""
+    w = LLM_WIDTHS
+    hd = w["dim"] // w["n_heads"]
+    vocab = len(synthetic_vocab(w["n_audio"], w["n_filler_vocab"])[0])
+    return [("wqkv", w["dim"], (w["n_heads"] + 2 * w["n_kv_heads"]) * hd),
+            ("wo", w["n_heads"] * hd, w["dim"]), ("w_gateup", w["dim"], 2 * w["ffn"]),
+            ("w_down", w["ffn"], w["dim"]), ("output", w["dim"], -(-vocab // 128) * 128)]
+
+
+def check_k3(dev, gen) -> dict:
+    worst, rows = 0.0, {}
+    for leaf, K, N in k3_shapes():
+        # the kernel's inputs as the loader makes them: int8 in [-127, 127],
+        # f16-representable positive scales (quantize_q8_cols)
+        q = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
+        s = (torch.rand(K // k3.QBLOCK, N, generator=gen) * 0.02 + 1e-3).half().float().to(dev)
+        # the dense bf16 weight the unquantized path multiplies by (cuBLAS)
+        w_bf16 = (q.float() * s.repeat_interleave(k3.QBLOCK, dim=0)).to(torch.bfloat16)
+        w_abs = w_bf16.float().abs()
+        for T in (1, 8, 64):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn(T, K, generator=gen).to(dev, dt)
+                got = k3.q8_matmul(x, q, s)
+                torch.cuda.synchronize()
+                ref = k3.q8_matmul_plain(x, q, s)
+                bound = 2 * K * 2.0 ** -24 * (x.to(torch.bfloat16).float().abs() @ w_abs)
+                if got.shape != (T, N) or got.dtype != torch.float32:
+                    raise AssertionError(f"K3 {leaf} T={T}: {tuple(got.shape)} {got.dtype}")
+                err = (got - ref).abs()
+                if not bool((err <= bound).all()):
+                    raise AssertionError(f"K3 {leaf} K={K} N={N} T={T} x={dt}: error "
+                                         f"{err.max().item()} exceeds its bound")
+                worst = max(worst, err.max().item())
+                ratio = (err / bound).max().item()
+                if dt == torch.bfloat16 and T in (1, 64):
+                    ms = cuda_ms(lambda: k3.q8_matmul(x, q, s))
+                    plain = cuda_ms(lambda: k3.q8_matmul_plain(x, q, s))
+                    dense = cuda_ms(lambda: x @ w_bf16)
+                    rows[(leaf, T)] = (ms, plain, dense)
+                    timing = f" kernel={ms:.4f}ms plain={plain:.4f}ms dense_bf16={dense:.4f}ms"
+                else:
+                    timing = ""
+                log(f"[k3] {leaf} K={K} N={N} T={T} x={str(dt)[6:]} launch={k3.launch_shape(T, K, N)}: "
+                    f"max_abs_err={err.max().item():.3e} err/bound<={ratio:.3e}{timing}")
+        del q, s, w_bf16, w_abs
+    _, K, N = k3_shapes()[-1]
+    ms, plain, _ = rows[("output", 1)]
+    gbs = (K * N + K // k3.QBLOCK * N * 4) / (ms * 1e-3) / 1e9
+    log(f"[k3] head T=1 streams {gbs:.1f} GB/s of int8 + scales")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "at": f"head T=1 K={K} N={N}",
+            # per leaf: [kernel, plain, dense bf16 cuBLAS] ms
+            "by_leaf_ms": {f"{leaf} T={T}": [round(t, 5) for t in r] for (leaf, T), r in rows.items()}}
+
+
 def parse_wav(path: Path) -> tuple[int, np.ndarray]:
     data = path.read_bytes()
     riff, size, wave, fmt, _, pcm, ch, sr, _, _, bits, tag, n = struct.unpack_from(
@@ -148,12 +222,16 @@ def parse_wav(path: Path) -> tuple[int, np.ndarray]:
     return sr, np.frombuffer(data[44:], "<i2")
 
 
-def run_request(i: int, tmp: Path, prompt: str, n_predict: int, extra: list[str], ccfg) -> dict:
+def run_request(i: str, tmp: Path, prompt: str, n_predict: int, extra: list[str], ccfg,
+                model: str = "llm.gguf", kernels=(k1, k2)) -> dict:
+    """One text -> WAV run through the CLI. Every module in ``kernels`` must
+    launch its kernel, and no other module may."""
     wav, codes_out = tmp / f"req{i}.wav", tmp / f"req{i}.codes"
-    before = (k1.launches, k2.launches)
+    mods = (k1, k2, k3)
+    before = [m.launches for m in mods]
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        rc = cli.main(["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm.gguf"),
+        rc = cli.main(["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / model),
                        "-emb", str(tmp / "voice.emb.gguf"), "-p", prompt,
                        "-n", str(n_predict), "--tts-mio-codes-out", str(codes_out),
                        "-o", str(wav), *extra])
@@ -169,19 +247,22 @@ def run_request(i: int, tmp: Path, prompt: str, n_predict: int, extra: list[str]
         raise AssertionError(f"request {i}: {pcm.size} samples, {n_codes} codes imply {want}")
     if not np.any(pcm != 0):
         raise AssertionError(f"request {i}: the WAV is silent")
-    grew = (k1.launches - before[0], k2.launches - before[1])
-    if min(grew) <= 0:
-        raise AssertionError(f"request {i}: kernel launches grew by {grew}")
+    grew = [m.launches - b for m, b in zip(mods, before)]
+    for m, g in zip(mods, grew):
+        if (m in kernels) != (g > 0):
+            raise AssertionError(f"request {i}: {m.__name__} launches grew by {g}")
     tok_s = float(re.search(r"tok/s=([0-9.]+)", text).group(1))
     n_tok = int(re.search(r"n_tokens=(\d+)", text).group(1))
     codec_ms = float(re.search(r"synth breakdown: decode=([0-9.]+)ms", text).group(1))
-    log(f"[request {i}] prompt_chars={len(prompt)} n_predict={n_predict} {' '.join(extra)}: "
-        f"tokens={n_tok} tok/s={tok_s} codes={n_codes} codec_ms={codec_ms} "
-        f"audio_s={pcm.size / sr} k1_launches={grew[0]} k2_launches={grew[1]}")
+    log(f"[request {i}] {model} prompt_chars={len(prompt)} n_predict={n_predict} "
+        f"{' '.join(extra)}: tokens={n_tok} tok/s={tok_s} codes={n_codes} codec_ms={codec_ms} "
+        f"audio_s={pcm.size / sr} k1_launches={grew[0]} k2_launches={grew[1]} "
+        f"k3_launches={grew[2]}")
     return {"tokens": n_tok, "tok_s": tok_s, "codec_ms": codec_ms, "audio_s": pcm.size / sr}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
               file=sys.stderr)
@@ -201,6 +282,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     k1_res = check_k1(dev, gen)
     k2_res = check_k2(dev, gen)
+    k3_res = check_k3(dev, gen)
 
     with tempfile.TemporaryDirectory(prefix="miotts_chip_smoke_") as d:
         tmp = Path(d)
@@ -208,18 +290,25 @@ def main() -> int:
         ccfg = full_codec_config()
         write_synthetic_miocodec_gguf(str(tmp / "codec.gguf"), ccfg, seed=0,
                                       with_global_encoder=False)
-        write_synthetic_llm_gguf(str(tmp / "llm.gguf"), n_audio=12800, dim=768, n_layers=12,
-                                 n_heads=12, n_kv_heads=2, ffn=2048, seed=0,
-                                 n_filler_vocab=138_700, audio_logit_scale=3.0)
+        write_synthetic_llm_gguf(str(tmp / "llm.gguf"), **LLM_WIDTHS)
+        write_synthetic_llm_gguf(str(tmp / "llm_q8_0.gguf"), quant="q8_0", **LLM_WIDTHS)
         rng = np.random.RandomState(0)
         emb = rng.randn(ccfg.decoder_adanorm_dim).astype(np.float32)
         save_embedding_gguf(tmp / "voice.emb.gguf", emb)
-        log(f"[assets] codec + 0.1B llm + embedding written in {time.perf_counter() - t0:.1f}s")
+        log(f"[assets] codec + 0.1B llm (f32, Q8_0) + embedding written in "
+            f"{time.perf_counter() - t0:.1f}s")
 
-        k1.launches = k2.launches = 0
-        for i, (prompt, n_predict, extra) in enumerate(REQUESTS):
-            run_request(i, tmp, prompt, n_predict, extra, ccfg)
-        launches = {"banded_attention": k1.launches, "decode_attention": k2.launches}
+        # each path is driven with every count at 0 and read right after
+        launches = {}
+        for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
+                           ("quant", QUANT_REQUESTS)):
+            k1.launches = k2.launches = k3.launches = 0
+            for i, (prompt, n_predict, extra, kernels) in enumerate(reqs):
+                run_request(f"{path}-{i}", tmp, prompt, n_predict, extra, ccfg,
+                            "llm.gguf" if path == "bf16" else "llm_q8_0.gguf", kernels)
+            launches[path] = {m: m.launches for m in (k1, k2, k3)}
+            log(f"[{path} path] launches: " + " ".join(
+                f"{m.__name__.rsplit('.', 1)[-1]}={n}" for m, n in launches[path].items()))
 
         codes = rng.randint(0, ccfg.vocab_size, 250)
         outs = []
@@ -238,9 +327,13 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     kernels = []
-    for name, mod, res in (("banded_attention", k1, k1_res), ("decode_attention", k2, k2_res)):
+    for name, mod, res in (("banded_attention", k1, k1_res), ("decode_attention", k2, k2_res),
+                           ("q8_matmul", k3, k3_res)):
+        by_path = {path: n[mod] for path, n in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                        "replaces": mod.REPLACES, "launches": launches[name], **res})
+                        "replaces": mod.REPLACES, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **res})
+    log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

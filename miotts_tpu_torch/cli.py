@@ -7,7 +7,9 @@ codes or text to a WAV:
 - input from -p/--prompt, --prompt-file (local LLM, -m), --tts-mio-codes
   or --tts-mio-codes-in;
 - a speaker embedding from -emb or --tts-mio-embedding-in;
-- --tts-mio-codes-out and --tts-mio-codes-only.
+- --tts-mio-codes-out and --tts-mio-codes-only;
+- --llm-quant (or MIOTTS_LLM_QUANT), the whole ladder: bf16, output,
+  output_int8, output_int4, q8_0, int8, int8_output_int4.
 
 Flags whose path is not ported exit 1 with
 ``error: ... not yet ported to miotts_tpu_torch``. ``-fa`` has no effect:
@@ -48,7 +50,6 @@ def _unported_flag(args) -> str | None:
         (args.tts_stream_output, "--tts-stream-output (streaming)"),
         (args.llm_api_url, "--llm-api-url (external LLM API)"),
         (args.sequence_parallel > 1, "--sequence-parallel"),
-        (args.llm_quant not in ("", "bf16"), f"--llm-quant {args.llm_quant}"),
         (args.cpu_native == "on", "--cpu-native on"),
     )
     return next((name for given, name in checks if given), None)
@@ -115,7 +116,8 @@ def main(argv: list[str] | None = None) -> int:
         from .models.sampling import SamplerParams
 
         try:
-            engine = LLMEngine(args.model, device)
+            # an empty --llm-quant defers to MIOTTS_LLM_QUANT
+            engine = LLMEngine(args.model, device, quantize=args.llm_quant or None)
         except Exception as e:
             return _err(f"failed to load LLM GGUF: {e}")
         sampler = SamplerParams(temp=args.temp, top_k=args.top_k, top_p=args.top_p,

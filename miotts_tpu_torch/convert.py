@@ -43,17 +43,18 @@ def miocodec_params_from_jax(cfg, tree: dict, device: torch.device
 
 def llm_params_from_jax(cfg, tree: dict, device: torch.device,
                         dtype: torch.dtype = torch.bfloat16) -> tuple[LLMConfig, dict]:
-    """JAX LLM (config, dense fused weight tree, the loader's default) ->
-    the port's: the same fused leaves and a [V, D] logits head."""
+    """JAX LLM (config, fused weight tree, the loader's default layout) ->
+    the port's: the same fused leaves and a [V, D] dense logits head.
+    Quantized leaf dicts ({"q", "s"}, {"q8", "s8"}, {"q4i8", "s4"}) cross
+    unchanged, each array in its own dtype."""
     pcfg = LLMConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LLMConfig)})
-    if any(isinstance(v, dict) for v in tree.values()):
-        raise NotImplementedError("quantized LLM leaves need the q8 matmul kernel, not yet "
-                                  "ported to miotts_tpu_torch (ROADMAP K3)")
-    w = {k: _f32(tree[k]) for k in ("token_embd", "attn_norm", "wqkv", "bqkv", "wo",
-                                     "ffn_norm", "w_gateup", "w_down", "q_norm", "k_norm",
-                                     "output_norm", "output")}
-    # the JAX head is [V, D] when token-major, else [D, V] (models/llm.py:385-410)
+    w = {k: ({sk: np.array(a) for sk, a in tree[k].items()} if isinstance(tree[k], dict)
+             else _f32(tree[k]))
+         for k in ("token_embd", "attn_norm", "wqkv", "bqkv", "wo", "ffn_norm", "w_gateup",
+                   "w_down", "q_norm", "k_norm", "output_norm", "output")}
+    # a dense JAX head is [V, D] when token-major, else [D, V] (models/llm.py:385-410)
     out = w["output"]
-    if out is not None and not (cfg.output_token_major and out.shape[-1] == cfg.dim):
+    if (out is not None and not isinstance(out, dict)
+            and not (cfg.output_token_major and out.shape[-1] == cfg.dim)):
         w["output"] = np.ascontiguousarray(out.T)
     return pcfg, weights_to_device(w, device, dtype)

@@ -4,8 +4,11 @@
 Prefill is one batched forward; generation is a Python loop of decode
 steps with the sampler chain between them (the JAX package runs the same
 loop as one ``lax.while_loop``; a CUDA graph of the decode step is later
-work). Weights are bf16 (dense: GGUF Q8_0/f16/f32 tensors are dequantized
-on the host and cast), norms f32, logits f32.
+work). Norms are f32, logits f32. Matmul weights are dense bf16 (GGUF
+Q8_0/f16/f32 tensors dequantized on the host and cast) or, by the
+``--llm-quant`` ladder, kept quantized on the device (``load_llm_gguf``):
+Q8_0 leaves run on kernel K3 (``ops/cuda/q8_matmul.py``), W8A8 and W4A8
+leaves on exact int8 dots (``ops/quant_matmul.py``).
 
 The decode step keeps the JAX operand contract: attention reads the cache
 STRICTLY below ``pos`` and takes the current token's k/v as operands, and
@@ -15,15 +18,19 @@ JAX returns new caches. On CUDA the decode attention is kernel K2
 (``ops/cuda/decode_attention.py``). Prefill attention is plain torch, as
 JAX computes it outside any kernel.
 
-One rounding differs from JAX: the bf16 logits head returns bf16 (then
-cast to f32), where XLA accumulates it straight into f32.
+The dense logits head accumulates bf16 x bf16 straight into f32 logits, as
+XLA's ``preferred_element_type=f32`` does. A quantized head rounds its
+logits to the activation dtype before the f32 cast, as JAX's
+``_mm(...).astype(x.dtype)`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import re
+import sys
 
 import numpy as np
 import torch
@@ -33,6 +40,8 @@ from miotts_tpu.gguf import GGUFReader
 from miotts_tpu.runtime.tokenizer import BPETokenizer
 
 from ..ops.cuda.decode_attention import decode_attention
+from ..ops.quant_matmul import (
+    maybe_quant_matmul as _mm, quantize_int4_percol, quantize_int8_percol, quantize_q8_cols)
 from ..ops.rope import apply_rope
 from .sampling import SamplerParams, SamplerState, sample_token
 
@@ -60,24 +69,84 @@ _NORM_KEYS = ("attn_norm", "ffn_norm", "output_norm", "q_norm", "k_norm")
 
 
 def weights_to_device(w: dict, device: torch.device, dtype: torch.dtype) -> dict:
-    """numpy weight tree -> tensors on ``device``: norms f32, the rest
-    ``dtype`` (f32 -> bf16 rounds to nearest even, as JAX's astype)."""
+    """numpy weight tree -> tensors on ``device``: norms f32, dense leaves
+    ``dtype`` (f32 -> bf16 rounds to nearest even, as JAX's astype), and
+    quantized leaf dicts with their own dtypes unchanged."""
     out = {}
     for k, v in w.items():
         if v is None:
             out[k] = None
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-        out[k] = t.to(device=device, dtype=torch.float32 if k in _NORM_KEYS else dtype)
+        elif isinstance(v, dict):
+            out[k] = {sk: torch.from_numpy(np.array(a)).to(device) for sk, a in v.items()}
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            out[k] = t.to(device=device, dtype=torch.float32 if k in _NORM_KEYS else dtype)
     return out
 
 
-def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16
-                  ) -> tuple[LLMConfig, dict, BPETokenizer]:
-    """Dense load: every tensor is dequantized to f32 on the host, matmul
-    weights are transposed to [in, out] with q|k|v and gate|up fused
-    column-wise, then cast to ``dtype`` and moved to ``device``. The logits
-    head stays [V, D] (None when tied to the embedding)."""
+def _quant_modes(quantize) -> dict:
+    """The ``--llm-quant`` ladder (miotts_tpu/models/llm.py:144-182): which
+    leaves are quantized, and how. None defers to MIOTTS_LLM_QUANT; an
+    unknown value warns and loads dense."""
+    if quantize is None:
+        quantize = os.environ.get("MIOTTS_LLM_QUANT", "")
+    if quantize in ("bf16", "none", "off"):
+        quantize = ""
+    combo = quantize in ("int8_output_int4", "int8+output_int4")
+    layers_int8 = combo or quantize in ("int8", "w8a8")
+    head_int8 = quantize in ("output_int8", "output-int8")
+    head_int4 = combo or quantize in ("output_int4", "output-int4")
+    layers = layers_int8 or quantize in (True, "all", "q8", "q8_0", "1")
+    head = layers or head_int8 or head_int4 or quantize == "output"
+    if quantize and not head and quantize is not False:
+        print(f"warning: unknown MIOTTS_LLM_QUANT value {quantize!r} "
+              "(expected 'int8', 'all', 'q8', 'output', 'output_int8', "
+              "'output_int4' or 'int8_output_int4'); running dense", file=sys.stderr)
+    return {"requested": quantize, "layers": layers,
+            "layer_kind": "int8" if layers_int8 else "q8_0", "head": head,
+            "head_kind": ("int4" if head_int4 else "int8" if layers_int8 or head_int8
+                          else "q8_0")}
+
+
+def quantize_kn(wkn: np.ndarray, kind: str) -> dict:
+    """Quantize a transposed [K, N] weight into a leaf dict of ``kind``
+    "q8_0" ({"q", "s"}), "int8" ({"q8", "s8"}) or "int4" ({"q4i8", "s4"}).
+    N is padded to a multiple of 128; callers slice outputs back to the
+    true width (miotts_tpu/models/llm.py:215-239)."""
+    K, N = wkn.shape
+    Np = ((N + 127) // 128) * 128
+    if Np != N:
+        wkn = np.pad(wkn, ((0, 0), (0, Np - N)))
+    if kind == "int4":
+        q4, s4 = quantize_int4_percol(wkn)
+        return {"q4i8": q4, "s4": s4}
+    if kind == "int8":
+        q8, s8 = quantize_int8_percol(wkn)
+        return {"q8": q8, "s8": s8}
+    q, s = quantize_q8_cols(wkn)
+    return {"q": q, "s": s}
+
+
+def _warn_tied_quant_noop(head_quant_requested: bool, quantize) -> None:
+    """Tied-embedding models have no output.weight, so a head-quant request
+    cannot apply: the logits reuse the dense token embedding. Warn instead
+    of serving dense silently. Returns None (the tied head's leaf)."""
+    if head_quant_requested:
+        print(f"warning: --llm-quant {quantize!r} cannot quantize the "
+              "logits head of a tied-embedding model (no output.weight; "
+              "the head reuses the dense token embedding)", file=sys.stderr)
+    return None
+
+
+def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                  quantize=None) -> tuple[LLMConfig, dict, BPETokenizer]:
+    """Every tensor is dequantized to f32 on the host and matmul weights are
+    transposed to [in, out] with q|k|v and gate|up fused column-wise. By
+    ``quantize`` (``_quant_modes``) the matmul leaves and the head are then
+    quantized on the host as the JAX loader does them (``quantize_kn``, the
+    head from its [D, V] transpose); dense leaves are cast to ``dtype``. A
+    dense logits head stays [V, D] (None when tied to the embedding)."""
+    mode = _quant_modes(quantize)
     with GGUFReader(path) as r:
         arch = r.get_str("general.architecture")
         if arch is None:
@@ -109,13 +178,25 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
             arr = r.tensor(name, dtype=np.float32)
             return np.ascontiguousarray(arr.T) if transpose else arr
 
-        def stack(fmt, transpose=False):
-            return np.stack([t(fmt.format(i=i), transpose) for i in range(n_layers)])
+        def stack_layers(per_layer, quant):
+            if not (quant and mode["layers"]):
+                return np.stack(per_layer)
+            leaves = [quantize_kn(a, mode["layer_kind"]) for a in per_layer]
+            return {k: np.stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
+
+        def stack(fmt, transpose=False, quant=False):
+            return stack_layers([t(fmt.format(i=i), transpose) for i in range(n_layers)], quant)
 
         def stack_fused(fmts):
-            return np.stack([np.concatenate([t(f.format(i=i), True) for f in fmts], axis=1)
-                             for i in range(n_layers)])
+            return stack_layers([np.concatenate([t(f.format(i=i), True) for f in fmts], axis=1)
+                                 for i in range(n_layers)], quant=True)
 
+        if cfg.tie_embeddings:
+            head = _warn_tied_quant_noop(mode["head"], mode["requested"])
+        elif mode["head"]:
+            head = quantize_kn(t("output.weight", transpose=True), mode["head_kind"])
+        else:
+            head = t("output.weight")
         w = {
             "token_embd": t("token_embd.weight"),
             "attn_norm": stack("blk.{i}.attn_norm.weight"),
@@ -123,14 +204,14 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
                                  "blk.{i}.attn_v.weight"]),
             "bqkv": (np.stack([np.concatenate([t(f"blk.{i}.attn_{p}.bias") for p in "qkv"])
                                for i in range(n_layers)]) if cfg.has_qkv_bias else None),
-            "wo": stack("blk.{i}.attn_output.weight", transpose=True),
+            "wo": stack("blk.{i}.attn_output.weight", transpose=True, quant=True),
             "ffn_norm": stack("blk.{i}.ffn_norm.weight"),
             "w_gateup": stack_fused(["blk.{i}.ffn_gate.weight", "blk.{i}.ffn_up.weight"]),
-            "w_down": stack("blk.{i}.ffn_down.weight", transpose=True),
+            "w_down": stack("blk.{i}.ffn_down.weight", transpose=True, quant=True),
             "q_norm": stack("blk.{i}.attn_q_norm.weight") if cfg.has_qk_norm else None,
             "k_norm": stack("blk.{i}.attn_k_norm.weight") if cfg.has_qk_norm else None,
             "output_norm": t("output_norm.weight"),
-            "output": None if cfg.tie_embeddings else t("output.weight"),
+            "output": head,
         }
     return cfg, weights_to_device(w, device, dtype), tokenizer
 
@@ -145,10 +226,26 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * scale * weight).to(x.dtype)
 
 
-def _logits(w: dict, x: torch.Tensor) -> torch.Tensor:
-    """x [..., D] -> f32 logits [..., V] against the [V, D] head."""
+def _dense_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x [N, D] against a dense [V, D] head -> f32 [N, V], accumulated
+    straight into f32. On CUDA one cuBLAS call writes f32 from bf16
+    operands; the CPU build has no such matmul, so it multiplies the bf16
+    values as f32, which gives the same exact products."""
+    if x.dtype == torch.float32 and head.dtype == torch.float32:
+        return x @ head.t()
+    if x.device.type == "cuda":
+        return torch.mm(x, head.t(), out_dtype=torch.float32)
+    return x.float() @ head.float().t()
+
+
+def _logits(cfg: LLMConfig, w: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [B, D] -> f32 logits [B, V]. A dense head is [V, D] (or the tied
+    embedding); a quantized head is a [D, V]-derived leaf whose padded
+    columns are sliced off."""
     head = w["output"] if w["output"] is not None else w["token_embd"]
-    return F.linear(x, head).float()
+    if isinstance(head, dict):
+        return _mm(x, head).float()[..., :cfg.vocab_size]
+    return _dense_logits(x, head)
 
 
 _BLK_KEYS = ("attn_norm", "wqkv", "bqkv", "wo", "ffn_norm", "w_gateup", "w_down",
@@ -157,13 +254,18 @@ _BLK_KEYS = ("attn_norm", "wqkv", "bqkv", "wo", "ffn_norm", "w_gateup", "w_down"
 
 def _layer(w: dict, li: int) -> dict:
     """Layer ``li``'s slice of the stacked per-layer leaves."""
-    return {k: None if w[k] is None else w[k][li] for k in _BLK_KEYS}
+    def pick(v):
+        if v is None:
+            return None
+        return {k: a[li] for k, a in v.items()} if isinstance(v, dict) else v[li]
+    return {k: pick(w[k]) for k in _BLK_KEYS}
 
 
 def _layer_qkv(cfg: LLMConfig, blk: dict, xn: torch.Tensor):
     Hd = cfg.n_heads * cfg.head_dim
     KVd = cfg.n_kv_heads * cfg.head_dim
-    qkv = xn @ blk["wqkv"]
+    # quantized leaves are padded along N: slice before the bias add
+    qkv = _mm(xn, blk["wqkv"])[..., :Hd + 2 * KVd]
     if blk["bqkv"] is not None:
         qkv = qkv + blk["bqkv"]
     B, T = xn.shape[:2]
@@ -178,8 +280,9 @@ def _layer_qkv(cfg: LLMConfig, blk: dict, xn: torch.Tensor):
 
 def _layer_ffn(cfg: LLMConfig, blk: dict, x: torch.Tensor) -> torch.Tensor:
     fn = rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
-    gu = fn @ blk["w_gateup"]
-    return (F.silu(gu[..., :cfg.ffn_dim]) * gu[..., cfg.ffn_dim:]) @ blk["w_down"]
+    gu = _mm(fn, blk["w_gateup"])
+    act = F.silu(gu[..., :cfg.ffn_dim]) * gu[..., cfg.ffn_dim:2 * cfg.ffn_dim]
+    return _mm(act, blk["w_down"])[..., :cfg.dim]
 
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, device: torch.device,
@@ -219,13 +322,13 @@ def llm_prefill_kv(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
         probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1).to(x.dtype)
         att = torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(B, T, -1)
-        x = x + att @ blk["wo"]
+        x = x + _mm(att, blk["wo"])[..., :cfg.dim]
         x = x + _layer_ffn(cfg, blk, x)
 
     xn = rms_norm(x, w["output_norm"], cfg.rms_eps)
     last = torch.clamp(lengths.long() - 1, min=0)
     xn_last = xn[torch.arange(B, device=dev), last]  # [B, D]
-    return _logits(w, xn_last), torch.stack(new_k), torch.stack(new_v)
+    return _logits(cfg, w, xn_last), torch.stack(new_k), torch.stack(new_v)
 
 
 def llm_prefill(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -268,7 +371,7 @@ def llm_decode_step(cfg: LLMConfig, w: dict, token: torch.Tensor, pos: torch.Ten
         new_vs.append(v1)
         qh = q[:, 0].reshape(B, cfg.n_kv_heads, group, cfg.head_dim).contiguous()
         att = decode_attention(qh, k1, v1, cache_k[li], cache_v[li], scale, pos).to(x.dtype)
-        x = x + att[:, None, :] @ blk["wo"]
+        x = x + _mm(att[:, None, :], blk["wo"])[..., :cfg.dim]
         x = x + _layer_ffn(cfg, blk, x)
 
     b_idx = torch.arange(B, device=token.device)
@@ -278,7 +381,7 @@ def llm_decode_step(cfg: LLMConfig, w: dict, token: torch.Tensor, pos: torch.Ten
         cache[:, b_idx, p] = torch.where(in_range, new, cache[:, b_idx, p])
 
     xn = rms_norm(x, w["output_norm"], cfg.rms_eps)
-    return _logits(w, xn[:, 0])
+    return _logits(cfg, w, xn[:, 0])
 
 
 def llm_generate(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
@@ -323,9 +426,15 @@ class LLMEngine:
     """Load a MioTTS LLM GGUF and run text -> codec-token generation
     (generate_audio_tokens, tts-mio-cli.cpp:1002-1063)."""
 
-    def __init__(self, path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                 quantize=None):
+        # quantize: None defers to MIOTTS_LLM_QUANT (load_llm_gguf semantics);
+        # the CLI passes --llm-quant
         self.device = device
-        self.config, self.weights, self.tokenizer = load_llm_gguf(path, device, dtype)
+        self.config, self.weights, self.tokenizer = load_llm_gguf(path, device, dtype,
+                                                                  quantize=quantize)
+        self.quantize = (quantize if quantize is not None
+                         else os.environ.get("MIOTTS_LLM_QUANT", "")) or "bf16"
         self._init_vocab_maps()
 
     def _init_vocab_maps(self) -> None:

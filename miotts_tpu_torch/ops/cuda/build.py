@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``miotts_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, under
+Every ``miotts_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
+process for Hopper (``sm_90a``), all started together, and the objects are
+linked into ONE shared library with a plain C interface, under
 ``build/miotts_tpu_torch/`` beside the package, named by a hash of the
 sources and flags: an unchanged tree reuses its library, a changed one
 builds anew. No PyTorch header is included, which keeps a build to seconds
@@ -27,7 +28,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "miotts_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -57,25 +58,39 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    Raises RuntimeError with nvcc's stderr when the build fails."""
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, run in parallel, then one link. Raises
+    RuntimeError with nvcc's stderr when a step fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            if verbose:
+                cmd.insert(1, "--ptxas-options=-v")
+            objs.append(str(obj))
+            procs.append((src.name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{err}")
+            elif verbose and err:
+                print(err, end="")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = Path(tmpdir) / out.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 

@@ -2,7 +2,8 @@
 
 Codes -> WAV matches the JAX CLI's WAV within 2 LSB of int16. Text -> WAV
 at --temp 0 writes a valid WAV whose --tts-mio-codes-out equals the port's
-own LLMEngine output. Flags whose path is not ported exit 1, and so does
+own LLMEngine output, on the dense path and with --llm-quant (or
+MIOTTS_LLM_QUANT). Flags whose path is not ported exit 1, and so does
 asking for CUDA where there is none."""
 
 import struct
@@ -30,6 +31,8 @@ def assets(tmp_path_factory):
     write_synthetic_miocodec_gguf(str(d / "codec.gguf"), cfg, seed=0)
     write_synthetic_llm_gguf(str(d / "llm.gguf"), n_audio=cfg.vocab_size, seed=1,
                              audio_logit_scale=3.0)
+    write_synthetic_llm_gguf(str(d / "llm_q8_0.gguf"), n_audio=cfg.vocab_size, seed=1,
+                             audio_logit_scale=3.0, quant="q8_0")
     save_embedding_gguf(d / "voice.emb.gguf",
                         np.random.RandomState(0).randn(16).astype(np.float32))
     (d / "codes.txt").write_text(
@@ -84,6 +87,28 @@ def test_text_to_wav_greedy(assets, tmp_path, capsys):
     assert pcm.size == (frames - 1) * hop + n_fft - 2 * ((n_fft - hop) // 2)
 
 
+@pytest.mark.parametrize("quant,env", [("q8_0", ""), ("int8", ""), ("", "q8_0")])
+def test_text_to_wav_quantized(assets, tmp_path, monkeypatch, capsys, quant, env):
+    """--llm-quant q8_0 / int8 on the Q8_0-stored GGUF, and MIOTTS_LLM_QUANT
+    with no flag: the codes written are the quantized engine's own."""
+    monkeypatch.setenv("MIOTTS_LLM_QUANT", env)
+    out, codes_out = tmp_path / "q.wav", tmp_path / "codes.txt"
+    rc = cli.main(["-mv", str(assets / "codec.gguf"), "-m", str(assets / "llm_q8_0.gguf"),
+                   "-p", "Hello from the port", "-emb", str(assets / "voice.emb.gguf"),
+                   "-n", "24", "--temp", "0", "--tts-mio-codes-out", str(codes_out),
+                   "-o", str(out)] + (["--llm-quant", quant] if quant else []))
+    assert rc == 0
+    assert f"wrote {out}" in capsys.readouterr().err
+    eng = LLMEngine(str(assets / "llm_q8_0.gguf"), torch.device("cpu"), quantize=quant or None)
+    assert eng.quantize == (quant or env)
+    assert isinstance(eng.weights["wqkv"], dict) and isinstance(eng.weights["output"], dict)
+    expect = eng.tokens_to_codes(eng.generate_audio_tokens(
+        "Hello from the port", n_predict=24, n_ctx=700, sampler=SamplerParams(temp=0.0)))
+    assert expect and load_codes(codes_out) == expect
+    _, pcm = _wav(out)
+    assert pcm.size > 0 and np.abs(pcm).max() > 0
+
+
 def test_codes_only(assets, tmp_path):
     codes_out = tmp_path / "c.txt"
     rc = cli.main(["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "<|s_5|> 7,9",
@@ -101,13 +126,21 @@ def test_codes_only(assets, tmp_path):
     ["--tts-stream-output", "-p", "hi"],
     ["--llm-api-url", "http://localhost:1"],
     ["--sequence-parallel", "2"],
-    ["--llm-quant", "q8_0"],
     ["--cpu-native", "on"],
 ])
 def test_unported_flags_exit_1(assets, extra, capsys):
     rc = cli.main(["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "1 2 3"] + extra)
     assert rc == 1
     assert "not yet ported to miotts_tpu_torch" in capsys.readouterr().err
+
+
+def test_llm_quant_flag_is_ported(assets, tmp_path, capsys):
+    """The command that exited 1 while --llm-quant was unported now runs."""
+    rc = cli.main(["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "1 2 3",
+                   "--llm-quant", "q8_0", "-emb", str(assets / "voice.emb.gguf"),
+                   "-o", str(tmp_path / "o.wav")])
+    assert rc == 0
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 def test_cuda_without_a_card_is_an_error(assets, monkeypatch, capsys):
