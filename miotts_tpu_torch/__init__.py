@@ -3,10 +3,13 @@
 The JAX package ``miotts_tpu`` is the reference; module names here mirror
 it (``ops/attention.py`` <- ``miotts_tpu/ops/attention.py`` and so on) so a
 reader finds each counterpart at once. This package imports ``torch`` and
-never ``jax``: the only ``miotts_tpu`` modules it uses are the jax-free host
-modules (``gguf``, ``runtime.tokenizer``, ``runtime.audio_io``,
-``runtime.codes_io`` and ``cli.build_parser``).
+never ``jax``, and nothing of ``miotts_tpu``: the jax-free host modules it
+needs (``gguf/``, ``runtime/{tokenizer,codes_io,audio_io,metrics}.py``,
+the CLI's parser) are its own copies.
 
 The Pallas kernels of the reference become hand-written CUDA C++ kernels
 for Hopper (``csrc/``), built at first use by ``ops/cuda/build.py``.
 """
+
+MIO_CODE_MIN = 0
+MIO_CODE_MAX = 12799  # reference: src/mio-tts-lib.cpp:30-31

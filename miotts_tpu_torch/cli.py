@@ -1,8 +1,9 @@
 """llama-tts-mio CLI on PyTorch (miotts_tpu/cli.py:141-381).
 
-The flag surface is the reference's: the parser is
-``miotts_tpu.cli.build_parser`` itself. This port runs the paths that take
-codes or text to a WAV:
+The flag surface is the reference's: ``build_parser`` is a copy of
+``miotts_tpu.cli.build_parser`` (miotts_tpu/cli.py:27-97), the same flags,
+defaults and help. This port runs the paths that take codes or text to a
+WAV, with either codec mode (wave: iSTFT head; mel: the bundled vocoder):
 
 - input from -p/--prompt, --prompt-file (local LLM, -m), --tts-mio-codes
   or --tts-mio-codes-in;
@@ -24,15 +25,88 @@ CUDA without a card is an error.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
 from pathlib import Path
 
-from miotts_tpu.cli import build_parser
-from miotts_tpu.gguf.writer import load_embedding_gguf
-from miotts_tpu.runtime.audio_io import encode_pcm16, wav16_header
-from miotts_tpu.runtime.codes_io import load_codes, parse_codes_text, save_codes
+from .gguf.writer import load_embedding_gguf
+from .runtime.audio_io import encode_pcm16, wav16_header
+from .runtime.codes_io import load_codes, parse_codes_text, save_codes
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="llama-tts-mio", add_help=False)
+    p.add_argument("-mv", "--model-vocoder", dest="model_vocoder", default="")
+    p.add_argument("-m", "--model", dest="model", default="")
+    p.add_argument("--llm-api-url", default="")
+    p.add_argument("--llm-api-key", default="")
+    p.add_argument("--llm-api-model", default="")
+    p.add_argument("--llm-api-headers", default="")
+    p.add_argument("--llm-api-timeout", type=int, default=120)
+    p.add_argument("--llm-api-mode", default="openai-chat", choices=["openai-chat", "generic"])
+    p.add_argument("-p", "--prompt", default="")
+    p.add_argument("--prompt-file", default="")
+    p.add_argument("-o", "--output", default="output.wav")
+    p.add_argument("-n", "--n-predict", dest="n_predict", type=int, default=400)
+    p.add_argument("--temp", type=float, default=0.8)
+    p.add_argument("--top-p", dest="top_p", type=float, default=1.0)
+    p.add_argument("--top-k", dest="top_k", type=int, default=50)
+    p.add_argument("--repeat-penalty", dest="repeat_penalty", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--threads", type=int, default=2)
+    p.add_argument("--ctx-size", dest="n_ctx", type=int, default=700)
+    p.add_argument("-ngl", "--n-gpu-layers", dest="n_gpu_layers", type=int, default=-1)
+    p.add_argument("-fa", "--flash-attn", dest="flash_attn", default="auto")
+    p.add_argument("--llm-quant", dest="llm_quant", default="",
+                   choices=["", "bf16", "output", "output_int8",
+                            "output_int4", "q8_0", "int8",
+                            "int8_output_int4"],
+                   help="LLM weight numerics (default bf16; int8 = W8A8 "
+                        "everywhere; output_int8/output_int4 = W8A8/W4A8 "
+                        "logits head only — measured 25%%/36%% off the 0.1B "
+                        "decode step; int8_output_int4 stacks both; "
+                        "int4 is the aggressive end, like the "
+                        "reference's Q4_0 mobile exports)")
+    # env fallback MIOTTS_CPU_NATIVE=1/0 (the knob llm_cpu.py documents)
+    _cpu_native_env = {"1": "on", "on": "on", "0": "off", "off": "off"}.get(
+        os.environ.get("MIOTTS_CPU_NATIVE", "").lower(), "auto")
+    p.add_argument("--cpu-native", dest="cpu_native",
+                   default=_cpu_native_env,
+                   choices=["auto", "on", "off"],
+                   help="native int8/int4 CPU LLM decode on CPU-only hosts "
+                        "(auto: when the GGUF is Q8_0/Q4_0; env fallback "
+                        "MIOTTS_CPU_NATIVE=1)")
+    # TPU addition (no reference counterpart — the reference is single-
+    # process): shard the codec decode's TIME axis over this many devices
+    # (parallel/mesh.make_sp_mesh) so one long utterance uses every chip
+    p.add_argument("--sequence-parallel", dest="sequence_parallel",
+                   type=int, default=1,
+                   help="shard the codec decode's time axis over N devices "
+                        "(single-utterance latency on multi-chip hosts; "
+                        "codec only — LLM decode is unaffected)")
+    p.add_argument("--tts-mio-codes", default="")
+    p.add_argument("--tts-mio-codes-in", default="")
+    p.add_argument("--tts-mio-codes-out", default="")
+    p.add_argument("--tts-mio-codes-only", action="store_true")
+    p.add_argument("--tts-reference-audio", default="")
+    p.add_argument("--tts-wavlm-model", default="")
+    p.add_argument("--tts-max-reference-seconds", type=float, default=20.0)
+    p.add_argument("--tts-reference-dir", default="")
+    p.add_argument("--tts-remove-reference-key", default="")
+    p.add_argument("--tts-mio-embedding-in", default="")
+    p.add_argument("-emb", "--tts-mio-default-embedding-in",
+                   dest="embedding_default_in", default="")
+    p.add_argument("--tts-mio-embedding-out", default="")
+    p.add_argument("--tts-mio-embedding-only", action="store_true")
+    # TPU addition (no reference counterpart): stream the output WAV while
+    # the LLM is still generating — chunked codec prefix re-decodes feed the
+    # file incrementally (streaming.stream_text_to_audio); the header's
+    # sizes are patched on completion so the artifact is a normal WAV
+    p.add_argument("--tts-stream-output", action="store_true")
+    p.add_argument("-h", "--help", action="store_true", dest="show_help")
+    return p
 
 
 def _err(msg: str) -> int:

@@ -19,7 +19,8 @@ from .models.miocodec import MioCodecConfig, check_supported, to_device
 _CODEC_KEYS = ("token_embd", "prenet_blocks", "prenet_norm_w", "prenet_norm_b",
                "prenet_out_w", "prenet_out_b", "upsample_w", "upsample_b", "prior", "post",
                "decoder_blocks", "norm_cond_w", "norm_cond_b", "decoder_norm_w",
-               "decoder_norm_b", "istft_out_w", "istft_out_b", "istft_tables")
+               "decoder_norm_b", "istft_out_w", "istft_out_b", "istft_tables", "mel_postnet",
+               "vocoder")
 
 
 def _f32(tree):

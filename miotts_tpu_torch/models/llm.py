@@ -36,13 +36,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from miotts_tpu.gguf import GGUFReader
-from miotts_tpu.runtime.tokenizer import BPETokenizer
-
+from ..gguf import GGUFReader
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.quant_matmul import (
     maybe_quant_matmul as _mm, quantize_int4_percol, quantize_int8_percol, quantize_q8_cols)
 from ..ops.rope import apply_rope
+from ..runtime.tokenizer import BPETokenizer
 from .sampling import SamplerParams, SamplerState, sample_token
 
 

@@ -1,4 +1,5 @@
-"""MioCodec decoder, wave mode: audio codes -> STFT spectrogram -> waveform
+"""MioCodec decoder: audio codes -> STFT spectrogram -> waveform (wave mode)
+or -> mel spectrogram -> bundled vocoder -> waveform (mel mode)
 (miotts_tpu/models/miocodec.py).
 
 One batched, length-masked forward over [B, N] padded code batches. Every
@@ -12,8 +13,8 @@ linear weights pre-transposed to [in, out], transformer and resnet blocks
 stacked along a leading layer axis.
 
 Not yet ported (each raises NotImplementedError): the wave upsampler
-(ROADMAP M2.1), mel mode with its vocoder (ROADMAP M9) and the global
-encoder (ROADMAP M8).
+(ROADMAP M2.1) and the global encoder (ROADMAP M8). Mel mode without
+bundled vocoder tensors raises too, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,14 +26,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from miotts_tpu.gguf import GGUFReader
-
+from ..gguf import GGUFReader
 from ..ops.attention import banded_attention
 from ..ops.convs import conv1d_same, conv_transpose1d, linear_interpolate
 from ..ops.istft import dft_tables, spec_to_audio
 from ..ops.masking import mask_time, time_mask
 from ..ops.norms import adaln_modulate, layer_norm, masked_group_norm
 from ..ops.rope import apply_rope
+from .vocoder import load_vocoder_weights, vocoder_decode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +102,11 @@ def choose_num_groups(groups: int, channels: int) -> int:
 
 
 def check_supported(cfg: MioCodecConfig) -> None:
-    """Raise for the codec variants the port does not run yet."""
-    if cfg.model_type != 0:
-        raise NotImplementedError("MioCodec mel mode is not yet ported to miotts_tpu_torch "
-                                  "(ROADMAP M9)")
+    """Raise for the codec variants the port does not run."""
+    if cfg.model_type == 1 and not cfg.has_vocoder:
+        raise NotImplementedError("mel-mode model has no bundled MioVocoder tensors")
+    if cfg.model_type not in (0, 1):
+        raise NotImplementedError(f"unknown MioCodec model_type {cfg.model_type}")
     if cfg.wave_upsampler_factors:
         raise NotImplementedError("the MioCodec wave upsampler is not yet ported to "
                                   "miotts_tpu_torch (ROADMAP M2.1)")
@@ -248,7 +250,8 @@ def read_miocodec_config(r: GGUFReader) -> MioCodecConfig:
 
 
 def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict]:
-    """Load a wave-mode miocodec-dec GGUF onto ``device`` at f32."""
+    """Load a miocodec-dec GGUF (wave mode, or mel mode with its vocoder)
+    onto ``device`` at f32."""
     with GGUFReader(path) as r:
         cfg = read_miocodec_config(r)
         check_supported(cfg)
@@ -266,11 +269,11 @@ def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict
             "prenet_out_b": get("wave_prenet.output.bias"),
             "upsample_w": get("wave_upsample.weight"),  # ConvTranspose1d [in, out, k]
             "upsample_b": get("wave_upsample.bias"),
-            "prior": _stack_blocks(get, cfg.resnet_blocks,
-                                   _spec_with_prefix(_RESNET_SPEC, "wave_prior")),
-            "post": _stack_blocks(get, cfg.resnet_blocks,
-                                  _spec_with_prefix(_RESNET_SPEC, "wave_post")),
         }
+        if cfg.model_type == 0:
+            for key, prefix in (("prior", "wave_prior"), ("post", "wave_post")):
+                w[key] = _stack_blocks(get, cfg.resnet_blocks,
+                                       _spec_with_prefix(_RESNET_SPEC, prefix))
         dec_spec = dict(_spec_with_prefix(_TRANSFORMER_SPEC, "wave_decoder"))
         dec_spec.update(_spec_with_prefix(_COND_SPEC, "wave_decoder"))
         optional = frozenset({"attn_norm_w", "attn_norm_b", "ffn_norm_w", "ffn_norm_b"}
@@ -285,7 +288,17 @@ def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict
             w["decoder_norm_b"] = get("wave_decoder.norm.bias")
         w["istft_out_w"] = _t(get("istft_head.out.weight"))
         w["istft_out_b"] = get("istft_head.out.bias")
-        w["istft_tables"] = dft_tables(cfg.n_fft)
+        if cfg.model_type == 0:
+            w["istft_tables"] = dft_tables(cfg.n_fft)
+        if cfg.model_type == 1 and cfg.mel_postnet_layers > 0:
+            w["mel_postnet"] = _stack_blocks(get, cfg.mel_postnet_layers, {
+                "conv_w": ("mel_postnet.{i}.conv.weight", False),
+                "conv_b": ("mel_postnet.{i}.conv.bias", False),
+                "norm_w": ("mel_postnet.{i}.norm.weight", False),
+                "norm_b": ("mel_postnet.{i}.norm.bias", False),
+            })
+        if cfg.has_vocoder:
+            w["vocoder"] = load_vocoder_weights(get, cfg)
     return cfg, to_device(w, device)
 
 
@@ -353,8 +366,8 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
                       interp_anchor_tokens: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, N] codes (padded), token_lengths [B] int32, cond [B, Dc]
-    speaker embedding or None (static models). Returns (spec [B, F, n_fft+2],
-    frame_lengths [B]). ``interp_anchor_tokens`` pins the bilinear resize
+    speaker embedding or None (static models). Returns (spec [B, F, bins],
+    frame_lengths [B]), bins = n_fft + 2 (wave) or n_mels (mel). ``interp_anchor_tokens`` pins the bilinear resize
     ratio to a fixed token count (None: the ratio from the true lengths)."""
     check_supported(cfg)
     B, N = tokens.shape
@@ -385,9 +398,10 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     y = linear_interpolate(y, src_len, dec_len, F_dec, scale_override=scale_override)
     y = mask_time(y, dec_len)
 
-    for i in range(cfg.resnet_blocks):
-        y = _resnet_block(y, {k: v[i] for k, v in w["prior"].items()}, dec_len,
-                          cfg.resnet_groups, cfg.group_norm_eps)
+    if cfg.model_type == 0:
+        for i in range(cfg.resnet_blocks):
+            y = _resnet_block(y, {k: v[i] for k, v in w["prior"].items()}, dec_len,
+                              cfg.resnet_groups, cfg.group_norm_eps)
 
     x = _transformer_stack(y, w["decoder_blocks"], cfg.decoder_heads, dec_len,
                            cfg.decoder_window, cfg.rope_theta, cfg.norm_eps, cond_act)
@@ -398,9 +412,10 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     else:
         x = layer_norm(x, w["decoder_norm_w"], w["decoder_norm_b"], eps=cfg.norm_eps)
 
-    for i in range(cfg.resnet_blocks):
-        x = _resnet_block(mask_time(x, dec_len), {k: v[i] for k, v in w["post"].items()},
-                          dec_len, cfg.resnet_groups, cfg.group_norm_eps)
+    if cfg.model_type == 0:
+        for i in range(cfg.resnet_blocks):
+            x = _resnet_block(mask_time(x, dec_len), {k: v[i] for k, v in w["post"].items()},
+                              dec_len, cfg.resnet_groups, cfg.group_norm_eps)
 
     spec = mask_time(x @ w["istft_out_w"] + w["istft_out_b"], dec_len)
     return spec, dec_len
@@ -412,12 +427,16 @@ def codec_synthesize(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
                      peak_normalize: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Codes -> waveform. Returns (audio [B, S_max], n_samples [B]); audio
     is peak-normalized per example like mio_tts_synthesize unless
-    ``peak_normalize`` is False."""
+    ``peak_normalize`` is False. Wave mode goes through the iSTFT head, mel
+    mode through the bundled vocoder, whose output length sets n_samples."""
     spec, frame_len = codec_decode_spec(cfg, w, tokens, token_lengths, cond,
                                         interp_anchor_tokens)
-    audio = spec_to_audio(spec, frame_len, cfg.n_fft, cfg.hop_length, w["istft_tables"])
-    n_pad = (cfg.n_fft - cfg.hop_length) // 2
-    n_samples = (frame_len - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
+    if cfg.model_type == 0:
+        audio = spec_to_audio(spec, frame_len, cfg.n_fft, cfg.hop_length, w["istft_tables"])
+        n_pad = (cfg.n_fft - cfg.hop_length) // 2
+        n_samples = (frame_len - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
+    else:
+        audio, n_samples = vocoder_decode(cfg, w, spec, frame_len)
     audio = audio * time_mask(audio.shape[1], n_samples).to(audio.dtype)
     if peak_normalize:
         finite = torch.where(torch.isfinite(audio), audio, torch.zeros((), device=audio.device))

@@ -14,8 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from miotts_tpu import MIO_CODE_MAX, MIO_CODE_MIN
-
+from . import MIO_CODE_MAX, MIO_CODE_MIN
 from .models.miocodec import codec_synthesize, load_miocodec
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)

@@ -1,0 +1,42 @@
+"""16-bit PCM WAV output (the WAV pieces of miotts_tpu/runtime/audio_io.py).
+
+Only what the port writes: the canonical 44-byte mono header, the f32 ->
+int16 encoding (clamp to [-1, 1], round half to even at 32767 scale) and a
+file writer. Reading and decoding reference audio (native, FLAC, MP3) is
+voice-cloning input, not yet ported.
+"""
+
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+
+import numpy as np
+
+
+def wav16_header(n_samples: int, sample_rate: int, num_channels: int = 1) -> bytes:
+    bits = 16
+    byte_rate = sample_rate * num_channels * (bits // 8)
+    block_align = num_channels * (bits // 8)
+    data_size = n_samples * (bits // 8)
+    return struct.pack(
+        "<4sI4s4sIHHIIHH4sI",
+        b"RIFF", 36 + data_size, b"WAVE",
+        b"fmt ", 16, 1, num_channels, sample_rate, byte_rate, block_align, bits,
+        b"data", data_size,
+    )
+
+
+def encode_pcm16(audio: np.ndarray) -> bytes:
+    """f32 [-1,1] -> little-endian 16-bit PCM bytes, no header. int16 input
+    passes through untouched."""
+    audio = np.asarray(audio)
+    if audio.dtype == np.int16:
+        return audio.astype("<i2", copy=False).tobytes()
+    x = np.clip(audio.astype(np.float32), -1.0, 1.0)
+    return np.rint(x * 32767.0).astype("<i2").tobytes()
+
+
+def save_wav16(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:
+    pcm = encode_pcm16(audio)
+    Path(path).write_bytes(wav16_header(len(pcm) // 2, sample_rate) + pcm)

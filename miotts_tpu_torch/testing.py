@@ -1,23 +1,22 @@
-"""Synthetic model assets without JAX (miotts_tpu/testing.py:20-311).
+"""Synthetic model assets without JAX (miotts_tpu/testing.py:20-311, :398-540).
 
 No model weights ship with the repo, so tests and ``chip_smoke.py`` write
 GGUFs with the converter's tensor names and shapes and random weights from
 a seed. These writers draw the same random numbers in the same order as
-``miotts_tpu.testing``, so for the same seed both write the same tensors;
+``miotts_tpu.testing``, so for the same seed both write the same bytes;
 they exist because ``miotts_tpu.testing`` imports JAX. The speaker
-embedding writer and the mel-L1 fidelity metric are the JAX package's own
-jax-free host code, re-exported here.
+embedding writer and the mel-L1 fidelity metric are re-exported from the
+port's own ``gguf`` and ``runtime.metrics``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from miotts_tpu.gguf.writer import GGUFWriter, save_embedding_gguf  # noqa: F401 (re-export)
-from miotts_tpu.runtime.metrics import mel_l1  # noqa: F401 (re-export)
-from miotts_tpu.runtime.tokenizer import (
-    TOKEN_TYPE_CONTROL, TOKEN_TYPE_NORMAL, _bytes_to_unicode,
-)
+from .gguf.reader import GGUFReader
+from .gguf.writer import GGUFWriter, save_embedding_gguf  # noqa: F401 (re-export)
+from .runtime.metrics import mel_l1  # noqa: F401 (re-export)
+from .runtime.tokenizer import TOKEN_TYPE_CONTROL, TOKEN_TYPE_NORMAL, _bytes_to_unicode
 
 from .models.miocodec import MioCodecConfig
 
@@ -47,6 +46,41 @@ def full_codec_config(**overrides) -> MioCodecConfig:
     base = dict(dynamic_global=True)
     base.update(overrides)
     return MioCodecConfig(**base)
+
+
+def full_mel_codec_config(**overrides) -> MioCodecConfig:
+    """The full-width mel-mode codec (bench.py:570-577): the 24 kHz trunk,
+    100 mels, no resnets, and the 5x4x4x3x2 vocoder (hop 480) with three
+    resblocks a stage."""
+    base = dict(model_type=1, n_mels=100, resnet_blocks=0, wave_upsampler_factors=(),
+                wave_upsampler_kernel_sizes=(), vocoder_upsample_rates=(5, 4, 4, 3, 2),
+                vocoder_num_kernels=3)
+    base.update(overrides)
+    return full_codec_config(**base)
+
+
+# write_synthetic_mel_vocoder_gguf draws its vocoder weights at scales that
+# suit 16 channels; at 128 every resblock layer grows the signal ~4x and the
+# waveform clips wholly. These factors keep each stage at 0.1-0.6 std and
+# the waveform's peak near 0.3-0.4 at 128 channels, so the snake runs in
+# its nonlinear range and a decode has a real signal to compare.
+VOCODER_WEIGHT_SCALES = (("vocoder.conv_pre.weight", 0.1), ("vocoder.conv_post.weight", 0.3),
+                         (".after.weight", 0.5), (".noise.weight", 0.5), (".convs1.", 0.3),
+                         (".convs2.", 0.3))
+
+
+def tame_vocoder_weights(path) -> None:
+    """Multiply a synthetic mel GGUF's f32 vocoder weights in place by
+    VOCODER_WEIGHT_SCALES."""
+    with GGUFReader(path) as r:
+        spans = [(r.data_offset + info.offset, info.n_elements, scale)
+                 for name, info in r.tensors.items() if name.endswith(".weight")
+                 for key, scale in VOCODER_WEIGHT_SCALES if key in name]
+    data = np.memmap(path, dtype=np.uint8, mode="r+")
+    for offset, n, scale in spans:
+        data[offset:offset + 4 * n].view(np.float32)[:] *= np.float32(scale)
+    data.flush()
+    del data
 
 
 def write_synthetic_miocodec_gguf(path: str, cfg: MioCodecConfig, seed: int = 0,
@@ -209,6 +243,153 @@ def write_synthetic_miocodec_gguf(path: str, cfg: MioCodecConfig, seed: int = 0,
         w.add_tensor("global_encoder.pool.norm.weight", 1.0 + rnd(gout, scale=0.05))
         w.add_tensor("global_encoder.pool.norm.bias", rnd(gout, scale=0.05))
 
+    w.write()
+
+
+def write_synthetic_mel_vocoder_gguf(path: str, cfg: MioCodecConfig, seed: int = 0,
+                                     act_filter_len: int = 12,
+                                     mel_postnet_layers: int = 2,
+                                     mel_postnet_kernel: int = 5,
+                                     ch: int = 16,
+                                     resblock_kernels: tuple = ()) -> None:
+    """Mel-mode MioCodec with a bundled BigVGAN-style vocoder (small dims).
+
+    cfg must have model_type=1, n_mels>0, vocoder_upsample_rates and
+    vocoder_num_kernels set."""
+    if not (cfg.model_type == 1 and cfg.n_mels > 0 and cfg.vocoder_upsample_rates):
+        raise ValueError("a mel vocoder GGUF needs model_type=1, n_mels > 0 and "
+                         "vocoder_upsample_rates")
+    rng = np.random.RandomState(seed)
+
+    def rnd(*shape, scale=None):
+        if scale is None:
+            fan_in = shape[-1] if len(shape) >= 2 else shape[0]
+            scale = 1.0 / np.sqrt(max(1, fan_in))
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    # reuse the wave-mode writer for the transformer trunk by writing the
+    # common KVs/tensors here directly (model_type=1 skips resnets)
+    w = GGUFWriter(path, arch="miocodec-dec")
+    w.add_string("general.type", "model")
+    w.add_uint32("miocodec.model_type", 1)
+    w.add_uint32("miocodec.dynamic_global", 1 if cfg.dynamic_global else 0)
+    w.add_uint32("miocodec.sample_rate", cfg.sample_rate)
+    w.add_uint32("miocodec.n_fft", cfg.n_fft)
+    w.add_uint32("miocodec.hop_length", cfg.hop_length)
+    w.add_uint32("miocodec.n_mels", cfg.n_mels)
+    w.add_uint32("miocodec.samples_per_token", cfg.samples_per_token)
+    w.add_uint32("miocodec.prenet_layers", cfg.prenet_layers)
+    w.add_uint32("miocodec.prenet_dim", cfg.prenet_dim)
+    w.add_uint32("miocodec.prenet_heads", cfg.prenet_heads)
+    w.add_uint32("miocodec.prenet_ff", cfg.prenet_ff)
+    w.add_uint32("miocodec.prenet_window", cfg.prenet_window)
+    w.add_uint32("miocodec.decoder_layers", cfg.decoder_layers)
+    w.add_uint32("miocodec.decoder_dim", cfg.decoder_dim)
+    w.add_uint32("miocodec.decoder_heads", cfg.decoder_heads)
+    w.add_uint32("miocodec.decoder_ff", cfg.decoder_ff)
+    w.add_uint32("miocodec.decoder_window", cfg.decoder_window)
+    w.add_uint32("miocodec.decoder_adanorm_dim", cfg.decoder_adanorm_dim)
+    w.add_uint32("miocodec.resnet_blocks", 0)
+    w.add_uint32("miocodec.resnet_groups", 1)
+    w.add_uint32("miocodec.wave_upsampler_layers", 0)
+    w.add_float32("miocodec.rope_theta", cfg.rope_theta)
+    w.add_float32("miocodec.norm_eps", cfg.norm_eps)
+    w.add_float32("miocodec.group_norm_eps", cfg.group_norm_eps)
+    w.add_uint32("miocodec.has_vocoder", 1)
+    w.add_uint32("miocodec.mel_postnet_layers", mel_postnet_layers)
+    w.add_uint32("miocodec.mel_postnet_kernel_size", mel_postnet_kernel)
+    w.add_uint32("miocodec.global_encoder.input_channels", cfg.global_encoder_input_channels)
+    w.add_uint32("miocodec.global_encoder.output_channels", cfg.global_encoder_output_channels)
+    w.add_uint32("miocodec.global_encoder.dim", cfg.global_encoder_dim)
+    w.add_uint32("miocodec.global_encoder.intermediate_dim", cfg.global_encoder_intermediate_dim)
+    w.add_uint32("miocodec.global_encoder.num_layers", cfg.global_encoder_layers)
+
+    pd, dd = cfg.prenet_dim, cfg.decoder_dim
+    w.add_tensor("token_embd", rnd(cfg.vocab_size, pd, scale=0.5))
+
+    def transformer(prefix, n, dim, ff, cond_dim=None):
+        for i in range(n):
+            p = f"{prefix}.blk.{i}"
+            if cond_dim is None:
+                w.add_tensor(f"{p}.attn_norm.weight", 1.0 + rnd(dim, scale=0.05))
+                w.add_tensor(f"{p}.attn_norm.bias", rnd(dim, scale=0.05))
+                w.add_tensor(f"{p}.ffn_norm.weight", 1.0 + rnd(dim, scale=0.05))
+                w.add_tensor(f"{p}.ffn_norm.bias", rnd(dim, scale=0.05))
+            else:
+                w.add_tensor(f"{p}.attn_cond.weight", rnd(3 * dim, cond_dim, scale=0.1))
+                w.add_tensor(f"{p}.attn_cond.bias", rnd(3 * dim, scale=0.1))
+                w.add_tensor(f"{p}.ffn_cond.weight", rnd(3 * dim, cond_dim, scale=0.1))
+                w.add_tensor(f"{p}.ffn_cond.bias", rnd(3 * dim, scale=0.1))
+            for nm in ("attn_q", "attn_k", "attn_v", "attn_output"):
+                w.add_tensor(f"{p}.{nm}.weight", rnd(dim, dim))
+            w.add_tensor(f"{p}.ffn_gate.weight", rnd(ff, dim))
+            w.add_tensor(f"{p}.ffn_down.weight", rnd(dim, ff))
+            w.add_tensor(f"{p}.ffn_up.weight", rnd(ff, dim))
+
+    transformer("wave_prenet", cfg.prenet_layers, pd, cfg.prenet_ff)
+    w.add_tensor("wave_prenet.norm.weight", 1.0 + rnd(pd, scale=0.05))
+    w.add_tensor("wave_prenet.norm.bias", rnd(pd, scale=0.05))
+    w.add_tensor("wave_prenet.output.weight", rnd(dd, pd))
+    w.add_tensor("wave_prenet.output.bias", rnd(dd, scale=0.05))
+    w.add_tensor("wave_upsample.weight", rnd(dd, dd, 4))
+    w.add_tensor("wave_upsample.bias", rnd(dd, scale=0.05))
+    transformer("wave_decoder", cfg.decoder_layers, dd, cfg.decoder_ff,
+                cond_dim=cfg.decoder_adanorm_dim if cfg.dynamic_global else None)
+    if cfg.dynamic_global:
+        w.add_tensor("wave_decoder.norm_cond.weight", rnd(2 * dd, cfg.decoder_adanorm_dim, scale=0.1))
+        w.add_tensor("wave_decoder.norm_cond.bias", rnd(2 * dd, scale=0.1))
+    else:
+        w.add_tensor("wave_decoder.norm.weight", 1.0 + rnd(dd, scale=0.05))
+        w.add_tensor("wave_decoder.norm.bias", rnd(dd, scale=0.05))
+    w.add_tensor("istft_head.out.weight", rnd(cfg.n_mels, dd, scale=0.1))
+    w.add_tensor("istft_head.out.bias", rnd(cfg.n_mels, scale=0.05))
+
+    for i in range(mel_postnet_layers):
+        w.add_tensor(f"mel_postnet.{i}.conv.weight", rnd(cfg.n_mels, cfg.n_mels, mel_postnet_kernel, scale=0.1))
+        w.add_tensor(f"mel_postnet.{i}.conv.bias", rnd(cfg.n_mels, scale=0.05))
+        w.add_tensor(f"mel_postnet.{i}.norm.weight", 1.0 + rnd(cfg.n_mels, scale=0.05))
+        w.add_tensor(f"mel_postnet.{i}.norm.bias", rnd(cfg.n_mels, scale=0.05))
+
+    # vocoder
+    rates = cfg.vocoder_upsample_rates
+    num_k = cfg.vocoder_num_kernels
+    # ch: vocoder channel width (16 for tests; bench.py passes a
+    # production-scale width — the loader derives channels from shapes)
+    w.add_uint32("miovocoder.sample_rate", cfg.sample_rate)
+    w.add_uint32("miovocoder.n_mels", cfg.n_mels)
+    w.add_uint32("miovocoder.num_upsamples", len(rates))
+    w.add_uint32("miovocoder.num_kernels", num_k)
+    w.add_tensor("miovocoder.upsample_rates", np.asarray(rates, np.int32))
+    w.add_tensor("vocoder.conv_pre.weight", rnd(ch, cfg.n_mels, 7, scale=0.1))
+    w.add_tensor("vocoder.conv_pre.bias", rnd(ch, scale=0.02))
+    w.add_tensor("vocoder.conv_post.weight", rnd(1, ch, 7, scale=0.1))
+    for i in range(len(rates)):
+        w.add_tensor(f"vocoder.ups.{i}.after.weight", rnd(ch, ch, 1, scale=0.2))
+        w.add_tensor(f"vocoder.ups.{i}.after.bias", rnd(ch, scale=0.02))
+        w.add_tensor(f"vocoder.ups.{i}.noise.weight", rnd(ch, ch, 7, scale=0.1))
+        w.add_tensor(f"vocoder.ups.{i}.noise.bias", rnd(ch, scale=0.02))
+    # anti-aliasing filter (kaiser-like; any fixed taps work for tests)
+    act_filt = np.hanning(act_filter_len + 2)[1:-1].astype(np.float32)
+    act_filt = act_filt / act_filt.sum()
+    # resblock_kernels: per-resblock conv kernel size within a stage
+    # (BigVGAN-style models use e.g. [3, 7, 11]); cycled over num_k
+    rks = resblock_kernels or (3,) * num_k
+    for r in range(len(rates) * num_k):
+        rk = rks[r % num_k]
+        for c in range(3):
+            w.add_tensor(f"vocoder.resblocks.{r}.convs1.{c}.weight", rnd(ch, ch, rk, scale=0.1))
+            w.add_tensor(f"vocoder.resblocks.{r}.convs1.{c}.bias", rnd(ch, scale=0.02))
+            w.add_tensor(f"vocoder.resblocks.{r}.convs2.{c}.weight", rnd(ch, ch, rk, scale=0.1))
+            w.add_tensor(f"vocoder.resblocks.{r}.convs2.{c}.bias", rnd(ch, scale=0.02))
+        for a in range(6):
+            w.add_tensor(f"vocoder.resblocks.{r}.acts.{a}.alpha", rnd(ch, scale=0.1))
+            w.add_tensor(f"vocoder.resblocks.{r}.acts.{a}.beta", rnd(ch, scale=0.1))
+            w.add_tensor(f"vocoder.resblocks.{r}.acts.{a}.up_filter", act_filt.reshape(-1, 1, 1))
+            w.add_tensor(f"vocoder.resblocks.{r}.acts.{a}.down_filter", act_filt.reshape(-1, 1, 1))
+    w.add_tensor("vocoder.activation_post.alpha", rnd(ch, scale=0.1))
+    w.add_tensor("vocoder.activation_post.beta", rnd(ch, scale=0.1))
+    w.add_tensor("vocoder.activation_post.up_filter", act_filt.reshape(-1, 1, 1))
+    w.add_tensor("vocoder.activation_post.down_filter", act_filt.reshape(-1, 1, 1))
     w.write()
 
 

@@ -1,0 +1,122 @@
+"""The port's own copies of the JAX package's jax-free host modules behave
+as the originals: the CLI parser has the same flags and defaults, each GGUF
+reader reads the other package's writer to the same KVs and tensors, and
+the tokenizer, code parser, WAV encoder and mel-L1 give the same results."""
+
+import argparse
+
+import numpy as np
+import pytest
+
+from miotts_tpu import MIO_CODE_MAX, MIO_CODE_MIN
+from miotts_tpu import cli as jax_cli
+from miotts_tpu import gguf as jax_gguf
+from miotts_tpu import testing as jax_testing
+from miotts_tpu.gguf.writer import load_embedding_gguf as jax_load_embedding
+from miotts_tpu.gguf.writer import save_embedding_gguf as jax_save_embedding
+from miotts_tpu.runtime import audio_io as jax_audio
+from miotts_tpu.runtime import codes_io as jax_codes
+from miotts_tpu.runtime import metrics as jax_metrics
+from miotts_tpu.runtime.tokenizer import BPETokenizer as JaxBPETokenizer
+
+import miotts_tpu_torch
+from miotts_tpu_torch import cli, gguf, testing
+from miotts_tpu_torch.gguf.writer import load_embedding_gguf, save_embedding_gguf
+from miotts_tpu_torch.runtime import audio_io, codes_io, metrics
+from miotts_tpu_torch.runtime.tokenizer import BPETokenizer
+
+
+def _options(parser: argparse.ArgumentParser) -> dict:
+    return {tuple(a.option_strings): (a.dest, a.default, a.choices, a.type, a.nargs, a.help,
+                                      type(a).__name__)
+            for a in parser._actions}
+
+
+@pytest.mark.parametrize("cpu_native", ["", "1"])
+def test_build_parser_matches(monkeypatch, cpu_native):
+    monkeypatch.setenv("MIOTTS_CPU_NATIVE", cpu_native)
+    assert _options(cli.build_parser()) == _options(jax_cli.build_parser())
+    argv = ["-mv", "c.gguf", "-p", "hi", "-n", "7", "--llm-quant", "q8_0", "--top-p", "0.9"]
+    ours, ref = (p.parse_args(argv) for p in (cli.build_parser(), jax_cli.build_parser()))
+    assert vars(ours) == vars(ref)
+
+
+def test_code_constants_match():
+    assert (miotts_tpu_torch.MIO_CODE_MIN, miotts_tpu_torch.MIO_CODE_MAX) == (MIO_CODE_MIN,
+                                                                              MIO_CODE_MAX)
+
+
+def _same_file(path, reader_a, reader_b):
+    with reader_a(path) as ra, reader_b(path) as rb:
+        assert ra.kv == rb.kv and list(ra.tensors) == list(rb.tensors)
+        for name, info in ra.tensors.items():
+            other = rb.tensors[name]
+            assert (info.shape, int(info.ggml_type), info.offset) == (
+                other.shape, int(other.ggml_type), other.offset), name
+            a, b = ra.tensor(name), rb.tensor(name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+@pytest.mark.parametrize("quant", ["f32", "q8_0", "q4_0", "f16"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_gguf_readers_read_each_others_files(tmp_path, writer, quant):
+    path = str(tmp_path / "llm.gguf")
+    write = (jax_testing if writer == "jax" else testing).write_synthetic_llm_gguf
+    write(path, n_audio=16, dim=64, n_layers=1, ffn=64, seed=4, quant=quant)
+    _same_file(path, gguf.GGUFReader, jax_gguf.GGUFReader)
+
+
+def test_gguf_writers_write_the_same_bytes(tmp_path):
+    rng = np.random.RandomState(0)
+    arrays = {"f32": rng.randn(3, 64).astype(np.float32), "i32": np.arange(5, dtype=np.int32),
+              "f16": rng.randn(8).astype(np.float16)}
+    for mod, name in ((gguf, "port"), (jax_gguf, "jax")):
+        w = mod.GGUFWriter(tmp_path / f"{name}.gguf", arch="test")
+        w.add_uint32("a.u32", 7)
+        w.add_float32("a.f32", 0.5)
+        w.add_bool("a.bool", True)
+        w.add_array_str("a.strs", ["x", "yz"])
+        w.add_array_i32("a.i32s", [1, -2])
+        w.add_array_f32("a.f32s", [1.5])
+        for k, a in arrays.items():
+            w.add_tensor(k, a)
+        w.add_tensor_q8_0("q8", arrays["f32"])
+        w.add_tensor_q4_0("q4", arrays["f32"])
+        w.write()
+    assert (tmp_path / "port.gguf").read_bytes() == (tmp_path / "jax.gguf").read_bytes()
+    emb = rng.randn(16).astype(np.float32)
+    save_embedding_gguf(tmp_path / "p.emb.gguf", emb)
+    jax_save_embedding(tmp_path / "j.emb.gguf", emb)
+    assert (tmp_path / "p.emb.gguf").read_bytes() == (tmp_path / "j.emb.gguf").read_bytes()
+    assert np.array_equal(load_embedding_gguf(tmp_path / "j.emb.gguf"),
+                          jax_load_embedding(tmp_path / "p.emb.gguf"))
+
+
+def test_tokenizer_matches(tmp_path):
+    tokens, types = testing.synthetic_vocab(32, 4)
+    kv = {"tokenizer.ggml.tokens": tokens, "tokenizer.ggml.token_type": types,
+          "tokenizer.ggml.merges": ["h e", "l l", "he ll"], "tokenizer.ggml.eos_token_id": 258}
+    ours, ref = BPETokenizer.from_gguf_kv(kv), JaxBPETokenizer.from_gguf_kv(kv)
+    text = "hello <|im_start|>日本語 text, 12345<|s_7|>\n"
+    ids = ours.encode(text)
+    assert ids == ref.encode(text)
+    assert ours.decode(ids, special=True) == ref.decode(ids, special=True)
+    assert all(ours.is_eog(i) == ref.is_eog(i) for i in range(len(tokens)))
+
+
+def test_codes_wav_and_metrics_match(tmp_path):
+    text = "<|s_5|>, 7,9.\n 12799"
+    assert codes_io.parse_codes_text(text) == jax_codes.parse_codes_text(text)
+    for bad in ("12800", "x1", ""):
+        with pytest.raises(ValueError):
+            codes_io.parse_codes_text(bad)
+    codes_io.save_codes(tmp_path / "c.txt", [1, 2, 3])
+    assert jax_codes.load_codes(tmp_path / "c.txt") == [1, 2, 3]
+    audio = (np.random.RandomState(1).randn(4000) * 0.5).astype(np.float32)
+    assert audio_io.wav16_header(10, 24000) == jax_audio.wav16_header(10, 24000)
+    assert audio_io.encode_pcm16(audio) == jax_audio.encode_pcm16(audio)
+    audio_io.save_wav16(tmp_path / "p.wav", audio, 24000)
+    jax_audio.save_wav16(tmp_path / "j.wav", audio, 24000)
+    assert (tmp_path / "p.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+    other = audio + 0.01 * np.sin(np.arange(4000, dtype=np.float32))
+    assert metrics.mel_l1(audio, other, 24000) == jax_metrics.mel_l1(audio, other, 24000)

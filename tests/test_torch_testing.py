@@ -1,6 +1,6 @@
 """The port's jax-free synthetic GGUF writers write the same KV metadata
 and the same tensors (names, shapes, types, values) as miotts_tpu.testing
-for the same seed."""
+for the same seed; the mel vocoder writer the same bytes."""
 
 import dataclasses
 
@@ -56,3 +56,18 @@ def test_llm_writer_matches(tmp_path, kwargs):
     testing.write_synthetic_llm_gguf(str(tmp_path / "p.gguf"), **kwargs)
     _same_gguf(tmp_path / "j.gguf", tmp_path / "p.gguf")
     assert testing.synthetic_vocab(8, 3) == jax_testing.synthetic_vocab(8, 3)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {},
+    {"seed": 3, "ch": 8, "act_filter_len": 13, "mel_postnet_layers": 1,
+     "resblock_kernels": (3, 5)},
+])
+def test_mel_vocoder_writer_matches(tmp_path, kwargs):
+    overrides = dict(model_type=1, n_mels=12, n_fft=64, hop_length=16, samples_per_token=32,
+                     resnet_blocks=0, vocoder_upsample_rates=(4, 2, 2), vocoder_num_kernels=2)
+    jax_testing.write_synthetic_mel_vocoder_gguf(
+        str(tmp_path / "j.gguf"), jax_testing.tiny_codec_config(**overrides), **kwargs)
+    testing.write_synthetic_mel_vocoder_gguf(
+        str(tmp_path / "p.gguf"), testing.tiny_codec_config(**overrides), **kwargs)
+    assert (tmp_path / "p.gguf").read_bytes() == (tmp_path / "j.gguf").read_bytes()
