@@ -12,7 +12,10 @@ Phases, in order; any failure exits nonzero and prints no result:
 3. K1 (banded attention) against its plain PyTorch version on the card at
    the codec's shapes, max abs error <= 1e-5 (f32, TF32 off).
 4. K2 (decode attention) against its plain version, bf16 KV cache, max abs
-   error <= 2e-2 (one bf16 ulp at |x| in [2, 4) is 1.6e-2).
+   error <= 2e-2 (one bf16 ulp at |x| in [2, 4) is 1.6e-2), at B = 1 and
+   at B = 8 with ragged positions, among them 0, the edges of the split
+   ranges and a full cache; timed beside SDPA over the same cache prefix
+   at B = 1 and pos 128, 450 and 699.
 5. K3 (Q8_0 dequant matmul) against its plain version at every (K, N) of
    the 0.1B LLM's quantized leaves, T in {1, 8, 64}, bf16 and f32 x. Both
    sum the same exact bf16 x bf16 products in f32, only in another order,
@@ -20,8 +23,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    (the worst-case rounding of two K-term f32 sums).
 6. K4 (vocoder conv1d) against its plain version at the mel path's shapes
    (C = 128, T up to 491 520, k in {3, 7}, d in {1, 3, 5}, ragged lengths
-   at B = 1 and 2): two f32 sums of K = k*C terms plus bias and residual,
-   so each output within 2 (K + 2) 2^-24 (sum |x w| + |b| + |res|).
+   at B = 1 and 2) and the short route's (T = 640, k = 3, d in {1, 3, 5},
+   with a residual): two f32 sums of K = k*C terms plus bias and residual,
+   so each output within 2 (K + 2) 2^-24 (sum |x w| + |b| + |res|). Timed
+   at the last stage's noise conv and at 640 rows, beside F.conv1d.
 7. K5 (anti-aliased snake) against its plain version at the same shapes:
    |err| <= 2e-6 + 1e-5 |ref| (the JAX package's own bound for this
    kernel, tests/test_vocoder.py:186; no long sums).
@@ -204,14 +209,16 @@ def check_k1(dev, gen) -> dict:
 
 
 def check_k2(dev, gen) -> dict:
-    worst, at = 0.0, {}
+    worst, at, by_pos = 0.0, {}, {}
     S, KVH, G, HD = 700, 2, 6, 64
-    for B in (1, 8):
-        bf = torch.bfloat16
+    bf = torch.bfloat16
+    # one lane at the cache's end; ragged lanes; the empty cache, the edges
+    # of the 88-row split ranges and a full cache
+    for B, pos_l in ((1, [S - 1]), (8, [0, S - 1, 1, 64, 129, 350, 511, 698]),
+                     (8, [0, 1, 87, 88, 89, 176, S - 1, S])):
         q = torch.randn(B, KVH, G, HD, generator=gen).to(dev, bf)
         kc, vc = (torch.randn(B, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
         ck, cv = (torch.randn(B, S, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
-        pos_l = [S - 1] if B == 1 else [0, S - 1, 1, 64, 129, 350, 511, 698]
         pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
         args = (q, kc, vc, ck, cv, 1.0 / math.sqrt(HD), pos)
         got = k2.decode_attention(*args)
@@ -220,23 +227,37 @@ def check_k2(dev, gen) -> dict:
         err = (got.float() - ref.float()).abs().max().item()
         ms = cuda_ms(lambda: k2.decode_attention(*args))
         plain = cuda_ms(lambda: k2.decode_attention_plain(*args))
-        log(f"[k2] B={B} S={S} KVH={KVH} G={G} HD={HD} bf16 pos={pos_l}: "
-            f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain:.4f}ms")
+        log(f"[k2] B={B} S={S} KVH={KVH} G={G} HD={HD} bf16 pos={pos_l} "
+            f"launch={k2.launch_shape(B, S, KVH)}: max_abs_err={err:.3e} kernel={ms:.4f}ms "
+            f"plain={plain:.4f}ms")
         if not err <= K2_TOL:
-            raise AssertionError(f"K2 error {err} > {K2_TOL} at B={B}")
+            raise AssertionError(f"K2 error {err} > {K2_TOL} at B={B} pos={pos_l}")
         worst = max(worst, err)
-        if B == 1:
-            p = pos_l[0]
+        if B > 1:
+            continue
+        # B=1 at the positions a 400-token request crosses: kernel, plain and
+        # one SDPA call over the same cache prefix
+        for p in (128, 450, S - 1):
+            pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+            args = (q, kc, vc, ck, cv, 1.0 / math.sqrt(HD), pos)
+            ms = cuda_ms(lambda: k2.decode_attention(*args))
+            plain = cuda_ms(lambda: k2.decode_attention_plain(*args))
             keys = torch.cat([ck[:, :p], kc[:, None]], 1).transpose(1, 2).contiguous()
             vals = torch.cat([cv[:, :p], vc[:, None]], 1).transpose(1, 2).contiguous()
             qh = q.reshape(B, KVH * G, 1, HD)
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, keys, vals, enable_gqa=True))
-            log(f"[k2] library SDPA (cache prefix, GQA) B=1 pos={p}: {lib:.4f}ms")
             nbytes = 2 * (2 * (p + 1) * KVH * HD + KVH * G * HD) + 2 * KVH * G * HD + 4
             ops = 4 * (p + 1) * KVH * G * HD
-            at = {"ms": ms, "plain_ms": plain, **least_time(nbytes, ops, BF16_FLOP_S),
-                  "library_ms": lib, "at": f"B=1 S={S} KVH={KVH} G={G} HD={HD}, pos {p}"}
-    return {"max_abs_err": worst, **at}
+            bound = least_time(nbytes, ops, BF16_FLOP_S)
+            log(f"[k2] B=1 S={S} pos={p} launch={k2.launch_shape(B, S, KVH)}: kernel={ms:.4f}ms "
+                f"plain={plain:.4f}ms SDPA(cache prefix, GQA)={lib:.4f}ms "
+                f"bound={bound['bound_ms']:.5f}ms ({bound['bound_by']})")
+            by_pos[f"pos {p}"] = [round(ms, 5), round(plain, 5), round(lib, 5)]
+            at = {"ms": ms, "plain_ms": plain, **bound, "library_ms": lib,
+                  "at": f"B=1 S={S} KVH={KVH} G={G} HD={HD}, pos {p}; library = SDPA over "
+                  f"the cache prefix, GQA"}
+    # per position: [kernel, plain, SDPA] ms
+    return {"max_abs_err": worst, **at, "by_pos_ms": by_pos}
 
 
 def k3_shapes() -> list[tuple[str, int, int]]:
@@ -316,43 +337,68 @@ def voc_act(dev, gen) -> dict:
             "up_filter": f.to(dev), "down_filter": f.to(dev)}
 
 
+def k4_case(x, L, lens, w, b, d: int, res) -> tuple[float, float]:
+    """K4 against its plain version on one input: (max abs error, error
+    over its sum-order bound); fails past the bound."""
+    B, T, C = x.shape
+    k = w.shape[-1]
+    got = k4.conv1d_same(x, L, w, b, d, res)
+    torch.cuda.synchronize()
+    ref = k4.conv1d_same_plain(x, L, w, b, d, res)
+    mag = k4.conv1d_same_plain(x.abs(), L, w.abs(), b.abs(), d, None if res is None else res.abs())
+    tol = 2 * (k * C + 2) * 2.0 ** -24 * mag
+    err = (got - ref).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"K4 B={B} T={T} k={k} d={d}: error {err.max().item()} "
+                             f"exceeds its bound")
+    ratio = (err / tol.clamp(min=1e-30)).max().item()
+    log(f"[k4] B={B} T={T} C={C} k={k} d={d} lengths={lens} residual={res is not None}: "
+        f"max_abs_err={err.max().item():.3e} err/bound<={ratio:.3e}")
+    return err.max().item(), ratio
+
+
+def k4_timing(x, L, lens, w, b, d: int, res) -> dict:
+    """Kernel, plain and F.conv1d times of one K4 call, with its bound."""
+    B, T, C = x.shape
+    k = w.shape[-1]
+    ms = cuda_ms(lambda: k4.conv1d_same(x, L, w, b, d, res))
+    plain = cuda_ms(lambda: k4.conv1d_same_plain(x, L, w, b, d, res))
+    xc = x.transpose(1, 2).contiguous()  # the library's [B, C, T] layout
+    lib = cuda_ms(lambda: F.conv1d(xc, w, b, padding=d * (k - 1) // 2, dilation=d))
+    n = sum(lens)
+    ops = 2 * k * C * C * n
+    nbytes = 4 * (n * C + k * C * C + C + B * T * C + (n * C if res is not None else 0))
+    row = {"ms": ms, "plain_ms": plain, **least_time(nbytes, ops, F32_FLOP_S), "library_ms": lib}
+    log(f"[k4] T={T} k={k} d={d} launch={k4.launch_shape(B, T, C)}: kernel={ms:.4f}ms "
+        f"plain={plain:.4f}ms F.conv1d={lib:.4f}ms bound={row['bound_ms']:.4f}ms "
+        f"({row['bound_by']}), {ops / (ms * 1e-3) / F32_FLOP_S:.1%} of the f32 peak")
+    return row
+
+
 def check_k4(dev, gen) -> dict:
-    C, worst, worst_ratio, at = VOCODER_CH, 0.0, 0.0, {}
-    for B, T, lens in VOC_SHAPES:
+    C, worst, worst_ratio, at, short = VOCODER_CH, 0.0, 0.0, {}, {}
+    # the vocoder's shapes, then the short route's: stage 1 of a 40-code
+    # request (640 rows), where every resblock conv is a K4 launch
+    cases = [(shape, ((7, 1), (3, 1), (3, 3), (3, 5))) for shape in VOC_SHAPES]
+    cases.append(((1, 640, [640]), ((3, 1), (3, 3), (3, 5))))
+    for (B, T, lens), kds in cases:
         x, L = voc_inputs(dev, gen, B, T, lens)
-        for k, d in ((7, 1), (3, 1), (3, 3), (3, 5)):
+        for k, d in kds:
             w = (torch.randn(C, C, k, generator=gen) * 0.05).to(dev)
             b = (torch.randn(C, generator=gen) * 0.02).to(dev)
             res = x if k == 3 else None  # conv2 of a resblock layer; the noise conv has none
-            got = k4.conv1d_same(x, L, w, b, d, res)
-            torch.cuda.synchronize()
-            ref = k4.conv1d_same_plain(x, L, w, b, d, res)
-            mag = k4.conv1d_same_plain(x.abs(), L, w.abs(), b.abs(), d,
-                                       None if res is None else res.abs())
-            tol = 2 * (k * C + 2) * 2.0 ** -24 * mag
-            err = (got - ref).abs()
-            if not bool((err <= tol).all()):
-                raise AssertionError(f"K4 B={B} T={T} k={k} d={d}: error {err.max().item()} "
-                                     f"exceeds its bound")
-            ratio = (err / tol.clamp(min=1e-30)).max().item()
-            worst, worst_ratio = max(worst, err.max().item()), max(worst_ratio, ratio)
-            log(f"[k4] B={B} T={T} C={C} k={k} d={d} lengths={lens} residual={res is not None}: "
-                f"max_abs_err={err.max().item():.3e} err/bound<={ratio:.3e}")
-            if (T, k) == (491520, 7):  # the last stage's noise conv
-                ms = cuda_ms(lambda: k4.conv1d_same(x, L, w, b, d))
-                plain = cuda_ms(lambda: k4.conv1d_same_plain(x, L, w, b, d))
-                xc = x.transpose(1, 2).contiguous()  # the library's [B, C, T] layout
-                lib = cuda_ms(lambda: F.conv1d(xc, w, b, padding=3))
-                n = sum(lens)
-                nbytes = 4 * (n * C + k * C * C + C + B * T * C)
-                at = {"ms": ms, "plain_ms": plain,
-                      **least_time(nbytes, 2 * k * C * C * n, F32_FLOP_S),
-                      "library_ms": lib, "at": f"B=1 T={T} (length {lens[0]}) C={C} k=7 d=1; "
+            err, ratio = k4_case(x, L, lens, w, b, d, res)
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+            if (T, k, d) == (491520, 7, 1):  # the last stage's noise conv
+                at = {**k4_timing(x, L, lens, w, b, d, res),
+                      "at": f"B=1 T={T} (length {lens[0]}) C={C} k=7 d=1; "
                       f"library = F.conv1d on [1, {C}, {T}]"}
-                log(f"[k4] noise conv T={T}: kernel={ms:.4f}ms plain={plain:.4f}ms "
-                    f"F.conv1d={lib:.4f}ms bound={at['bound_ms']:.4f}ms ({at['bound_by']})")
+            elif (T, k, d) == (640, 3, 1):  # a short-route resblock conv
+                short = {**k4_timing(x, L, lens, w, b, d, res),
+                         "at": f"B=1 T={T} C={C} k=3 d=1 with residual; library = "
+                         f"F.conv1d on [1, {C}, {T}], no residual"}
         del x
-    return {"max_abs_err": worst, "err_over_bound": worst_ratio, **at}
+    return {"max_abs_err": worst, "err_over_bound": worst_ratio, **at, "short_route": short}
 
 
 def check_k5(dev, gen) -> dict:

@@ -1,5 +1,6 @@
-// Device routines shared by the mel vocoder's kernels K4 (conv1d.cu),
-// K5 (activation1d.cu) and K6 (resblock.cu). f32 on the CUDA cores.
+// Device routines shared by the mel vocoder's kernels K5 (activation1d.cu)
+// and K6 (resblock.cu); K4 (conv1d.cu) has its own main loop. f32 on the
+// CUDA cores.
 //
 // Layout is the port's [B, T, C] (channels fastest). A block stages a time
 // tile of rows in shared memory, channels along the row, and the routines

@@ -68,9 +68,11 @@ _NORM_KEYS = ("attn_norm", "ffn_norm", "output_norm", "q_norm", "k_norm")
 
 
 def weights_to_device(w: dict, device: torch.device, dtype: torch.dtype) -> dict:
-    """numpy weight tree -> tensors on ``device``: norms f32, dense leaves
-    ``dtype`` (f32 -> bf16 rounds to nearest even, as JAX's astype), and
-    quantized leaf dicts with their own dtypes unchanged."""
+    """numpy weight tree -> tensors on ``device``: dense leaves ``dtype``
+    (f32 -> bf16 rounds to nearest even, as JAX's astype), norms rounded to
+    ``dtype`` and widened back to f32 (the JAX loader casts every dense leaf
+    to ``dtype`` and only then widens the norms), and quantized leaf dicts
+    with their own dtypes unchanged."""
     out = {}
     for k, v in w.items():
         if v is None:
@@ -78,8 +80,8 @@ def weights_to_device(w: dict, device: torch.device, dtype: torch.dtype) -> dict
         elif isinstance(v, dict):
             out[k] = {sk: torch.from_numpy(np.array(a)).to(device) for sk, a in v.items()}
         else:
-            t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-            out[k] = t.to(device=device, dtype=torch.float32 if k in _NORM_KEYS else dtype)
+            t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(device, dtype)
+            out[k] = t.float() if k in _NORM_KEYS else t
     return out
 
 

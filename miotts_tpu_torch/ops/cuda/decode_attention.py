@@ -10,6 +10,7 @@ raises on anything the kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -22,14 +23,25 @@ REPLACES = "miotts_tpu/ops/pallas/decode_attention.py:168"
 # refusals do not count); callers may reset it to 0
 launches = 0
 
+SPLIT = 8  # blocks of a thread-block cluster, each one range of cache rows (kSplit)
+_MAX_G = 8  # query heads a kv head (csrc/decode_attention.cu kMaxG)
+
 _fn = None
+
+
+def launch_shape(B: int, S: int, KVH: int) -> tuple[int, int, int]:
+    """(grid x, grid y, rows a block) of the kernel for B lanes, an S-row
+    cache and KVH kv heads: one cluster of SPLIT blocks per (lane, kv head),
+    block ``rank`` taking rows [rank * R, (rank + 1) * R) clipped to
+    [0, pos). It depends on S, B and KVH only, never on pos."""
+    return SPLIT, B * KVH, max(1, math.ceil(S / SPLIT))
 
 
 def _entry():
     global _fn
     if _fn is None:
         fn = build.load_library().miotts_decode_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -82,13 +94,14 @@ def decode_attention(q, k_cur, v_cur, cache_k, cache_v, scale: float, pos) -> to
     if (pos.dtype != torch.int32 or pos.device != q.device or tuple(pos.shape) != (B,)
             or not pos.is_contiguous()):
         raise ValueError(f"decode attention: pos must be contiguous int32 [{B}] on {q.device}")
-    if G > 8 or HD % 8 or 128 % HD or B * KVH < 1:
-        raise ValueError(f"decode attention: unsupported G={G}, HD={HD}, B*KVH={B * KVH}")
+    _, lanes, rows = launch_shape(B, S, KVH)
+    if not 1 <= G <= _MAX_G or HD not in (32, 64, 128) or not 1 <= lanes <= 65535:
+        raise ValueError(f"decode attention: unsupported G={G}, HD={HD}, B*KVH={lanes}")
     out = torch.empty((B, KVH * G * HD), dtype=torch.bfloat16, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry()(q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), cache_k.data_ptr(),
                       cache_v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                      B, S, KVH, G, HD, float(scale), stream)
+                      B, S, KVH, G, HD, rows, float(scale), stream)
     build.check(status, "decode_attention")
     launches += 1
     return out

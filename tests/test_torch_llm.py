@@ -2,10 +2,14 @@
 (2 layers, dim 32, GQA 4/2).
 
 f32 weights on both sides: prefill logits agree to atol 1e-4 and 16 greedy
-tokens are identical. bf16 weights: logits agree to atol 0.12 (the head
-sums into f32 on both sides; bf16 activations differ by an ulp here and
-there inside the layers); token identity is not required. The RNGs differ,
-so sampling is held to the softmax by distribution."""
+tokens are identical. bf16 weights: both loaders round the norm weights to
+bf16 before widening them to f32, and the heads sum into f32. What is left
+is ``silu``: XLA:CPU computes JAX's bf16 ``silu`` as exp, add, divide and
+multiply, each rounded to bf16, where the port rounds ``F.silu`` once (as a
+silu fused and computed in f32 does). With that expansion patched into the
+port the logits agree to 1e-5; with the port's own silu to 0.05. Token
+identity is not required at bf16. The RNGs differ, so sampling is held to
+the softmax by distribution."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ import torch
 from miotts_tpu.models import llm as jllm
 from miotts_tpu.models import sampling as jsampling
 from miotts_tpu_torch.convert import llm_params_from_jax
+from miotts_tpu_torch.models import llm as llm_mod
 from miotts_tpu_torch.models.llm import (
     LLMEngine, _logits, init_kv_cache, llm_decode_step, llm_prefill, llm_prefill_kv,
     load_llm_gguf)
@@ -65,24 +70,51 @@ def test_prefill_logits_f32(tiny_llm, source, layout, monkeypatch):
 
 
 def test_prefill_logits_bf16(tiny_llm):
-    """At bf16 each package is ~0.05-0.07 from the f32 logits (|x| <= 3.4
-    here). The dense head now writes f32 sums as JAX's does, so the two
-    heads agree to 1e-5 on the same hidden state; what remains (0.093
-    measured) is bf16 rounding inside the layers (XLA:CPU rounds silu's
-    exp, add and divide each to bf16, the port silu once), hence atol 0.12.
-    The port's distance from f32 stays within twice JAX's own."""
+    """At bf16 each package is ~0.05 from the f32 logits (|x| <= 3.4 here).
+    The two heads agree to 1e-5 on the same hidden state; the rest (0.031
+    measured) is silu's rounding (test_prefill_logits_bf16_xla_silu), hence
+    atol 0.05. The port's distance from f32 stays within twice JAX's own."""
     jcfg, jw, ref = _jax_prefill(tiny_llm, jnp.bfloat16)
     _, _, ref32 = _jax_prefill(tiny_llm, jnp.float32)
     cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.bfloat16)
     toks, lens = _prompts()
     last, _, _ = llm_prefill_kv(cfg, w, torch.from_numpy(toks), torch.from_numpy(lens))
     assert last.dtype == torch.float32
-    np.testing.assert_allclose(last.numpy(), ref, atol=0.12, rtol=0)
+    np.testing.assert_allclose(last.numpy(), ref, atol=0.05, rtol=0)
     assert np.abs(last.numpy() - ref32).max() <= 2 * np.abs(ref - ref32).max()
     xn = np.random.RandomState(4).randn(2, cfg.dim).astype(np.float32)
     head = np.asarray(jllm._logits_matmul(jcfg, jw, jnp.asarray(xn, jnp.bfloat16)))
     got = _logits(cfg, w, torch.from_numpy(xn).to(torch.bfloat16))
     np.testing.assert_allclose(got.numpy(), head, atol=1e-5, rtol=0)
+
+
+def _xla_cpu_silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu on bf16 as XLA:CPU computes it: x * 1 / (1 + exp(-x)),
+    the exp, the add, the divide and the multiply each rounded to bf16."""
+    bf = torch.bfloat16
+    e = torch.exp(-x.float()).to(bf)
+    d = (1 + e.float()).to(bf)
+    return (x.float() * (1 / d.float()).to(bf).float()).to(bf)
+
+
+def test_prefill_logits_bf16_xla_silu(tiny_llm, monkeypatch):
+    """The bf16 logits gap is the reference backend's rounding, not a fault
+    of the port: with XLA:CPU's silu patched in (bit-equal to jax.nn.silu
+    here) and the norms loaded as JAX loads them, the port's bf16 prefill
+    logits equal JAX's to the f32 head tolerance."""
+    x = np.random.RandomState(5).randn(4096).astype(np.float32) * 4
+    want = np.asarray(jax.nn.silu(jnp.asarray(x, jnp.bfloat16)), np.float32)
+    np.testing.assert_array_equal(_xla_cpu_silu(torch.from_numpy(x).to(torch.bfloat16)).float().numpy(),
+                                  want)
+    jcfg, jw, ref = _jax_prefill(tiny_llm, jnp.bfloat16)
+    cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.bfloat16)
+    for k in ("attn_norm", "ffn_norm", "output_norm"):
+        assert w[k].dtype == torch.float32
+        np.testing.assert_array_equal(w[k].numpy(), np.asarray(jw[k], np.float32))
+    monkeypatch.setattr(llm_mod.F, "silu", _xla_cpu_silu)
+    toks, lens = _prompts()
+    last, _, _ = llm_prefill_kv(cfg, w, torch.from_numpy(toks), torch.from_numpy(lens))
+    np.testing.assert_allclose(last.numpy(), ref, atol=1e-5, rtol=0)
 
 
 def test_decode_step_matches_jax(tiny_llm):

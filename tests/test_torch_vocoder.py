@@ -77,6 +77,30 @@ def test_conv1d_plain_matches_jax(cin, cout, k, d, res):
     assert np.all(got[1, lengths[1]:] == 0)
 
 
+# the vocoder's K4 shapes: stage 1 of a 40-code request (the short route),
+# stage 1 of a 400-code one, a ragged pair, the last stage; and odd sizes
+@pytest.mark.parametrize("B,T,Cout", [(1, 640, 128), (1, 5120, 128), (2, 2560, 128),
+                                      (1, 491520, 128), (3, 37, 20), (1, 1, 4)])
+def test_conv1d_launch_shape(B, T, Cout):
+    """Kernel K4's grid covers every (example, row, column) of the output
+    exactly once; the short route's 640 rows give every SM of the H100 a
+    block (>= 132), and the last stage keeps the largest tile."""
+    tile, tm, tn, grid = k4.launch_shape(B, T, Cout)
+    assert (tm, tn) == k4.TILES[tile]
+    # the grid is a product: rows by grid x, examples by grid y, columns by z
+    for n, size, extent in ((grid[0], tm, T), (grid[1], 1, B), (grid[2], tn, Cout)):
+        hits = np.zeros(n * size, np.int64)
+        for i in range(n):
+            hits[i * size:(i + 1) * size] += 1
+        assert (hits[:extent] == 1).all() and (n - 1) * size < extent
+    blocks = int(np.prod(grid))
+    if (B, T) == (1, 640):
+        assert blocks >= 132
+    if T == 491520:
+        assert tile == 0
+    assert blocks >= 132 or tile == len(k4.TILES) - 1
+
+
 @pytest.mark.parametrize("k1,k2,T,C,B,bt", [
     (12, 12, 300, 16, 3, 64),   # even/even, ragged lengths, multi-tile
     (13, 15, 97, 8, 2, 64),     # odd filters, non-dividing T
