@@ -20,7 +20,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    the 0.1B LLM's quantized leaves, T in {1, 8, 64}, bf16 and f32 x. Both
    sum the same exact bf16 x bf16 products in f32, only in another order,
    so each output may differ by at most 2 * K * 2^-24 * sum_k |x_k w_k|
-   (the worst-case rounding of two K-term f32 sums).
+   (the worst-case rounding of two K-term f32 sums). Two calls give
+   bit-equal results (at T = 64 over K splits summed in a cluster). Timed
+   at T = 1 and 64 at every leaf beside its bound and the dense bf16 cuBLAS
+   GEMM on the same leaf; each line names the kernel's launch plan.
 6. K4 (vocoder conv1d) against its plain version at the mel path's shapes
    (C = 128, T up to 491 520, k in {3, 7}, d in {1, 3, 5}, ragged lengths
    at B = 1 and 2) and the short route's (T = 640, k = 3, d in {1, 3, 5},
@@ -34,7 +37,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    and d in {1, 3, 5}: max abs error <= 4e-5 (the JAX package's 2e-5 at
    C = 64, tests/test_resblock_fused.py:58, doubled for C = 128's twice
    longer sums); and the same signal in a bucket 480 rows longer gives
-   bit-equal valid rows and zeros beyond.
+   bit-equal valid rows and zeros beyond; also its small-tile plan (k=11)
+   and its generic-tap activation (16/20 taps). Timed at the rows of each
+   of the five vocoder stages of a 400-code request, each beside its bound.
 9. assets: synthetic GGUFs from a seed: the 24 kHz MioCodec at full width
    in wave mode and in mel mode (100 mels, the 5x4x4x3x2 vocoder at 128
    channels, bench.py's geometry; its vocoder weights scaled by fixed
@@ -115,6 +120,8 @@ VOCODER_CH = 128
 # request (bucket 512: 5 120 rows, 4 000 valid), a ragged pair, and the last
 # stage (491 520 rows, 384 000 valid), where each kernel is timed
 VOC_SHAPES = ((1, 5120, [4000]), (2, 2560, [2560, 1777]), (1, 491520, [384000]))
+# K6 timed at each vocoder stage of a 400-code request: (padded rows, valid rows)
+K6_STAGES = ((5120, 4000), (20480, 16000), (81920, 64000), (245760, 192000), (491520, 384000))
 MEL_CLIPPED_MAX = 0.01  # share of a mel request's samples at full scale
 MEL_REQUESTS = (  # (name, extra flags, kernels that must launch)
     ("text-250", ["-m", "llm.gguf", "-p", "The quick brown fox jumps over the lazy dog, twice.",
@@ -271,6 +278,13 @@ def k3_shapes() -> list[tuple[str, int, int]]:
             ("w_down", w["ffn"], w["dim"]), ("output", w["dim"], -(-vocab // 128) * 128)]
 
 
+def k3_bound(T: int, K: int, N: int) -> dict:
+    """K3's least time: q, s and bf16 x read once, f32 y written once; or
+    2 T K N operations at the bf16 peak."""
+    nbytes = K * N + K // k3.QBLOCK * N * 4 + 2 * T * K + 4 * T * N
+    return least_time(nbytes, 2 * T * K * N, BF16_FLOP_S)
+
+
 def check_k3(dev, gen) -> dict:
     worst, rows = 0.0, {}
     for leaf, K, N in k3_shapes():
@@ -284,6 +298,7 @@ def check_k3(dev, gen) -> dict:
         for T in (1, 8, 64):
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn(T, K, generator=gen).to(dev, dt)
+                plan = k3.launch_shape(T, K, N, x.element_size())
                 got = k3.q8_matmul(x, q, s)
                 torch.cuda.synchronize()
                 ref = k3.q8_matmul_plain(x, q, s)
@@ -294,29 +309,34 @@ def check_k3(dev, gen) -> dict:
                 if not bool((err <= bound).all()):
                     raise AssertionError(f"K3 {leaf} K={K} N={N} T={T} x={dt}: error "
                                          f"{err.max().item()} exceeds its bound")
+                if not torch.equal(k3.q8_matmul(x, q, s), got):
+                    raise AssertionError(f"K3 {leaf} T={T} x={dt}: two calls differ ({plan.kind} "
+                                         f"path, {plan.z} K splits)")
                 worst = max(worst, err.max().item())
                 ratio = (err / bound).max().item()
                 if dt == torch.bfloat16 and T in (1, 64):
                     ms = cuda_ms(lambda: k3.q8_matmul(x, q, s))
                     plain = cuda_ms(lambda: k3.q8_matmul_plain(x, q, s))
                     dense = cuda_ms(lambda: x @ w_bf16)
-                    rows[(leaf, T)] = (ms, plain, dense)
-                    timing = f" kernel={ms:.4f}ms plain={plain:.4f}ms dense_bf16={dense:.4f}ms"
+                    lb = k3_bound(T, K, N)
+                    rows[(leaf, T)] = (ms, plain, dense, lb["bound_ms"])
+                    timing = (f" kernel={ms:.4f}ms plain={plain:.4f}ms dense_bf16={dense:.4f}ms "
+                              f"bound={lb['bound_ms']:.5f}ms ({lb['bound_by']})")
                 else:
                     timing = ""
-                log(f"[k3] {leaf} K={K} N={N} T={T} x={str(dt)[6:]} launch={k3.launch_shape(T, K, N)}: "
-                    f"max_abs_err={err.max().item():.3e} err/bound<={ratio:.3e}{timing}")
+                log(f"[k3] {leaf} K={K} N={N} T={T} x={str(dt)[6:]} launch={tuple(plan)}: "
+                    f"max_abs_err={err.max().item():.3e} err/bound<={ratio:.3e}"
+                    f" bit-stable{timing}")
         del q, s, w_bf16, w_abs
     _, K, N = k3_shapes()[-1]
-    ms, plain, dense = rows[("output", 1)]
+    ms, plain, dense, _ = rows[("output", 1)]
     gbs = (K * N + K // k3.QBLOCK * N * 4) / (ms * 1e-3) / 1e9
     log(f"[k3] head T=1 streams {gbs:.1f} GB/s of int8 + scales")
-    nbytes = K * N + K // k3.QBLOCK * N * 4 + 2 * K + 4 * N  # q, s, bf16 x in; f32 out
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            **least_time(nbytes, 2 * K * N, BF16_FLOP_S), "library_ms": dense,
-            "at": f"head T=1 K={K} N={N}; library = dense bf16 cuBLAS GEMV",
-            # per leaf: [kernel, plain, dense bf16 cuBLAS] ms
-            "by_leaf_ms": {f"{leaf} T={T}": [round(t, 5) for t in r] for (leaf, T), r in rows.items()}}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, **k3_bound(1, K, N),
+            "library_ms": dense, "at": f"head T=1 K={K} N={N}; library = dense bf16 cuBLAS GEMV",
+            # per leaf: [kernel, plain, dense bf16 cuBLAS, bound] ms
+            "by_leaf_ms": {f"{leaf} T={T}": [round(t, 5) for t in r]
+                           for (leaf, T), r in rows.items()}}
 
 
 def voc_inputs(dev, gen, B: int, T: int, lens: list[int]):
@@ -432,6 +452,16 @@ def check_k5(dev, gen) -> dict:
     return {"max_abs_err": worst, **at}
 
 
+def k6_bound(B: int, T: int, n: int) -> dict:
+    """K6's least time over n valid rows of [B, T, 128]: two k=3 C x C convs
+    and two activations (counted as in check_k5) at the f32 peak, or x in
+    and y out with the weights once."""
+    C = VOCODER_CH
+    ops = 2 * (2 * 3 * C * C) * n + 2 * (2 * (12 + 12) + 2 * 12) * n * C
+    nbytes = 4 * (n * C + B * T * C + 2 * (3 * C * C + C) + 4 * 12 + 4 * C)
+    return least_time(nbytes, ops, F32_FLOP_S)
+
+
 def check_k6(dev, gen) -> dict:
     C, worst, at = VOCODER_CH, 0.0, {}
     actA, actB = voc_act(dev, gen), voc_act(dev, gen)
@@ -444,18 +474,15 @@ def check_k6(dev, gen) -> dict:
             got = k6.resblock_layer(*args)
             torch.cuda.synchronize()
             err = (got - k6.resblock_layer_plain(*args)).abs().max().item()
-            log(f"[k6] B={B} T={T} C={C} d={d} lengths={lens}: max_abs_err={err:.3e}")
+            log(f"[k6] B={B} T={T} C={C} d={d} lengths={lens} "
+                f"launch={tuple(k6.launch_shape(B, T, C, 3, d, 3))}: max_abs_err={err:.3e}")
             if not err <= K6_TOL:
                 raise AssertionError(f"K6 error {err} > {K6_TOL} at B={B} T={T} d={d}")
             worst = max(worst, err)
             if T == 491520 and d == 5:
                 ms = cuda_ms(lambda: k6.resblock_layer(*args))
                 plain = cuda_ms(lambda: k6.resblock_layer_plain(*args))
-                n = sum(lens)
-                # two k=3 C x C convs and two activations (counted as in check_k5)
-                ops = 2 * (2 * 3 * C * C) * n + 2 * (2 * (12 + 12) + 2 * 12) * n * C
-                nbytes = 4 * (n * C + B * T * C + 2 * (3 * C * C + C) + 4 * 12 + 4 * C)
-                at = {"ms": ms, "plain_ms": plain, **least_time(nbytes, ops, F32_FLOP_S),
+                at = {"ms": ms, "plain_ms": plain, **k6_bound(B, T, sum(lens)),
                       "library_ms": None, "at": f"B=1 T={T} (length {lens[0]}) C={C} d=5"}
                 log(f"[k6] T={T} d=5: kernel={ms:.4f}ms plain={plain:.4f}ms "
                     f"bound={at['bound_ms']:.4f}ms ({at['bound_by']})")
@@ -466,7 +493,43 @@ def check_k6(dev, gen) -> dict:
                 raise AssertionError(f"K6 B={B} T={T}: a bucket 480 rows longer changed the result")
             log(f"[k6] B={B} T={T} vs T={T + 480}: valid rows bit-equal, padding zero")
         del x
-    return {"max_abs_err": worst, **at}
+    # the kernel's other plans at a ragged pair: a k=11 conv (BigVGAN's
+    # widest resblock kernel; the small tile) and 16/20-tap filters (the
+    # generic activation template)
+    x, L = voc_inputs(dev, gen, 2, 2560, [2560, 1777])
+    wide = [(torch.randn(C, C, 11, generator=gen) * 0.02).to(dev) for _ in range(2)]
+    f16 = voc_act(dev, gen)
+    f16["up_filter"] = torch.hann_window(18, periodic=False, device=dev)[1:-1] / 8.0
+    f16["down_filter"] = torch.hann_window(22, periodic=False, device=dev)[1:-1] / 10.0
+    for name, args in (("k=11 d=5", (x, L, actA, wide[0], b1, 5, actB, wide[1], b2)),
+                       ("taps 16/20 d=3", (x, L, f16, w1, b1, 3, f16, w2, b2))):
+        got = k6.resblock_layer(*args)
+        torch.cuda.synchronize()
+        err = (got - k6.resblock_layer_plain(*args)).abs().max().item()
+        k, taps = args[3].shape[-1], (args[2]["up_filter"].shape[0], args[2]["down_filter"].shape[0])
+        log(f"[k6] B=2 T=2560 {name} launch={tuple(k6.launch_shape(2, 2560, C, k, args[5], k, taps, taps))}: "
+            f"max_abs_err={err:.3e}")
+        if not err <= K6_TOL:
+            raise AssertionError(f"K6 error {err} > {K6_TOL} at {name}")
+        worst = max(worst, err)
+    del x
+    # the five vocoder stages of a 400-code request (9 layers each), at d=5
+    by_stage, req_ms, req_bound = {}, 0.0, 0.0
+    for T, n in K6_STAGES:
+        x, L = voc_inputs(dev, gen, 1, T, [n])
+        args = (x, L, actA, w1, b1, 5, actB, w2, b2)
+        ms = cuda_ms(lambda: k6.resblock_layer(*args), iters=10)
+        lb = k6_bound(1, T, n)
+        by_stage[f"T={T} length {n}"] = [round(ms, 5), round(lb["bound_ms"], 5)]
+        req_ms, req_bound = req_ms + 9 * ms, req_bound + 9 * lb["bound_ms"]
+        log(f"[k6] stage T={T} length {n} d=5 launch={tuple(k6.launch_shape(1, T, C, 3, 5, 3))}: "
+            f"kernel={ms:.4f}ms bound={lb['bound_ms']:.4f}ms ({lb['bound_by']})")
+        del x
+    log(f"[k6] a 400-code request's 45 layers at d=5: {req_ms:.2f}ms against a {req_bound:.2f}ms "
+        f"bound (loss {req_ms - req_bound:.2f}ms)")
+    # per stage: [kernel, bound] ms
+    return {"max_abs_err": worst, **at, "by_stage_ms": by_stage,
+            "request_ms": req_ms, "request_bound_ms": req_bound}
 
 
 def parse_wav(path: Path) -> tuple[int, np.ndarray]:

@@ -1,6 +1,7 @@
 // cp.async (Ampere and later): 16-byte copies from device to shared memory
 // that run behind the issuing thread, grouped and waited for by group.
-// Used by K2 (decode_attention.cu) and K4 (conv1d.cu).
+// Used by K2 (decode_attention.cu), K3 (q8_matmul.cu), K4 (conv1d.cu) and K6
+// (resblock.cu, through conv_gemm.cuh).
 
 #pragma once
 
@@ -14,6 +15,12 @@ namespace miotts_async {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+// the same for 4 bytes (for sources only 4-byte aligned); src_bytes 0 or 4
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }

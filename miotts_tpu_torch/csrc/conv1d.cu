@@ -16,7 +16,8 @@
 // bound by latency: the whole conv is 31 MFLOP.
 //
 // Design: an implicit GEMM, M = rows, N = Cout, K = k * Cin, the K loop
-// walking (tap j, 32-channel chunk). A block owns a TM-row x TN-column
+// walking (tap j, 32-channel chunk); the main loop lives in conv_gemm.cuh,
+// shared with K6 (resblock.cu). A block owns a TM-row x TN-column
 // output tile. It stages the tile's input window [t0 - half, t0 + TM +
 // half) x Cin once, with the zero padding applied by cp.async's zero fill,
 // at a row stride of Cin + 4 floats so that the rows a warp reads together
@@ -40,28 +41,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "async_copy.cuh"
+#include "conv_gemm.cuh"
 
 namespace {
 
-using namespace miotts_async;
-
-constexpr int kChunk = 32;  // input channels a weight chunk
-constexpr int kXPad = 4;    // floats of row padding in the input window
-
-__host__ __device__ inline int chunks_of(int Cin) { return (Cin + kChunk - 1) / kChunk; }
-
-template <int TM, int TN, int RM, int RN>
-struct Tile {
-  static constexpr int kThreads = (TM / RM) * (TN / RN);
-  static constexpr int kNQ = RN / 4;          // float4 column groups a thread
-  static constexpr int kColStep = TN / kNQ;   // between a thread's groups
-  static constexpr int kRowStep = TM / RM;    // between a thread's rows
-  static size_t smem(int Cin, int half) {
-    return sizeof(float) * ((size_t)(TM + 2 * half) * (chunks_of(Cin) * kChunk + kXPad) +
-                            2 * (size_t)kChunk * TN);
-  }
-};
+using namespace miotts_conv;
 
 template <int TM, int TN, int RM, int RN>
 __global__ void __launch_bounds__(Tile<TM, TN, RM, RN>::kThreads)
@@ -103,67 +87,9 @@ conv1d_same_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
       cp_async16(xs + r * XS + c, ok ? xb + (int64_t)t * Cin + c : x, ok ? 16 : 0);
     }
   }
-  auto stage_w = [&](int kc, int buf) {
-    const int j = kc / nch, ci0 = (kc - j * nch) * kChunk;
-    float* dst = ws + buf * kChunk * TN;
-    for (int i = tid; i < kChunk * TN / 4; i += NT) {
-      const int r = i / (TN / 4), c = (i - r * (TN / 4)) * 4;
-      const int ci = ci0 + r, col = c0 + c;
-      const bool ok = ci < Cin && col < Cout;
-      cp_async16(dst + r * TN + c, ok ? w + ((int64_t)j * Cin + ci) * Cout + col : w,
-                 ok ? 16 : 0);
-    }
-  };
-  stage_w(0, 0);
-  cp_async_commit();
-
   const int tx = tid % (TN / RN), ty = tid / (TN / RN);
   float acc[RM][RN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
-
-  const int nk = k * nch;
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      stage_w(kc + 1, (kc + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int j = kc / nch, ci0 = (kc - j * nch) * kChunk;
-    const float* xb = xs + (ty + j * d) * XS + ci0;
-    const float* wb = ws + (kc & 1) * kChunk * TN + tx * 4;
-#pragma unroll 2
-    for (int c4 = 0; c4 < kChunk; c4 += 4) {
-      float4 xv[RM];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-        xv[r] = *reinterpret_cast<const float4*>(xb + r * Tl::kRowStep * XS + c4);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float4 wv[Tl::kNQ];
-#pragma unroll
-        for (int q = 0; q < Tl::kNQ; ++q)
-          wv[q] = *reinterpret_cast<const float4*>(wb + (c4 + cc) * TN + q * Tl::kColStep);
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const float xr = cc == 0 ? xv[r].x : cc == 1 ? xv[r].y : cc == 2 ? xv[r].z : xv[r].w;
-#pragma unroll
-          for (int q = 0; q < Tl::kNQ; ++q) {
-            acc[r][4 * q + 0] = fmaf(xr, wv[q].x, acc[r][4 * q + 0]);
-            acc[r][4 * q + 1] = fmaf(xr, wv[q].y, acc[r][4 * q + 1]);
-            acc[r][4 * q + 2] = fmaf(xr, wv[q].z, acc[r][4 * q + 2]);
-            acc[r][4 * q + 3] = fmaf(xr, wv[q].w, acc[r][4 * q + 3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // before the next chunk overwrites this buffer
-  }
+  conv_gemm<TM, TN, RM, RN>(xs, XS, ws, w, Cin, Cout, c0, k, d, acc);
 
   // bias, then the residual, then the length mask
 #pragma unroll

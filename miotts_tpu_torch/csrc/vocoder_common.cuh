@@ -1,16 +1,18 @@
 // Device routines shared by the mel vocoder's kernels K5 (activation1d.cu)
-// and K6 (resblock.cu); K4 (conv1d.cu) has its own main loop. f32 on the
-// CUDA cores.
+// and K6 (resblock.cu). The convs of K4 (conv1d.cu) and K6 run the
+// implicit-GEMM main loop of conv_gemm.cuh instead; K6 keeps its own
+// activation (one pass over each 2x-rate sample, the TPU kernel's fast
+// sin/cos) and takes only act_geom and kThreads from here. f32 on the CUDA
+// cores.
 //
-// Layout is the port's [B, T, C] (channels fastest). A block stages a time
-// tile of rows in shared memory, channels along the row, and the routines
-// below turn one staged buffer into the next:
+// Layout is the port's [B, T, C] (channels fastest). What is left here:
 //
+//   act_geom:  the static halo geometry of one Activation1d (K5, K6);
 //   act_rows:  BigVGAN's anti-aliased snake (Activation1d) for a range of
 //              output rows: 2x upsample (transposed FIR with replicate pad
-//              at the true length), ADAA snake-beta, stride-2 FIR down.
-//   conv_rows: a stride-1 'same' dilated conv for a range of output rows,
-//              k shifted [rows, Cin] x [Cin, Cout] products summed in f32.
+//              at the true length), ADAA snake-beta, stride-2 FIR down
+//              (K5);
+//   zero_rows: zero a tile's rows (K5).
 //
 // Edge rules, by GLOBAL row position, on every tile: act inputs are read at
 // clamp(g, 0, length-1) (replicate pad); the upsampled stream's sample
@@ -26,9 +28,7 @@
 
 namespace miotts_vocoder {
 
-constexpr int kThreads = 256;       // 8 warps a block, for every kernel here
-constexpr int kRowsPerThread = 8;   // conv register tile: 8 rows x 4 columns
-constexpr int kPassRows = 8 * kRowsPerThread;
+constexpr int kThreads = 256;  // 8 warps a block, for K5 and K6
 
 __host__ __device__ inline int floor_div2(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }  // 16-byte shared offsets
@@ -131,78 +131,6 @@ __device__ inline void act_rows(const float* src, int src_lo, int src_stride, fl
     __syncthreads();
   }
 }
-
-// Stride-1 'same' conv rows: for local output rows r in [0, n_out) (global
-// o_lo + r) and every output column,
-//   y[r][co] = sum_j sum_ci W[j][ci][co] * src[o_lo + r + j*d - half - src_lo][ci]
-// with half = (k-1)/2 * d, src row stride Cin, W [k, Cin, Cout] in device
-// memory (read through L1/L2: 458 KB at k=7, C=128, too large to stage)
-// and Cout % 4 == 0. Each thread keeps kRowsPerThread x 4 f32 sums, a warp
-// covers 128 columns; epi(r, col, acc4) takes each finished quad. No block
-// barrier inside, so warps may leave early.
-template <class Epi>
-__device__ void conv_rows(const float* src, int src_lo, int Cin, const float* __restrict__ W, int k,
-                          int d, int Cout, int o_lo, int n_out, const Epi& epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int half = (k - 1) / 2 * d;
-  for (int cb = 0; cb < Cout; cb += 128) {
-    const int col = cb + lane * 4;
-    const bool col_ok = col < Cout;
-    for (int pb = 0; pb < n_out; pb += kPassRows) {
-      const int r0 = pb + warp * kRowsPerThread;
-      if (r0 >= n_out) continue;
-      int off[kRowsPerThread];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r)
-        off[r] = (min(r0 + r, n_out - 1) + o_lo - half - src_lo) * Cin;
-      float acc[kRowsPerThread][4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const float* wj = W + (size_t)j * Cin * Cout + (col_ok ? col : 0);
-        const int sj = j * d * Cin;
-#pragma unroll 4
-        for (int ci = 0; ci < Cin; ++ci) {
-          const float4 w = __ldg(reinterpret_cast<const float4*>(wj + (size_t)ci * Cout));
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) {
-            const float xv = src[off[r] + sj + ci];
-            acc[r][0] = fmaf(xv, w.x, acc[r][0]);
-            acc[r][1] = fmaf(xv, w.y, acc[r][1]);
-            acc[r][2] = fmaf(xv, w.z, acc[r][2]);
-            acc[r][3] = fmaf(xv, w.w, acc[r][3]);
-          }
-        }
-      }
-      if (col_ok) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          if (r0 + r < n_out) epi(r0 + r, col, acc[r]);
-      }
-    }
-  }
-}
-
-// The epilogue that writes a conv's rows to device memory: bias, then the
-// residual, then the length mask (rows t >= length are 0).
-struct StoreRows {
-  float* out;
-  const float* bias;      // [Cout] or null
-  const float* residual;  // [B, T, Cout] or null
-  int64_t row0;           // b * T + first global row of the tile
-  int t0, len, Cout;
-  __device__ void operator()(int r, int col, const float* acc) const {
-    const int64_t idx = (row0 + r) * Cout + col;
-    const bool valid = t0 + r < len;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float v = acc[q];
-      if (bias) v += bias[col + q];
-      if (residual) v += residual[idx + q];
-      out[idx + q] = valid ? v : 0.f;
-    }
-  }
-};
 
 // Zero rows [t0, t0 + n) x [c0, c0 + nc) of a [B, T, C] tensor (a tile
 // wholly at or past its example's length).

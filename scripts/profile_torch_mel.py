@@ -15,7 +15,8 @@ decodes them on the card:
   one warm-up run;
 - one more decode under ``torch.profiler``: device time by kernel name, the
   device's busy time (the union of its kernel intervals) and its idle share
-  of the wall time, for the trunk and the vocoder apart.
+  of the wall time, for the trunk and the vocoder apart, and the launches
+  and device time of kernels K4, K5 and K6.
 
 Prints the card's name and power limit, then one JSON object as the last
 line. Needs a CUDA card; exits 2 without one.
@@ -120,6 +121,11 @@ def main() -> int:
         parts["vocoder" if e.time_range.start >= voc_start else "trunk"].append(
             (e.time_range.start, e.time_range.end))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+    # device time of each vocoder kernel, by the name of its CUDA function
+    marks = {"conv1d_same": "conv1d_same_kernel", "activation1d": "activation1d_kernel",
+             "resblock_layer": "resblock_kernel"}
+    device_ms = {k: sum(t for name, ts in by_name.items() if m in name for t in ts) / 1e3
+                 for k, m in marks.items()}
     walls = {"trunk": trunk_wall, "vocoder": voc_wall}
     result = {
         "device": torch.cuda.get_device_name(0), "power_limit": smi.stdout.strip().split(", ")[-1],
@@ -129,13 +135,15 @@ def main() -> int:
         "profiled": {part: {"wall_ms": walls[part], "device_busy_ms": busy_ms(iv),
                             "idle_share": 1.0 - busy_ms(iv) / walls[part]}
                      for part, iv in parts.items()},
-        "launches": launches,
+        "launches": launches, "kernel_device_ms": device_ms,
         "by_kernel_ms": [{"name": name[:90], "calls": len(t), "ms": sum(t) / 1e3}
                          for name, t in top],
     }
     for part, r in result["profiled"].items():
         print(f"{part}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle {r['idle_share']:.1%}", flush=True)
+    print("  kernels: " + ", ".join(f"{k} {launches[k]}x {device_ms[k]:.3f} ms"
+                                    for k in launches), flush=True)
     for k in result["by_kernel_ms"]:
         print(f"  {k['ms']:9.3f} ms {k['calls']:5d}x {k['name']}", flush=True)
     print(json.dumps(result))

@@ -21,6 +21,9 @@ Tolerances and why:
   JAX's CPU fallback multiplies in f32.
 """
 
+import math
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -304,11 +307,33 @@ def test_k3_wrapper_refuses_other_devices():
     (8, 2048, 768), (64, 768, 4096), (512, 2048, 768), (3, 32, 4), (5, 8192, 8)])
 def test_k3_launch_shape(T, K, N):
     """The wrapper's launch plan: a row tile in {1, 2, 4, 8} that covers T
-    up to 8, K splits that are all non-empty, and an x tile that fits the
-    shared-memory budget the kernel is launched with."""
-    tt, z = k3.launch_shape(T, K, N)
-    nkb = K // k3.QBLOCK
-    assert tt in (1, 2, 4, 8) and (tt >= T or tt == 8)
-    per = -(-nkb // z)
-    assert 1 <= z <= nkb and (z - 1) * per < nkb
-    assert tt * per * k3.QBLOCK * 4 <= k3._SMEM_TILE
+    up to 8; at decode a layer leaf takes the GEMV path (16 columns a block,
+    all of K); else K splits that are all non-empty and form one cluster
+    the card can launch (portable size, or the kernel sets the non-portable
+    attribute). The grid covers every column once; shared memory stays
+    within the 227 KB a block may have, for bf16 and f32 x. At T = 1 every
+    leaf of the 0.1B LLM keeps at least two warps on every SM of the H100
+    and the head at least one block on each (the GEMV's 48-256 blocks of 8
+    warps were faster than >= 132 smaller ones at every leaf, PERF.md)."""
+    src = (Path(__file__).resolve().parents[1] / k3.SOURCE).read_text()
+    for x_bytes in (2, 4):
+        p = k3.launch_shape(T, K, N, x_bytes)
+        nkb = K // k3.QBLOCK
+        assert p.tt in (1, 2, 4, 8) and (p.tt >= T or p.tt == 8)
+        assert 1 <= p.z <= nkb and (p.z - 1) * p.per < nkb <= p.z * p.per
+        assert p.grid == (-(-N // p.tn), -(-T // p.tt), p.z)
+        if p.kind == "gemv":
+            assert T <= 8 and N % 16 == 0 and p.tn == k3.GEMV_TN and p.z == 1
+            assert p.smem == k3.GEMV_SMEM
+        else:
+            assert p.kind == "ring" and p.tn == k3.RING_TN
+            assert p.z <= k3.PORTABLE_CLUSTER or (
+                p.z <= k3.MAX_CLUSTER and "cudaFuncAttributeNonPortableClusterSizeAllowed" in src)
+            assert p.smem == k3.smem_bytes(p.tt, p.per, x_bytes)
+        assert p.smem <= k3.MAX_SMEM == 227 * 1024
+        if T == 1 and (K, N) in {(768, 1024), (768, 768), (768, 4096), (2048, 768)}:
+            assert p.kind == "gemv" and math.prod(p.grid) * 8 >= 2 * k3.SMS
+        if (T, K, N) == (1, 768, 151808):
+            assert p.kind == "ring" and math.prod(p.grid) >= k3.SMS
+    # a q that is not 16-byte aligned takes the ring path, which copies 4 bytes at a time
+    assert k3.launch_shape(1, 768, 1024, 2, aligned=False).kind == "ring"

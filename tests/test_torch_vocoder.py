@@ -101,6 +101,50 @@ def test_conv1d_launch_shape(B, T, Cout):
     assert blocks >= 132 or tile == len(k4.TILES) - 1
 
 
+def _act_reach(k1, k2):
+    """(rows below, rows above) an Activation1d output row reads, by brute
+    force over the composite's index arithmetic (models/vocoder.py): output t
+    reads 2x samples 2t - pl2 + j (j < k2) and the one before each; 2x
+    sample u reads input rows (u + pl - m) / 2 - pad for the taps m < k1
+    of u + pl's parity."""
+    pad, pl2 = k1 // 2 - 1, k2 // 2 - (1 if k2 % 2 == 0 else 0)
+    pl = 2 * pad + (k1 - 2) // 2
+    t = 100
+    rows = [(u + pl - m) // 2 - pad
+            for j in range(k2) for u in (2 * t - pl2 + j, 2 * t - pl2 + j - 1)
+            for m in range(k1) if (u + pl - m) % 2 == 0]
+    return t - min(rows), max(rows) - t
+
+
+# the JAX package's production bound for the fused layer (resblock.py:13-17):
+# filters up to 24 taps, dilation up to 5, k = 3
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("taps_a,taps_b", [((12, 12), (12, 12)), ((24, 24), (24, 24)),
+                                           ((12, 24), (24, 12)), ((16, 20), (13, 17))])
+def test_resblock_launch_shape(d, taps_a, taps_b):
+    """Kernel K6's tile plan at C = 128: the staged input window covers the
+    halo that telescopes through conv2, actB, conv1 and actA; conv1's rows
+    cover what actB reads; the buffers fit the 227 KB of shared memory a
+    block may have; and the halo work redone by each tile (actA's rows and
+    conv1's rows per output row) stays below the 1.45 of 51-row tiles."""
+    C, k, T = 128, 3, 491520
+    p = k6.launch_shape(1, T, C, k, d, k, taps_a, taps_b)
+    (loA, hiA), (loB, hiB) = _act_reach(*taps_a), _act_reach(*taps_b)
+    assert (k6.act_geom(*taps_a).hlo, k6.act_geom(*taps_a).hhi) == (loA, hiA)
+    half1, half2 = (k - 1) // 2 * d, (k - 1) // 2
+    # rows relative to the tile's first output row, outermost last
+    conv2_in = (-half2, p.n_out - 1 + half2)
+    conv1_out = (conv2_in[0] - loB, conv2_in[1] + hiB)
+    conv1_in = (conv1_out[0] - half1, conv1_out[1] + half1)
+    x_in = (conv1_in[0] - loA, conv1_in[1] + hiA)
+    assert -p.halo_lo <= x_in[0] and x_in[1] < -p.halo_lo + p.window
+    assert conv1_out[1] - conv1_out[0] + 1 <= p.tm1 and p.n_out <= p.tm2
+    assert p.act_a_rows >= p.tm1 + 2 * half1 and p.window <= p.rows_in
+    assert p.smem <= k6.MAX_SMEM == 227 * 1024
+    assert p.act_a_rows / p.n_out < 1.45 and p.tm1 / p.n_out < 1.45
+    assert p.grid == (-(-T // p.n_out), 1)
+
+
 @pytest.mark.parametrize("k1,k2,T,C,B,bt", [
     (12, 12, 300, 16, 3, 64),   # even/even, ragged lengths, multi-tile
     (13, 15, 97, 8, 2, 64),     # odd filters, non-dividing T
