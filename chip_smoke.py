@@ -9,8 +9,11 @@ Phases, in order; any failure exits nonzero and prints no result:
 1. device: the card's name and power limit; the port's device is set to
    CUDA (TF32 off).
 2. build: the CUDA kernels are compiled from ``miotts_tpu_torch/csrc``.
-3. K1 (banded attention) against its plain PyTorch version on the card at
-   the codec's shapes, max abs error <= 1e-5 (f32, TF32 off).
+3. K1 (banded attention, [B, T, H, D]) against its plain PyTorch version on
+   the card, max abs error <= 1e-5 (f32, TF32 off): at the four attention
+   shapes of a 400- and a 40-code request (each timed beside its bound and
+   SDPA with the band mask), ragged B=4 batches, the run-time width
+   instance (D = 30, 96) and a narrow window; a non-contiguous q is refused.
 4. K2 (decode attention) against its plain version, bf16 KV cache, max abs
    error <= 2e-2 (one bf16 ulp at |x| in [2, 4) is 1.6e-2), at B = 1 and
    at B = 8 with ragged positions, among them 0, the edges of the split
@@ -30,9 +33,11 @@ Phases, in order; any failure exits nonzero and prints no result:
    with a residual): two f32 sums of K = k*C terms plus bias and residual,
    so each output within 2 (K + 2) 2^-24 (sum |x w| + |b| + |res|). Timed
    at the last stage's noise conv and at 640 rows, beside F.conv1d.
-7. K5 (anti-aliased snake) against its plain version at the same shapes:
-   |err| <= 2e-6 + 1e-5 |ref| (the JAX package's own bound for this
-   kernel, tests/test_vocoder.py:186; no long sums).
+7. K5 (anti-aliased snake) against its plain version at the same shapes
+   and at a 40-code request's 640 and 61 440 rows, each timed beside its
+   bound, and at 16/20 and 13/15 taps (its generic template): |err| <= 2e-6
+   + 1e-5 |ref| (the JAX package's own bound for this kernel,
+   tests/test_vocoder.py:186; no long sums).
 8. K6 (fused resblock layer) against its plain version at the same shapes
    and d in {1, 3, 5}: max abs error <= 4e-5 (the JAX package's 2e-5 at
    C = 64, tests/test_resblock_fused.py:58, doubled for C = 128's twice
@@ -107,6 +112,13 @@ from miotts_tpu_torch.testing import (
 
 MODS = (k1, k2, k3, k4, k5, k6)
 K1_TOL = 1e-5
+K1_WINDOW = 65  # the codec transformers' window
+# K1 at the codec's attention shapes (D = 64): (name, B, H, T, lengths); a
+# 400-code request's prenet and decoder (buckets 512 and 1 024 frames), a
+# 40-code one's (64 and 128), and B=1 H=8 T=1024 at length 954
+K1_SHAPES = (("400-code prenet", 1, 12, 512, [400]), ("400-code decoder", 1, 8, 1024, [800]),
+             ("40-code prenet", 1, 12, 64, [40]), ("40-code decoder", 1, 8, 128, [80]),
+             ("long", 1, 8, 1024, [954]))
 K2_TOL = 2e-2
 K5_ATOL, K5_RTOL = 2e-6, 1e-5
 K6_TOL = 4e-5
@@ -175,44 +187,73 @@ def least_time(nbytes: float, ops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def band_mask(T: int, lengths: torch.Tensor) -> torch.Tensor:
+    """[B, 1, T, T] SDPA mask of K1's rule: |k - q| <= 32 and k < length, or k == q."""
+    i = torch.arange(T, device=lengths.device)
+    band = (i[None, :] - i[:, None]).abs() <= K1_WINDOW // 2
+    return ((band[None] & (i[None, None, :] < lengths[:, None, None]))
+            | torch.eye(T, dtype=torch.bool, device=lengths.device)[None])[:, None]
+
+
+def k1_case(dev, gen, B: int, T: int, H: int, D: int, lens: list[int], window: int = K1_WINDOW):
+    """K1 against its plain version on random [B, T, H, D] inputs; fails
+    past K1_TOL. Returns (max abs error, q, k, v, lengths)."""
+    q, k, v = (torch.randn(B, T, H, D, generator=gen).to(dev) for _ in range(3))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = k1.banded_attention(q, k, v, lengths, window)
+    torch.cuda.synchronize()
+    ref = k1.banded_attention_plain(q, k, v, lengths, window)
+    err = (got - ref).abs().max().item()
+    if got.shape != q.shape or not got.is_contiguous() or not err <= K1_TOL:
+        raise AssertionError(f"K1 B={B} T={T} H={H} D={D} window={window}: error {err} "
+                             f"(> {K1_TOL}?), shape {tuple(got.shape)}")
+    log(f"[k1] B={B} T={T} H={H} D={D} window={window} lengths={lens} "
+        f"launch={tuple(k1.launch_shape(B, T, H, D, window))}: max_abs_err={err:.3e}")
+    return err, q, k, v, lengths
+
+
 def check_k1(dev, gen) -> dict:
-    worst, rows = 0.0, []
-    for B in (1, 4):
-        for H, T in ((12, 256), (12, 512), (8, 512), (8, 1024)):
-            q, k, v = (torch.randn(B * H, T, 64, generator=gen).to(dev) for _ in range(3))
-            lens = [T - 70] if B == 1 else [T, T - 17, T - 70, T // 3]
-            lengths = torch.tensor(lens, dtype=torch.int32).repeat_interleave(H).to(dev)
-            got = k1.banded_attention_folded(q, k, v, lengths, 65)
-            torch.cuda.synchronize()
-            ref = k1.banded_attention_folded_plain(q, k, v, lengths, 65)
-            err = (got - ref).abs().max().item()
-            ms = cuda_ms(lambda: k1.banded_attention_folded(q, k, v, lengths, 65))
-            plain = cuda_ms(lambda: k1.banded_attention_folded_plain(q, k, v, lengths, 65))
-            log(f"[k1] B={B} H={H} T={T} D=64 lengths={lens}: max_abs_err={err:.3e} "
-                f"kernel={ms:.4f}ms plain={plain:.4f}ms")
-            if not err <= K1_TOL:
-                raise AssertionError(f"K1 error {err} > {K1_TOL} at B={B} H={H} T={T}")
-            worst = max(worst, err)
-            rows.append((B, H, T, ms, plain))
-    _, _, _, ms, plain = next(r for r in rows if r[:3] == (1, 8, 1024))
-    # the yardstick at B=1 H=8 T=1024: one SDPA call with the kernel's mask
-    # (|k - q| <= 32 and k < length, or k == q); bound from the keys admitted
-    H, T, D = 8, 1024, 64
-    q, k, v = (torch.randn(H, T, D, generator=gen).to(dev) for _ in range(3))
-    lengths = torch.full((H,), T - 70, dtype=torch.int32, device=dev)
-    i = torch.arange(T, device=dev)
-    mask = (((i[None, :] - i[:, None]).abs() <= 32)[None]
-            & (i[None, None, :] < lengths[:, None, None])
-            | torch.eye(T, dtype=torch.bool, device=dev)[None])
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-    diff = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-            - k1.banded_attention_folded(q, k, v, lengths, 65)).abs().max().item()
-    nbytes = 4 * 4 * H * T * D + 4 * H  # q, k, v in, out; lengths
-    ops = 4 * D * int(mask.sum())  # score and value FMAs of each admitted pair
-    log(f"[k1] library SDPA (band mask) B=1 H=8 T=1024: {lib:.4f}ms, max diff to K1 {diff:.3e}")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            **least_time(nbytes, ops, F32_FLOP_S),
-            "library_ms": lib, "at": "B=1 H=8 T=1024 D=64, length 954"}
+    worst, by_shape, at = 0.0, {}, {}
+    # the codec's request shapes (B=1), each timed beside its bound and one
+    # SDPA call with the band mask (on [B, H, T, D] copies)
+    for name, B, H, T, lens in K1_SHAPES:
+        err, q, k, v, lengths = k1_case(dev, gen, B, T, H, 64, lens)
+        worst = max(worst, err)
+        mask = band_mask(T, lengths)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = cuda_ms(lambda: k1.banded_attention(q, k, v, lengths, K1_WINDOW))
+        plain = cuda_ms(lambda: k1.banded_attention_plain(q, k, v, lengths, K1_WINDOW))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+        diff = (F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask).transpose(1, 2)
+                - k1.banded_attention(q, k, v, lengths, K1_WINDOW)).abs().max().item()
+        nbytes = 4 * 4 * B * T * H * 64 + 4 * B  # q, k, v in, out; lengths
+        # two FMAs (score and value) a pair and a column
+        lb = least_time(nbytes, 4 * 64 * H * int(mask.sum()), F32_FLOP_S)
+        by_shape[name] = [round(ms, 5), round(plain, 5), round(lib, 5), round(lb["bound_ms"], 5)]
+        log(f"[k1] {name} B={B} H={H} T={T} lengths={lens} "
+            f"launch={tuple(k1.launch_shape(B, T, H, 64, K1_WINDOW))}: kernel={ms:.4f}ms "
+            f"plain={plain:.4f}ms SDPA(band mask)={lib:.4f}ms (max diff {diff:.3e}) "
+            f"bound={lb['bound_ms']:.5f}ms ({lb['bound_by']})")
+        if (B, H, T, lens) == (1, 8, 1024, [954]):
+            at = {"ms": ms, "plain_ms": plain, **lb, "library_ms": lib,
+                  "at": "B=1 H=8 T=1024 D=64, length 954; library = SDPA with the band mask"}
+    # ragged batches, the trunk's other stack widths, the run-time width
+    # instance (D not 64, D not a multiple of 4) and a narrow window
+    for B, T, H, D, window in ((4, 512, 12, 64, 65), (4, 1024, 8, 64, 65), (4, 256, 12, 64, 65),
+                               (4, 70, 2, 30, 65), (2, 300, 3, 96, 65), (3, 97, 2, 64, 9)):
+        lens = [T, T - 17, T - 70, T // 3][:B]
+        worst = max(worst, k1_case(dev, gen, B, T, H, D, lens, window)[0])
+    # a q that is a slice of a wider tensor is refused, not copied
+    qkv = torch.randn(1, 64, 3, 12, 64, device=dev)
+    lengths = torch.tensor([40], dtype=torch.int32, device=dev)
+    try:
+        k1.banded_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], lengths, K1_WINDOW)
+    except ValueError as e:
+        log(f"[k1] a non-contiguous q (a slice of [1, 64, 3, 12, 64]) is refused: {e}")
+    else:
+        raise AssertionError("K1 took a non-contiguous q")
+    # per request shape: [kernel, plain, SDPA with the band mask, bound] ms
+    return {"max_abs_err": worst, **at, "by_shape_ms": by_shape}
 
 
 def check_k2(dev, gen) -> dict:
@@ -422,8 +463,10 @@ def check_k4(dev, gen) -> dict:
 
 
 def check_k5(dev, gen) -> dict:
-    C, worst, at = VOCODER_CH, 0.0, {}
-    for B, T, lens in VOC_SHAPES:
+    C, worst, at, by_shape = VOCODER_CH, 0.0, {}, {}
+    # the vocoder's shapes and the 40-code request's: stage 1 of the short
+    # route (640 rows, 400 valid) and the post-activation (61 440 rows)
+    for B, T, lens in (*VOC_SHAPES, (1, 640, [400]), (1, 61440, [38400])):
         x, L = voc_inputs(dev, gen, B, T, lens)
         a = voc_act(dev, gen)
         args = (x, L, a["up_filter"], a["alpha"], a["beta"], a["down_filter"])
@@ -435,21 +478,42 @@ def check_k5(dev, gen) -> dict:
             raise AssertionError(f"K5 B={B} T={T}: error {err.max().item()} exceeds "
                                  f"{K5_ATOL} + {K5_RTOL} |ref|")
         worst = max(worst, err.max().item())
-        log(f"[k5] B={B} T={T} C={C} taps 12/12 lengths={lens}: max_abs_err={err.max().item():.3e}")
+        ms = cuda_ms(lambda: k5.activation1d(*args))
+        plain = cuda_ms(lambda: k5.activation1d_plain(*args))
+        n, k1_, k2_ = sum(lens), a["up_filter"].shape[0], a["down_filter"].shape[0]
+        # two 2x samples an output, each a k1/2-tap FMA FIR and a 12-op
+        # snake (sin, cos, division one op each), then a k2-tap FMA FIR
+        ops = (2 * (k1_ + 12) + 2 * k2_) * n * C
+        nbytes = 4 * (n * C + B * T * C + k1_ + k2_ + 2 * C)
+        lb = least_time(nbytes, ops, F32_FLOP_S)
+        by_shape[f"B={B} T={T} lengths={lens}"] = [round(ms, 5), round(plain, 5),
+                                                    round(lb["bound_ms"], 5)]
+        log(f"[k5] B={B} T={T} C={C} taps 12/12 lengths={lens} "
+            f"launch={tuple(k5.launch_shape(B, T, C))}: max_abs_err={err.max().item():.3e} "
+            f"kernel={ms:.4f}ms plain={plain:.4f}ms bound={lb['bound_ms']:.5f}ms "
+            f"({lb['bound_by']})")
         if T == 491520:
-            ms = cuda_ms(lambda: k5.activation1d(*args))
-            plain = cuda_ms(lambda: k5.activation1d_plain(*args))
-            n, k1_, k2_ = sum(lens), a["up_filter"].shape[0], a["down_filter"].shape[0]
-            # two 2x samples an output, each a k1/2-tap FMA FIR and a 12-op
-            # snake (sin, cos, division one op each), then a k2-tap FMA FIR
-            ops = (2 * (k1_ + 12) + 2 * k2_) * n * C
-            nbytes = 4 * (n * C + B * T * C + k1_ + k2_ + 2 * C)
-            at = {"ms": ms, "plain_ms": plain, **least_time(nbytes, ops, F32_FLOP_S),
-                  "library_ms": None, "at": f"B=1 T={T} (length {lens[0]}) C={C}"}
-            log(f"[k5] T={T}: kernel={ms:.4f}ms plain={plain:.4f}ms "
-                f"bound={at['bound_ms']:.4f}ms ({at['bound_by']})")
+            at = {"ms": ms, "plain_ms": plain, **lb, "library_ms": None,
+                  "at": f"B=1 T={T} (length {lens[0]}) C={C}"}
         del x
-    return {"max_abs_err": worst, **at}
+    # the generic-tap template (16/20 and 13/15 taps) at a ragged pair
+    x, L = voc_inputs(dev, gen, 2, 2560, [2560, 1777])
+    for k1_, k2_ in ((16, 20), (13, 15)):
+        a = voc_act(dev, gen)
+        a["up_filter"] = torch.hann_window(k1_ + 2, periodic=False, device=dev)[1:-1] / (k1_ / 2)
+        a["down_filter"] = torch.hann_window(k2_ + 2, periodic=False, device=dev)[1:-1] / (k2_ / 2)
+        args = (x, L, a["up_filter"], a["alpha"], a["beta"], a["down_filter"])
+        got = k5.activation1d(*args)
+        torch.cuda.synchronize()
+        ref = k5.activation1d_plain(*args)
+        err = (got - ref).abs()
+        if not bool((err <= K5_ATOL + K5_RTOL * ref.abs()).all()):
+            raise AssertionError(f"K5 taps {k1_}/{k2_}: error {err.max().item()} exceeds "
+                                 f"{K5_ATOL} + {K5_RTOL} |ref|")
+        worst = max(worst, err.max().item())
+        log(f"[k5] B=2 T=2560 taps {k1_}/{k2_}: max_abs_err={err.max().item():.3e}")
+    # per shape: [kernel, plain, bound] ms
+    return {"max_abs_err": worst, **at, "by_shape_ms": by_shape}
 
 
 def k6_bound(B: int, T: int, n: int) -> dict:

@@ -186,8 +186,14 @@ def main(argv: list[str] | None = None) -> int:
     elif prompt:
         if not args.model:
             return _err("-m/--model is required with --prompt (or set --llm-api-url)")
-        from .models.llm import LLMEngine
+        from .models.llm import LLMEngine, gguf_llm_cpu_native_ok
         from .models.sampling import SamplerParams
+
+        if (device.type == "cpu" and args.cpu_native == "auto"
+                and gguf_llm_cpu_native_ok(args.model)):
+            print("note: --cpu-native auto: this GGUF holds Q8_0/Q4_0 matmul weights, on which "
+                  "the JAX CLI runs its native int8/int4 CPU engine; miotts_tpu_torch runs its "
+                  "own engine (the native CPU engine is not yet ported)", file=sys.stderr)
 
         try:
             # an empty --llm-quant defers to MIOTTS_LLM_QUANT

@@ -10,10 +10,11 @@
 // stage: the activations read their input at clamp(t, 0, length-1) and
 // write 0 outside [0, length), so the convs see zero padding; rows
 // t >= length of the result are 0. The C x C x k convs (odd k) carry their
-// biases; the activations take 1-D filters and per-channel a, inv (see
-// activation1d.cu). The snake is the TPU kernel's own: Cody-Waite + minimax
-// sin/cos (activation1d.py _fast_sincos, |err| ~1e-7, argument clamp
-// +-6433) and a reciprocal refined by one Newton step (resblock.py _snake).
+// biases; the activations take 1-D filters and per-channel a, inv. They
+// are vocoder_common.cuh's act_channel, which K5 runs too: the TPU kernel's
+// Cody-Waite + minimax sin/cos (activation1d.py _fast_sincos, |err| ~1e-7,
+// argument clamp +-6433) and a reciprocal refined by one Newton step
+// (resblock.py _snake).
 //
 // What bounds it on the H100: operations. The two convs do 2 * 2 k C^2 n
 // = 75.5 GFLOP at the top stage (n = 384 000 valid rows, C = 128, k = 3),
@@ -34,26 +35,22 @@
 //   chunks w[j][ci0:ci0+32][:] double-buffered in shared memory with
 //   cp.async, the window at a C+4 row stride, an 8x8 (conv1: 9x8) register
 //   tile a thread. Sums stay f32 on the CUDA cores.
-// - The activations run one thread per (channel, half of the rows). A
-//   thread walks its rows in order and keeps the downsample's 12 snake
-//   outputs and the upsample's input rows in registers, so each 2x-rate
-//   sample is computed once (two 6-tap FIRs from one new input row a
-//   step), with the taps unrolled for 12-tap filters (a generic template
-//   takes other tap counts) and no integer division. A thread whose rows
-//   reach a clamped edge (the first tile, the tile holding the length)
-//   computes each new 2x sample and its predecessor at clamped indices
-//   instead, with the same arithmetic in the same order, so results do not
-//   depend on which path ran.
+// - The activations run one thread per (channel, half of the rows) through
+//   vocoder_common.cuh's act_channel over the staged rows: each 2x-rate
+//   sample computed once in registers, taps unrolled for 12-tap filters (a
+//   generic template takes other tap counts), the steps that reach a
+//   clamped edge at clamped indices with the same arithmetic.
 // - Shared memory (C = 128, d = 5): the input window (165 rows, later
 //   conv1's 144 rows), actA's rows (154, later actB's 130) at 132 floats a
 //   row, and the 32 KB weight ring: 197 KB, one block an SM.
 // The residual is re-read from x (L2) in conv2's epilogue.
 //
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 4.08 ms
-// at [1, 491 520, 128] with 384 000 valid rows, d = 5 (3.3x its bound; the
-// 51-row design: 14.12 ms), 0.19-2.17 ms at the earlier vocoder stages.
-// clock64 stamps put 58% of the block's cycles in the convs (each at ~58%
-// of the f32 peak) and 42% in the two activations (PERF.md).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W: 3.27 ms
+// at [1, 491 520, 128] with 384 000 valid rows, d = 5 (2.7x its bound;
+// 4.08 ms before its activations loaded their first row's window at once,
+// the 51-row design 14.12 ms), 0.15-1.73 ms at the earlier vocoder stages.
+// clock64 stamps (before that change) put 58% of the block's cycles
+// in the convs (each at ~58% of the f32 peak) and 42% in the activations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,201 +78,6 @@ template <>
 struct Variant<1> {
   static constexpr int TM1 = 80, RM1 = 5, TM2 = 64, RM2 = 4;
 };
-
-// --- the snake, as the TPU kernel computes it ---------------------------
-
-constexpr float kPio2C1 = 1.5703125f;  // pi/2 in three parts (activation1d.py)
-constexpr float kPio2C2 = 4.837512969970703e-04f;
-constexpr float kPio2C3 = 7.549790126404332e-08f;
-constexpr float kSinCosClamp = 6433.f;
-
-// theta (clamped) = q pi/2 + r, r in [-pi/4, pi/4]
-__device__ __forceinline__ float sincos_reduce(float theta, int& q) {
-  const float t = fminf(fmaxf(theta, -kSinCosClamp), kSinCosClamp);
-  const float kf = rintf(t * 0.636619772367581343f);
-  q = (int)kf;
-  float r = t - kf * kPio2C1;
-  r = r - kf * kPio2C2;
-  return r - kf * kPio2C3;
-}
-// Cephes minimax polynomials on [-pi/4, pi/4]
-__device__ __forceinline__ float sin_poly(float r, float r2) {
-  return r + r * r2 * (-1.6666654611e-1f + r2 * (8.3321608736e-3f + r2 * -1.9515295891e-4f));
-}
-__device__ __forceinline__ float cos_poly(float r2) {
-  return 1.f - 0.5f * r2 +
-         r2 * r2 *
-             (4.166664568298827e-2f + r2 * (-1.388731625493765e-3f + r2 * 2.443315711809948e-5f));
-}
-__device__ __forceinline__ float fast_sin(float theta) {
-  int q;
-  const float r = sincos_reduce(theta, q), r2 = r * r;
-  const float s = (q & 1) ? cos_poly(r2) : sin_poly(r, r2);
-  return (q & 2) ? -s : s;
-}
-__device__ __forceinline__ float fast_cos(float theta) {
-  int q;
-  const float r = sincos_reduce(theta, q), r2 = r * r;
-  const float c = (q & 1) ? sin_poly(r, r2) : cos_poly(r2);
-  return ((q + 1) & 2) ? -c : c;
-}
-__device__ __forceinline__ float rcp_newton(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r * (2.f - v * r);
-}
-// ADAA snake-beta of sample x with predecessor p (resblock.py _snake)
-__device__ __forceinline__ float snake_k6(float x, float p, float a, float inv) {
-  const float s = x + p, ad = a * (x - p);
-  const bool tiny = fabsf(ad) < 1e-12f;
-  const float sinc = tiny ? 1.f : fast_sin(ad) * rcp_newton(ad);
-  return s * 0.5f + inv * (1.f - fast_cos(a * s) * sinc);
-}
-
-// --- the activation -------------------------------------------------------
-
-__host__ __device__ constexpr int fdiv2(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
-
-// act_geom's numbers for compile-time taps (vocoder_common.cuh)
-template <int K1, int K2>
-struct Geo {
-  static constexpr int pad = K1 / 2 - 1;
-  static constexpr int pl = 2 * pad + (K1 - 2) / 2;
-  static constexpr int pl2 = K2 / 2 - (K2 % 2 == 0 ? 1 : 0);
-  static constexpr int hlo = pad - fdiv2(pl - pl2 - K1);
-  static constexpr int hhi = fdiv2(K2 - 1 - pl2 + pl) - pad;
-  static constexpr int NX = hlo + hhi + 1;  // input rows an output reads
-  // register index of the input row that tap j of the new 2x sample s (0,
-  // 1) of a step reads, relative to the step's row t - hlo
-  __host__ __device__ static constexpr int rel(int s, int j) {
-    return (K2 - 2 - pl2 + s + pl - j) / 2 - pad + hlo;
-  }
-  __host__ __device__ static constexpr bool in_window() {
-    for (int s = 0; s < 2; ++s)
-      for (int j = 0; j < K1; ++j)
-        if (((K2 - 2 - pl2 + s + pl - j) & 1) == 0 && (rel(s, j) < 0 || rel(s, j) >= NX))
-          return false;
-    return pl >= K1 - 1;  // every tap of the same parity is in range for u >= 0
-  }
-};
-
-// One activation's operands in device memory: filters fu [g.k1], fd [g.k2],
-// per-channel a = e^alpha and inv = 1 / (2 (e^beta + 1e-9)).
-struct ActOps {
-  const float* fu;
-  const float* fd;
-  const float* a;
-  const float* inv;
-  ActGeom g;
-};
-
-// Channel c of output rows [o_lo + r0, o_lo + r1) (dst row t - o_lo, stride
-// XS) from src (global row src_lo at row 0). Rows outside [0, len) are 0.
-// K1 = K2 = 0 takes the taps at run time.
-template <int K1, int K2>
-__device__ void act_channel(const float* src, int src_lo, float* dst, int XS, int o_lo, int r0,
-                            int r1, int c, int len, const ActOps& A) {
-  const int g0 = o_lo + r0, g1 = o_lo + r1;
-  const int ta = max(g0, 0), tb = min(g1, len);
-  for (int t = g0; t < g1; ++t)
-    if (t < ta || t >= tb) dst[(t - o_lo) * XS + c] = 0.f;
-  if (ta >= tb) return;
-  const float a = __ldg(A.a + c), inv = __ldg(A.inv + c);
-  const ActGeom& g = A.g;
-  auto X = [&](int gi) { return src[(min(max(gi, 0), len - 1) - src_lo) * XS + c]; };
-
-  if constexpr (K1 == 0) {  // generic taps: every 2x sample at clamped indices
-    auto up = [&](int u) {
-      const int w0 = u + g.pl;
-      float acc = 0.f;
-      for (int j = w0 & 1; j < g.k1 && j <= w0; j += 2)
-        acc = fmaf(__ldg(A.fu + j), X(((w0 - j) >> 1) - g.pad), acc);
-      return 2.f * acc;
-    };
-    for (int t = ta; t < tb; ++t) {
-      float acc = 0.f;
-      for (int j = 0; j < g.k2; ++j) {
-        const int uc = min(max(2 * t - g.pl2 + j, 0), 2 * len - 1);
-        const float z = snake_k6(up(uc), uc > 0 ? up(uc - 1) : 0.f, a, inv);
-        acc = fmaf(__ldg(A.fd + j), z, acc);
-      }
-      dst[(t - o_lo) * XS + c] = acc;
-    }
-  } else {
-    using G = Geo<K1, K2>;
-    static_assert(G::in_window(), "taps outside the register window");
-    float fu[K1], fd[K2];
-#pragma unroll
-    for (int j = 0; j < K1; ++j) fu[j] = __ldg(A.fu + j);
-#pragma unroll
-    for (int j = 0; j < K2; ++j) fd[j] = __ldg(A.fd + j);
-    auto up = [&](int u) {  // 2x sample u >= 0 at clamped input rows
-      const int w0 = u + G::pl;
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < K1; ++j)
-        if (((w0 - j) & 1) == 0) acc = fmaf(fu[j], X(((w0 - j) >> 1) - G::pad), acc);
-      return 2.f * acc;
-    };
-    auto z = [&](int u) {  // the snake at 2x position u, clamped to [0, 2 len - 1]
-      const int uc = min(max(u, 0), 2 * len - 1);
-      return snake_k6(up(uc), uc > 0 ? up(uc - 1) : 0.f, a, inv);
-    };
-    auto down = [&](const float(&zw)[K2]) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < K2; ++j) acc = fmaf(fd[j], zw[j], acc);
-      return acc;
-    };
-    float zw[K2];  // the snake at 2x positions 2t - pl2 + j
-#pragma unroll
-    for (int j = 0; j < K2; ++j) zw[j] = z(2 * ta - G::pl2 + j);
-    float* dp = dst + (ta - o_lo) * XS + c;
-    *dp = down(zw);
-    // no clamp is reached by the new samples of rows (ta, tb)
-    const bool interior = ta + 1 - G::hlo >= 0 && tb - 1 + G::hhi <= len - 1 &&
-                          2 * ta - G::pl2 + K2 - 1 >= 0 && 2 * tb - G::pl2 + K2 - 3 <= 2 * len - 1;
-    if (interior) {
-      float xw[G::NX];  // input rows t - hlo .. t + hhi
-#pragma unroll
-      for (int i = 0; i < G::NX; ++i) xw[i] = src[(ta - G::hlo + i - src_lo) * XS + c];
-      float upl = up(2 * ta - G::pl2 + K2 - 1);  // the last 2x sample so far
-      const float* sp = src + (ta + G::hhi - src_lo) * XS + c;
-      for (int t = ta + 1; t < tb; ++t) {
-        sp += XS;
-        dp += XS;
-#pragma unroll
-        for (int i = 0; i + 1 < G::NX; ++i) xw[i] = xw[i + 1];
-        xw[G::NX - 1] = *sp;
-        float u2[2];
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          float acc = 0.f;
-#pragma unroll
-          for (int j = 0; j < K1; ++j)
-            if (((K2 - 2 - G::pl2 + s + G::pl - j) & 1) == 0)
-              acc = fmaf(fu[j], xw[G::rel(s, j)], acc);
-          u2[s] = 2.f * acc;
-        }
-#pragma unroll
-        for (int j = 0; j + 2 < K2; ++j) zw[j] = zw[j + 2];
-        zw[K2 - 2] = snake_k6(u2[0], upl, a, inv);
-        zw[K2 - 1] = snake_k6(u2[1], u2[0], a, inv);
-        upl = u2[1];
-        *dp = down(zw);
-      }
-    } else {
-      for (int t = ta + 1; t < tb; ++t) {
-        dp += XS;
-#pragma unroll
-        for (int j = 0; j + 2 < K2; ++j) zw[j] = zw[j + 2];
-        zw[K2 - 2] = z(2 * t - G::pl2 + K2 - 2);
-        zw[K2 - 1] = z(2 * t - G::pl2 + K2 - 1);
-        *dp = down(zw);
-      }
-    }
-  }
-}
 
 // Activation outputs for rows [o_lo, o_lo + n) of every channel: one thread
 // per (channel, share of the rows). Every thread of the block must call.

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..gguf import GGUFReader
+from ..gguf import GGMLType, GGUFReader
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.quant_matmul import (
     maybe_quant_matmul as _mm, quantize_int4_percol, quantize_int8_percol, quantize_q8_cols)
@@ -137,6 +137,23 @@ def _warn_tied_quant_noop(head_quant_requested: bool, quantize) -> None:
               "logits head of a tied-embedding model (no output.weight; "
               "the head reuses the dense token embedding)", file=sys.stderr)
     return None
+
+
+def gguf_llm_cpu_native_ok(path: str) -> bool:
+    """True when the GGUF's matmul weights are Q8_0 or Q4_0 blocks (judged by
+    ``blk.0.attn_q.weight``): the JAX package's signal for its native
+    int8/int4 CPU engine (miotts_tpu/models/llm_cpu.py gguf_llm_cpu_native_ok),
+    which its CLI's ``--cpu-native auto`` picks on a CPU backend. False for
+    any file that cannot be read."""
+    try:
+        r = GGUFReader(path)
+    except Exception:
+        return False
+    try:
+        info = r.tensors.get("blk.0.attn_q.weight")
+        return info is not None and info.ggml_type in (GGMLType.Q8_0, GGMLType.Q4_0)
+    finally:
+        r.close()
 
 
 def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16,

@@ -15,9 +15,11 @@ launch structure is the same: ``conv1d_same`` takes kernel K4 for an odd k,
 ``activation1d`` kernel K5 (1-D filters, up filter of at least 2 taps), and
 ``_resblock_layer`` kernel K6 when the layer's convs are square C x C with
 odd k and biases and the (padded) length is at least 1024 rows; else the
-layer runs as K5, K4, K5, K4. The device alone decides whether a kernel
-runs: a CUDA tensor reaches the kernel (or an error), a CPU tensor its
-plain version. Other convolutions (conv_pre/post, the postnet, the
+layer runs as K5, K4, K5, K4. K5 and K6 run one activation
+(``csrc/vocoder_common.cuh`` act_channel, with the reference kernel's
+default fast sin/cos), so both routes round alike on the card. The device
+alone decides whether a kernel runs: a CUDA tensor reaches the kernel (or
+an error), a CPU tensor its plain version. Other convolutions (conv_pre/post, the postnet, the
 depthwise FIRs) are ``F.conv1d``, as the JAX package leaves them to XLA.
 
 Not ported: the opt-in grouped path that folds a stage's resblocks into
@@ -53,9 +55,11 @@ def conv1d_same(x, lengths, w, b, dilation: int = 1, residual=None) -> torch.Ten
 
 def activation1d(x, lengths, act: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Anti-aliased snake: 2x upsample -> ADAA snake-beta -> 2x downsample;
-    returns (y, lengths). The JAX package's composite route serves only
-    filter banks and a 1-tap up filter; the port's loader yields neither,
-    and K5 refuses a 1-tap filter on the card."""
+    returns (y, lengths). On the card this is K5, whose snake is K6's (the
+    fast sin/cos the JAX package's kernel uses by default). The JAX
+    package's composite route serves only filter banks and a 1-tap up
+    filter; the port's loader yields neither, and K5 refuses a 1-tap filter
+    on the card."""
     return k5.activation1d(x, lengths, act["up_filter"], act["alpha"], act["beta"],
                            act["down_filter"]), lengths
 

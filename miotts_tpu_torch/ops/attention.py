@@ -8,7 +8,8 @@ and softmax run in f32.
 Dispatch is by the tensor's device: a CPU tensor takes a plain version
 (dense up to T = 256 or T <= window, windowed-blocked above, as the JAX
 package's non-TPU rule); a CUDA tensor always launches the hand-written
-kernel (``ops/cuda/banded_attention.py``), or raises.
+kernel (``ops/cuda/banded_attention.py``) on the same [B, T, H, D]
+layout, or raises.
 """
 
 from __future__ import annotations
@@ -97,13 +98,6 @@ def banded_attention(q, k, v, lengths, window: int) -> torch.Tensor:
     """q/k/v: [B, T, H, D] (post-RoPE), lengths [B]. Returns [B, T, H, D]."""
     if q.device.type == "cpu":
         return banded_attention_plain(q, k, v, lengths, window)
-    from .cuda.banded_attention import banded_attention_folded
+    from .cuda.banded_attention import banded_attention as kernel
 
-    B, T, H, D = q.shape
-
-    def fold(x):
-        return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
-
-    lens = lengths.to(torch.int32).repeat_interleave(H)
-    out = banded_attention_folded(fold(q), fold(k), fold(v), lens, window)
-    return out.reshape(B, H, T, D).permute(0, 2, 1, 3)
+    return kernel(q, k, v, lengths.to(torch.int32), window)

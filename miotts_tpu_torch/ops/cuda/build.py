@@ -48,20 +48,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(defines: tuple[str, ...] = ()) -> Path:
+    """Where the library for the current sources (and macros) lives."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libmiotts_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
     """Compile the kernels unless a library for these sources exists: one
-    ``nvcc -c`` per source, run in parallel, then one link. Raises
-    RuntimeError with nvcc's stderr when a step fails."""
-    out = library_path()
+    ``nvcc -c`` per source, run in parallel, then one link. ``defines``
+    are macros for a measuring build (a library of its own; the wrappers
+    load the plain one). Raises RuntimeError with nvcc's stderr when a step
+    fails."""
+    flags = _flags(defines)
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,7 +77,7 @@ def build(verbose: bool = False) -> Path:
         objs, procs = [], []
         for src in (p for p in _sources() if p.suffix == ".cu"):
             obj = Path(tmpdir) / f"{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
             if verbose:
                 cmd.insert(1, "--ptxas-options=-v")
             objs.append(str(obj))
@@ -86,7 +93,7 @@ def build(verbose: bool = False) -> Path:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         lib = Path(tmpdir) / out.name
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs],
+        proc = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")

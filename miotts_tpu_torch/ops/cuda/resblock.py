@@ -17,13 +17,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-import weakref
 from typing import NamedTuple
 
 import torch
 
 from . import build
-from .activation1d import activation1d_plain, activation_operands, check_act
+from .activation1d import (
+    act_geom, activation1d_plain, activation_operands, cached, check_act)
 from .conv1d import check_f32, conv1d_same_plain, device_lengths
 
 SOURCE = "miotts_tpu_torch/csrc/resblock.cu"
@@ -39,26 +39,6 @@ VARIANTS = ((144, 128), (80, 64))
 _CHUNK, _XPAD, _TN = 32, 4, 128  # conv_gemm.cuh kChunk, kXPad; resblock.cu kTN
 
 _fn = None
-_prepared: dict[tuple, tuple] = {}
-
-
-class ActGeom(NamedTuple):
-    """csrc/vocoder_common.cuh act_geom: an Activation1d with k1 up and k2
-    down taps; an output row t reads input rows [t - hlo, t + hhi]."""
-    k1: int
-    k2: int
-    pad: int
-    pl: int
-    pl2: int
-    hlo: int
-    hhi: int
-
-
-def act_geom(k1: int, k2: int) -> ActGeom:
-    pad = k1 // 2 - 1
-    pl = 2 * pad + (k1 - 2) // 2
-    pl2 = k2 // 2 - (1 if k2 % 2 == 0 else 0)
-    return ActGeom(k1, k2, pad, pl, pl2, pad - (pl - pl2 - k1) // 2, (k2 - 1 - pl2 + pl) // 2 - pad)
 
 
 class Plan(NamedTuple):
@@ -101,21 +81,6 @@ def launch_shape(B: int, T: int, C: int, k1c: int, dilation: int, k2c: int,
                         rows_a, smem, (math.ceil(T / n_out), B))
     raise ValueError(f"resblock_layer: no tile plan fits {MAX_SMEM} bytes of shared memory at "
                      f"C={C}, k={k1c}/{k2c}, dilation {dilation}, taps {taps_a}/{taps_b}")
-
-
-def _cached(key_tensors: tuple, make):
-    """make(), computed once for these tensor objects while they are alive
-    and unchanged (same objects, same versions), then kept."""
-    key = tuple(map(id, key_tensors))
-    versions = tuple(t._version for t in key_tensors)
-    hit = _prepared.get(key)
-    if hit is not None and hit[1] == versions and all(
-            r() is t for r, t in zip(hit[0], key_tensors)):
-        return hit[2]
-    value = make()
-    refs = tuple(weakref.ref(t, lambda _, k=key: _prepared.pop(k, None)) for t in key_tensors)
-    _prepared[key] = (refs, versions, value)
-    return value
 
 
 def _entry():
@@ -171,10 +136,10 @@ def resblock_layer(x, lengths, actA, w1, b1, dilation: int, actB, w2, b2) -> tor
     for name, t in (("x", x), ("b1", b1), ("b2", b2)):
         if t.data_ptr() % 16:
             raise ValueError(f"resblock_layer: {name} must be 16-byte aligned")
-    opsA, opsB = (_cached(tuple(act[k] for k in ("up_filter", "down_filter", "alpha", "beta")),
+    opsA, opsB = (cached(tuple(act[k] for k in ("up_filter", "down_filter", "alpha", "beta")),
                           lambda act=act: activation_operands(act, x.device))
                   for act in (actA, actB))
-    w1_kio, w2_kio = (_cached((w,), lambda w=w: w.permute(2, 1, 0).contiguous())  # [k, Cin, Cout]
+    w1_kio, w2_kio = (cached((w,), lambda w=w: w.permute(2, 1, 0).contiguous())  # [k, Cin, Cout]
                       for w in (w1, w2))
     plan = launch_shape(B, T, C, w1.shape[-1], dilation, w2.shape[-1],
                         (opsA[0].shape[0], opsA[1].shape[0]), (opsB[0].shape[0], opsB[1].shape[0]))

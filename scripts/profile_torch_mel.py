@@ -16,7 +16,7 @@ decodes them on the card:
 - one more decode under ``torch.profiler``: device time by kernel name, the
   device's busy time (the union of its kernel intervals) and its idle share
   of the wall time, for the trunk and the vocoder apart, and the launches
-  and device time of kernels K4, K5 and K6.
+  and device time of kernels K1 (the trunk's attention), K4, K5 and K6.
 
 Prints the card's name and power limit, then one JSON object as the last
 line. Needs a CUDA card; exits 2 without one.
@@ -42,6 +42,7 @@ from miotts_tpu_torch.device import select_device  # noqa: E402
 from miotts_tpu_torch.models.miocodec import codec_decode_spec, load_miocodec  # noqa: E402
 from miotts_tpu_torch.models.vocoder import vocoder_decode  # noqa: E402
 from miotts_tpu_torch.ops.cuda import activation1d as k5  # noqa: E402
+from miotts_tpu_torch.ops.cuda import banded_attention as k1  # noqa: E402
 from miotts_tpu_torch.ops.cuda import build  # noqa: E402
 from miotts_tpu_torch.ops.cuda import conv1d as k4  # noqa: E402
 from miotts_tpu_torch.ops.cuda import resblock as k6  # noqa: E402
@@ -101,12 +102,12 @@ def main() -> int:
 
     decode()
     runs = [decode() for _ in range(args.runs)]
-    for m in (k4, k5, k6):
+    for m in (k1, k4, k5, k6):
         m.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trunk_wall, voc_wall, n_samples = decode()
-    launches = {"conv1d_same": k4.launches, "activation1d": k5.launches,
-                "resblock_layer": k6.launches}
+    launches = {"banded_attention": k1.launches, "conv1d_same": k4.launches,
+                "activation1d": k5.launches, "resblock_layer": k6.launches}
 
     events = prof.events()
     voc_start = min(e.time_range.start for e in events if e.name == "vocoder")
@@ -122,8 +123,8 @@ def main() -> int:
             (e.time_range.start, e.time_range.end))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
     # device time of each vocoder kernel, by the name of its CUDA function
-    marks = {"conv1d_same": "conv1d_same_kernel", "activation1d": "activation1d_kernel",
-             "resblock_layer": "resblock_kernel"}
+    marks = {"banded_attention": "banded_attention_kernel", "conv1d_same": "conv1d_same_kernel",
+             "activation1d": "activation1d_kernel", "resblock_layer": "resblock_kernel"}
     device_ms = {k: sum(t for name, ts in by_name.items() if m in name for t in ts) / 1e3
                  for k, m in marks.items()}
     walls = {"trunk": trunk_wall, "vocoder": voc_wall}

@@ -160,3 +160,31 @@ def test_input_errors(assets, capsys):
     err = capsys.readouterr().err
     assert "-mv/--model-vocoder is required" in err and "no input" in err
     assert "-m/--model is required" in err and "requires embedding" in err
+
+
+NATIVE_NOTE = "the native CPU engine is not yet ported"
+
+
+@pytest.mark.parametrize("quant,mode,noted", [
+    ("q8_0", "auto", True), ("q4_0", "auto", True), ("f32", "auto", False),
+    ("f16", "auto", False), ("q8_0", "off", False),
+])
+def test_cpu_native_auto_notice(assets, tmp_path, capsys, quant, mode, noted):
+    """Under MIOTTS_PLATFORM=cpu, --cpu-native auto on a GGUF whose matmul
+    weights are Q8_0 or Q4_0 is where the JAX CLI switches to its native
+    CPU engine (miotts_tpu/cli.py _make_llm_engine); the port says on stderr
+    that it runs its own engine instead. A dense GGUF, or --cpu-native off,
+    prints nothing."""
+    from miotts_tpu.models.llm_cpu import gguf_llm_cpu_native_ok as jax_native_ok
+    from miotts_tpu_torch.models.llm import gguf_llm_cpu_native_ok
+
+    model = tmp_path / f"llm_{quant}.gguf"
+    write_synthetic_llm_gguf(str(model), n_audio=128, seed=1, audio_logit_scale=3.0, quant=quant)
+    assert gguf_llm_cpu_native_ok(str(model)) == jax_native_ok(str(model)) == (quant != "f32"
+                                                                                and quant != "f16")
+    cli.main(["-mv", str(assets / "codec.gguf"), "-m", str(model), "-p", "Hello", "-n", "4",
+              "--temp", "0", "--cpu-native", mode, "--tts-mio-codes-only",
+              "--tts-mio-codes-out", str(tmp_path / "c.txt")])
+    err = capsys.readouterr().err
+    assert (NATIVE_NOTE in err) == noted
+    assert err.count(NATIVE_NOTE) <= 1

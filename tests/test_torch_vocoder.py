@@ -5,8 +5,10 @@ The plain versions of kernels K4 (conv1d), K5 (anti-aliased snake) and K6
 interpret mode and against JAX's XLA composites, at the shapes of the JAX
 package's own tests (tests/test_vocoder.py, tests/test_resblock_fused.py)
 and with their tolerances: K4 rtol = atol = 1e-5, K5 rtol 1e-5 / atol
-2e-6, K6 max abs 2e-5 (f32 sums in another order). Then the vocoder
-forward, mel-mode codec synthesis and the CLI on a tiny mel GGUF.
+2e-6, K6 max abs 2e-5 (f32 sums in another order). The launch plans of
+K4-K6, and the register walk K5 and K6 share, emulated against the plain
+version. Then the vocoder forward, mel-mode codec synthesis and the CLI on
+a tiny mel GGUF.
 """
 
 import dataclasses
@@ -143,6 +145,167 @@ def test_resblock_launch_shape(d, taps_a, taps_b):
     assert p.smem <= k6.MAX_SMEM == 227 * 1024
     assert p.act_a_rows / p.n_out < 1.45 and p.tm1 / p.n_out < 1.45
     assert p.grid == (-(-T // p.n_out), 1)
+
+
+# the vocoder's K5 shapes: the short route's stage 1 (640 rows), stage 1
+# of a 400-code request, a ragged pair, a 40-code request's post-activation,
+# the last stage; and odd sizes
+@pytest.mark.parametrize("B,T,C", [(1, 640, 128), (1, 5120, 128), (2, 2560, 128),
+                                   (1, 61440, 128), (1, 491520, 128), (3, 37, 20), (1, 1, 4)])
+def test_activation1d_launch_shape(B, T, C):
+    """Kernel K5's plan: the runs tile [0, T) exactly, the grid holds one
+    warp for every (example, run, 32-channel group), the last stage takes
+    the longest run and at least MIN_WARPS warps, and the short route's 640
+    rows give every SM of the H100 a block."""
+    p = k5.launch_shape(B, T, C)
+    runs, groups = -(-T // p.run), -(-C // 32)
+    assert p.run in k5.RUNS and (runs - 1) * p.run < T <= runs * p.run
+    assert p.n_warps == runs * groups * B and p.grid[1] == B
+    assert (p.grid[0] - 1) * p.warps < runs * groups <= p.grid[0] * p.warps
+    assert p.warps * 32 <= 256
+    assert p.n_warps >= k5.MIN_WARPS or p.run == k5.RUNS[-1]
+    if T == 491520:
+        assert p.run == k5.RUNS[0] and p.n_warps >= k5.MIN_WARPS
+    if T == 640:
+        assert p.grid[0] >= 132
+
+
+def register_steps(ta: int, tb: int, length: int, k1: int, k2: int) -> tuple[int, int]:
+    """csrc/vocoder_common.cuh act_channel's split of a thread's valid rows
+    [ta, tb): row ta and the steps outside [ia, ib) run at clamped indices,
+    the steps in [ia, ib) on the register window (input rows [t - 1 - hlo,
+    t + hhi] in [0, length), new 2x samples in [1, 2 length - 1]). Returns
+    (ia, ib)."""
+    g = k5.act_geom(k1, k2)
+    lo = max(g.hlo + 1, -((k2 - 3 - g.pl2) // 2))
+    hi = min(length - g.hhi, (2 * length + g.pl2 - k2) // 2 + 1)
+    ia = min(max(ta + 1, lo), tb)
+    return ia, max(min(tb, hi), ia)
+
+
+
+@pytest.mark.parametrize("T,length", [(640, 400), (491520, 384000), (61440, 38400), (640, 640),
+                                      (37, 5), (37, 13), (64, 1)])
+def test_activation1d_register_steps(T, length):
+    """Each run of K5's plan at 12/12 taps: row ta and the steps outside
+    [ia, ib) take the clamped path; in [ia, ib) the register window (input
+    rows [t - 1 - hlo, t + hhi]) covers the halo _act_reach finds by brute
+    force and lies inside [0, length), and the new 2x samples need no clamp.
+    Only runs that touch an edge take clamped steps, at most the halo's."""
+    lo, hi = _act_reach(12, 12)
+    g = k5.act_geom(12, 12)
+    assert (g.hlo, g.hhi) == (lo, hi)
+    run = k5.launch_shape(1, T, 128).run
+    for r0 in range(0, T, run):
+        ta, tb = r0, min(r0 + run, length, T)
+        if ta >= tb:
+            continue
+        ia, ib = register_steps(ta, tb, length, 12, 12)
+        assert ta < ia <= ib <= tb or ia == ib == tb
+        if ia < ib:  # the conditions are monotone in t: the ends suffice
+            for t in (ia, ib - 1):
+                assert 0 <= t - lo and t + hi <= length - 1  # no clamped input read
+                assert 0 <= t - 1 - g.hlo and t + g.hhi <= length - 1  # the window
+                assert 1 <= 2 * t - g.pl2 + 12 - 2 and 2 * t - g.pl2 + 12 - 1 <= 2 * length - 1
+        clamped = (ia - ta - 1) + (tb - ib)
+        if ta >= lo + 1 and tb <= length - hi:
+            assert clamped == 0
+        assert clamped <= lo + hi + 1 or tb - ta - 1 == clamped
+
+
+def _act_channel_emulation(x, length, fu, fd, a, inv, r0, r1):
+    """csrc/vocoder_common.cuh act_channel<12, 12> for one channel of rows
+    [r0, r1), in float64 numpy with the accurate sin/cos: the first row's
+    snake window from its input rows loaded at once (or at clamped indices
+    near an edge), clamped steps outside register_steps' [ia, ib), and in
+    it the register window of input rows and the last 2x sample carried
+    from step to step."""
+    K1 = K2 = 12
+    g = k5.act_geom(K1, K2)
+    out = np.zeros(r1 - r0)
+
+    def X(i):
+        return x[min(max(i, 0), length - 1)]
+
+    def up(u):
+        w0 = u + g.pl
+        return 2 * sum(fu[j] * X((w0 - j) // 2 - g.pad) for j in range(K1) if (w0 - j) % 2 == 0)
+
+    def snake(xv, p):
+        ad = a * (xv - p)
+        sinc = 1.0 if abs(ad) < 1e-12 else np.sin(ad) / ad
+        return (xv + p) * 0.5 + inv * (1 - np.cos(a * (xv + p)) * sinc)
+
+    def z(u):
+        uc = min(max(u, 0), 2 * length - 1)
+        return snake(up(uc), up(uc - 1) if uc > 0 else 0.0)
+
+    ta, tb = max(r0, 0), min(r1, length)
+    if ta >= tb:
+        return out
+    warm = (ta - g.hlo >= 0 and ta + g.hhi <= length - 1 and 2 * ta - g.pl2 - 1 >= 0
+            and 2 * ta - g.pl2 + K2 - 1 <= 2 * length - 1)
+    if warm:  # the first row's window loaded at once, its samples from it
+        xw = [x[i] for i in range(ta - g.hlo, ta + g.hhi + 1)]
+        ups = []
+        for i in range(K2 + 1):
+            w = i - 1 - g.pl2 + g.pl
+            ups.append(2 * sum(fu[j] * xw[(w - j) // 2 - g.pad + g.hlo]
+                               for j in range(K1) if (w - j) % 2 == 0))
+        zw = [snake(ups[j + 1], ups[j]) for j in range(K2)]
+        upl = ups[K2]
+    else:
+        zw = [z(2 * ta - g.pl2 + j) for j in range(K2)]
+    out[ta - r0] = np.dot(fd, zw)
+    ia, ib = register_steps(ta, tb, length, K1, K2)
+
+    def clamped(t):
+        zw[:] = zw[2:] + [z(2 * t - g.pl2 + K2 - 2), z(2 * t - g.pl2 + K2 - 1)]
+        out[t - r0] = np.dot(fd, zw)
+
+    for t in range(ta + 1, ia):
+        clamped(t)
+    if ia < ib:
+        if not (warm and ia == ta + 1):
+            xw = [x[i] for i in range(ia - 1 - g.hlo, ia + g.hhi)]
+            upl = up(2 * (ia - 1) - g.pl2 + K2 - 1)
+        for t in range(ia, ib):
+            xw = xw[1:] + [x[t + g.hhi]]
+            u2 = []
+            for s in range(2):
+                w = K2 - 2 - g.pl2 + s + g.pl
+                u2.append(2 * sum(fu[j] * xw[(w - j) // 2 - g.pad + g.hlo]
+                                  for j in range(K1) if (w - j) % 2 == 0))
+            zw[:] = zw[2:] + [snake(u2[0], upl), snake(u2[1], u2[0])]
+            upl = u2[1]
+            out[t - r0] = np.dot(fd, zw)
+    for t in range(ib, tb):
+        clamped(t)
+    return out
+
+
+@pytest.mark.parametrize("length,run", [(120, 1), (120, 8), (120, 64), (7, 16), (120, 200)])
+def test_activation1d_register_walk_matches_plain(length, run):
+    """K5's and K6's per-thread algorithm (a run of rows through the
+    register window, clamped steps at the edges), emulated in float64,
+    against the plain version at 12/12 taps: one long run holds both edges
+    and the interior, short runs start on either side of each edge."""
+    rng = np.random.RandomState(length + run)
+    T, C = 130, 3
+    f1, f2 = _hann_filter(12), _hann_filter(12, 0.9)
+    x = rng.randn(T, C).astype(np.float32) * 0.4
+    x[length:] = 0
+    alpha, beta = (rng.randn(C) * 0.2).astype(np.float32), (rng.randn(C) * 0.2).astype(np.float32)
+    ref = k5.activation1d_plain(_t(x[None]), torch.tensor([length]), _t(f1), _t(alpha),
+                                _t(beta), _t(f2))[0].numpy()
+    a = np.exp(alpha.astype(np.float64))
+    inv = 1.0 / (2.0 * (np.exp(beta.astype(np.float64)) + 1e-9))
+    for c in range(C):
+        got = np.concatenate([
+            _act_channel_emulation(x[:, c].astype(np.float64), length, f1.astype(np.float64),
+                                   f2.astype(np.float64), a[c], inv[c], r0, min(r0 + run, T))
+            for r0 in range(0, T, run)])
+        np.testing.assert_allclose(got, ref[:, c], rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("k1,k2,T,C,B,bt", [
