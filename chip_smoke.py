@@ -67,6 +67,26 @@ Phases, in order; any failure exits nonzero and prints no result:
     codes through the mel codec, each decoded on the card and on the CPU
     (plain versions, f32): mel-L1 < 1e-2.
 
+The decode loop (``models/decode_graph.py``): every text request above
+generates through replays of its engine's CUDA graph of 16 decode steps
+(``llm.CHUNK``); each request must run no eager step on the card and
+exactly ceil(tokens / 16) replays. Before the requests, a graph phase, at
+the full width of the 0.1B LLM for each of bf16, q8_0, output and int8:
+120 greedy tokens from a 32-token prompt through the eager chunk body and
+through one graph captured on empty buffers (two runs in a row, each
+loaded into its buffers) are bit-equal, the largest difference of the
+final logits is printed, K2 launched 12 and K3 49 (q8_0) or 1 (output)
+times a step that ran (warm-up and replays counted); ms a token, tok/s,
+device ms a step (CUDA events around a replay; the profiler's busy time
+for both) and the capture's time are printed; and sampled runs (temp 0.8,
+top-k 50) for seeds 1, 1, 2 in a row on one graph each equal the eager
+run of their seed, and seed 2's differ from seed 1's. After
+the mel requests, a stream phase: three ``--tts-stream-output`` requests
+through ``cli.main`` (wave codec, dense at -n 250 and q8_0 at -n 120; mel
+codec at -n 120), each WAV with patched sizes, the full decode's sample
+count, not silent (mel: at most 1% clipped), the launch checks above, and
+TTFA, codec re-decodes and their wall time printed.
+
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
 error, its time, its plain version's time, its bound (the least time the
@@ -97,6 +117,11 @@ import torch.nn.functional as F
 
 from miotts_tpu_torch import cli
 from miotts_tpu_torch.device import select_device
+from miotts_tpu_torch.models import decode_graph
+from miotts_tpu_torch.models.llm import (
+    CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, init_kv_cache, llm_generate_chunk,
+    llm_start, load_llm_gguf)
+from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key
 from miotts_tpu_torch.ops.cuda import activation1d as k5
 from miotts_tpu_torch.ops.cuda import banded_attention as k1
 from miotts_tpu_torch.ops.cuda import build
@@ -155,6 +180,17 @@ QUANT_REQUESTS = (  # (prompt, n_predict, extra flags, kernels that must launch)
     ("Hello there.", 120, ["--llm-quant", "output", "--temp", "0"], (k1, k2, k3)),
     ("Hello there.", 120, ["--llm-quant", "int8", "--temp", "0"], (k1, k2)),
 )
+GRAPH_TOKENS, GRAPH_PROMPT, GRAPH_CACHE = 120, 32, 700  # GRAPH_CACHE: the CLI's cache rows
+GRAPH_MODES = (("bf16", "llm.gguf"), ("q8_0", "llm_q8_0.gguf"), ("output", "llm_q8_0.gguf"),
+               ("int8", "llm_q8_0.gguf"))  # (--llm-quant, GGUF)
+STREAM_PROMPT = "The quick brown fox jumps over the lazy dog, twice."
+STREAM_REQUESTS = (  # (name, codec, llm, n_predict, extra flags, kernels that must launch)
+    ("wave-bf16", "codec.gguf", "llm.gguf", 250, ["--seed", "1"], (k1, k2)),
+    ("wave-q8_0", "codec.gguf", "llm_q8_0.gguf", 120, ["--llm-quant", "q8_0", "--seed", "1"],
+     (k1, k2, k3)),
+    ("mel-bf16", "mel_codec.gguf", "llm.gguf", 120, ["--seed", "1"], (k1, k2, k4, k5, k6)),
+)
+GRAPH_COUNTERS = ("captures", "replays", "capture_ms", "warmup_steps", "eager_steps")
 
 
 def log(msg: str) -> None:
@@ -615,6 +651,7 @@ def drive_cli(name: str, tmp: Path, argv: list[str], kernels) -> tuple[str, int,
     by module)."""
     wav, codes_out = tmp / f"{name}.wav", tmp / f"{name}.codes"
     before = {m: m.launches for m in MODS}
+    g0 = graph_counts()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc = cli.main([*argv, "-emb", str(tmp / "voice.emb.gguf"), "--tts-mio-codes-out",
@@ -622,6 +659,7 @@ def drive_cli(name: str, tmp: Path, argv: list[str], kernels) -> tuple[str, int,
     text = err.getvalue()
     if rc != 0:
         raise AssertionError(f"{name}: cli exited {rc}:\n{text}")
+    check_graph_counts(name, text, g0)
     sr, pcm = parse_wav(wav)
     if not np.any(pcm != 0):
         raise AssertionError(f"{name}: the WAV is silent")
@@ -636,6 +674,208 @@ def launch_text(grew: dict) -> str:
     return " ".join(f"{m.__name__.rsplit('.', 1)[-1]}={g}" for m, g in grew.items())
 
 
+def graph_counts() -> dict:
+    return {k: getattr(decode_graph, k) for k in GRAPH_COUNTERS}
+
+
+def check_graph_counts(name: str, text: str, g0: dict) -> None:
+    """A text request's tokens came from graph replays only: no eager step,
+    ceil(tokens / CHUNK) replays, at least one capture."""
+    tok = re.search(r"llm breakdown: \w+=[0-9.]+ms n_tokens=(\d+)", text)
+    if tok:
+        g = {k: v - g0[k] for k, v in graph_counts().items()}
+        n_tok = int(tok.group(1))
+        if g["eager_steps"] or g["replays"] != -(-n_tok // CHUNK) or g["captures"] < 1:
+            raise AssertionError(f"{name}: {n_tok} tokens from {g} (no eager step and "
+                                 f"ceil(tokens / {CHUNK}) replays expected)")
+
+
+def graph_text(text: str) -> str:
+    """The decode graph's part of a request's ``llm breakdown:`` line."""
+    m = re.search(r"graph_captures=(\d+) capture=([0-9.]+)ms replays=(\d+)", text)
+    return f"graph captures={m.group(1)} capture_ms={m.group(2)} replays={m.group(3)}"
+
+
+def wav_samples(cfg, n_codes: int) -> int:
+    """Samples of a full decode of ``n_codes`` codes: the iSTFT's count in
+    wave mode, the vocoder's in mel mode."""
+    frames = cfg.stft_frames(n_codes)
+    if cfg.model_type == 1:
+        return frames * math.prod(cfg.vocoder_upsample_rates)
+    n_pad = (cfg.n_fft - cfg.hop_length) // 2
+    return (frames - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
+
+
+def busy_ms(fn) -> float | None:
+    """Device busy time of ``fn`` under torch.profiler: the union of its
+    kernels' intervals (None when the profiler saw no kernel)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3 if spans else None
+
+
+def chunk_run(cfg, w, prompt, no_eog, sampler: SamplerParams, seed: int, graph=None) -> dict:
+    """GRAPH_TOKENS tokens from a fresh prefill of ``prompt`` through the
+    chunk API (``no_eog`` holds no token: every chunk runs whole): on the
+    eager body, or loaded into ``graph`` and replayed there (one graph's
+    buffers serve run after run, as they serve an engine's requests).
+    Returns the tokens, the host wall time of the chunks, the final logits,
+    the decode steps that ran (eager and replayed) and the K2/K3 launches
+    and graph counters of the run."""
+    dev = prompt.device
+    lengths = torch.tensor([prompt.shape[1]], dtype=torch.int32, device=dev)
+    ck, cv = ((graph.state.cache_k, graph.state.cache_v) if graph is not None
+              else init_kv_cache(cfg, 1, GRAPH_CACHE, dev))
+    state = llm_start(cfg, w, prompt, lengths, ck, cv, sampler_key(seed, dev))
+    if graph is not None:
+        graph.load(state)
+        state = graph.state
+    torch.cuda.synchronize()
+    g0, l0 = graph_counts(), (k2.launches, k3.launches)
+    toks: list[int] = []
+    t0 = time.perf_counter()
+    while len(toks) < GRAPH_TOKENS:
+        if graph is None:
+            out, n_new, _ = llm_generate_chunk(cfg, w, no_eog, CHUNK, sampler, state)
+        else:
+            out, n_new = graph.run()
+        o, n, _ = fetch_chunk_result(out, n_new, state)
+        toks.extend(int(t) for t in o[0, :int(n[0])])
+    wall = (time.perf_counter() - t0) * 1e3
+    g = {k: v - g0[k] for k, v in graph_counts().items()}
+    return {"tokens": toks[:GRAPH_TOKENS], "wall_ms": wall, "logits": state.logits.clone(),
+            "steps": g["eager_steps"] + CHUNK * g["replays"], "k2": k2.launches - l0[0],
+            "k3": k3.launches - l0[1], **g}
+
+
+def capture(cfg, w, no_eog, sampler: SamplerParams, dev):
+    """A chunk graph captured on empty buffers, as an engine captures its
+    own, with the launches its warm-up made and its counters."""
+    g0, l0 = graph_counts(), (k2.launches, k3.launches)
+    graph = capture_chunk(cfg, w, no_eog, CHUNK, sampler, empty_gen_state(cfg, 1, GRAPH_CACHE, dev))
+    return graph, {"k2": k2.launches - l0[0], "k3": k3.launches - l0[1],
+                   **{k: v - g0[k] for k, v in graph_counts().items()}}
+
+
+def check_graph(dev, tmp: Path) -> dict:
+    """The chunk graph against the eager chunk body at full width, for each
+    --llm-quant mode of GRAPH_MODES; see the module docstring."""
+    greedy, sampled = SamplerParams(temp=0.0), SamplerParams(temp=0.8, top_k=50)
+    no_eog = torch.tensor([-1], dtype=torch.int64, device=dev)
+    rows = {}
+    for mode, model in GRAPH_MODES:
+        cfg, w, _ = load_llm_gguf(str(tmp / model), dev, torch.bfloat16, quantize=mode)
+        prompt = torch.from_numpy(np.random.RandomState(7).randint(
+            0, min(1000, cfg.vocab_size), (1, GRAPH_PROMPT))).to(dev)
+        # K2 once a layer; K3 on every quantized leaf (four a layer) and the head
+        k2_per_step = cfg.n_layers
+        k3_per_step = {"q8_0": 4 * cfg.n_layers + 1, "output": 1}.get(mode, 0)
+        eager = chunk_run(cfg, w, prompt, no_eog, greedy, 0)
+        graph, cap = capture(cfg, w, no_eog, greedy, dev)
+        first = chunk_run(cfg, w, prompt, no_eog, greedy, 0, graph)
+        timed = chunk_run(cfg, w, prompt, no_eog, greedy, 0, graph)  # the buffers' second run
+        if not eager["tokens"] == first["tokens"] == timed["tokens"]:
+            raise AssertionError(f"graph {mode}: greedy tokens differ from the eager body's")
+        logit_diff = (eager["logits"] - first["logits"]).abs().max().item()
+        cap["steps"] = cap["warmup_steps"]
+        for name, run in (("eager", eager), ("capture", cap), ("graph", first), ("replay", timed)):
+            if (run["k2"] != k2_per_step * run["steps"]
+                    or run["k3"] != k3_per_step * run["steps"]):
+                raise AssertionError(f"graph {mode} {name}: K2 {run['k2']}, K3 {run['k3']} "
+                                     f"launches for {run['steps']} steps")
+        replays = -(-GRAPH_TOKENS // CHUNK)
+        if (eager["replays"] or eager["eager_steps"] != eager["steps"]
+                or (cap["captures"], cap["warmup_steps"], cap["replays"]) != (1, CHUNK, 0)
+                or any(r["captures"] or r["eager_steps"] or r["warmup_steps"]
+                       or r["replays"] != replays for r in (first, timed))):
+            raise AssertionError(f"graph {mode}: counters {eager}, {cap}, {first}, {timed}")
+        state = graph.state
+
+        def eager_chunk():
+            llm_generate_chunk(cfg, w, no_eog, CHUNK, greedy, state)
+
+        event_ms = cuda_ms(graph.run, iters=5) / CHUNK
+        busy_graph, busy_eager = busy_ms(graph.run), busy_ms(eager_chunk)
+        row = {"eager_ms_per_token": eager["wall_ms"] / GRAPH_TOKENS,
+               "graph_ms_per_token": timed["wall_ms"] / GRAPH_TOKENS,
+               "graph_event_ms_per_step": event_ms,
+               "graph_busy_ms_per_step": busy_graph and busy_graph / CHUNK,
+               "eager_busy_ms_per_step": busy_eager and busy_eager / CHUNK,
+               "capture_ms": cap["capture_ms"], "max_logit_diff": logit_diff,
+               "steps": {"eager": eager["steps"], "warm-up": cap["steps"],
+                         "graph": first["steps"], "replay": timed["steps"]}}
+        log(f"[graph {mode}] {GRAPH_TOKENS} greedy tokens bit-equal (eager, and two runs on one "
+            f"graph); final logits max diff {logit_diff:.3e}; K2 {k2_per_step}/step, K3 "
+            f"{k3_per_step}/step over {eager['steps']}/{first['steps']}/{timed['steps']} steps "
+            f"(warm-up {cap['steps']})")
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+        log(f"[graph {mode}] eager: {row['eager_ms_per_token']:.3f} ms/token "
+            f"({1e3 / row['eager_ms_per_token']:.1f} tok/s), device busy "
+            f"{fmt(row['eager_busy_ms_per_step'])} ms/step | graph: "
+            f"{row['graph_ms_per_token']:.3f} ms/token ({1e3 / row['graph_ms_per_token']:.1f} "
+            f"tok/s), device {event_ms:.4f} ms/step (events around a replay), busy "
+            f"{fmt(row['graph_busy_ms_per_step'])} ms/step, capture {cap['capture_ms']:.1f} ms")
+        if mode == "bf16":  # sampled: the draws follow the key, in the graph and eagerly
+            del graph, state
+            graph, _ = capture(cfg, w, no_eog, sampled, dev)
+            seeds = (1, 1, 2)  # three runs in a row on one graph's buffers
+            runs = [chunk_run(cfg, w, prompt, no_eog, sampled, s, graph)["tokens"] for s in seeds]
+            eagers = [chunk_run(cfg, w, prompt, no_eog, sampled, s)["tokens"] for s in seeds]
+            same = sum(a == b for a, b in zip(runs[0], runs[2]))
+            if runs != eagers or runs[0] != runs[1] or same == GRAPH_TOKENS:
+                raise AssertionError(f"graph: sampled tokens do not follow the seed (graph runs "
+                                     f"equal to eager runs: {[a == b for a, b in zip(runs, eagers)]}"
+                                     f", seed 1 twice equal: {runs[0] == runs[1]}, seeds 1 and 2 "
+                                     f"agree at {same})")
+            row["sampled_seed_1_and_2_agree_at"] = same
+            log(f"[graph {mode}] sampled (temp 0.8, top-k 50), seeds {seeds} in a row on one "
+                f"graph: each run equals its seed's eager run, seed 1 gives the same "
+                f"{GRAPH_TOKENS} tokens twice, seed 2 agrees with it at {same} of {GRAPH_TOKENS}")
+        rows[mode] = row
+        del w, eager, first, timed, graph, prompt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def stream_request(name: str, tmp: Path, codec: str, model: str, n_predict: int,
+                   extra: list[str], kernels, cfg) -> dict:
+    """One --tts-stream-output request through the CLI: the WAV (sizes
+    patched) has the full decode's sample count and is not silent (a mel
+    WAV at most 1% clipped); TTFA, re-decodes and their time printed."""
+    t0 = time.perf_counter()
+    text, n_codes, sr, pcm, grew = drive_cli(
+        f"stream-{name}", tmp, ["-mv", str(tmp / codec), "-m", str(tmp / model), "-p",
+                                STREAM_PROMPT, "-n", str(n_predict), "--tts-stream-output", *extra],
+        kernels)
+    wall_s = time.perf_counter() - t0
+    want = wav_samples(cfg, n_codes)
+    if sr != cfg.sample_rate or pcm.size != want:
+        raise AssertionError(f"stream {name}: {pcm.size} samples at {sr} Hz, {n_codes} codes "
+                             f"imply {want} at {cfg.sample_rate}")
+    clipped = float(np.mean(np.abs(pcm.astype(np.int32)) >= 32767))
+    if cfg.model_type == 1 and clipped > MEL_CLIPPED_MAX:
+        raise AssertionError(f"stream {name}: {clipped:.3f} of the samples clip")
+    m = re.search(r"streaming ttfa=([0-9.]+)ms .*redecodes=(\d+) redecode_ms=([0-9.]+)", text)
+    ttfa, redecodes, redecode_ms = float(m.group(1)), int(m.group(2)), float(m.group(3))
+    n_tok = int(re.search(r"n_tokens=(\d+)", text).group(1))
+    log(f"[stream {name}] n_predict={n_predict} {' '.join(extra)}: tokens={n_tok} "
+        f"codes={n_codes} ttfa_ms={ttfa} redecodes={redecodes} redecode_ms={redecode_ms} "
+        f"wall_s={wall_s:.3f} audio_s={pcm.size / sr} {graph_text(text)} "
+        f"launches: {launch_text(grew)}")
+    return {"tokens": n_tok, "codes": n_codes, "ttfa_ms": ttfa, "redecodes": redecodes,
+            "redecode_ms": redecode_ms, "wall_s": wall_s, "audio_s": pcm.size / sr}
+
+
 def run_request(i: str, tmp: Path, prompt: str, n_predict: int, extra: list[str], ccfg,
                 model: str = "llm.gguf", kernels=(k1, k2)) -> dict:
     """One text -> WAV run through the CLI on the wave codec; the WAV has the
@@ -643,9 +883,7 @@ def run_request(i: str, tmp: Path, prompt: str, n_predict: int, extra: list[str]
     text, n_codes, sr, pcm, grew = drive_cli(
         f"req{i}", tmp, ["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / model), "-p", prompt,
                          "-n", str(n_predict), *extra], kernels)
-    frames = ccfg.stft_frames(n_codes)
-    n_pad = (ccfg.n_fft - ccfg.hop_length) // 2
-    want = (frames - 1) * ccfg.hop_length + ccfg.n_fft - 2 * n_pad
+    want = wav_samples(ccfg, n_codes)
     if pcm.size != want:
         raise AssertionError(f"request {i}: {pcm.size} samples, {n_codes} codes imply {want}")
     tok_s = float(re.search(r"tok/s=([0-9.]+)", text).group(1))
@@ -653,7 +891,7 @@ def run_request(i: str, tmp: Path, prompt: str, n_predict: int, extra: list[str]
     codec_ms = float(re.search(r"synth breakdown: decode=([0-9.]+)ms", text).group(1))
     log(f"[request {i}] {model} prompt_chars={len(prompt)} n_predict={n_predict} "
         f"{' '.join(extra)}: tokens={n_tok} tok/s={tok_s} codes={n_codes} codec_ms={codec_ms} "
-        f"audio_s={pcm.size / sr} launches: {launch_text(grew)}")
+        f"audio_s={pcm.size / sr} {graph_text(text)} launches: {launch_text(grew)}")
     return {"tokens": n_tok, "tok_s": tok_s, "codec_ms": codec_ms, "audio_s": pcm.size / sr}
 
 
@@ -686,7 +924,7 @@ def mel_request(name: str, tmp: Path, mcfg, extra: list[str], kernels) -> dict:
                              *[str(tmp / a) if a.endswith((".gguf", ".txt")) else a
                                for a in extra]], kernels)
     wall_s = time.perf_counter() - t0
-    want = mcfg.stft_frames(n_codes) * math.prod(mcfg.vocoder_upsample_rates)
+    want = wav_samples(mcfg, n_codes)
     if sr != mcfg.sample_rate or pcm.size != want:
         raise AssertionError(f"mel request {name}: {pcm.size} samples at {sr} Hz, "
                              f"{n_codes} codes imply {want} at {mcfg.sample_rate}")
@@ -701,7 +939,8 @@ def mel_request(name: str, tmp: Path, mcfg, extra: list[str], kernels) -> dict:
     tok = re.search(r"tok/s=([0-9.]+)", text)
     log(f"[mel {name}] codes={n_codes} bucket={pick_bucket(n_codes)} codec_ms={codec_ms} "
         f"wall_s={wall_s:.2f} audio_s={pcm.size / sr} peak={np.abs(pcm).max() / 32767:.3f}"
-        + (f" tok/s={tok.group(1)}" if tok else "") + f" launches: {launch_text(grew)}")
+        + (f" tok/s={tok.group(1)} {graph_text(text)}" if tok else "")
+        + f" launches: {launch_text(grew)}")
     return {"codec_ms": codec_ms, "audio_s": pcm.size / sr}
 
 
@@ -769,16 +1008,25 @@ def main() -> int:
         log(f"[assets] wave and mel codecs + 0.1B llm (f32, Q8_0) + embedding written in "
             f"{time.perf_counter() - t0:.1f}s")
 
+        t0 = time.perf_counter()
+        graph_rows = check_graph(dev, tmp)
+        log(f"[graph] {time.perf_counter() - t0:.1f}s")
+
         # each path is driven with every count at 0 and read right after
-        launches = {}
+        launches, streams = {}, {}
         for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
-                           ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS)):
+                           ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
+                           ("stream", STREAM_REQUESTS)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
             if path == "mel":
                 for name, extra, kernels in reqs:
                     mel_request(name, tmp, mcfg, extra, kernels)
+            elif path == "stream":
+                for name, codec, model, n_predict, extra, kernels in reqs:
+                    streams[name] = stream_request(name, tmp, codec, model, n_predict, extra,
+                                                   kernels, mcfg if codec.startswith("mel") else ccfg)
             else:
                 for i, (prompt, n_predict, extra, kernels) in enumerate(reqs):
                     run_request(f"{path}-{i}", tmp, prompt, n_predict, extra, ccfg,
@@ -803,6 +1051,7 @@ def main() -> int:
                         "replaces": mod.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[mod]})
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"decode_graph": graph_rows, "streams": streams}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

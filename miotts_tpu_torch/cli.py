@@ -10,7 +10,17 @@ WAV, with either codec mode (wave: iSTFT head; mel: the bundled vocoder):
 - a speaker embedding from -emb or --tts-mio-embedding-in;
 - --tts-mio-codes-out and --tts-mio-codes-only;
 - --llm-quant (or MIOTTS_LLM_QUANT), the whole ladder: bf16, output,
-  output_int8, output_int4, q8_0, int8, int8_output_int4.
+  output_int8, output_int4, q8_0, int8, int8_output_int4;
+- --tts-stream-output: the WAV is written while the LLM generates (chunked
+  generation interleaved with codec prefix re-decodes,
+  ``streaming.stream_text_to_audio``), and its header's sizes are patched
+  at the end;
+- --tts-remove-reference-key with --tts-reference-dir: deletes
+  ``<dir>/<key>.emb.gguf``.
+
+Generation runs in chunks of decode steps; on CUDA each chunk is one
+replay of a captured CUDA graph (``models/decode_graph.py``), and the
+``llm breakdown:`` line gives the capture's host time.
 
 Flags whose path is not ported exit 1 with
 ``error: ... not yet ported to miotts_tpu_torch``. ``-fa`` has no effect:
@@ -26,13 +36,14 @@ CUDA without a card is an error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
 from pathlib import Path
 
 from .gguf.writer import load_embedding_gguf
-from .runtime.audio_io import encode_pcm16, wav16_header
+from .runtime.audio_io import encode_pcm16, wav16_header, wav16_streaming_header
 from .runtime.codes_io import load_codes, parse_codes_text, save_codes
 
 
@@ -120,13 +131,121 @@ def _unported_flag(args) -> str | None:
         (args.tts_reference_audio, "--tts-reference-audio (voice cloning)"),
         (args.tts_wavlm_model, "--tts-wavlm-model (voice cloning)"),
         (args.tts_mio_embedding_only, "--tts-mio-embedding-only (voice cloning)"),
-        (args.tts_remove_reference_key, "--tts-remove-reference-key"),
-        (args.tts_stream_output, "--tts-stream-output (streaming)"),
         (args.llm_api_url, "--llm-api-url (external LLM API)"),
         (args.sequence_parallel > 1, "--sequence-parallel"),
         (args.cpu_native == "on", "--cpu-native on"),
     )
     return next((name for given, name in checks if given), None)
+
+
+def _llm_engine(args, device):
+    from .models.llm import LLMEngine
+
+    # an empty --llm-quant defers to MIOTTS_LLM_QUANT
+    return LLMEngine(args.model, device, quantize=args.llm_quant or None)
+
+
+def _sampler(args):
+    from .models.sampling import SamplerParams
+
+    return SamplerParams(temp=args.temp, top_k=args.top_k, top_p=args.top_p,
+                         repeat_penalty=args.repeat_penalty, seed=args.seed)
+
+
+@contextlib.contextmanager
+def _llm_breakdown(label: str = "generate"):
+    """Time the block and print the ``llm breakdown:`` line: its wall time
+    under ``label`` (``stream`` when the block also runs the codec
+    re-decodes), the tokens (the block sets ``stats["n_tokens"]``), tok/s,
+    and the decode graph's captures, their host time and its replays (all 0
+    on the CPU)."""
+    from .models import decode_graph as dg
+
+    before = (dg.captures, dg.capture_ms, dg.replays)
+    stats = {"n_tokens": 0}
+    t0 = time.perf_counter()
+    yield stats
+    gen_s = time.perf_counter() - t0
+    n = stats["n_tokens"]
+    print(f"llm breakdown: {label}={gen_s * 1e3:.1f}ms n_tokens={n} "
+          f"tok/s={n / max(gen_s, 1e-9):.1f} graph_captures={dg.captures - before[0]} "
+          f"capture={dg.capture_ms - before[1]:.1f}ms replays={dg.replays - before[2]}",
+          file=sys.stderr)
+
+
+def _stream_output(args, prompt: str, device, pipe, embedding) -> int:
+    """--tts-stream-output: write the WAV while the LLM generates, then
+    patch its sizes (and rescale it when its peak clipped, the full
+    decode's peak rule), as miotts_tpu/cli.py:236-314 does."""
+    import numpy as np
+
+    from .streaming import stream_text_to_audio
+
+    try:
+        engine = _llm_engine(args, device)
+    except Exception as e:
+        return _err(f"failed to load LLM GGUF: {e}")
+    stats = {"n_samples": 0, "ttfa": None}
+    stream_codes: list[int] = []
+    pieces: list = []
+    decodes0, decode_ms0 = pipe.n_decodes, pipe.decode_ms_total
+    t0 = time.perf_counter()
+    try:
+        f = open(args.output, "wb")
+    except OSError as e:
+        return _err(f"failed to open output wav: {e}")
+    try:
+        with f, _llm_breakdown("stream") as llm_stats:
+            f.write(wav16_streaming_header(pipe.sample_rate))
+
+            def on_audio(pcm) -> None:
+                if stats["ttfa"] is None:
+                    stats["ttfa"] = time.perf_counter() - t0
+                buf = encode_pcm16(pcm)
+                f.write(buf)
+                f.flush()
+                stats["n_samples"] += len(buf) // 2
+                pieces.append(np.asarray(pcm, np.float32))
+
+            def on_token(tok, i, is_eog) -> bool:
+                llm_stats["n_tokens"] = i + 1
+                code = engine.token_to_code_or_none(tok)
+                if code is not None:
+                    stream_codes.append(code)
+                return True
+
+            _, n_codes = stream_text_to_audio(
+                pipe, engine, prompt, embedding, n_predict=args.n_predict, n_ctx=args.n_ctx,
+                sampler=_sampler(args), on_audio=on_audio, on_token=on_token)
+            if not n_codes:
+                return _err("no Mio audio codes were found in token sequence")
+            # final peak normalization (mio_tts_synthesize's rule): the
+            # streamed chunks could not know the global peak, so the payload
+            # is rewritten if it clipped
+            peak = max((float(np.abs(p).max()) for p in pieces if p.size), default=0.0)
+            if peak > 0.98:
+                f.seek(44)
+                gain = np.float32(0.95 / peak)
+                for p in pieces:
+                    f.write(encode_pcm16(p * gain))
+            # patch the placeholder RIFF/data sizes: a normal WAV
+            f.seek(0)
+            f.write(wav16_header(stats["n_samples"], pipe.sample_rate))
+    except Exception as e:
+        return _err(f"streaming synthesis failed: {e}")
+    if args.tts_mio_codes_out:
+        try:
+            save_codes(args.tts_mio_codes_out, stream_codes)
+            print(f"saved codes: {args.tts_mio_codes_out}", file=sys.stderr)
+        except (OSError, ValueError) as e:
+            return _err(f"failed to save codes: {e}")
+    ttfa_ms = (stats["ttfa"] or 0.0) * 1e3
+    print(f"synth breakdown: streaming ttfa={ttfa_ms:.1f}ms n_codes={n_codes} "
+          f"n_samples={stats['n_samples']} redecodes={pipe.n_decodes - decodes0} "
+          f"redecode_ms={pipe.decode_ms_total - decode_ms0:.1f}", file=sys.stderr)
+    print(f"wrote {args.output} ({stats['n_samples']} samples @ {pipe.sample_rate} Hz)",
+          file=sys.stderr)
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -163,6 +282,16 @@ def main(argv: list[str] | None = None) -> int:
     except Exception as e:
         return _err(f"failed to load MioCodec GGUF: {e}")
 
+    if args.tts_remove_reference_key:
+        if not args.tts_reference_dir:
+            return _err("--tts-reference-dir is required with --tts-remove-reference-key")
+        path = Path(args.tts_reference_dir) / f"{args.tts_remove_reference_key}.emb.gguf"
+        if path.exists():
+            path.unlink()
+            print(f"removed reference: {path}", file=sys.stderr)
+            return 0
+        return _err(f"reference key not found: {args.tts_remove_reference_key}")
+
     embedding = None
     for path, what in ((args.tts_mio_embedding_in, "embedding"),
                        (args.embedding_default_in, "default embedding")):
@@ -172,6 +301,13 @@ def main(argv: list[str] | None = None) -> int:
             except Exception as e:
                 return _err(f"failed to load {what} GGUF: {e}")
             break
+
+    # --tts-mio-codes-only skips synthesis, so it takes precedence over
+    # streaming output
+    if args.tts_stream_output and not args.tts_mio_codes_only:
+        if not prompt or args.llm_api_url or not args.model:
+            return _err("--tts-stream-output requires -p/--prompt with a local LLM (-m)")
+        return _stream_output(args, prompt, device, pipe, embedding)
 
     if args.tts_mio_codes:
         try:
@@ -186,8 +322,7 @@ def main(argv: list[str] | None = None) -> int:
     elif prompt:
         if not args.model:
             return _err("-m/--model is required with --prompt (or set --llm-api-url)")
-        from .models.llm import LLMEngine, gguf_llm_cpu_native_ok
-        from .models.sampling import SamplerParams
+        from .models.llm import gguf_llm_cpu_native_ok
 
         if (device.type == "cpu" and args.cpu_native == "auto"
                 and gguf_llm_cpu_native_ok(args.model)):
@@ -196,18 +331,13 @@ def main(argv: list[str] | None = None) -> int:
                   "own engine (the native CPU engine is not yet ported)", file=sys.stderr)
 
         try:
-            # an empty --llm-quant defers to MIOTTS_LLM_QUANT
-            engine = LLMEngine(args.model, device, quantize=args.llm_quant or None)
+            engine = _llm_engine(args, device)
         except Exception as e:
             return _err(f"failed to load LLM GGUF: {e}")
-        sampler = SamplerParams(temp=args.temp, top_k=args.top_k, top_p=args.top_p,
-                                repeat_penalty=args.repeat_penalty, seed=args.seed)
-        t0 = time.perf_counter()
-        tokens = engine.generate_audio_tokens(prompt, n_predict=args.n_predict,
-                                              n_ctx=args.n_ctx, sampler=sampler)
-        gen_s = time.perf_counter() - t0
-        print(f"llm breakdown: generate={gen_s * 1e3:.1f}ms n_tokens={len(tokens)} "
-              f"tok/s={len(tokens) / max(gen_s, 1e-9):.1f}", file=sys.stderr)
+        with _llm_breakdown() as stats:
+            tokens = engine.generate_audio_tokens(prompt, n_predict=args.n_predict,
+                                                  n_ctx=args.n_ctx, sampler=_sampler(args))
+            stats["n_tokens"] = len(tokens)
         codes = engine.tokens_to_codes(tokens)
         if not codes:
             return _err("no Mio audio codes were found in token sequence")

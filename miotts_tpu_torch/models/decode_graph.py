@@ -1,0 +1,123 @@
+"""A chunk of LLM decode steps captured once as a CUDA graph and replayed.
+
+The JAX package runs generation on the device as a compiled
+``lax.while_loop`` (miotts_tpu/models/llm.py:775-888). Its CUDA counterpart
+here: the chunk body of ``models/llm.py`` (``n_steps`` times sample ->
+sampler-ring update -> ``llm_decode_step`` -> pos/done update, no early
+exit) is run once eagerly on a side stream to warm it up, its state is put
+back, and it is captured into a ``torch.cuda.CUDAGraph``. Every later chunk
+is one replay, with no Python per token.
+
+- The graph owns the ``GenState`` it was captured on: its tensors (logits,
+  KV cache, pos, ring, ring cursor, done, sampler key) are the graph's
+  static buffers for the graph's whole life. A request prefills into the
+  graph's KV cache and ``load`` copies the rest of its first state in. The
+  sampler's randomness is a hash of its key (``models/sampling.py``), a
+  device tensor like the rest, so a replay draws what the eager body would
+  from the same state.
+- The warm-up runs first-use side effects outside capture: the kernels'
+  shared-memory attributes, CUDA's lazy module loading, cuBLAS workspaces.
+- Whoever captures a graph keeps it: ``LLMEngine`` keeps one for its
+  weights, and a graph lives as long as its owner holds it.
+
+Counters: each kernel wrapper (``ops/cuda/*.py``) counts a launch when
+Python calls it, and a replay calls no Python. So the launches a capture
+records are taken back after it and added again on every replay: a
+wrapper's ``launches`` stays the number of its kernel's launches in this
+process. ``captures``, ``replays``, ``capture_ms`` (host time of the
+warm-ups and captures), ``warmup_steps`` (eager steps run before a capture,
+their results discarded) and ``eager_steps`` (chunk-body steps run eagerly
+on a CUDA device, which happens only when a caller runs the eager body by
+name) are module counters a caller may reset.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+captures = 0
+replays = 0
+capture_ms = 0.0
+warmup_steps = 0
+eager_steps = 0
+
+
+def _kernel_modules() -> tuple:
+    from ..ops.cuda import (
+        activation1d, banded_attention, conv1d, decode_attention, q8_matmul, resblock)
+    return (banded_attention, decode_attention, q8_matmul, conv1d, activation1d, resblock)
+
+
+def _tensors(state) -> dict[str, torch.Tensor]:
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+
+
+class ChunkGraph:
+    """One captured chunk on ``state``, which the graph keeps as ``.state``.
+    ``body(state, out, n_new)`` is the eager chunk body; it reads and writes
+    ``state``'s tensors in place and writes the chunk's tokens into ``out``
+    [B, n_steps] and the count of each lane's new tokens into ``n_new``
+    [B]."""
+
+    def __init__(self, body: Callable, state, n_steps: int):
+        global captures, capture_ms, warmup_steps
+        self.state = state
+        self.n_steps = n_steps
+        dev = state.logits.device
+        if dev.type != "cuda":
+            raise ValueError(f"a chunk graph needs a CUDA device, not {dev}")
+        t0 = time.perf_counter()
+        B = state.pos.shape[0]
+        self.out = torch.zeros((B, n_steps), dtype=torch.int64, device=dev)
+        self.n_new = torch.zeros((B,), dtype=torch.int32, device=dev)
+        saved = {k: v.clone() for k, v in _tensors(state).items()}
+
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            body(state, self.out, self.n_new)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        warmup_steps += n_steps
+        self.load(dataclasses.replace(state, **saved))
+        torch.cuda.synchronize(dev)
+
+        mods = _kernel_modules()
+        before = {m: m.launches for m in mods}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            body(state, self.out, self.n_new)
+        torch.cuda.synchronize(dev)
+        # the capture recorded these launches and ran none; each replay runs them
+        self.launches_per_replay = {m: m.launches - n for m, n in before.items()}
+        for m, n in before.items():
+            m.launches = n
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        captures += 1
+        capture_ms += self.capture_ms
+
+    def load(self, state) -> None:
+        """Copy ``state``'s values into the graph's buffers (a tensor that
+        already is the graph's, such as a KV cache prefilled in place, is
+        left as it is). The next replay continues from ``state``."""
+        for k, src in _tensors(state).items():
+            dst = getattr(self.state, k)
+            if dst is not src:
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ValueError(f"{k}: {tuple(src.shape)} {src.dtype} does not fit the "
+                                     f"graph's {tuple(dst.shape)} {dst.dtype}")
+                dst.copy_(src)
+
+    def run(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """One replay on ``.state``: returns (tokens [B, n_steps], n_new
+        [B]), the graph's output buffers, which the next replay
+        overwrites."""
+        global replays
+        self.graph.replay()
+        for m, n in self.launches_per_replay.items():
+            m.launches += n
+        replays += 1
+        return self.out, self.n_new

@@ -1,10 +1,14 @@
 """MioTTS codec-token LLM (llama/Qwen-family GGUF) in PyTorch
 (miotts_tpu/models/llm.py).
 
-Prefill is one batched forward; generation is a Python loop of decode
-steps with the sampler chain between them (the JAX package runs the same
-loop as one ``lax.while_loop``; a CUDA graph of the decode step is later
-work). Norms are f32, logits f32. Matmul weights are dense bf16 (GGUF
+Prefill is one batched forward; generation runs in chunks of decode steps
+with the sampler chain between them (the JAX package's resumable
+``GenState`` / ``llm_start`` / ``llm_generate_chunk``). A chunk body runs
+its steps with no early exit and no read back to the host; on CUDA it is
+captured once as a CUDA graph and replayed (``models/decode_graph.py``;
+``LLMEngine`` keeps one graph and loads each request into it), on the CPU
+it runs eagerly. The host reads one packed result a chunk
+(``fetch_chunk_result``). Norms are f32, logits f32. Matmul weights are dense bf16 (GGUF
 Q8_0/f16/f32 tensors dequantized on the host and cast) or, by the
 ``--llm-quant`` ladder, kept quantized on the device (``load_llm_gguf``):
 Q8_0 leaves run on kernel K3 (``ops/cuda/q8_matmul.py``), W8A8 and W4A8
@@ -42,7 +46,8 @@ from ..ops.quant_matmul import (
     maybe_quant_matmul as _mm, quantize_int4_percol, quantize_int8_percol, quantize_q8_cols)
 from ..ops.rope import apply_rope
 from ..runtime.tokenizer import BPETokenizer
-from .sampling import SamplerParams, SamplerState, sample_token
+from . import decode_graph
+from .sampling import SamplerParams, SamplerState, sample_token, sampler_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,33 +407,167 @@ def llm_decode_step(cfg: LLMConfig, w: dict, token: torch.Tensor, pos: torch.Ten
     return _logits(cfg, w, xn[:, 0])
 
 
+# ---------------------------------------------------------------------------
+# resumable chunked generation
+# ---------------------------------------------------------------------------
+
+CHUNK = 16  # decode steps a chunk runs (the JAX package's streaming chunk)
+
+
+@dataclasses.dataclass
+class GenState:
+    """Carry state between generation chunks (miotts_tpu/models/llm.py
+    GenState): device tensors the chunk body updates IN PLACE. A chunk
+    graph keeps the state it was captured on as its static buffers
+    (``decode_graph.ChunkGraph``)."""
+    logits: torch.Tensor  # [B, V] f32, the logits of the next sample
+    cache_k: torch.Tensor  # [L, B, S, KVH, HD]
+    cache_v: torch.Tensor
+    pos: torch.Tensor  # [B] int32, the next cache write position
+    ring: torch.Tensor  # [B, 64] int64 sampler penalty ring
+    ring_idx: torch.Tensor  # [] int32 ring cursor
+    done: torch.Tensor  # [B] bool
+    key: torch.Tensor  # [2] int64 sampler key: seed, draws so far (JAX: the PRNG key)
+
+
+def llm_start(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
+              prompt_lengths: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+              key: torch.Tensor) -> GenState:
+    """Prefill (eagerly; it writes the prompt's K/V into ``cache_k``/
+    ``cache_v`` in place) and the state of a first chunk, drawing from a
+    copy of ``key`` (``sampler_key``)."""
+    logits = llm_prefill(cfg, w, prompt_tokens, prompt_lengths, cache_k, cache_v)
+    B = prompt_tokens.shape[0]
+    s0 = SamplerState.init(B, prompt_tokens.device)
+    return GenState(logits.contiguous(), cache_k, cache_v,
+                    prompt_lengths.to(torch.int32).clone(), s0.ring, s0.idx,
+                    torch.zeros((B,), dtype=torch.bool, device=prompt_tokens.device), key.clone())
+
+
+def _chunk_body(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                sampler: SamplerParams, state: GenState, out: torch.Tensor,
+                n_new: torch.Tensor) -> None:
+    """``n_steps`` decode steps from ``state``, IN PLACE, with no early exit
+    and no read back to the host: the body that runs eagerly and that a
+    CUDA graph captures. Writes this chunk's tokens into ``out`` [B,
+    n_steps] and each lane's count of new tokens into ``n_new`` [B]. A done
+    lane emits 0, keeps its pos and does not count, as the JAX body does;
+    its decode step still runs (its k/v land at its unchanging pos)."""
+    sstate = SamplerState(state.ring, state.ring_idx)
+    done = state.done
+    count = torch.zeros_like(n_new)
+    toks = []
+    for _ in range(n_steps):
+        tok = sample_token(state.logits, sampler, sstate, state.key)
+        state.key[1:].add_(1)
+        sstate.update(tok)
+        toks.append(torch.where(done, torch.zeros_like(tok), tok))
+        count = count + (~done).to(count.dtype)
+        done = done | (tok[:, None] == eog_ids[None, :]).any(dim=-1)
+        state.logits.copy_(llm_decode_step(cfg, w, tok, state.pos, state.cache_k, state.cache_v))
+        state.pos.add_((~done).to(torch.int32))
+    state.done.copy_(done)
+    out.copy_(torch.stack(toks, dim=1))
+    n_new.copy_(count)
+
+
+def llm_generate_chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                       sampler: SamplerParams, state: GenState
+                       ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
+    """Run ``n_steps`` decode steps from ``state`` eagerly. Returns (tokens
+    [B, n_steps] int64, n_new [B] int32, state); already-done lanes emit 0s.
+
+    This is the plain version of a chunk graph's replay (``capture_chunk``):
+    the port's generation paths replay a graph on CUDA, and run this on the
+    CPU."""
+    dev = state.logits.device
+    B = state.pos.shape[0]
+    out = torch.empty((B, n_steps), dtype=torch.int64, device=dev)
+    n_new = torch.empty((B,), dtype=torch.int32, device=dev)
+    _chunk_body(cfg, w, eog_ids, n_steps, sampler, state, out, n_new)
+    if dev.type == "cuda":
+        decode_graph.eager_steps += n_steps
+    return out, n_new, state
+
+
+def empty_gen_state(cfg: LLMConfig, B: int, S: int, device: torch.device) -> GenState:
+    """A zeroed state of B lanes over a cache of S rows: the buffers a chunk
+    graph is captured on before any request is loaded into them."""
+    ck, cv = init_kv_cache(cfg, B, S, device)
+    s0 = SamplerState.init(B, device)
+    return GenState(torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=device),
+                    ck, cv, torch.zeros((B,), dtype=torch.int32, device=device), s0.ring,
+                    s0.idx, torch.zeros((B,), dtype=torch.bool, device=device),
+                    sampler_key(0, device))
+
+
+def capture_chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                  sampler: SamplerParams, state: GenState) -> decode_graph.ChunkGraph:
+    """Capture ``n_steps`` steps of the chunk body on ``state`` (CUDA), which
+    becomes the graph's. The sampler's seed is not baked in: it lives in
+    the state's key."""
+    def body(st, out, n_new):
+        _chunk_body(cfg, w, eog_ids, n_steps, sampler, st, out, n_new)
+
+    return decode_graph.ChunkGraph(body, state, n_steps)
+
+
+def fetch_chunk_result(out: torch.Tensor, n_new: torch.Tensor, state: GenState
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One device -> host copy a chunk: [n_new | done | tokens] packed on
+    the device into int32 [B, 2 + n_steps]. Returns (out, n_new, done) as
+    numpy arrays."""
+    packed = torch.cat([n_new.to(torch.int32)[:, None], state.done.to(torch.int32)[:, None],
+                        out.to(torch.int32)], dim=1).cpu().numpy()
+    return packed[:, 2:], packed[:, 0], packed[:, 1].astype(bool)
+
+
+def _chunks(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, sampler: SamplerParams,
+            state: GenState, graph: decode_graph.ChunkGraph | None):
+    """Chunks of CHUNK steps from ``state``, each fetched as (tokens, n_new,
+    done): replays of ``graph`` after ``state`` is loaded into it, else the
+    eager body, which only the CPU runs here."""
+    if graph is not None:
+        graph.load(state)
+        state = graph.state
+    elif state.logits.device.type == "cuda":
+        raise ValueError("generation on CUDA replays a chunk graph (capture_chunk)")
+    while True:
+        if graph is not None:
+            out, n_new = graph.run()
+        else:
+            out, n_new, _ = llm_generate_chunk(cfg, w, eog_ids, CHUNK, sampler, state)
+        yield fetch_chunk_result(out, n_new, state)
+
+
 def llm_generate(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
                  prompt_lengths: torch.Tensor, eog_ids: torch.Tensor,
-                 generator: torch.Generator, n_predict: int, sampler: SamplerParams,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor):
-    """Prefill + autoregressive generation. Returns (tokens [B, n_predict],
-    n_generated [B]); a lane stops at its first EOG token, which is
-    included. Done lanes emit 0s."""
+                 key: torch.Tensor, n_predict: int, sampler: SamplerParams,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 graph: decode_graph.ChunkGraph | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill + generation in chunks of CHUNK steps, reading ``done`` once
+    a chunk. Returns (tokens [B, n_predict], n_generated [B]) on the host,
+    as int64 tensors; a lane stops at its first EOG token, which is
+    included. Done lanes emit 0s.
+
+    On CUDA the chunks are replays of ``graph``, a ``capture_chunk`` of
+    CHUNK steps with this sampler whose state holds ``cache_k``/``cache_v``
+    (the prefill writes there); on the CPU they run eagerly."""
     B = prompt_tokens.shape[0]
-    dev = prompt_tokens.device
-    logits = llm_prefill(cfg, w, prompt_tokens, prompt_lengths, cache_k, cache_v)
-    out = torch.zeros((B, n_predict), dtype=torch.int64, device=dev)
-    n_gen = torch.zeros((B,), dtype=torch.int32, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    pos = prompt_lengths.to(torch.int32).clone()
-    state = SamplerState.init(B, dev)
-    for i in range(n_predict):
-        tok = sample_token(logits, sampler, state, generator)
-        state.update(tok)
-        out[:, i] = torch.where(done, torch.zeros_like(tok), tok)
-        n_gen += (~done).to(torch.int32)
-        done = done | torch.isin(tok, eog_ids)
-        # the step after the last sample would only feed a finished loop
-        if i + 1 == n_predict or bool(done.all()):
+    state = llm_start(cfg, w, prompt_tokens, prompt_lengths, cache_k, cache_v, key)
+    outs, total = [np.zeros((B, 0), np.int32)], np.zeros(B, np.int64)
+    chunks = _chunks(cfg, w, eog_ids, sampler, state, graph)
+    for _ in range(-(-n_predict // CHUNK)):
+        out_np, n_np, done_np = next(chunks)
+        outs.append(out_np)
+        total += n_np
+        if done_np.all():
             break
-        logits = llm_decode_step(cfg, w, tok, pos, cache_k, cache_v)
-        pos = pos + (~done).to(torch.int32)
-    return out, n_gen
+    tokens = np.concatenate(outs, axis=1)[:, :n_predict]
+    tokens = np.pad(tokens, ((0, 0), (0, n_predict - tokens.shape[1])))
+    return (torch.from_numpy(tokens.astype(np.int64)),
+            torch.from_numpy(np.minimum(total, n_predict)))
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +593,11 @@ class LLMEngine:
         self.quantize = (quantize if quantize is not None
                          else os.environ.get("MIOTTS_LLM_QUANT", "")) or "bf16"
         self._init_vocab_maps()
+        # generation replays a chunk graph (CUDA's path); the graph it keeps
+        # and the (cache rows, sampler) that graph serves
+        self.use_graph = device.type == "cuda"
+        self._graph: decode_graph.ChunkGraph | None = None
+        self._graph_key = None
 
     def _init_vocab_maps(self) -> None:
         pat = re.compile(r"^<\|s_(\d+)\|>$")
@@ -470,21 +614,72 @@ class LLMEngine:
     def tokens_to_codes(self, tokens: list[int]) -> list[int]:
         return [self.token_to_code[t] for t in tokens if t in self.token_to_code]
 
-    def generate_audio_tokens(self, text: str, n_predict: int = 400, n_ctx: int = 700,
-                              sampler: SamplerParams | None = None) -> list[int]:
-        sampler = sampler or SamplerParams()
+    def token_to_code_or_none(self, token: int) -> int | None:
+        return self.token_to_code.get(token)
+
+    def _prompt(self, text: str, n_predict: int, n_ctx: int, sampler: SamplerParams):
+        """Chat-templated prompt ids padded to their bucket, on the device,
+        with its length, a KV cache of max(n_ctx, T + n_predict + 32) rows
+        and, under ``use_graph``, the chunk graph whose state holds that
+        cache."""
         ids = self.tokenizer.encode(CHAT_TEMPLATE.format(text=text), parse_special=True)
         T = len(ids)
         bucket = next((b for b in _PROMPT_BUCKETS if T <= b), ((T + 127) // 128) * 128)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :T] = ids
-        cache_k, cache_v = init_kv_cache(self.config, 1, max(n_ctx, T + n_predict + 32),
-                                         self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(sampler.seed)
-        out, n_gen = llm_generate(
-            self.config, self.weights, torch.from_numpy(toks).to(self.device),
-            torch.tensor([T], dtype=torch.int32, device=self.device), self.eog_ids, gen,
-            n_predict, sampler, cache_k, cache_v)
+        S = max(n_ctx, T + n_predict + 32)
+        graph = self._chunk_graph(S, sampler) if self.use_graph else None
+        if graph is not None:
+            cache_k, cache_v = graph.state.cache_k, graph.state.cache_v
+        else:
+            cache_k, cache_v = init_kv_cache(self.config, 1, S, self.device)
+        return (torch.from_numpy(toks).to(self.device),
+                torch.tensor([T], dtype=torch.int32, device=self.device), cache_k, cache_v, graph)
+
+    def _chunk_graph(self, S: int, sampler: SamplerParams) -> decode_graph.ChunkGraph | None:
+        """The engine's chunk graph for a cache of S rows and this sampler
+        (its seed aside): the one it holds, or a new capture that replaces
+        it."""
+        key = (S, dataclasses.replace(sampler, seed=0))
+        if self._graph_key != key:
+            self._graph = self._graph_key = None  # its buffers go before the next ones
+            self._graph = capture_chunk(self.config, self.weights, self.eog_ids, CHUNK, sampler,
+                                        empty_gen_state(self.config, 1, S, self.device))
+            self._graph_key = key
+        return self._graph
+
+    def generate_audio_tokens(self, text: str, n_predict: int = 400, n_ctx: int = 700,
+                              sampler: SamplerParams | None = None) -> list[int]:
+        sampler = sampler or SamplerParams()
+        toks, lengths, cache_k, cache_v, graph = self._prompt(text, n_predict, n_ctx, sampler)
+        out, n_gen = llm_generate(self.config, self.weights, toks, lengths, self.eog_ids,
+                                  sampler_key(sampler.seed, self.device), n_predict, sampler,
+                                  cache_k, cache_v, graph)
         n = int(n_gen[0])
         return [int(t) for t in out[0, :n].tolist()]
+
+    def generate_audio_tokens_streaming(self, text: str, on_token, n_predict: int = 700,
+                                        n_ctx: int = 700,
+                                        sampler: SamplerParams | None = None) -> list[int]:
+        """Streaming variant (miotts_tpu/models/llm.py:1254-1300): generation
+        runs in chunks of CHUNK steps, always whole chunks (one graph)
+        truncated on the host; ``on_token(token_id, index, is_eog) -> bool``
+        is called per token and may return False to cancel."""
+        sampler = sampler or SamplerParams()
+        toks, lengths, cache_k, cache_v, graph = self._prompt(text, n_predict, n_ctx, sampler)
+        state = llm_start(self.config, self.weights, toks, lengths, cache_k, cache_v,
+                          sampler_key(sampler.seed, self.device))
+        generated: list[int] = []
+        eog = set(self.eog_ids.tolist())
+        chunks = _chunks(self.config, self.weights, self.eog_ids, sampler, state, graph)
+        while len(generated) < n_predict:
+            out_np, n_np, done_np = next(chunks)
+            n = int(n_np[0])
+            for t in out_np[0][:n][: n_predict - len(generated)]:
+                t = int(t)
+                generated.append(t)
+                if on_token is not None and not on_token(t, len(generated) - 1, t in eog):
+                    return generated
+            if n < CHUNK or bool(done_np[0]):
+                break
+        return generated

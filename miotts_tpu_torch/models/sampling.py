@@ -6,8 +6,19 @@ Order and semantics mirror the reference's llama.cpp chain:
   else logit*p
 - top_k when k > 0 (exact, ``torch.topk``)
 - top_p when 0 < p < 1 (min_keep = 1)
-- temperature then a categorical draw from an explicit ``torch.Generator``;
-  greedy when temp <= 0
+- temperature then a categorical draw by Gumbel-max (argmax of logits/temp
+  plus Gumbel noise), the rule ``jax.random.categorical`` uses; greedy
+  when temp <= 0
+
+Every step is device ops on device state, with no read back to the host,
+so a chain of steps can be captured in a CUDA graph and replayed
+(``models/decode_graph.py``): the ring's write cursor is a device int32
+scalar, as JAX's is, and the ring is written at a device index. The draw's
+randomness is counter-based, the counterpart of a JAX PRNG key: a device
+``key`` [2] int64 holds (seed, draws so far), and each candidate's uniform
+is an integer hash of (seed, draw, element index). A replayed graph and
+the eager body therefore draw the same numbers from the same key, and a
+seed reproduces its tokens without any generator state outside the graph.
 
 The JAX tile prefilter for top-k is a TPU sort workaround and is not
 ported. Token-exact RNG parity with JAX (or llama.cpp) is impossible by
@@ -17,10 +28,13 @@ construction: conformance is distributional.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 PENALTY_LAST_N = 64
+_M32 = 0xFFFFFFFF
+_MIX = 0x45D9F3B  # the multiplier of a 32-bit integer hash; x * _MIX < 2^59, no int64 overflow
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,18 +48,43 @@ class SamplerParams:
 
 @dataclasses.dataclass
 class SamplerState:
-    """Penalty ring [B, PENALTY_LAST_N] (-1 = empty) and its write cursor."""
+    """Penalty ring [B, PENALTY_LAST_N] int64 (-1 = empty) and its write
+    cursor, a device int32 scalar."""
     ring: torch.Tensor
-    idx: int = 0
+    idx: torch.Tensor
 
     @classmethod
     def init(cls, batch: int, device: torch.device) -> "SamplerState":
-        return cls(torch.full((batch, PENALTY_LAST_N), -1, dtype=torch.int64, device=device))
+        return cls(torch.full((batch, PENALTY_LAST_N), -1, dtype=torch.int64, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
 
     def update(self, token: torch.Tensor) -> None:
-        """Record this step's tokens [B] (in place)."""
-        self.ring[:, self.idx % PENALTY_LAST_N] = token
-        self.idx += 1
+        """Record this step's tokens [B] at the cursor and advance it, both
+        in place on the device (update_sampler_state)."""
+        col = torch.remainder(self.idx, PENALTY_LAST_N).long().reshape(1)
+        self.ring.index_copy_(1, col, token.to(self.ring.dtype)[:, None])
+        self.idx.add_(1)
+
+
+def sampler_key(seed: int, device: torch.device) -> torch.Tensor:
+    """The draw's random state: [2] int64 (seed mod 2^32, draws so far)."""
+    return torch.tensor([seed & _M32, 0], dtype=torch.int64, device=device)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective hash of 32-bit values held in int64."""
+    x = ((x >> 16) ^ x) * _MIX & _M32
+    x = ((x >> 16) ^ x) * _MIX & _M32
+    return (x >> 16) ^ x
+
+
+def uniform(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """f32 uniforms in (0, 1) for draw ``key[1]`` of seed ``key[0]``: the
+    hash of (hash(hash(seed) + draw) + element index), its top 23 bits plus
+    a half, so 0 and 1 never occur."""
+    base = _mix32((_mix32(key[0]) + key[1]) & _M32)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device).reshape(shape)
+    return ((_mix32((base + i) & _M32) >> 9).float() + 0.5) * 2.0 ** -23
 
 
 def apply_repeat_penalty(logits: torch.Tensor, state: SamplerState, penalty: float) -> torch.Tensor:
@@ -60,8 +99,10 @@ def apply_repeat_penalty(logits: torch.Tensor, state: SamplerState, penalty: flo
 
 
 def sample_token(logits: torch.Tensor, params: SamplerParams, state: SamplerState,
-                 generator: torch.Generator) -> torch.Tensor:
-    """One sampler-chain step. logits [B, V] f32 -> token ids [B] int64."""
+                 key: torch.Tensor) -> torch.Tensor:
+    """One sampler-chain step. logits [B, V] f32 -> token ids [B] int64. A
+    draw reads ``key`` (``sampler_key``) and leaves it as it is; the caller
+    advances its draw count."""
     B, V = logits.shape
     if params.repeat_penalty != 1.0:
         logits = apply_repeat_penalty(logits, state, params.repeat_penalty)
@@ -84,8 +125,10 @@ def sample_token(logits: torch.Tensor, params: SamplerParams, state: SamplerStat
     if params.temp <= 0.0:
         choice = torch.argmax(vals, dim=-1)
     else:
-        probs = torch.softmax(vals / params.temp, dim=-1)
-        choice = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        # Gumbel-max: argmax(v / T + G), G = -log(-log(U)), U ~ (0, 1), is a
+        # draw from softmax(v / T)
+        u = uniform(key, tuple(vals.shape))
+        choice = torch.argmax(vals / params.temp - torch.log(-torch.log(u)), dim=-1)
     if idx is None:
         return choice
     return torch.gather(idx, 1, choice[:, None])[:, 0]

@@ -1,6 +1,7 @@
 """16-bit PCM WAV output (the WAV pieces of miotts_tpu/runtime/audio_io.py).
 
-Only what the port writes: the canonical 44-byte mono header, the f32 ->
+Only what the port writes: the canonical 44-byte mono header, the
+streaming header whose sizes are patched when the stream ends, the f32 ->
 int16 encoding (clamp to [-1, 1], round half to even at 32767 scale) and a
 file writer. Reading and decoding reference audio (native, FLAC, MP3) is
 voice-cloning input, not yet ported.
@@ -24,6 +25,21 @@ def wav16_header(n_samples: int, sample_rate: int, num_channels: int = 1) -> byt
         b"RIFF", 36 + data_size, b"WAVE",
         b"fmt ", 16, 1, num_channels, sample_rate, byte_rate, block_align, bits,
         b"data", data_size,
+    )
+
+
+def wav16_streaming_header(sample_rate: int, num_channels: int = 1) -> bytes:
+    """WAV header for incremental delivery of a stream whose final length is
+    unknown when the response starts: RIFF/data sizes carry the 0xFFFFFFFF
+    streaming convention."""
+    bits = 16
+    byte_rate = sample_rate * num_channels * (bits // 8)
+    block_align = num_channels * (bits // 8)
+    return struct.pack(
+        "<4sI4s4sIHHIIHH4sI",
+        b"RIFF", 0xFFFFFFFF, b"WAVE",
+        b"fmt ", 16, 1, num_channels, sample_rate, byte_rate, block_align, bits,
+        b"data", 0xFFFFFFFF,
     )
 
 

@@ -3,7 +3,7 @@
 card, and what kernels K2 (decode attention) and K3 (Q8_0 matmul) take of it.
 
     python3 scripts/profile_torch_decode.py [--steps 64] [--prompt 32] [--cache 700]
-                                            [--llm-quant q8_0]
+                                            [--llm-quant q8_0] [--graph]
 
 Writes the full-width synthetic 0.1B LLM (``chip_smoke.LLM_WIDTHS``: qwen2,
 dim 768, 12 layers, 12 heads, 2 KV heads) to a temporary directory, loads
@@ -18,9 +18,19 @@ greedy tokens, without the sampler:
   eight warm-up steps;
 - ``--steps`` more steps under ``torch.profiler``: device time by kernel
   name, the device's busy time (the union of its kernel intervals) and its
-  idle share of the wall time, and K2's and K3's time per launch, launches
+  idle share of the profiled wall time (the profiler slows the host) and of
+  the unprofiled host time, and K2's and K3's time per launch, launches
   per step and share of the device time (K3's launches include any second
   pass it makes, such as a split-K sum).
+
+With ``--graph`` it then does the same for chunks of ``llm.CHUNK`` steps of
+the generation loop (``llm_start`` / ``fetch_chunk_result``, the CLI's
+default sampler, no EOG so every chunk runs whole), once on the eager chunk
+body (``llm_generate_chunk``) and once on replays of its CUDA graph
+(``capture_chunk``): host ms a step (each
+chunk ended by its one host read), device busy ms a step and idle share
+under the profiler, CUDA-event ms a chunk, the capture's host time, and
+K2's and K3's launches and time a step.
 
 Prints the card's name and power limit, then one JSON object as the last
 line. Needs a CUDA card; exits 2 without one.
@@ -46,7 +56,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import LLM_WIDTHS  # noqa: E402
 from miotts_tpu_torch.device import select_device  # noqa: E402
 from miotts_tpu_torch.models.llm import (  # noqa: E402
-    init_kv_cache, llm_decode_step, llm_prefill, load_llm_gguf)
+    CHUNK, capture_chunk, fetch_chunk_result, init_kv_cache, llm_decode_step,
+    llm_generate_chunk, llm_prefill, llm_start, load_llm_gguf)
+from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key  # noqa: E402
 from miotts_tpu_torch.ops.cuda import build  # noqa: E402
 from miotts_tpu_torch.ops.cuda import decode_attention as k2  # noqa: E402
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3  # noqa: E402
@@ -60,6 +72,8 @@ def main() -> int:
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--cache", type=int, default=700)
     ap.add_argument("--llm-quant", default="", help="a --llm-quant mode (default: dense bf16)")
+    ap.add_argument("--graph", action="store_true",
+                    help="also profile chunks of the generation loop, eager and as a CUDA graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_decode: needs a CUDA card", file=sys.stderr)
@@ -97,24 +111,16 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
     pos0 = int(pos[0])
     k2.launches = k3.launches = 0
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()  # the profiler's own start and stop stay outside
         for _ in range(args.steps):
             step()
-    wall = (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
+    by_name, busy = device_kernels(prof)
 
     def per_kernel(mod, marks: tuple[str, ...]) -> dict:
-        us = [t for name, ts in by_name.items() if any(m in name for m in marks) for t in ts]
-        return {"launches": mod.launches, "launches_per_step": mod.launches / args.steps,
-                "device_launches_per_step": len(us) / args.steps,
-                "us_per_launch": sum(us) / max(1, len(us)),
-                "ms_per_step": sum(us) / 1e3 / args.steps, "share_of_device": sum(us) / 1e3 / busy}
+        return kernel_share(by_name, busy, mod, marks, args.steps)
 
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
     result = {
@@ -125,7 +131,8 @@ def main() -> int:
         "host_ms_per_step": {"median": statistics.median(walls), "min": min(walls),
                              "max": max(walls)},
         "profiled": {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
-                     "device_ms_per_step": busy / args.steps},
+                     "device_ms_per_step": busy / args.steps,
+                     "idle_share_unprofiled": 1.0 - busy / args.steps / statistics.median(walls)},
         "k2": per_kernel(k2, ("decode_attention_kernel",)),
         "k3": per_kernel(k3, ("q8_matmul", "q8_gemv", "sum_splits")),
         "by_kernel_ms": [{"name": name[:90], "calls": len(t), "ms": sum(t) / 1e3}
@@ -134,7 +141,8 @@ def main() -> int:
     p = result["profiled"]
     print(f"{result['llm_quant']} decode steps at pos {pos0}-{pos0 + args.steps - 1}: host "
           f"{result['host_ms_per_step']['median']:.3f} ms/step (median), device busy "
-          f"{p['device_ms_per_step']:.3f} ms/step, idle {p['idle_share']:.1%}", flush=True)
+          f"{p['device_ms_per_step']:.3f} ms/step, idle {p['idle_share']:.1%} profiled, "
+          f"{p['idle_share_unprofiled']:.1%} of the unprofiled host time", flush=True)
     for name in ("k2", "k3"):
         k = result[name]
         print(f"  {name.upper()}: {k['device_launches_per_step']:.1f} device launches/step "
@@ -143,8 +151,90 @@ def main() -> int:
               flush=True)
     for k in result["by_kernel_ms"]:
         print(f"  {k['ms']:9.3f} ms {k['calls']:5d}x {k['name']}", flush=True)
+    if args.graph:
+        result["chunks"] = {name: profile_chunks(args, cfg, w, tokens, lengths, dev, eager)
+                            for name, eager in (("eager", True), ("graph", False))}
     print(json.dumps(result))
     return 0
+
+
+def device_kernels(prof) -> tuple[dict[str, list[float]], float]:
+    """Device kernels of a profile by name (µs each) and the device's busy ms."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return by_name, busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
+
+
+def kernel_share(by_name: dict, busy: float, mod, marks: tuple[str, ...], steps: int) -> dict:
+    us = [t for name, ts in by_name.items() if any(m in name for m in marks) for t in ts]
+    return {"launches": mod.launches, "launches_per_step": mod.launches / steps,
+            "device_launches_per_step": len(us) / steps,
+            "us_per_launch": sum(us) / max(1, len(us)),
+            "ms_per_step": sum(us) / 1e3 / steps, "share_of_device": sum(us) / 1e3 / max(busy, 1e-9)}
+
+
+def profile_chunks(args, cfg, w, tokens, lengths, dev, eager: bool) -> dict:
+    """Chunks of CHUNK steps from a fresh prefill, eager or as replays of
+    a graph captured on that state: host ms a step, device busy and idle
+    under the profiler, CUDA-event ms a chunk, K2 and K3 a step."""
+    sampler = SamplerParams()  # the CLI's defaults: temp 0.8, top-k 50
+    no_eog = torch.tensor([-1], dtype=torch.int64, device=dev)
+    ck, cv = init_kv_cache(cfg, 1, args.cache, dev)
+    state = llm_start(cfg, w, tokens, lengths, ck, cv, sampler_key(0, dev))
+    n, capture = CHUNK, None
+    if eager:
+        def chunk():
+            return llm_generate_chunk(cfg, w, no_eog, n, sampler, state)[:2]
+    else:
+        graph = capture_chunk(cfg, w, no_eog, n, sampler, state)
+        chunk, capture = graph.run, graph.capture_ms
+    fetch_chunk_result(*chunk(), state)
+    n_chunks = max(1, args.steps // n)
+    walls, events = [], []
+    for _ in range(n_chunks):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = chunk()
+        end.record()
+        fetch_chunk_result(*out, state)
+        walls.append((time.perf_counter() - t0) * 1e3 / n)
+        events.append(start.elapsed_time(end))
+    pos0 = int(state.pos[0])
+    k2.launches = k3.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            fetch_chunk_result(*chunk(), state)
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, busy = device_kernels(prof)
+    steps = n_chunks * n
+    res = {"chunk": n, "chunks": n_chunks, "pos_range": [pos0, pos0 + steps - 1],
+           "capture_ms": capture,
+           "host_ms_per_step": {"median": statistics.median(walls), "min": min(walls),
+                                "max": max(walls)},
+           "event_ms_per_chunk": {"median": statistics.median(events), "min": min(events)},
+           "profiled": {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                        "device_ms_per_step": busy / steps,
+                        "idle_share_unprofiled": 1.0 - busy / steps / statistics.median(walls),
+                        "device_kernels": sum(len(t) for t in by_name.values())},
+           "k2": kernel_share(by_name, busy, k2, ("decode_attention_kernel",), steps),
+           "k3": kernel_share(by_name, busy, k3, ("q8_matmul", "q8_gemv", "sum_splits"), steps)}
+    p = res["profiled"]
+    print(f"{'eager' if eager else 'graph'} chunks of {n} (sampler temp 0.8 top-k 50) at pos "
+          f"{pos0}-{pos0 + steps - 1}: host {res['host_ms_per_step']['median']:.3f} ms/step "
+          f"(median), events {res['event_ms_per_chunk']['median'] / n:.3f} ms/step, device busy "
+          f"{p['device_ms_per_step']:.3f} ms/step, idle {p['idle_share']:.1%} profiled, "
+          f"{p['idle_share_unprofiled']:.1%} of the unprofiled host time"
+          + ("" if eager else f", capture {capture:.1f} ms"), flush=True)
+    for name in ("k2", "k3"):
+        k = res[name]
+        print(f"  {name.upper()}: {k['device_launches_per_step']:.1f} device launches/step "
+              f"({k['launches_per_step']:.1f} counted), {k['us_per_launch']:.2f} us/launch, "
+              f"{k['ms_per_step']:.4f} ms/step", flush=True)
+    return res
 
 
 if __name__ == "__main__":

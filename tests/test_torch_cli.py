@@ -3,8 +3,11 @@
 Codes -> WAV matches the JAX CLI's WAV within 2 LSB of int16. Text -> WAV
 at --temp 0 writes a valid WAV whose --tts-mio-codes-out equals the port's
 own LLMEngine output, on the dense path and with --llm-quant (or
-MIOTTS_LLM_QUANT). Flags whose path is not ported exit 1, and so does
-asking for CUDA where there is none."""
+MIOTTS_LLM_QUANT). --tts-stream-output writes a patched WAV within 2 LSB
+of JAX's StreamingSynthesizer on the same codes, with the JAX CLI's errors
+and precedence; --tts-remove-reference-key deletes as the JAX CLI does.
+Flags whose path is not ported exit 1, and so does asking for CUDA where
+there is none."""
 
 import struct
 
@@ -14,7 +17,10 @@ import torch
 
 from miotts_tpu import cli as jax_cli
 from miotts_tpu.gguf.writer import save_embedding_gguf
+from miotts_tpu.pipeline import MioTTSPipeline as JaxPipeline
+from miotts_tpu.runtime.audio_io import encode_pcm16 as jax_encode_pcm16
 from miotts_tpu.runtime.codes_io import load_codes
+from miotts_tpu.streaming import StreamingSynthesizer as JaxStreamingSynthesizer
 from miotts_tpu_torch import cli
 from miotts_tpu_torch.models.llm import LLMEngine
 from miotts_tpu_torch.models.sampling import SamplerParams
@@ -122,8 +128,6 @@ def test_codes_only(assets, tmp_path):
     ["--tts-reference-audio", "ref.wav"],
     ["--tts-wavlm-model", "w.gguf"],
     ["--tts-mio-embedding-only"],
-    ["--tts-remove-reference-key", "k"],
-    ["--tts-stream-output", "-p", "hi"],
     ["--llm-api-url", "http://localhost:1"],
     ["--sequence-parallel", "2"],
     ["--cpu-native", "on"],
@@ -188,3 +192,90 @@ def test_cpu_native_auto_notice(assets, tmp_path, capsys, quant, mode, noted):
     err = capsys.readouterr().err
     assert (NATIVE_NOTE in err) == noted
     assert err.count(NATIVE_NOTE) <= 1
+
+
+def _jax_stream_wav(codec, codes, emb):
+    """JAX's StreamingSynthesizer fed ``codes`` as the CLI's stream feeds
+    them (16 codes a feed, lookahead 8, then the rest and a flush), with the
+    CLI's final peak rule, as int16 samples."""
+    ss = JaxStreamingSynthesizer(JaxPipeline(codec), emb, lookahead_tokens=8)
+    pieces = [ss.feed(codes[i:i + 16]) for i in range(0, len(codes), 16)] + [ss.finalize()]
+    audio = np.concatenate(pieces)
+    peak = float(np.abs(audio).max())
+    if peak > 0.98:
+        audio = audio * np.float32(0.95 / peak)
+    return np.frombuffer(jax_encode_pcm16(audio), "<i2").astype(np.int32)
+
+
+@pytest.mark.parametrize("n_predict", [24, 48])
+def test_stream_output_greedy(assets, tmp_path, capsys, n_predict):
+    """--tts-stream-output at --temp 0: the finished file is a WAV with
+    patched sizes; its codes are the port's own greedy generate_audio_tokens;
+    its samples are within 2/32768 of JAX's StreamingSynthesizer on those
+    codes, fed the same way."""
+    out, codes_out = tmp_path / "stream.wav", tmp_path / "stream.codes"
+    rc = cli.main(["-mv", str(assets / "codec.gguf"), "-m", str(assets / "llm.gguf"),
+                   "-p", "stream this text", "-n", str(n_predict), "--temp", "0",
+                   "-emb", str(assets / "voice.emb.gguf"), "--tts-stream-output",
+                   "--tts-mio-codes-out", str(codes_out), "-o", str(out)])
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "synth breakdown: streaming ttfa=" in err and "redecodes=" in err
+    data = out.read_bytes()
+    assert struct.unpack_from("<I", data, 4)[0] == len(data) - 8
+    assert struct.unpack_from("<I", data, 40)[0] == len(data) - 44
+    sr, pcm = _wav(out)
+    eng = LLMEngine(str(assets / "llm.gguf"), torch.device("cpu"))
+    expect = eng.tokens_to_codes(eng.generate_audio_tokens(
+        "stream this text", n_predict=n_predict, n_ctx=700, sampler=SamplerParams(temp=0.0)))
+    codes = load_codes(codes_out)
+    assert expect and codes == expect
+    emb = np.random.RandomState(0).randn(16).astype(np.float32)
+    ref = _jax_stream_wav(str(assets / "codec.gguf"), codes, emb)
+    assert sr == 24000 and pcm.shape == ref.shape == (len(codes) * 32,)
+    assert np.abs(pcm - ref).max() <= 2 and np.abs(pcm).max() > 0
+
+
+def test_stream_output_needs_a_local_llm(assets, tmp_path, capsys):
+    """Without -m (or with codes instead of a prompt) streaming is the JAX
+    CLI's error."""
+    argv = ["-mv", str(assets / "codec.gguf"), "--tts-stream-output",
+            "-emb", str(assets / "voice.emb.gguf"), "-o", str(tmp_path / "x.wav")]
+    for extra in (["--tts-mio-codes", "1,2,3"], ["-p", "hi"]):
+        assert cli.main(argv + extra) == 1
+        ours = capsys.readouterr().err
+        assert jax_cli.main(argv + extra) == 1
+        ref = capsys.readouterr().err
+        assert "error: --tts-stream-output requires -p/--prompt with a local LLM (-m)" in ours
+        assert ours.strip().splitlines()[-1] == ref.strip().splitlines()[-1]
+    assert not (tmp_path / "x.wav").exists()
+
+
+def test_stream_output_codes_only_takes_precedence(assets, tmp_path):
+    co, no_wav = tmp_path / "only.codes", tmp_path / "should-not-exist.wav"
+    rc = cli.main(["-mv", str(assets / "codec.gguf"), "-m", str(assets / "llm.gguf"),
+                   "-p", "dump only", "-n", "16", "--temp", "0",
+                   "-emb", str(assets / "voice.emb.gguf"), "-o", str(no_wav),
+                   "--tts-stream-output", "--tts-mio-codes-only", "--tts-mio-codes-out", str(co)])
+    assert rc == 0 and load_codes(co) and not no_wav.exists()
+
+
+@pytest.mark.parametrize("case", ["removed", "missing_key", "no_dir"])
+def test_remove_reference_key(assets, tmp_path, capsys, case):
+    """--tts-remove-reference-key deletes <dir>/<key>.emb.gguf and says so;
+    a missing key or a missing --tts-reference-dir is the JAX CLI's error."""
+    outs = []
+    for main in (cli.main, jax_cli.main):
+        d = tmp_path / main.__module__
+        d.mkdir()
+        (d / "voice.emb.gguf").write_bytes(b"x")
+        key = "nobody" if case == "missing_key" else "voice"
+        argv = ["-mv", str(assets / "codec.gguf"), "--tts-remove-reference-key", key]
+        rc = main(argv + ([] if case == "no_dir" else ["--tts-reference-dir", str(d)]))
+        err = capsys.readouterr().err.strip().splitlines()[-1]
+        outs.append((rc, err.replace(str(d), "<dir>"), (d / "voice.emb.gguf").exists()))
+    assert outs[0] == outs[1]
+    assert outs[0] == {"removed": (0, "removed reference: <dir>/voice.emb.gguf", False),
+                       "missing_key": (1, "error: reference key not found: nobody", True),
+                       "no_dir": (1, "error: --tts-reference-dir is required with "
+                                  "--tts-remove-reference-key", True)}[case]

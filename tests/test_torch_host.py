@@ -120,3 +120,12 @@ def test_codes_wav_and_metrics_match(tmp_path):
     assert (tmp_path / "p.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
     other = audio + 0.01 * np.sin(np.arange(4000, dtype=np.float32))
     assert metrics.mel_l1(audio, other, 24000) == jax_metrics.mel_l1(audio, other, 24000)
+
+
+@pytest.mark.parametrize("sample_rate,channels", [(24000, 1), (44100, 1), (16000, 2)])
+def test_wav16_streaming_header_matches(sample_rate, channels):
+    """The streaming WAV header (0xFFFFFFFF sizes, patched when the stream
+    ends) is byte-equal to the JAX package's."""
+    got = audio_io.wav16_streaming_header(sample_rate, channels)
+    assert got == jax_audio.wav16_streaming_header(sample_rate, channels)
+    assert len(got) == 44 and got[4:8] == got[40:44] == b"\xff\xff\xff\xff"

@@ -20,11 +20,12 @@ import torch
 from miotts_tpu.models import llm as jllm
 from miotts_tpu.models import sampling as jsampling
 from miotts_tpu_torch.convert import llm_params_from_jax
-from miotts_tpu_torch.models import llm as llm_mod
+from miotts_tpu_torch.models import decode_graph, llm as llm_mod
 from miotts_tpu_torch.models.llm import (
     LLMEngine, _logits, init_kv_cache, llm_decode_step, llm_prefill, llm_prefill_kv,
     load_llm_gguf)
-from miotts_tpu_torch.models.sampling import SamplerParams, SamplerState, sample_token
+from miotts_tpu_torch.models.sampling import (
+    SamplerParams, SamplerState, sample_token, sampler_key, uniform)
 from miotts_tpu_torch.testing import write_synthetic_llm_gguf
 
 torch.set_num_threads(1)
@@ -188,9 +189,9 @@ def test_greedy_sampler_chain_matches_jax(params):
     jstate = jsampling.SamplerState(ring=jnp.asarray(ring), idx=jnp.int32(4))
     ref = jsampling.sample_token(jnp.asarray(logits), jsampling.SamplerParams(**params),
                                  jstate, jax.random.PRNGKey(0))
-    state = SamplerState(torch.from_numpy(ring).long(), 4)
+    state = SamplerState(torch.from_numpy(ring).long(), torch.tensor(4, dtype=torch.int32))
     got = sample_token(torch.from_numpy(logits), SamplerParams(**params), state,
-                       torch.Generator().manual_seed(0))
+                       sampler_key(0, CPU))
     assert got.tolist() == np.asarray(ref).tolist()
 
 
@@ -198,9 +199,8 @@ def test_sampler_distribution_matches_softmax():
     """Distributional conformance (the port's counterpart of
     test_sampler_distribution_matches_softmax)."""
     logits = torch.tensor([[0.0, 1.0, 2.0]]).repeat(4000, 1)
-    gen = torch.Generator().manual_seed(0)
     toks = sample_token(logits, SamplerParams(temp=1.0, top_k=0, top_p=1.0),
-                        SamplerState.init(4000, CPU), gen)
+                        SamplerState.init(4000, CPU), sampler_key(0, CPU))
     counts = np.bincount(toks.numpy(), minlength=3) / 4000
     expect = np.exp([0, 1, 2]) / np.exp([0, 1, 2]).sum()
     np.testing.assert_allclose(counts, expect, atol=0.03)
@@ -210,5 +210,236 @@ def test_sampler_state_ring():
     state = SamplerState.init(2, CPU)
     for i in range(70):
         state.update(torch.tensor([i, 100 + i]))
-    assert state.idx == 70
+    assert state.idx.dtype == torch.int32 and int(state.idx) == 70
     assert sorted(state.ring[0].tolist()) == list(range(6, 70))
+
+
+def test_sampler_ring_matches_jax():
+    """70 updates (the 64-slot ring wraps): the device ring and its int32
+    cursor equal JAX's update_sampler_state."""
+    rng = np.random.RandomState(6)
+    toks = rng.randint(0, 1000, (70, 3))
+    jstate = jsampling.init_sampler_state(3)
+    state = SamplerState.init(3, CPU)
+    for t in toks:
+        jstate = jsampling.update_sampler_state(jstate, jnp.asarray(t, jnp.int32))
+        state.update(torch.from_numpy(t))
+    assert int(state.idx) == int(jstate.idx) == 70
+    np.testing.assert_array_equal(state.ring.numpy(), np.asarray(jstate.ring))
+
+
+def _f32_pair(path):
+    jcfg, jw, _ = jllm.load_llm_gguf(path, dtype=jnp.float32)
+    cfg, w, _ = load_llm_gguf(path, CPU, torch.float32)
+    return jcfg, jw, cfg, w
+
+
+def _lanes(B):
+    toks, lens = _prompts()
+    return toks[:B], lens[:B]
+
+
+def _eog_inside_chunk(jcfg, jw, toks, lens):
+    """An EOG set that stops lane 0 at its 8th greedy token (inside the
+    second chunk of 5): that token, from a probe run with no EOG."""
+    B = toks.shape[0]
+    jck, jcv = jllm.init_kv_cache(jcfg, B, 48)
+    out, _ = jllm.llm_generate(jcfg, jw, jnp.asarray(toks), jnp.asarray(lens),
+                               jnp.asarray([-1], jnp.int32), jax.random.PRNGKey(0), 16,
+                               jsampling.SamplerParams(temp=0.0), jck, jcv)
+    return [int(np.asarray(out)[0, 7])]
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("stop", [False, True])
+def test_chunk_api_matches_jax(tiny_llm, B, stop):
+    """llm_start + llm_generate_chunk in chunks of 5 up to 16 tokens, f32
+    greedy, one lane and a ragged pair (prompt lengths 12 and 7); with
+    ``stop`` lane 0 meets an EOG inside a chunk. Tokens, n_new, pos and
+    done equal JAX's after every chunk."""
+    jcfg, jw, cfg, w = _f32_pair(tiny_llm)
+    toks, lens = _lanes(B)
+    eog = _eog_inside_chunk(jcfg, jw, toks, lens) if stop else [-1]
+    greedy_j, greedy = jsampling.SamplerParams(temp=0.0), SamplerParams(temp=0.0)
+    jck, jcv = jllm.init_kv_cache(jcfg, B, 48)
+    jstate = jllm.llm_start(jcfg, jw, jnp.asarray(toks), jnp.asarray(lens), jck, jcv,
+                            jax.random.PRNGKey(0))
+    ck, cv = init_kv_cache(cfg, B, 48, CPU)
+    state = llm_mod.llm_start(cfg, w, torch.from_numpy(toks), torch.from_numpy(lens), ck, cv,
+                              sampler_key(0, CPU))
+    eog_t = torch.tensor(eog, dtype=torch.int64)
+    got_tokens, total = 0, np.zeros(B, np.int64)
+    while got_tokens < 16:
+        jout, jn, jstate = jllm.llm_generate_chunk(jcfg, jw, jnp.asarray(eog, jnp.int32), 5,
+                                                   greedy_j, jstate)
+        jo, jn_np, jdone = jllm.fetch_chunk_result(jout, jn, jstate)
+        out, n_new, state = llm_mod.llm_generate_chunk(cfg, w, eog_t, 5, greedy, state)
+        o, n_np, done = llm_mod.fetch_chunk_result(out, n_new, state)
+        np.testing.assert_array_equal(o, jo)
+        np.testing.assert_array_equal(n_np, jn_np)
+        np.testing.assert_array_equal(done, jdone)
+        np.testing.assert_array_equal(state.pos.numpy(), np.asarray(jstate.pos))
+        got_tokens += 5
+        total += n_np
+    assert bool(done[0]) == stop
+    if stop:  # stopped inside the second chunk; the EOG step does not advance pos
+        assert 5 < total[0] <= 8 and state.pos[0] == lens[0] + total[0] - 1
+
+
+def test_chunk_graph_needs_cuda(tiny_llm):
+    """The graph path is CUDA only: on the CPU, capturing a chunk raises."""
+    cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        llm_mod.capture_chunk(cfg, w, torch.tensor([-1]), 4, SamplerParams(temp=0.0),
+                              llm_mod.empty_gen_state(cfg, 1, 32, CPU))
+
+
+class _EagerGraph(decode_graph.ChunkGraph):
+    """A chunk graph without CUDA: it keeps the state it is made on as its
+    buffers and runs the body on them, where a replay would run the
+    captured kernels on them. Counts the graphs made."""
+    made = 0
+
+    def __init__(self, body, state, n_steps):
+        _EagerGraph.made += 1
+        self.state, self.body = state, body
+        self.out = torch.zeros((state.pos.shape[0], n_steps), dtype=torch.int64)
+        self.n_new = torch.zeros((state.pos.shape[0],), dtype=torch.int32)
+
+    def run(self):
+        self.body(self.state, self.out, self.n_new)
+        return self.out, self.n_new
+
+
+_SAMPLED = SamplerParams(temp=1.0, top_k=0)
+
+
+def test_chunk_graph_serves_successive_requests(tiny_llm, monkeypatch):
+    """One graph serves request after request: each is loaded into the
+    graph's buffers and gives the tokens of a run with no graph (fresh
+    cache), whatever ran in the graph before it. Sampled, seeds 1, 1, 2, 1
+    over two prompts."""
+    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
+    cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
+    toks, lens = _prompts()
+    eog = torch.tensor([-1])
+    graph = llm_mod.capture_chunk(cfg, w, eog, llm_mod.CHUNK, _SAMPLED,
+                                  llm_mod.empty_gen_state(cfg, 1, 64, CPU))
+    runs = []
+    for seed, lane in ((1, 0), (1, 0), (2, 0), (1, 1)):
+        args = (cfg, w, torch.from_numpy(toks[lane:lane + 1]),
+                torch.from_numpy(lens[lane:lane + 1]), eog, sampler_key(seed, CPU), 40, _SAMPLED)
+        ref, n_ref = llm_mod.llm_generate(*args, *init_kv_cache(cfg, 1, 64, CPU))
+        got, n = llm_mod.llm_generate(*args, graph.state.cache_k, graph.state.cache_v, graph)
+        assert torch.equal(got, ref) and torch.equal(n, n_ref)
+        runs.append(got)
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert not torch.equal(runs[0], runs[3])
+
+
+def test_engine_keeps_one_chunk_graph(tiny_llm, monkeypatch):
+    """Under ``use_graph`` the engine generates through its own chunk graph
+    (plain and streaming) with the tokens of the eager path, reuses it
+    while the cache rows and the sampler (seed aside) stay, and captures
+    anew when either changes."""
+    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
+    eng = LLMEngine(tiny_llm, CPU, dtype=torch.float32)
+    assert not eng.use_graph
+    cases = [(700, SamplerParams(temp=1.0, top_k=0, seed=s)) for s in (1, 2, 1)]
+    cases += [(700, SamplerParams(temp=0.0)), (720, SamplerParams(temp=0.0))]
+
+    def tokens():
+        return [(eng.generate_audio_tokens("hello there", n_predict=24, n_ctx=n, sampler=s),
+                 eng.generate_audio_tokens_streaming("hello there", None, n_predict=24,
+                                                     n_ctx=n, sampler=s))
+                for n, s in cases]
+
+    ref = tokens()
+    made = _EagerGraph.made
+    eng.use_graph = True
+    assert tokens() == ref
+    assert _EagerGraph.made - made == 3
+    assert ref[0] != ref[1] and ref[0] == ref[2]
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("stop", [False, True])
+def test_llm_generate_matches_jax(tiny_llm, B, stop):
+    """llm_generate over chunks of 16 gives JAX's while-loop tokens and
+    counts, for 21 tokens (a whole chunk and a truncated one), with and
+    without a lane stopping early."""
+    jcfg, jw, cfg, w = _f32_pair(tiny_llm)
+    toks, lens = _lanes(B)
+    eog = _eog_inside_chunk(jcfg, jw, toks, lens) if stop else [-1]
+    jck, jcv = jllm.init_kv_cache(jcfg, B, 64)
+    jout, jn = jllm.llm_generate(jcfg, jw, jnp.asarray(toks), jnp.asarray(lens),
+                                 jnp.asarray(eog, jnp.int32), jax.random.PRNGKey(0), 21,
+                                 jsampling.SamplerParams(temp=0.0), jck, jcv)
+    ck, cv = init_kv_cache(cfg, B, 64, CPU)
+    out, n = llm_mod.llm_generate(cfg, w, torch.from_numpy(toks), torch.from_numpy(lens),
+                                  torch.tensor(eog), sampler_key(0, CPU), 21,
+                                  SamplerParams(temp=0.0), ck, cv)
+    assert out.shape == (B, 21)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
+    assert (int(n[0]) <= 8) == stop
+
+
+@pytest.mark.parametrize("text,n_predict", [("hello there", 16), ("a longer prompt, with punctuation!", 37)])
+def test_streaming_tokens_match(tiny_llm, text, n_predict):
+    """generate_audio_tokens_streaming (chunks of 16, truncated on the host)
+    gives the same tokens as generate_audio_tokens and as JAX's streaming
+    method, f32 greedy; on_token sees every token in order."""
+    jeng = jllm.LLMEngine(tiny_llm, dtype=jnp.float32)
+    eng = LLMEngine(tiny_llm, CPU, dtype=torch.float32)
+    seen = []
+    got = eng.generate_audio_tokens_streaming(
+        text, lambda t, i, e: seen.append((t, i, e)) or True, n_predict=n_predict,
+        sampler=SamplerParams(temp=0.0))
+    ref = jeng.generate_audio_tokens_streaming(text, None, n_predict=n_predict,
+                                               sampler=jsampling.SamplerParams(temp=0.0))
+    assert got == ref
+    assert got == eng.generate_audio_tokens(text, n_predict=n_predict,
+                                            sampler=SamplerParams(temp=0.0))
+    assert [t for t, _, _ in seen] == got and [i for _, i, _ in seen] == list(range(len(got)))
+    eog = set(eng.eog_ids.tolist())
+    assert [e for _, _, e in seen] == [t in eog for t in got]
+    assert all(eng.token_to_code_or_none(t) == eng.token_to_code.get(t) for t in got)
+
+
+def test_streaming_on_token_cancels(tiny_llm):
+    """on_token returning False stops generation at that token."""
+    eng = LLMEngine(tiny_llm, CPU, dtype=torch.float32)
+    full = eng.generate_audio_tokens_streaming("hello there", None, n_predict=40,
+                                               sampler=SamplerParams(temp=0.0))
+    got = eng.generate_audio_tokens_streaming("hello there", lambda t, i, e: i < 20,
+                                              n_predict=40, sampler=SamplerParams(temp=0.0))
+    assert len(full) > 21 and got == full[:21]
+
+
+def test_sampled_generation_is_seeded(tiny_llm):
+    """The Gumbel-max draw follows its key: one seed gives one token
+    sequence twice, another seed another."""
+    eng = LLMEngine(tiny_llm, CPU, dtype=torch.float32)
+    runs = [eng.generate_audio_tokens("hello there", n_predict=24,
+                                      sampler=SamplerParams(temp=1.0, top_k=0, seed=s))
+            for s in (1, 1, 2)]
+    assert runs[0] == runs[1] and runs[0] != runs[2]
+
+
+def test_uniform_draws():
+    """The counter-based uniforms: in (0, 1), a function of (seed, draw,
+    element) only, and spread evenly (each decile within 1% of 10% over
+    100 000 draws; the mean of a uniform within 0.005 of 1/2)."""
+    key = sampler_key(3, CPU)
+    u = uniform(key, (100, 1000))
+    assert u.dtype == torch.float32 and float(u.min()) > 0 and float(u.max()) < 1
+    assert torch.equal(u, uniform(sampler_key(3, CPU), (100, 1000)))
+    key2 = key.clone()
+    key2[1] += 1
+    for other in (uniform(key2, (100, 1000)), uniform(sampler_key(4, CPU), (100, 1000))):
+        assert float((other == u).float().mean()) < 1e-3
+    deciles = np.bincount((u.numpy().ravel() * 10).astype(int), minlength=10) / u.numel()
+    np.testing.assert_allclose(deciles, 0.1, atol=0.01)
+    assert abs(float(u.mean()) - 0.5) < 5e-3
+    assert int(key[1]) == 0  # a draw leaves the key as it is
