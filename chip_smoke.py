@@ -48,7 +48,9 @@ Phases, in order; any failure exits nonzero and prints no result:
 9. assets: synthetic GGUFs from a seed: the 24 kHz MioCodec at full width
    in wave mode and in mel mode (100 mels, the 5x4x4x3x2 vocoder at 128
    channels, bench.py's geometry; its vocoder weights scaled by fixed
-   factors so the signal stays in range, testing.tame_vocoder_weights) and the 0.1B
+   factors so the signal stays in range, testing.tame_vocoder_weights), the
+   44.1 kHz wave codec with its upsampler (spt 1764, hop 441, one 2x stage
+   of kernel 4; testing.full_codec441_config) and the 0.1B
    LLM (qwen2, dim 768, 12 layers, ~151.8k vocab), once with f32 and once
    with Q8_0 matmul weights.
 10. requests: three text -> WAV runs through ``miotts_tpu_torch.cli.main``
@@ -63,9 +65,26 @@ Phases, in order; any failure exits nonzero and prints no result:
     at full scale; K1, K4, K5 and K6 grew (K2
     only in the text request), K4-K6 by exactly the launches the vocoder's
     dispatch rules give for the request's bucket.
-13. fidelity: the same 250 codes through the wave codec and the same 64
-    codes through the mel codec, each decoded on the card and on the CPU
-    (plain versions, f32): mel-L1 < 1e-2.
+13. the codec graph (``models/codec_graph.py``), for the 24 kHz wave,
+    44.1 kHz wave and mel codecs at buckets 32 and 512 (mel 64 and 512),
+    each key plain and as a stream asks for it (anchor, no peak
+    normalization, a 32 768-sample window, pcm16): decode 1 eager, decode
+    2 the capture and its replay, decodes 3 and 4 replays of a third and of
+    the whole bucket, each equal to the eager decode of its input bit for
+    bit (else within 1e-5, one 16-bit step more for pcm16, and mel-L1 <
+    1e-2, reported), zeros past each count, K1 14 launches a decode and
+    K4-K6 as many in a replay as in the eager decode; one B=2 graph a codec
+    captured ahead (``MioTTSPipeline.capture``) and replayed on two ragged
+    lanes. Eager, capture and replay wall ms, the profiler's busy ms and
+    the reserved memory after all captures are printed.
+14. 44.1 kHz requests: text -> WAV (-n 120) and codes -> WAV (400 codes)
+    through ``cli.main``; each WAV is 44 100 Hz with the upsampled iSTFT's
+    sample count, not silent, one eager decode (K1 14 times).
+15. fidelity: the same 250 codes through the wave codec, the same 64
+    codes through the mel codec and the same 250 through the 44.1 kHz
+    codec, each decoded on the card and on the CPU (plain versions, f32):
+    mel-L1 < 1e-2. Then the reserved memory of the mel codec's graphs at
+    buckets 512 and 2 048, in one shared pool and with a pool each.
 
 The decode loop (``models/decode_graph.py``): every text request above
 generates through replays of its engine's CUDA graph of 16 decode steps
@@ -81,11 +100,14 @@ device ms a step (CUDA events around a replay; the profiler's busy time
 for both) and the capture's time are printed; and sampled runs (temp 0.8,
 top-k 50) for seeds 1, 1, 2 in a row on one graph each equal the eager
 run of their seed, and seed 2's differ from seed 1's. After
-the mel requests, a stream phase: three ``--tts-stream-output`` requests
-through ``cli.main`` (wave codec, dense at -n 250 and q8_0 at -n 120; mel
-codec at -n 120), each WAV with patched sizes, the full decode's sample
-count, not silent (mel: at most 1% clipped), the launch checks above, and
-TTFA, codec re-decodes and their wall time printed.
+the 44.1 kHz requests, a stream phase: four ``--tts-stream-output``
+requests through ``cli.main`` (wave codec, dense at -n 250 and q8_0 at -n
+120; mel codec at -n 120; 44.1 kHz codec at -n 250), each WAV with patched
+sizes, the full decode's sample count, not silent (mel: at most 1%
+clipped), the launch checks above, and TTFA, codec re-decodes, how many of
+them were replays and their wall time printed. Every CLI request's codec
+decodes follow the graph's key policy: one eager decode a key, and every
+decode of a key after its second a replay.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
@@ -116,8 +138,9 @@ import torch
 import torch.nn.functional as F
 
 from miotts_tpu_torch import cli
+from miotts_tpu_torch import pipeline as pipeline_mod
 from miotts_tpu_torch.device import select_device
-from miotts_tpu_torch.models import decode_graph
+from miotts_tpu_torch.models import codec_graph, decode_graph
 from miotts_tpu_torch.models.llm import (
     CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, init_kv_cache, llm_generate_chunk,
     llm_start, load_llm_gguf)
@@ -129,11 +152,12 @@ from miotts_tpu_torch.ops.cuda import conv1d as k4
 from miotts_tpu_torch.ops.cuda import decode_attention as k2
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.ops.cuda import resblock as k6
-from miotts_tpu_torch.pipeline import MioTTSPipeline, pick_bucket
+from miotts_tpu_torch.pipeline import CodecKey, MioTTSPipeline, pick_bucket
+from miotts_tpu_torch.streaming import StreamingSynthesizer
 from miotts_tpu_torch.testing import (
-    full_codec_config, full_mel_codec_config, mel_l1, save_embedding_gguf, synthetic_vocab,
-    tame_vocoder_weights, write_synthetic_llm_gguf, write_synthetic_mel_vocoder_gguf,
-    write_synthetic_miocodec_gguf)
+    full_codec441_config, full_codec_config, full_mel_codec_config, mel_l1, save_embedding_gguf,
+    synthetic_vocab, tame_vocoder_weights, write_synthetic_llm_gguf,
+    write_synthetic_mel_vocoder_gguf, write_synthetic_miocodec_gguf)
 
 MODS = (k1, k2, k3, k4, k5, k6)
 K1_TOL = 1e-5
@@ -189,8 +213,23 @@ STREAM_REQUESTS = (  # (name, codec, llm, n_predict, extra flags, kernels that m
     ("wave-q8_0", "codec.gguf", "llm_q8_0.gguf", 120, ["--llm-quant", "q8_0", "--seed", "1"],
      (k1, k2, k3)),
     ("mel-bf16", "mel_codec.gguf", "llm.gguf", 120, ["--seed", "1"], (k1, k2, k4, k5, k6)),
+    ("wave441-bf16", "codec441.gguf", "llm.gguf", 250, ["--seed", "1"], (k1, k2)),
 )
 GRAPH_COUNTERS = ("captures", "replays", "capture_ms", "warmup_steps", "eager_steps")
+CODEC_COUNTERS = ("captures", "replays", "capture_ms", "replay_ms", "eager_decodes")
+WAVE441_REQUESTS = (  # (name, extra flags, kernels that must launch)
+    ("text-120", ["-m", "llm.gguf", "-p", "Hello there, in forty-four kilohertz.", "-n", "120",
+                  "--seed", "1"], (k1, k2)),
+    ("codes-400", ["--tts-mio-codes-in", "codes400.txt"], (k1,)),
+)
+# the codec graph phase: (codec, GGUF, buckets); a replay must equal the
+# eager decode of its input bit for bit, or else within REPLAY_TOL and
+# mel-L1 < MEL_L1_MAX (a cuBLAS or cuDNN algorithm picked otherwise under
+# capture), and that is reported
+CODEC_GRAPH_CASES = (("wave", "codec.gguf", (32, 512)), ("wave441", "codec441.gguf", (32, 512)),
+                     ("mel", "mel_codec.gguf", (64, 512)))
+REPLAY_TOL = 1e-5
+K1_PER_DECODE = 14  # 6 prenet + 8 decoder layers
 
 
 def log(msg: str) -> None:
@@ -643,23 +682,57 @@ def parse_wav(path: Path) -> tuple[int, np.ndarray]:
     return sr, np.frombuffer(data[44:], "<i2")
 
 
+class TrackedPipeline(MioTTSPipeline):
+    """The CLI's pipeline, kept after its request so that its codec graphs
+    can be read."""
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        TrackedPipeline.last = self
+
+
+def codec_counts() -> dict:
+    return {k: getattr(codec_graph, k) for k in CODEC_COUNTERS}
+
+
+def check_codec_routes(name: str, pipe: MioTTSPipeline, c0: dict) -> dict:
+    """The request's codec decodes followed the key policy: one eager decode
+    a key (its first), a capture at its second, and every other decode a
+    replay. Returns the codec graph counters of the request."""
+    c = {k: v - c0[k] for k, v in codec_counts().items()}
+    replays = {key: g.n_replays for key, g in pipe.graphs.items()}
+    if (c["eager_decodes"] != len(pipe.seen) or c["captures"] != len(pipe.graphs)
+            or c["replays"] != sum(replays.values()) or min(replays.values(), default=1) < 1
+            or c["eager_decodes"] + c["replays"] != pipe.n_decodes):
+        raise AssertionError(f"{name}: {pipe.n_decodes} codec decodes of {len(pipe.seen)} keys "
+                             f"went {c}, replays by key {replays}")
+    return c
+
+
 def drive_cli(name: str, tmp: Path, argv: list[str], kernels) -> tuple[str, int, int, np.ndarray,
-                                                                        dict]:
+                                                                        dict, dict]:
     """One run of ``cli.main(argv)`` that also writes its WAV and its codes
     under ``tmp``. Every module in ``kernels`` must launch its kernel, and no
-    other module may. Returns (stderr, n_codes, sample rate, pcm, launches
-    by module)."""
+    other module may; its codec decodes follow the graph's key policy.
+    Returns (stderr, n_codes, sample rate, pcm, launches by module, codec
+    graph counters)."""
     wav, codes_out = tmp / f"{name}.wav", tmp / f"{name}.codes"
     before = {m: m.launches for m in MODS}
-    g0 = graph_counts()
+    g0, c0 = graph_counts(), codec_counts()
     err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc = cli.main([*argv, "-emb", str(tmp / "voice.emb.gguf"), "--tts-mio-codes-out",
-                       str(codes_out), "-o", str(wav)])
+    pipeline_mod.MioTTSPipeline = TrackedPipeline  # cli.main imports it at call time
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, "-emb", str(tmp / "voice.emb.gguf"), "--tts-mio-codes-out",
+                           str(codes_out), "-o", str(wav)])
+    finally:
+        pipeline_mod.MioTTSPipeline = MioTTSPipeline
     text = err.getvalue()
     if rc != 0:
         raise AssertionError(f"{name}: cli exited {rc}:\n{text}")
     check_graph_counts(name, text, g0)
+    routes = check_codec_routes(name, TrackedPipeline.last, c0)
     sr, pcm = parse_wav(wav)
     if not np.any(pcm != 0):
         raise AssertionError(f"{name}: the WAV is silent")
@@ -667,7 +740,7 @@ def drive_cli(name: str, tmp: Path, argv: list[str], kernels) -> tuple[str, int,
     for m, g in grew.items():
         if (m in kernels) != (g > 0):
             raise AssertionError(f"{name}: {m.__name__} launches grew by {g}")
-    return text, len(codes_out.read_text().split()), sr, pcm, grew
+    return text, len(codes_out.read_text().split()), sr, pcm, grew, routes
 
 
 def launch_text(grew: dict) -> str:
@@ -698,10 +771,15 @@ def graph_text(text: str) -> str:
 
 def wav_samples(cfg, n_codes: int) -> int:
     """Samples of a full decode of ``n_codes`` codes: the iSTFT's count in
-    wave mode, the vocoder's in mel mode."""
+    wave mode, (frame_len - 1) * hop + n_fft - 2 n_pad with frame_len after
+    the upsampler's stages if it has one; the vocoder's in mel mode."""
     frames = cfg.stft_frames(n_codes)
     if cfg.model_type == 1:
         return frames * math.prod(cfg.vocoder_upsample_rates)
+    if cfg.wave_upsampler_factors:
+        frames = cfg.decoder_frames(n_codes)
+        for f, k in zip(cfg.wave_upsampler_factors, cfg.wave_upsampler_kernel_sizes):
+            frames = (frames - 1) * f + k - 2 * max(0, (k - f) // 2)
     n_pad = (cfg.n_fft - cfg.hop_length) // 2
     return (frames - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
 
@@ -853,7 +931,7 @@ def stream_request(name: str, tmp: Path, codec: str, model: str, n_predict: int,
     patched) has the full decode's sample count and is not silent (a mel
     WAV at most 1% clipped); TTFA, re-decodes and their time printed."""
     t0 = time.perf_counter()
-    text, n_codes, sr, pcm, grew = drive_cli(
+    text, n_codes, sr, pcm, grew, routes = drive_cli(
         f"stream-{name}", tmp, ["-mv", str(tmp / codec), "-m", str(tmp / model), "-p",
                                 STREAM_PROMPT, "-n", str(n_predict), "--tts-stream-output", *extra],
         kernels)
@@ -868,19 +946,24 @@ def stream_request(name: str, tmp: Path, codec: str, model: str, n_predict: int,
     m = re.search(r"streaming ttfa=([0-9.]+)ms .*redecodes=(\d+) redecode_ms=([0-9.]+)", text)
     ttfa, redecodes, redecode_ms = float(m.group(1)), int(m.group(2)), float(m.group(3))
     n_tok = int(re.search(r"n_tokens=(\d+)", text).group(1))
+    if redecodes != routes["eager_decodes"] + routes["replays"]:
+        raise AssertionError(f"stream {name}: {redecodes} re-decodes, codec graph {routes}")
     log(f"[stream {name}] n_predict={n_predict} {' '.join(extra)}: tokens={n_tok} "
         f"codes={n_codes} ttfa_ms={ttfa} redecodes={redecodes} redecode_ms={redecode_ms} "
-        f"wall_s={wall_s:.3f} audio_s={pcm.size / sr} {graph_text(text)} "
-        f"launches: {launch_text(grew)}")
+        f"of them replays={routes['replays']} replay_ms={routes['replay_ms']:.1f} "
+        f"eager={routes['eager_decodes']} captures={routes['captures']} "
+        f"capture_ms={routes['capture_ms']:.1f} wall_s={wall_s:.3f} audio_s={pcm.size / sr} "
+        f"{graph_text(text)} launches: {launch_text(grew)}")
     return {"tokens": n_tok, "codes": n_codes, "ttfa_ms": ttfa, "redecodes": redecodes,
-            "redecode_ms": redecode_ms, "wall_s": wall_s, "audio_s": pcm.size / sr}
+            "redecode_ms": redecode_ms, "codec_graph": routes, "wall_s": wall_s,
+            "audio_s": pcm.size / sr}
 
 
 def run_request(i: str, tmp: Path, prompt: str, n_predict: int, extra: list[str], ccfg,
                 model: str = "llm.gguf", kernels=(k1, k2)) -> dict:
     """One text -> WAV run through the CLI on the wave codec; the WAV has the
     sample count its codes imply (the iSTFT's)."""
-    text, n_codes, sr, pcm, grew = drive_cli(
+    text, n_codes, sr, pcm, grew, _ = drive_cli(
         f"req{i}", tmp, ["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / model), "-p", prompt,
                          "-n", str(n_predict), *extra], kernels)
     want = wav_samples(ccfg, n_codes)
@@ -919,7 +1002,7 @@ def mel_request(name: str, tmp: Path, mcfg, extra: list[str], kernels) -> dict:
     codec. The WAV has the vocoder's sample count and is not clipped; K4-K6
     launched exactly as the vocoder's dispatch rules say for the bucket."""
     t0 = time.perf_counter()
-    text, n_codes, sr, pcm, grew = drive_cli(
+    text, n_codes, sr, pcm, grew, _ = drive_cli(
         f"mel-{name}", tmp, ["-mv", str(tmp / "mel_codec.gguf"),
                              *[str(tmp / a) if a.endswith((".gguf", ".txt")) else a
                                for a in extra]], kernels)
@@ -942,6 +1025,204 @@ def mel_request(name: str, tmp: Path, mcfg, extra: list[str], kernels) -> dict:
         + (f" tok/s={tok.group(1)} {graph_text(text)}" if tok else "")
         + f" launches: {launch_text(grew)}")
     return {"codec_ms": codec_ms, "audio_s": pcm.size / sr}
+
+
+def wave441_request(name: str, tmp: Path, cfg, extra: list[str], kernels) -> dict:
+    """One request on the 44.1 kHz codec through the CLI: a 44 100 Hz WAV
+    with the upsampled iSTFT's sample count, one eager codec decode (K1 14
+    times)."""
+    t0 = time.perf_counter()
+    text, n_codes, sr, pcm, grew, _ = drive_cli(
+        f"wave441-{name}", tmp, ["-mv", str(tmp / "codec441.gguf"),
+                                 *[str(tmp / a) if a.endswith((".gguf", ".txt")) else a
+                                   for a in extra]], kernels)
+    wall_s = time.perf_counter() - t0
+    want = wav_samples(cfg, n_codes)
+    if sr != 44100 or pcm.size != want or grew[k1] != K1_PER_DECODE:
+        raise AssertionError(f"wave441 request {name}: {pcm.size} samples at {sr} Hz, K1 "
+                             f"{grew[k1]} launches; {n_codes} codes imply {want} at 44100 Hz "
+                             f"and {K1_PER_DECODE}")
+    codec_ms = float(re.search(r"synth breakdown: decode=([0-9.]+)ms", text).group(1))
+    tok = re.search(r"tok/s=([0-9.]+)", text)
+    log(f"[wave441 {name}] codes={n_codes} bucket={pick_bucket(n_codes)} codec_ms={codec_ms} "
+        f"wall_s={wall_s:.2f} audio_s={pcm.size / sr} samples={pcm.size} @ {sr} Hz"
+        + (f" tok/s={tok.group(1)} {graph_text(text)}" if tok else "")
+        + f" launches: {launch_text(grew)}")
+    return {"codec_ms": codec_ms, "audio_s": pcm.size / sr}
+
+
+def codec_host(cfg, emb, bucket: int, lengths: list[int], seed: int):
+    """tokens [B, bucket] (random codes, zeros past each length), lengths
+    [B] and cond [B, Dc] for ``MioTTSPipeline.decode``."""
+    rng = np.random.RandomState(seed)
+    tokens = np.zeros((len(lengths), bucket), np.int64)
+    for b, n in enumerate(lengths):
+        tokens[b, :n] = rng.randint(0, cfg.vocab_size, n)
+    return tokens, np.asarray(lengths, np.int32), np.repeat(emb[None], len(lengths), 0)
+
+
+def same_decode(what: str, got, ref, starts, sample_rate: int, pcm16: bool) -> str:
+    """A replay's (audio, counts) against the eager decode of the same
+    input: the same counts and zeros past each lane's count, and bit-equal
+    rows; else within REPLAY_TOL (plus one 16-bit step for pcm16) and
+    mel-L1 < MEL_L1_MAX, the difference printed. Returns "bit-equal" or
+    what differed."""
+    (a, n), (b, m) = got[:2], ref[:2]
+    if not np.array_equal(n, m):
+        raise AssertionError(f"{what}: counts {n} differ from the eager decode's {m}")
+    for lane, count in enumerate(n):
+        valid = max(0, int(count) - (0 if starts is None else int(starts[lane])))
+        if np.any(a[lane, valid:] != 0):
+            raise AssertionError(f"{what}: lane {lane} is not zero past its {valid} samples")
+    if a.tobytes() == b.tobytes():
+        return "bit-equal"
+    diff = float(np.abs(a - b).max())
+    l1 = max(mel_l1(a[lane], b[lane], sample_rate) for lane in range(len(n)))
+    tol = REPLAY_TOL + (1.0 / 32767 if pcm16 else 0.0)
+    log(f"[codec graph] {what}: NOT bit-equal to the eager decode: max abs diff {diff:.3e}, "
+        f"mel-L1 {l1:.3e} (allowed {tol:.2e}, {MEL_L1_MAX})")
+    if not (diff <= tol and l1 < MEL_L1_MAX):
+        raise AssertionError(f"{what}: replay differs from the eager decode by {diff}, mel-L1 {l1}")
+    return f"max abs diff {diff:.3e}, mel-L1 {l1:.3e}"
+
+
+def graph_key(pipe, cfg, emb, codec: str, bucket: int, windowed: bool) -> dict:
+    """Decodes 1-4 of one key on ``pipe``: n = bucket (eager), the same input
+    again (the capture, then its replay), n = ceil(bucket / 3) and n =
+    bucket again (replays). Each equals the eager decode of its input; K1
+    launches 14 times a decode and K4-K6 as often in a replay as in the
+    eager decode. The windowed key is the stream's (anchor, no peak
+    normalization, a window of StreamingSynthesizer.WINDOW_SAMPLES, pcm16),
+    its starts moving."""
+    long_, short = bucket, -(-bucket // 3)
+    opts = {}
+    if windowed:
+        opts = dict(interp_anchor=StreamingSynthesizer.INTERP_ANCHOR, peak_normalize=False,
+                    window=StreamingSynthesizer.WINDOW_SAMPLES, pcm16=True)
+    what = f"{codec} bucket {bucket}" + (" window pcm16" if windowed else "")
+    plan = ((long_, 0, 0), (long_, 0, wav_samples(cfg, long_) // 3),
+            (short, 1, wav_samples(cfg, short) // 4), (long_, 0, 0))
+    routes, walls, grews, checks, first = [], [], [], [], None
+    for i, (n, seed, start) in enumerate(plan):
+        tokens, lengths, cond = codec_host(cfg, emb, bucket, [n], seed)
+        kw = dict(opts, starts=np.array([start], np.int32)) if windowed else {}
+        l0, c0 = {m: m.launches for m in MODS}, codec_counts()
+        got = pipe.decode(tokens, lengths, cond, **kw)
+        c = {k: v - c0[k] for k, v in codec_counts().items()}
+        grews.append({m: m.launches - l0[m] for m in MODS})
+        routes.append("eager" if c["eager_decodes"] else "capture" if c["captures"] else
+                      "replay" if c["replays"] else "?")
+        walls.append(got[2])
+        if i == 0 or windowed or n != long_:
+            ref = pipe.decode_eager(tokens, lengths, cond, **kw)
+            first = first if first is not None else got
+        else:
+            ref = first
+        checks.append(same_decode(f"{what} decode {i + 1} (n={n})", got, ref,
+                                  kw.get("starts"), cfg.sample_rate, windowed))
+    if routes != ["eager", "capture", "replay", "replay"]:
+        raise AssertionError(f"{what}: decodes went {routes}")
+    for i, g in enumerate(grews):
+        if g[k1] != K1_PER_DECODE or any(g[m] != grews[0][m] for m in MODS):
+            raise AssertionError(f"{what} decode {i + 1}: launches {launch_text(g)}, the eager "
+                                 f"decode's {launch_text(grews[0])}")
+    key = CodecKey(1, bucket, True, opts.get("interp_anchor"), opts.get("peak_normalize", True),
+                   opts.get("window"), opts.get("pcm16", False))
+    graph = pipe.graphs[key]
+    tokens, lengths, cond = codec_host(cfg, emb, bucket, [long_], 0)
+    kw = dict(opts, starts=np.array([0], np.int32)) if windowed else {}
+    replay_ms = sorted(pipe.decode(tokens, lengths, cond, **kw)[2] for _ in range(5))
+    busy_replay = busy_ms(lambda: pipe.decode(tokens, lengths, cond, **kw))
+    busy_eager = busy_ms(lambda: pipe.decode_eager(tokens, lengths, cond, **kw))
+    row = {"eager_wall_ms": walls[0], "capture_ms": graph.capture_ms,
+           "capture_decode_wall_ms": walls[1], "replay_wall_ms": walls[2:] + replay_ms,
+           "replay_busy_ms": busy_replay, "eager_busy_ms": busy_eager,
+           "launches_per_decode": launch_text(grews[2]), "vs_eager": checks}
+    fmt = lambda x: "not measured" if x is None else f"{x:.3f}"  # noqa: E731
+    log(f"[codec graph] {what}: eager {walls[0]:.2f} ms wall (busy {fmt(busy_eager)} ms), "
+        f"capture {graph.capture_ms:.1f} ms (that decode {walls[1]:.2f} ms wall), replays "
+        f"{', '.join(f'{x:.2f}' for x in row['replay_wall_ms'])} ms wall (busy "
+        f"{fmt(busy_replay)} ms); launches a decode: {row['launches_per_decode']}; against "
+        f"the eager decodes: {', '.join(checks)}")
+    return row
+
+
+def graph_batch(pipe, cfg, emb, codec: str, bucket: int) -> dict:
+    """A B=2 graph captured ahead of time (``capture``, its own warm-up),
+    one replay of two ragged lanes: equal to the eager B=2 decode, counts
+    those of the lengths, K1 14 launches."""
+    lens = [bucket, -(-bucket // 3)]
+    c0 = codec_counts()
+    graph = pipe.capture(bucket, B=2)
+    tokens, lengths, cond = codec_host(cfg, emb, bucket, lens, 2)
+    l0 = k1.launches
+    got = pipe.decode(tokens, lengths, cond)
+    grew = k1.launches - l0
+    c = {k: v - c0[k] for k, v in codec_counts().items()}
+    ref = pipe.decode_eager(tokens, lengths, cond)
+    check = same_decode(f"{codec} bucket {bucket} B=2 lengths {lens}", got, ref, None,
+                        cfg.sample_rate, False)
+    want = [wav_samples(cfg, n) for n in lens]
+    if (list(got[1]) != want or grew != K1_PER_DECODE or c["eager_decodes"]
+            or (c["captures"], c["replays"]) != (1, 1)):
+        raise AssertionError(f"{codec} B=2: counts {list(got[1])} (want {want}), K1 {grew}, {c}")
+    log(f"[codec graph] {codec} bucket {bucket} B=2 lengths {lens}: captured ahead "
+        f"({graph.capture_ms:.1f} ms, warm-up included), one replay {got[2]:.2f} ms wall, "
+        f"{check}")
+    return {"capture_ms": graph.capture_ms, "replay_wall_ms": got[2], "vs_eager": check}
+
+
+def check_codec_graphs(dev, tmp: Path, emb, cfgs: dict) -> dict:
+    """The codec graph phase: every key of CODEC_GRAPH_CASES (graph_key,
+    plain and windowed), one B=2 graph a codec, and the reserved memory
+    after all of them."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows, pipes = {}, []
+    for codec, gguf, buckets in CODEC_GRAPH_CASES:
+        pipe = MioTTSPipeline(tmp / gguf, dev)
+        pipes.append(pipe)
+        for bucket in buckets:
+            for windowed in (False, True):
+                rows[f"{codec} bucket {bucket}{' window pcm16' if windowed else ''}"] = graph_key(
+                    pipe, cfgs[codec], emb, codec, bucket, windowed)
+        rows[f"{codec} bucket {buckets[0]} B=2"] = graph_batch(pipe, cfgs[codec], emb, codec,
+                                                               buckets[0])
+    torch.cuda.synchronize()
+    mem = {"max_reserved_mib": torch.cuda.max_memory_reserved() / 2 ** 20,
+           "reserved_mib": torch.cuda.memory_reserved() / 2 ** 20,
+           "graphs": sum(len(p.graphs) for p in pipes)}
+    log(f"[codec graph] after all {mem['graphs']} captures (three pipelines, one pool each): "
+        f"max_memory_reserved {mem['max_reserved_mib']:.0f} MiB, memory_reserved "
+        f"{mem['reserved_mib']:.0f} MiB")
+    del pipes
+    torch.cuda.empty_cache()
+    return {"keys": rows, "memory": mem}
+
+
+def pool_memory(dev, tmp: Path) -> dict:
+    """The memory the mel codec's graphs at buckets 512 and 2048 keep
+    reserved (MiB over the loaded pipeline), in the pipeline's shared pool
+    and with a pool each."""
+    out = {}
+    for shared in (True, False):
+        torch.cuda.empty_cache()
+        pipe = MioTTSPipeline(tmp / "mel_codec.gguf", dev)
+        if not shared:
+            pipe.graph_pool = None  # CodecGraph then takes a private pool
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_reserved()
+        for bucket in (512, 2048):
+            pipe.capture(bucket)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["shared_pool_mib" if shared else "pool_each_mib"] = (
+            (torch.cuda.memory_reserved() - base) / 2 ** 20)
+        del pipe
+    torch.cuda.empty_cache()
+    log(f"[codec graph] mel graphs at buckets 512 and 2048 keep {out['shared_pool_mib']:.0f} MiB "
+        f"reserved in one shared pool, {out['pool_each_mib']:.0f} MiB with a pool each")
+    return out
 
 
 def fidelity(path: Path, device, codes, emb, sample_rate: int, what: str) -> None:
@@ -999,23 +1280,28 @@ def main() -> int:
         mcfg = full_mel_codec_config()
         write_synthetic_mel_vocoder_gguf(str(tmp / "mel_codec.gguf"), mcfg, seed=0, ch=VOCODER_CH)
         tame_vocoder_weights(tmp / "mel_codec.gguf")
+        wcfg = full_codec441_config()
+        write_synthetic_miocodec_gguf(str(tmp / "codec441.gguf"), wcfg, seed=3,
+                                      with_global_encoder=False)
         rng = np.random.RandomState(0)
         emb = rng.randn(ccfg.decoder_adanorm_dim).astype(np.float32)
         save_embedding_gguf(tmp / "voice.emb.gguf", emb)
         for n in (40, 400):
             (tmp / f"codes{n}.txt").write_text(
                 "\n".join(map(str, rng.randint(0, mcfg.vocab_size, n))))
-        log(f"[assets] wave and mel codecs + 0.1B llm (f32, Q8_0) + embedding written in "
-            f"{time.perf_counter() - t0:.1f}s")
+        log(f"[assets] wave (24 and 44.1 kHz) and mel codecs + 0.1B llm (f32, Q8_0) + "
+            f"embedding written in {time.perf_counter() - t0:.1f}s")
+        cfgs = {"wave": ccfg, "wave441": wcfg, "mel": mcfg}
 
         t0 = time.perf_counter()
         graph_rows = check_graph(dev, tmp)
         log(f"[graph] {time.perf_counter() - t0:.1f}s")
 
         # each path is driven with every count at 0 and read right after
-        launches, streams = {}, {}
+        launches, streams, codec_rows = {}, {}, {}
         for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
+                           ("codec_graph", None), ("wave441", WAVE441_REQUESTS),
                            ("stream", STREAM_REQUESTS)):
             for m in MODS:
                 m.launches = 0
@@ -1023,10 +1309,17 @@ def main() -> int:
             if path == "mel":
                 for name, extra, kernels in reqs:
                     mel_request(name, tmp, mcfg, extra, kernels)
+            elif path == "codec_graph":
+                codec_rows = check_codec_graphs(dev, tmp, emb, cfgs)
+            elif path == "wave441":
+                for name, extra, kernels in reqs:
+                    wave441_request(name, tmp, wcfg, extra, kernels)
             elif path == "stream":
                 for name, codec, model, n_predict, extra, kernels in reqs:
-                    streams[name] = stream_request(name, tmp, codec, model, n_predict, extra,
-                                                   kernels, mcfg if codec.startswith("mel") else ccfg)
+                    streams[name] = stream_request(
+                        name, tmp, codec, model, n_predict, extra, kernels,
+                        cfgs["mel" if codec.startswith("mel") else
+                             "wave441" if "441" in codec else "wave"])
             else:
                 for i, (prompt, n_predict, extra, kernels) in enumerate(reqs):
                     run_request(f"{path}-{i}", tmp, prompt, n_predict, extra, ccfg,
@@ -1039,6 +1332,11 @@ def main() -> int:
                  ccfg.sample_rate, "wave")
         fidelity(tmp / "mel_codec.gguf", dev, rng.randint(0, mcfg.vocab_size, 64), emb,
                  mcfg.sample_rate, "mel")
+        fidelity(tmp / "codec441.gguf", dev, rng.randint(0, wcfg.vocab_size, 250), emb,
+                 wcfg.sample_rate, "wave441")
+        t0 = time.perf_counter()
+        codec_rows["pool_memory"] = pool_memory(dev, tmp)
+        log(f"[codec graph] pool memory in {time.perf_counter() - t0:.1f}s")
 
     if any(m == "jax" or m.startswith(("jax.", "miotts_tpu.")) or m == "miotts_tpu"
            for m in sys.modules):
@@ -1051,7 +1349,7 @@ def main() -> int:
                         "replaces": mod.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[mod]})
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"decode_graph": graph_rows, "streams": streams}))
+    print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows, "streams": streams}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,11 @@ WAV, with either codec mode (wave: iSTFT head; mel: the bundled vocoder):
 
 Generation runs in chunks of decode steps; on CUDA each chunk is one
 replay of a captured CUDA graph (``models/decode_graph.py``), and the
-``llm breakdown:`` line gives the capture's host time.
+``llm breakdown:`` line gives the capture's host time. On CUDA a codec
+decode is eager the first time its key (bucket and options) is seen, then
+captured and replayed (``models/codec_graph.py``); the ``synth
+breakdown:`` line counts each route (all 0 on the CPU). The WAV's rate is
+the codec's (24 or 44.1 kHz).
 
 Flags whose path is not ported exit 1 with
 ``error: ... not yet ported to miotts_tpu_torch``. ``-fa`` has no effect:
@@ -173,6 +177,20 @@ def _llm_breakdown(label: str = "generate"):
           file=sys.stderr)
 
 
+def _codec_graph_counts() -> tuple:
+    from .models import codec_graph as cg
+
+    return cg.eager_decodes, cg.captures, cg.capture_ms, cg.replays, cg.replay_ms
+
+
+def _codec_graph_text(before: tuple) -> str:
+    """The codec graph's routes since ``before`` (``_codec_graph_counts``):
+    eager decodes, captures and their host time, replays and theirs."""
+    e, c, c_ms, r, r_ms = (a - b for a, b in zip(_codec_graph_counts(), before))
+    return (f"codec_graph eager={e} captures={c} capture={c_ms:.1f}ms replays={r} "
+            f"replay={r_ms:.1f}ms")
+
+
 def _stream_output(args, prompt: str, device, pipe, embedding) -> int:
     """--tts-stream-output: write the WAV while the LLM generates, then
     patch its sizes (and rescale it when its peak clipped, the full
@@ -188,7 +206,7 @@ def _stream_output(args, prompt: str, device, pipe, embedding) -> int:
     stats = {"n_samples": 0, "ttfa": None}
     stream_codes: list[int] = []
     pieces: list = []
-    decodes0, decode_ms0 = pipe.n_decodes, pipe.decode_ms_total
+    decodes0, decode_ms0, graph0 = pipe.n_decodes, pipe.decode_ms_total, _codec_graph_counts()
     t0 = time.perf_counter()
     try:
         f = open(args.output, "wb")
@@ -242,7 +260,8 @@ def _stream_output(args, prompt: str, device, pipe, embedding) -> int:
     ttfa_ms = (stats["ttfa"] or 0.0) * 1e3
     print(f"synth breakdown: streaming ttfa={ttfa_ms:.1f}ms n_codes={n_codes} "
           f"n_samples={stats['n_samples']} redecodes={pipe.n_decodes - decodes0} "
-          f"redecode_ms={pipe.decode_ms_total - decode_ms0:.1f}", file=sys.stderr)
+          f"redecode_ms={pipe.decode_ms_total - decode_ms0:.1f} {_codec_graph_text(graph0)}",
+          file=sys.stderr)
     print(f"wrote {args.output} ({stats['n_samples']} samples @ {pipe.sample_rate} Hz)",
           file=sys.stderr)
     return 0
@@ -353,12 +372,14 @@ def main(argv: list[str] | None = None) -> int:
     if args.tts_mio_codes_only:
         return 0
 
+    graph0 = _codec_graph_counts()
     try:
         result = pipe.synthesize(codes, embedding)
     except Exception as e:
         return _err(f"MioCodec decode failed: {e}")
     print(f"synth breakdown: decode={result.decode_ms:.1f}ms "
-          f"n_codes={result.n_codes} n_frames={result.n_frames}", file=sys.stderr)
+          f"n_codes={result.n_codes} n_frames={result.n_frames} {_codec_graph_text(graph0)}",
+          file=sys.stderr)
 
     try:
         Path(args.output).write_bytes(wav16_header(result.audio.size, result.sample_rate)

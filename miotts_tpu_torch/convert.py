@@ -15,12 +15,14 @@ import torch
 
 from .models.llm import LLMConfig, weights_to_device
 from .models.miocodec import MioCodecConfig, check_supported, to_device
+from .ops.istft import hann_periodic
 
 _CODEC_KEYS = ("token_embd", "prenet_blocks", "prenet_norm_w", "prenet_norm_b",
                "prenet_out_w", "prenet_out_b", "upsample_w", "upsample_b", "prior", "post",
                "decoder_blocks", "norm_cond_w", "norm_cond_b", "decoder_norm_w",
                "decoder_norm_b", "istft_out_w", "istft_out_b", "istft_tables", "mel_postnet",
-               "vocoder")
+               "vocoder", "wave_upsampler", "ups_out_proj_w", "ups_out_proj_b",
+               "ups_out_snake_alpha", "ups_out_snake_beta")
 
 
 def _f32(tree):
@@ -36,10 +38,15 @@ def _f32(tree):
 def miocodec_params_from_jax(cfg, tree: dict, device: torch.device
                              ) -> tuple[MioCodecConfig, dict]:
     """JAX MioCodec (config, weight tree) -> the port's, at f32 on
-    ``device``. Leaves the port does not run (global encoder) are dropped."""
+    ``device``. Leaves the port does not run (global encoder) are dropped.
+    The JAX tree's iSTFT tables are the two DFT matrices; the port's also
+    hold the Hann window (``ops/istft.py dft_tables``)."""
     pcfg = MioCodecConfig(**dataclasses.asdict(cfg))
     check_supported(pcfg)
-    return pcfg, to_device(_f32({k: tree[k] for k in _CODEC_KEYS if k in tree}), device)
+    w = {k: tree[k] for k in _CODEC_KEYS if k in tree}
+    if "istft_tables" in w:
+        w["istft_tables"] = (*w["istft_tables"], hann_periodic(pcfg.n_fft))
+    return pcfg, to_device(_f32(w), device)
 
 
 def llm_params_from_jax(cfg, tree: dict, device: torch.device,

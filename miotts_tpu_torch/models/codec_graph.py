@@ -1,0 +1,111 @@
+"""One codec decode captured as a CUDA graph and replayed.
+
+The JAX pipeline compiles ``codec_synthesize`` once per (bucket,
+``interp_anchor_tokens``, ``peak_normalize``) (miotts_tpu/pipeline.py:
+155-159). Its CUDA counterpart here: the pipeline's decode body
+(``codec_synthesize``, the window slice and the packing of the result for
+one host read; ``pipeline.py``) captured once into a ``torch.cuda.CUDAGraph``
+on static input buffers, then replayed, with no Python per op.
+
+- The graph keeps its static input buffers (``inputs``: tokens, lengths,
+  cond, window starts) for its whole life. ``run`` copies a request's host
+  arrays into them whole (the zeros past each length included), replays,
+  and brings the one packed output back with one ``.cpu()``.
+- Warm-up: the body first runs once eagerly on the capture stream, under
+  ``torch.cuda.set_sync_debug_mode("error")`` so that a hidden host sync
+  fails there and not as a wrong replay (``run_checked``). It fills what a
+  capture cannot: the julius filters and K5/K6's permuted operands (both
+  refuse to fill during capture), the kernels' attributes, cuDNN's plans
+  and the stream's cuBLAS workspace. A caller that has just run that
+  eager body on that stream with the same shapes (the pipeline's first
+  decode of a key) passes ``warm_up=False``.
+- Memory: the graphs of one pipeline share one memory pool (``pool``).
+  That is sound because their replays run one at a time on one stream and
+  the pipeline copies each output to the host before the next replay. So
+  a graph's ``out`` is valid only until the next replay of any graph of
+  its pool.
+- A failed capture raises; nothing falls back to eager decodes.
+
+Counters (module level; a caller may reset them): ``captures``,
+``capture_ms`` (host time of the warm-ups and captures), ``replays``,
+``replay_ms`` (host time of ``run``: copy-in, replay and the host read)
+and ``eager_decodes`` (decodes that ran the body eagerly on a CUDA device:
+the pipeline's first decode of each key, and those asked for by name).
+Each kernel wrapper's ``launches`` counts the launches of replays too
+(``ops/cuda/graphs.py``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops.cuda import graphs
+
+captures = 0
+replays = 0
+capture_ms = 0.0
+replay_ms = 0.0
+eager_decodes = 0
+
+
+def run_checked(body: Callable, inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+    """body(inputs) run eagerly on the card, any host sync an error."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return body(inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class CodecGraph:
+    """``body(inputs) -> out`` captured on ``inputs``, the graph's static
+    buffers, on ``stream`` and in the memory pool ``pool`` (None: a pool of
+    its own)."""
+
+    def __init__(self, body: Callable, inputs: dict[str, torch.Tensor],
+                 stream: torch.cuda.Stream, pool=None, warm_up: bool = True):
+        global captures, capture_ms
+        dev = next(iter(inputs.values())).device
+        if dev.type != "cuda":
+            raise ValueError(f"a codec graph needs a CUDA device, not {dev}")
+        t0 = time.perf_counter()
+        self.inputs = inputs
+        if warm_up:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                run_checked(body, inputs)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with graphs.record_launches() as self.launches_per_replay, \
+                torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            self.out = body(inputs)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.n_replays = 0
+        captures += 1
+        capture_ms += self.capture_ms
+
+    def replay(self) -> torch.Tensor:
+        """One replay on the current stream; returns ``out``."""
+        global replays
+        self.graph.replay()
+        graphs.count_replay(self.launches_per_replay)
+        self.n_replays += 1
+        replays += 1
+        return self.out
+
+    def run(self, host: dict[str, np.ndarray]) -> np.ndarray:
+        """Copy ``host``'s arrays into the input buffers of the same names
+        (each rewritten whole), replay, and return ``out`` on the host."""
+        global replay_ms
+        t0 = time.perf_counter()
+        for name, value in host.items():
+            self.inputs[name].copy_(torch.from_numpy(value))
+        out = self.replay().cpu().numpy()
+        replay_ms += (time.perf_counter() - t0) * 1e3
+        return out

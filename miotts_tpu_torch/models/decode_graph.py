@@ -20,11 +20,9 @@ is one replay, with no Python per token.
 - Whoever captures a graph keeps it: ``LLMEngine`` keeps one for its
   weights, and a graph lives as long as its owner holds it.
 
-Counters: each kernel wrapper (``ops/cuda/*.py``) counts a launch when
-Python calls it, and a replay calls no Python. So the launches a capture
-records are taken back after it and added again on every replay: a
-wrapper's ``launches`` stays the number of its kernel's launches in this
-process. ``captures``, ``replays``, ``capture_ms`` (host time of the
+Counters: each kernel wrapper's ``launches`` stays the number of its
+kernel's launches in this process, replays counted (``ops/cuda/graphs.py``).
+``captures``, ``replays``, ``capture_ms`` (host time of the
 warm-ups and captures), ``warmup_steps`` (eager steps run before a capture,
 their results discarded) and ``eager_steps`` (chunk-body steps run eagerly
 on a CUDA device, which happens only when a caller runs the eager body by
@@ -39,17 +37,13 @@ from typing import Callable
 
 import torch
 
+from ..ops.cuda import graphs
+
 captures = 0
 replays = 0
 capture_ms = 0.0
 warmup_steps = 0
 eager_steps = 0
-
-
-def _kernel_modules() -> tuple:
-    from ..ops.cuda import (
-        activation1d, banded_attention, conv1d, decode_attention, q8_matmul, resblock)
-    return (banded_attention, decode_attention, q8_matmul, conv1d, activation1d, resblock)
 
 
 def _tensors(state) -> dict[str, torch.Tensor]:
@@ -85,16 +79,11 @@ class ChunkGraph:
         self.load(dataclasses.replace(state, **saved))
         torch.cuda.synchronize(dev)
 
-        mods = _kernel_modules()
-        before = {m: m.launches for m in mods}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        with graphs.record_launches() as self.launches_per_replay, \
+                torch.cuda.graph(self.graph, stream=stream):
             body(state, self.out, self.n_new)
         torch.cuda.synchronize(dev)
-        # the capture recorded these launches and ran none; each replay runs them
-        self.launches_per_replay = {m: m.launches - n for m, n in before.items()}
-        for m, n in before.items():
-            m.launches = n
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         captures += 1
         capture_ms += self.capture_ms
@@ -117,7 +106,6 @@ class ChunkGraph:
         overwrites."""
         global replays
         self.graph.replay()
-        for m, n in self.launches_per_replay.items():
-            m.launches += n
+        graphs.count_replay(self.launches_per_replay)
         replays += 1
         return self.out, self.n_new

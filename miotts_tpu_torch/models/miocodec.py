@@ -1,6 +1,7 @@
 """MioCodec decoder: audio codes -> STFT spectrogram -> waveform (wave mode)
 or -> mel spectrogram -> bundled vocoder -> waveform (mel mode)
-(miotts_tpu/models/miocodec.py).
+(miotts_tpu/models/miocodec.py). Wave mode runs the wave upsampler when
+the codec has one (the 44.1 kHz codec: spt 1764, hop 441, one 2x stage).
 
 One batched, length-masked forward over [B, N] padded code batches. Every
 convolution and group norm is length-masked, so a padded bucket computes
@@ -12,9 +13,9 @@ Weights are a plain dict of tensors with the JAX package's tree layout:
 linear weights pre-transposed to [in, out], transformer and resnet blocks
 stacked along a leading layer axis.
 
-Not yet ported (each raises NotImplementedError): the wave upsampler
-(ROADMAP M2.1) and the global encoder (ROADMAP M8). Mel mode without
-bundled vocoder tensors raises too, as in the JAX package.
+Not yet ported: the global encoder (ROADMAP M8), which raises
+NotImplementedError. Mel mode without bundled vocoder tensors raises too,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -107,9 +108,6 @@ def check_supported(cfg: MioCodecConfig) -> None:
         raise NotImplementedError("mel-mode model has no bundled MioVocoder tensors")
     if cfg.model_type not in (0, 1):
         raise NotImplementedError(f"unknown MioCodec model_type {cfg.model_type}")
-    if cfg.wave_upsampler_factors:
-        raise NotImplementedError("the MioCodec wave upsampler is not yet ported to "
-                                  "miotts_tpu_torch (ROADMAP M2.1)")
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +288,19 @@ def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict
         w["istft_out_b"] = get("istft_head.out.bias")
         if cfg.model_type == 0:
             w["istft_tables"] = dft_tables(cfg.n_fft)
+        if cfg.wave_upsampler_factors:
+            resblk = _spec_with_prefix(_RESNET_SPEC, "wave_upsampler.resblk")
+            w["wave_upsampler"] = [{
+                "up_w": get(f"wave_upsampler.up.{i}.weight"),  # ConvTranspose1d [in, out, k]
+                "up_b": get(f"wave_upsampler.up.{i}.bias"),
+                "snake_alpha": get(f"wave_upsampler.snake.{i}.alpha"),
+                "snake_beta": get(f"wave_upsampler.snake.{i}.beta"),
+                "resblk": {k: get(pat.format(i=i)) for k, (pat, _) in resblk.items()},
+            } for i in range(len(cfg.wave_upsampler_factors))]
+            w["ups_out_proj_w"] = _t(get("wave_upsampler.out_proj.weight"))
+            w["ups_out_proj_b"] = get("wave_upsampler.out_proj.bias")
+            w["ups_out_snake_alpha"] = get("wave_upsampler.out_snake.alpha")
+            w["ups_out_snake_beta"] = get("wave_upsampler.out_snake.beta")
         if cfg.model_type == 1 and cfg.mel_postnet_layers > 0:
             w["mel_postnet"] = _stack_blocks(get, cfg.mel_postnet_layers, {
                 "conv_w": ("mel_postnet.{i}.conv.weight", False),
@@ -361,6 +372,32 @@ def _resnet_block(x, blk: dict, lengths, groups: int, gn_eps: float) -> torch.Te
     return x + y
 
 
+def _snake_beta(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """SnakeBeta with log-scale parameters (miocodec-decoder.cpp:1332-1343):
+    x + sin^2(e^alpha x) / (e^beta + 1e-9) in f32, cast back. Keeps zeros."""
+    s = torch.sin(x.float() * torch.exp(alpha.float()))
+    return (x + (s * s) / (torch.exp(beta.float()) + 1e-9)).to(x.dtype)
+
+
+def _wave_upsample(cfg: MioCodecConfig, w: dict, x: torch.Tensor, frame_len: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wave upsampler's stages (each: conv transpose with stride f,
+    cropped by (k - f) // 2 a side, then snake and a resnet block), then
+    out_proj and a snake. Returns (x, frame lengths)."""
+    for stage, f, k in zip(w["wave_upsampler"], cfg.wave_upsampler_factors,
+                           cfg.wave_upsampler_kernel_sizes):
+        pad = max(0, (k - f) // 2)
+        x = conv_transpose1d(mask_time(x, frame_len), stage["up_w"], stage["up_b"], stride=f)
+        if pad > 0:
+            x = x[:, pad:x.shape[1] - pad, :]
+        frame_len = (frame_len - 1) * f + k - 2 * pad
+        x = _snake_beta(mask_time(x, frame_len), stage["snake_alpha"], stage["snake_beta"])
+        x = _resnet_block(x, stage["resblk"], frame_len, cfg.resnet_groups, cfg.group_norm_eps)
+    x = x @ w["ups_out_proj_w"] + w["ups_out_proj_b"]
+    x = _snake_beta(x, w["ups_out_snake_alpha"], w["ups_out_snake_beta"])
+    return mask_time(x, frame_len), frame_len
+
+
 def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
                       token_lengths: torch.Tensor, cond: torch.Tensor | None,
                       interp_anchor_tokens: int | None = None
@@ -373,7 +410,8 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     B, N = tokens.shape
     dev = tokens.device
     stft_len = torch.clamp((token_lengths * cfg.samples_per_token) // cfg.hop_length, min=1)
-    dec_len = stft_len
+    tf = cfg.wave_upsampler_total_factor
+    dec_len = torch.clamp(stft_len // tf, min=1) if tf > 1 else stft_len
     F_dec = cfg.decoder_frames(N)
 
     cond_act = None
@@ -412,13 +450,16 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     else:
         x = layer_norm(x, w["decoder_norm_w"], w["decoder_norm_b"], eps=cfg.norm_eps)
 
+    frame_len = dec_len
     if cfg.model_type == 0:
         for i in range(cfg.resnet_blocks):
             x = _resnet_block(mask_time(x, dec_len), {k: v[i] for k, v in w["post"].items()},
                               dec_len, cfg.resnet_groups, cfg.group_norm_eps)
+        if cfg.wave_upsampler_factors:
+            x, frame_len = _wave_upsample(cfg, w, x, frame_len)
 
-    spec = mask_time(x @ w["istft_out_w"] + w["istft_out_b"], dec_len)
-    return spec, dec_len
+    spec = mask_time(x @ w["istft_out_w"] + w["istft_out_b"], frame_len)
+    return spec, frame_len
 
 
 def codec_synthesize(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,

@@ -21,7 +21,7 @@ import torch
 
 from ..resample import (
     adaa_snake_beta, downsample_activation, snake_coefficients, upsample_activation)
-from . import build
+from . import build, graphs
 from .conv1d import check_f32, device_lengths
 
 SOURCE = "miotts_tpu_torch/csrc/activation1d.cu"
@@ -88,13 +88,18 @@ _prepared: dict[tuple, tuple] = {}
 
 def cached(key_tensors: tuple, make):
     """make(), computed once for these tensor objects while they are alive
-    and unchanged (same objects, same versions), then kept."""
+    and unchanged (same objects, same versions), then kept. Refuses to fill
+    an entry while a CUDA graph is being captured: run the graph's body once
+    eagerly first (the codec and decode graphs' warm-up)."""
     key = tuple(map(id, key_tensors))
     versions = tuple(t._version for t in key_tensors)
     hit = _prepared.get(key)
     if hit is not None and hit[1] == versions and all(
             r() is t for r, t in zip(hit[0], key_tensors)):
         return hit[2]
+    if graphs.capturing():
+        raise RuntimeError("a kernel operand cache would fill during CUDA graph capture; "
+                           "run the captured body once eagerly first")
     value = make()
     refs = tuple(weakref.ref(t, lambda _, k=key: _prepared.pop(k, None)) for t in key_tensors)
     _prepared[key] = (refs, versions, value)

@@ -11,7 +11,9 @@ scaled by 1/n_freq:
 ``torch.fft`` computes a different transform, so the DFT stays a matmul
 against the same tables the JAX package uses. Windowing is periodic Hann;
 the overlap-add is normalized by the hann^2 envelope and cropped by
-(n_fft - hop)/2 per side.
+(n_fft - hop)/2 per side. The tables and the window are made once, at
+load, and live on the device with the weights, so a decode copies nothing
+from the host (a CUDA graph cannot capture such a copy).
 """
 
 from __future__ import annotations
@@ -20,14 +22,16 @@ import numpy as np
 import torch
 
 
-def dft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
-    """(cos, sin) tables [n_freq, n_fft], f32, already scaled by 1/n_freq."""
+def dft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The iSTFT's tables: (cos, sin) [n_freq, n_fft], f32, already scaled
+    by 1/n_freq, and the periodic Hann window [n_fft]."""
     n_freq = n_fft // 2 + 1
     k = np.arange(n_freq, dtype=np.float64)[:, None]
     t = np.arange(n_fft, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * k * t / n_fft
     scale = 1.0 / n_freq
-    return (np.cos(ang) * scale).astype(np.float32), (np.sin(ang) * scale).astype(np.float32)
+    return ((np.cos(ang) * scale).astype(np.float32), (np.sin(ang) * scale).astype(np.float32),
+            hann_periodic(n_fft))
 
 
 def hann_periodic(n: int) -> np.ndarray:
@@ -36,9 +40,9 @@ def hann_periodic(n: int) -> np.ndarray:
 
 
 def istft_overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor,
-                      n_fft: int, hop: int) -> torch.Tensor:
-    """frames_time: [B, L, n_fft] real frames -> audio
-    [B, (L-1)*hop + n_fft - 2*n_pad].
+                      n_fft: int, hop: int, hann: torch.Tensor) -> torch.Tensor:
+    """frames_time: [B, L, n_fft] real frames, ``hann`` the periodic Hann
+    window [n_fft] on their device -> audio [B, (L-1)*hop + n_fft - 2*n_pad].
 
     Each windowed frame splits into r = ceil(n_fft/hop) hop-chunks and the
     r diagonally shifted streams are summed: no scatter."""
@@ -49,7 +53,6 @@ def istft_overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor,
     n_pad = (n_fft - hop) // 2
     dev = frames_time.device
 
-    hann = torch.from_numpy(hann_periodic(n_fft)).to(dev)
     maskf = (torch.arange(L, dtype=torch.int32, device=dev)[None, :]
              < frame_lengths[:, None]).float()[:, :, None]
     windowed = frames_time.float() * hann[None, None, :] * maskf
@@ -75,15 +78,16 @@ def istft_overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor,
 
 
 def spec_to_audio(spec: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, hop: int,
-                  tables: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                  tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """spec: [B, L, n_fft+2] (logmag | phase) -> audio; ``tables`` are the
-    (cos, sin) DFT matrices on the spec's device (see ``dft_tables``)."""
+    (cos, sin) DFT matrices and the Hann window on the spec's device (see
+    ``dft_tables``)."""
     n_freq = n_fft // 2 + 1
     logmag = spec[..., :n_freq].float()
     phase = spec[..., n_freq:].float()
     mag = torch.clamp(torch.exp(logmag), max=1e2)
     re = mag * torch.cos(phase)
     im = mag * torch.sin(phase)
-    cos_t, sin_t = tables
+    cos_t, sin_t, hann = tables
     frames_time = torch.matmul(re, cos_t) - torch.matmul(im, sin_t)
-    return istft_overlap_add(frames_time, frame_lengths, n_fft, hop)
+    return istft_overlap_add(frames_time, frame_lengths, n_fft, hop, hann)

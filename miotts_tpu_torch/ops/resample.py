@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .cuda.graphs import capturing
 from .masking import mask_time
 
 
@@ -52,7 +53,14 @@ def julius_lowpass_kernel(cutoff: float, zeros: float = 8.0) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _lowpass_filter(cutoff: float, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(julius_lowpass_kernel(cutoff)).to(device)
+    """The filter on ``device``, copied from the host once. Refuses to fill
+    while a CUDA graph is being captured (a capture cannot hold a host
+    copy); the copy does not wait for the device, so the eager warm-up
+    before a capture may run under ``torch.cuda.set_sync_debug_mode("error")``."""
+    if capturing():
+        raise RuntimeError(f"the low-pass filter cache would fill (cutoff {cutoff}) during "
+                           f"CUDA graph capture; run the captured body once eagerly first")
+    return torch.from_numpy(julius_lowpass_kernel(cutoff)).to(device, non_blocking=True)
 
 
 def replicate_pad(x: torch.Tensor, lengths: torch.Tensor, left: int, right: int) -> torch.Tensor:

@@ -3,14 +3,27 @@
 
 Requests are padded into the same ladder of length buckets as the JAX
 package, so both packages decode the same padded shapes. A decode's result
-reaches the host in one copy: the audio row and its valid-sample count
-packed together on the device, or, for the streaming synthesizer, only a
-window of the audio and the count (``synthesize(window=...)``).
+reaches the host in one copy: the audio rows and their valid-sample counts
+packed together on the device (``_pack``), or, for the streaming
+synthesizer, only a window of the audio and the count
+(``synthesize(window=...)``).
+
+On CUDA each decode key (``CodecKey``: what the JAX ``jit`` treats as
+static or as a shape) gets one CUDA graph (``models/codec_graph.py``): the
+first decode of a key runs eagerly on the pipeline's stream, its result
+used and the run the graph's warm-up; the second captures the graph and
+replays it; every later one replays. So a one-shot decode pays no capture,
+and a stream or a server that decodes a bucket again reuses its graph.
+``capture`` captures a key ahead of time. All of a pipeline's graphs share
+one memory pool; a lock makes copy-in -> replay -> copy-out one step, so
+threads may share a pipeline. On the CPU every decode is eager.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from pathlib import Path
 
@@ -18,6 +31,7 @@ import numpy as np
 import torch
 
 from . import MIO_CODE_MAX, MIO_CODE_MIN
+from .models import codec_graph
 from .models.miocodec import codec_synthesize, load_miocodec
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -32,18 +46,25 @@ def _window_slice(audio: torch.Tensor, starts: torch.Tensor, window: int) -> tor
     return torch.where(idx < T, win, torch.zeros((), dtype=win.dtype, device=win.device))
 
 
-def _fetch(audio: torch.Tensor, n_samples: torch.Tensor, pcm16: bool) -> tuple[np.ndarray, int]:
-    """One device -> host copy of a row of audio [L] and its valid-sample
-    count [1]: f32 with the count (exact in f32 below 2^24) appended, or,
-    with ``pcm16``, quantized on the device as ``audio_io.encode_pcm16``
-    does (clip to [-1, 1], x 32767, round half to even) into int16 with the
-    int32 count bitcast into two more; the host scales it back to f32."""
+def _pack(audio: torch.Tensor, n_samples: torch.Tensor, pcm16: bool) -> torch.Tensor:
+    """Rows of audio [B, L] and their valid-sample counts [B] as one tensor
+    for one device -> host copy: [B, L + 1] f32 with the count (exact in f32
+    below 2^24) appended, or, with ``pcm16``, [B, L + 2] int16: the audio
+    quantized as ``audio_io.encode_pcm16`` does (clip to [-1, 1], x 32767,
+    round half to even) and the int32 count bitcast into two more."""
     if not pcm16:
-        packed = torch.cat([audio.float(), n_samples.float()]).cpu().numpy()
-        return packed[:-1], int(packed[-1])
+        return torch.cat([audio.float(), n_samples.float()[:, None]], dim=1)
     pcm = torch.round(audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-    packed = torch.cat([pcm, n_samples.to(torch.int32).view(torch.int16)]).cpu().numpy()
-    return packed[:-2].astype(np.float32) / np.float32(32767.0), int(packed[-2:].view(np.int32)[0])
+    return torch.cat([pcm, n_samples.to(torch.int32)[:, None].view(torch.int16)], dim=1)
+
+
+def _unpack(packed: np.ndarray, pcm16: bool) -> tuple[np.ndarray, np.ndarray]:
+    """``_pack``'s result on the host -> (audio [B, L] f32, counts [B]); the
+    pcm16 audio is scaled back to f32."""
+    if not pcm16:
+        return packed[:, :-1], packed[:, -1].astype(np.int64)
+    counts = np.ascontiguousarray(packed[:, -2:]).view(np.int32)[:, 0].astype(np.int64)
+    return packed[:, :-2].astype(np.float32) / np.float32(32767.0), counts
 
 
 def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
@@ -51,6 +72,22 @@ def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
         if n <= b:
             return b
     return ((n + 511) // 512) * 512
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecKey:
+    """What one codec graph is captured for: the batch and its bucket, and
+    every decode option the JAX ``jit`` treats as static (whether a cond is
+    given, the resample anchor, peak normalization, the window length or
+    None, a pcm16 transfer). Lengths, codes, cond values and the window
+    start are inputs."""
+    B: int
+    bucket: int
+    cond: bool
+    interp_anchor: int | None
+    peak_normalize: bool
+    window: int | None
+    pcm16: bool
 
 
 @dataclasses.dataclass
@@ -79,6 +116,14 @@ class MioTTSPipeline:
         # decodes run and their host time, for callers that count them
         self.n_decodes = 0
         self.decode_ms_total = 0.0
+        # the codec graphs (CUDA's path): by key, every key decoded so far,
+        # the stream every CUDA decode runs on and the graphs' shared pool
+        self.use_graph = device.type == "cuda"
+        self.graphs: dict[CodecKey, codec_graph.CodecGraph] = {}
+        self.seen: set[CodecKey] = set()
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.graph_pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self._lock = threading.Lock()
 
     @property
     def sample_rate(self) -> int:
@@ -125,27 +170,132 @@ class MioTTSPipeline:
         n = int(codes.size)
         tokens = np.zeros((1, pick_bucket(n, self.buckets)), np.int64)
         tokens[0, :n] = codes
-        dev = self.device
-        t0 = time.perf_counter()
-        audio, n_samples = codec_synthesize(
-            self.config, self.weights, torch.from_numpy(tokens).to(dev),
-            torch.tensor([n], dtype=torch.int32, device=dev),
-            None if embedding is None else torch.from_numpy(embedding)[None].to(dev),
-            interp_anchor_tokens=interp_anchor, peak_normalize=peak_normalize)
-        # one copy (it waits for the device): the audio and its count
+        start = 0 if window is None else int(window[0])
+        audio, counts, decode_ms = self.decode(
+            tokens, np.array([n], np.int32), None if embedding is None else embedding[None],
+            interp_anchor=interp_anchor, peak_normalize=peak_normalize,
+            window=None if window is None else int(window[1]),
+            starts=None if window is None else np.array([start], np.int32), pcm16=pcm16)
+        n_valid = int(counts[0])
         if window is not None:
-            start, length = int(window[0]), int(window[1])
-            win = _window_slice(audio, torch.tensor([start], device=dev), length)[0]
-            audio_np, n_valid = _fetch(win, n_samples[:1], pcm16)
-            audio_np = audio_np[:max(0, min(length, n_valid - start))]
+            audio_np = audio[0, :max(0, min(int(window[1]), n_valid - start))]
         else:
-            audio_np, n_valid = _fetch(audio[0], n_samples[:1], pcm16)
-            audio_np = audio_np[:n_valid]
-        decode_ms = (time.perf_counter() - t0) * 1e3
-        self.n_decodes += 1
-        self.decode_ms_total += decode_ms
+            audio_np = audio[0, :n_valid]
         return SynthesisResult(audio=audio_np, sample_rate=self.config.sample_rate,
                                decode_ms=decode_ms, n_codes=n,
-                               n_frames=n_valid // self.config.hop_length,
-                               window_start=0 if window is None else start,
+                               n_frames=n_valid // self.config.hop_length, window_start=start,
                                n_total=None if window is None else n_valid)
+
+    def decode(self, tokens: np.ndarray, lengths: np.ndarray, cond: np.ndarray | None = None, *,
+               interp_anchor: int | None = None, peak_normalize: bool = True,
+               window: int | None = None, starts: np.ndarray | None = None,
+               pcm16: bool = False) -> tuple[np.ndarray, np.ndarray, float]:
+        """One decode of B lanes: tokens [B, bucket] (zeros past each
+        length), lengths [B], cond [B, Dc] or None; with ``window``, lane b
+        brings back audio[starts[b]:starts[b] + window]. Returns (audio [B,
+        L] f32 on the host, valid-sample counts [B], host ms). On CUDA the
+        key's first decode is eager, its second captures its graph, and the
+        rest replay it."""
+        key, host = self._prepare(tokens, lengths, cond, interp_anchor=interp_anchor,
+                                  peak_normalize=peak_normalize, window=window, starts=starts,
+                                  pcm16=pcm16)
+        with self._lock, self._on_stream():
+            t0 = time.perf_counter()
+            if key in self.graphs:
+                packed = self.graphs[key].run(host)
+            elif self.use_graph and key in self.seen:
+                packed = self._capture(key, warm_up=False).run(host)
+            else:
+                packed = self._eager(key, host)
+                self.seen.add(key)
+            decode_ms = (time.perf_counter() - t0) * 1e3
+            self.n_decodes += 1
+            self.decode_ms_total += decode_ms
+        audio, counts = _unpack(packed, pcm16)
+        return audio, counts, decode_ms
+
+    def decode_eager(self, tokens: np.ndarray, lengths: np.ndarray,
+                     cond: np.ndarray | None = None, **options) -> tuple[np.ndarray, np.ndarray]:
+        """``decode``'s body run eagerly on the same arguments whatever the
+        key's state, as a reference for a replay: (audio [B, L], counts
+        [B]). On CUDA it counts as an eager decode."""
+        key, host = self._prepare(tokens, lengths, cond, **options)
+        with self._lock:
+            return _unpack(self._eager(key, host), key.pcm16)
+
+    def _prepare(self, tokens: np.ndarray, lengths: np.ndarray, cond: np.ndarray | None, *,
+                 interp_anchor: int | None = None, peak_normalize: bool = True,
+                 window: int | None = None, starts: np.ndarray | None = None,
+                 pcm16: bool = False) -> tuple[CodecKey, dict[str, np.ndarray]]:
+        """A decode's key and its host arrays, named as the graph's inputs."""
+        B, bucket = tokens.shape
+        key = CodecKey(B, bucket, cond is not None, interp_anchor, peak_normalize, window, pcm16)
+        host = {"tokens": np.ascontiguousarray(tokens, np.int64),
+                "lengths": np.ascontiguousarray(lengths, np.int32)}
+        if cond is not None:
+            host["cond"] = np.ascontiguousarray(cond, np.float32)
+        if window is not None:
+            host["starts"] = np.ascontiguousarray(starts, np.int32)
+        return key, host
+
+    def capture(self, bucket: int, B: int = 1, *, cond: bool | None = None,
+                interp_anchor: int | None = None, peak_normalize: bool = True,
+                window: int | None = None, pcm16: bool = False) -> codec_graph.CodecGraph:
+        """The graph of a key, captured now (with its own warm-up) unless it
+        exists; later decodes of the key replay it. ``cond`` defaults to
+        whether the codec takes an embedding."""
+        if cond is None:
+            cond = self.config.dynamic_global
+        key = CodecKey(B, bucket, cond, interp_anchor, peak_normalize, window, pcm16)
+        with self._lock:
+            if key not in self.graphs:
+                self._capture(key, warm_up=key not in self.seen)
+                self.seen.add(key)
+            return self.graphs[key]
+
+    def _eager(self, key: CodecKey, host: dict[str, np.ndarray]) -> np.ndarray:
+        """The decode body run eagerly on ``host``'s arrays: the CPU's path,
+        and on CUDA a key's first decode (any host sync inside it an error)
+        or a reference asked for by name. Returns the packed rows."""
+        with self._on_stream():
+            inputs = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+            if self.device.type != "cuda":
+                return self._body(key)(inputs).numpy()
+            codec_graph.eager_decodes += 1
+            return codec_graph.run_checked(self._body(key), inputs).cpu().numpy()
+
+    def _body(self, key: CodecKey):
+        cfg, w = self.config, self.weights
+
+        def body(inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+            audio, n_samples = codec_synthesize(
+                cfg, w, inputs["tokens"], inputs["lengths"], inputs.get("cond"),
+                interp_anchor_tokens=key.interp_anchor, peak_normalize=key.peak_normalize)
+            if key.window is not None:
+                audio = _window_slice(audio, inputs["starts"], key.window)
+            return _pack(audio, n_samples, key.pcm16)
+        return body
+
+    def _capture(self, key: CodecKey, warm_up: bool) -> codec_graph.CodecGraph:
+        """Capture ``key``'s graph on fresh static buffers (full lengths,
+        zero tokens, cond and starts) and keep it."""
+        dev = self.device
+        inputs = {"tokens": torch.zeros((key.B, key.bucket), dtype=torch.int64, device=dev),
+                  "lengths": torch.full((key.B,), key.bucket, dtype=torch.int32, device=dev)}
+        if key.cond:
+            inputs["cond"] = torch.zeros((key.B, self.config.decoder_adanorm_dim), device=dev)
+        if key.window is not None:
+            inputs["starts"] = torch.zeros((key.B,), dtype=torch.int32, device=dev)
+        graph = codec_graph.CodecGraph(self._body(key), inputs, self._stream, self.graph_pool,
+                                       warm_up=warm_up)
+        self.graphs[key] = graph
+        return graph
+
+    def _on_stream(self):
+        """CUDA work of a decode runs on the pipeline's own stream, the one
+        its graphs are captured on (so the first, eager decode of a key warms
+        up that stream's cuBLAS workspace)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self._stream)

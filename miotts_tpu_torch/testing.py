@@ -48,6 +48,16 @@ def full_codec_config(**overrides) -> MioCodecConfig:
     return MioCodecConfig(**base)
 
 
+def full_codec441_config(**overrides) -> MioCodecConfig:
+    """The full-width 44.1 kHz wave codec with its upsampler: spt 1764, hop
+    441, one 2x stage of kernel 4 (the shipped 44.1k geometry,
+    __graft_entry__.py:360-362)."""
+    base = dict(sample_rate=44100, samples_per_token=1764, hop_length=441,
+                wave_upsampler_factors=(2,), wave_upsampler_kernel_sizes=(4,))
+    base.update(overrides)
+    return full_codec_config(**base)
+
+
 def full_mel_codec_config(**overrides) -> MioCodecConfig:
     """The full-width mel-mode codec (bench.py:570-577): the 24 kHz trunk,
     100 mels, no resnets, and the 5x4x4x3x2 vocoder (hop 480) with three

@@ -28,6 +28,9 @@ from miotts_tpu_torch.testing import (
     tiny_codec_config, write_synthetic_llm_gguf, write_synthetic_miocodec_gguf)
 
 torch.set_num_threads(1)
+# a tiny wave codec with the 44.1 kHz codec's upsampler (one 2x stage, k=4)
+UPS_CODEC = tiny_codec_config(sample_rate=44100, samples_per_token=64,
+                              wave_upsampler_factors=(2,), wave_upsampler_kernel_sizes=(4,))
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +38,7 @@ def assets(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")
     cfg = tiny_codec_config()
     write_synthetic_miocodec_gguf(str(d / "codec.gguf"), cfg, seed=0)
+    write_synthetic_miocodec_gguf(str(d / "codec441.gguf"), UPS_CODEC, seed=0)
     write_synthetic_llm_gguf(str(d / "llm.gguf"), n_audio=cfg.vocab_size, seed=1,
                              audio_logit_scale=3.0)
     write_synthetic_llm_gguf(str(d / "llm_q8_0.gguf"), n_audio=cfg.vocab_size, seed=1,
@@ -68,6 +72,22 @@ def test_codes_to_wav_matches_jax_cli(assets, tmp_path):
     sr_j, ref = _wav(tmp_path / "jax.wav")
     sr_p, got = _wav(tmp_path / "port.wav")
     assert sr_p == sr_j == 24000 and got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 2
+    assert np.abs(got).max() > 0
+
+
+def test_codes_to_wav_upsampler_matches_jax_cli(assets, tmp_path, capsys):
+    """Codes -> WAV on a codec with the wave upsampler: a 44 100 Hz WAV
+    within 2 LSB of the JAX CLI's; on the CPU no decode is a graph's."""
+    base = ["-mv", str(assets / "codec441.gguf"), "--tts-mio-codes-in",
+            str(assets / "codes.txt"), "-emb", str(assets / "voice.emb.gguf")]
+    assert jax_cli.main(base + ["-o", str(tmp_path / "jax.wav")]) == 0
+    assert cli.main(base + ["-o", str(tmp_path / "port.wav")]) == 0
+    assert ("codec_graph eager=0 captures=0 capture=0.0ms replays=0"
+            in capsys.readouterr().err)
+    sr_j, ref = _wav(tmp_path / "jax.wav")
+    sr_p, got = _wav(tmp_path / "port.wav")
+    assert sr_p == sr_j == 44100 and got.shape == ref.shape == (40 * 64,)
     assert np.abs(got - ref).max() <= 2
     assert np.abs(got).max() > 0
 
@@ -205,6 +225,25 @@ def _jax_stream_wav(codec, codes, emb):
     if peak > 0.98:
         audio = audio * np.float32(0.95 / peak)
     return np.frombuffer(jax_encode_pcm16(audio), "<i2").astype(np.int32)
+
+
+@pytest.mark.parametrize("codec", ["codec441.gguf"])
+def test_stream_output_upsampler(assets, tmp_path, capsys, codec):
+    """--tts-stream-output on the upsampler codec: a 44 100 Hz WAV within
+    2/32768 of JAX's StreamingSynthesizer on the same codes."""
+    out, codes_out = tmp_path / "stream.wav", tmp_path / "stream.codes"
+    rc = cli.main(["-mv", str(assets / codec), "-m", str(assets / "llm.gguf"),
+                   "-p", "stream this text", "-n", "48", "--temp", "0",
+                   "-emb", str(assets / "voice.emb.gguf"), "--tts-stream-output",
+                   "--tts-mio-codes-out", str(codes_out), "-o", str(out)])
+    assert rc == 0
+    assert "replays=0" in capsys.readouterr().err
+    sr, pcm = _wav(out)
+    codes = load_codes(codes_out)
+    ref = _jax_stream_wav(str(assets / codec), codes,
+                          np.random.RandomState(0).randn(16).astype(np.float32))
+    assert sr == 44100 and pcm.shape == ref.shape == (len(codes) * 64,)
+    assert np.abs(pcm - ref).max() <= 2 and np.abs(pcm).max() > 0
 
 
 @pytest.mark.parametrize("n_predict", [24, 48])

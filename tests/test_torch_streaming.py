@@ -43,6 +43,17 @@ def pipes(tmp_path_factory):
     return d, JaxPipeline(str(d / "codec.gguf")), MioTTSPipeline(str(d / "codec.gguf"), CPU), cfg
 
 
+@pytest.fixture(scope="module")
+def ups_pipes(tmp_path_factory):
+    """The JAX and the port's pipelines on a tiny codec with the 44.1 kHz
+    codec's wave upsampler (one 2x stage, kernel 4)."""
+    path = str(tmp_path_factory.mktemp("stream_ups") / "codec441.gguf")
+    cfg = tiny_codec_config(sample_rate=44100, samples_per_token=64,
+                            wave_upsampler_factors=(2,), wave_upsampler_kernel_sizes=(4,))
+    write_synthetic_miocodec_gguf(path, cfg, seed=0)
+    return JaxPipeline(path), MioTTSPipeline(path, CPU), cfg
+
+
 def _feed_all(ss, codes, step):
     sizes, pieces = [], []
     for i in range(0, len(codes), step):
@@ -65,6 +76,23 @@ def test_streaming_matches_jax(pipes, step, lookahead, window):
                                                     window_samples=window), codes, step)
     sizes, got = _feed_all(StreamingSynthesizer(pipe, emb, lookahead_tokens=lookahead,
                                                 window_samples=window), codes, step)
+    assert sizes == jsizes and sum(sizes) == len(codes) * cfg.samples_per_token
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("step,window", [(7, None), (16, 512)])
+def test_streaming_upsampler_matches_jax(ups_pipes, step, window):
+    """The stream on the upsampler codec: JAX's emission sizes, its samples
+    within atol 1e-4, at the codec's 44.1 kHz rate."""
+    jpipe, pipe, cfg = ups_pipes
+    rng = np.random.RandomState(6)
+    codes = rng.randint(0, cfg.vocab_size, 60).tolist()
+    emb = rng.randn(cfg.decoder_adanorm_dim).astype(np.float32)
+    jsizes, ref = _feed_all(JaxStreamingSynthesizer(jpipe, emb, window_samples=window), codes,
+                            step)
+    ss = StreamingSynthesizer(pipe, emb, window_samples=window)
+    sizes, got = _feed_all(ss, codes, step)
+    assert ss.sample_rate == 44100
     assert sizes == jsizes and sum(sizes) == len(codes) * cfg.samples_per_token
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 

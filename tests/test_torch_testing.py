@@ -71,3 +71,11 @@ def test_mel_vocoder_writer_matches(tmp_path, kwargs):
     testing.write_synthetic_mel_vocoder_gguf(
         str(tmp_path / "p.gguf"), testing.tiny_codec_config(**overrides), **kwargs)
     assert (tmp_path / "p.gguf").read_bytes() == (tmp_path / "j.gguf").read_bytes()
+
+
+def test_full_codec441_config_matches():
+    """The 44.1 kHz codec of the JAX package's gate (__graft_entry__.py:360-362)."""
+    assert (dataclasses.asdict(testing.full_codec441_config())
+            == dataclasses.asdict(jax_testing.full_codec_config(
+                sample_rate=44100, samples_per_token=1764, hop_length=441,
+                wave_upsampler_factors=(2,), wave_upsampler_kernel_sizes=(4,))))
