@@ -109,6 +109,32 @@ them were replays and their wall time printed. Every CLI request's codec
 decodes follow the graph's key policy: one eager decode a key, and every
 decode of a key after its second a replay.
 
+Last, a server phase (``miotts_tpu_torch/serving/``): the port's
+MioTTSServer in this process (port 0, so the launch counters are readable)
+on the dense 0.1B LLM and the 24 kHz wave codec with ``-np 8 -n 250
+--ctx-size 512 --warmup on`` (its warm-up time and max_memory_reserved
+printed): /mio/health answers; inline codes through /mio/tts/stream equal
+``pipeline.synthesize`` of them within one PCM16 step; a sampled codes_only
+request (seed 7, temp 0.8, top_k 50) gives the same codes alone and with 7
+neighbours of other seeds sent 0.3 s after it (its prefill runs alone both
+times, its decode steps at B = 8), and whether it still does when all 8
+are sent at once (reported: its prefill may then be coalesced); greedy
+codes against the B=1 engine (the common prefix reported); two rounds each
+at concurrency 1, 4 and 8 of text /mio/tts/stream requests (WAVs parse,
+not silent, distinct X-Slot; aggregate audio-s per s, p50/p90 latency,
+mean llm_ms and synth_ms); two concurrent SSE stream_audio requests
+deliver audio (TTFA printed); generation ran on chunk-graph replays only
+(no eager step), and the served requests alone launched K1 and K2 (the
+reference runs between them are not counted); a 64-step chunk's device ms
+at occupancy 1 and 8; K2 at the server's cache rows, K1 at a served
+group's B = 8 ragged trunk shapes and K3 at T = 4 lanes, each against its
+plain version. Then a second server with ``--warmup off``: one round of 8
+(4 binary, 4 SSE stream_audio) in which codec keys get their eager decode
+and capture and the chunk graphs their capture while the worker replays
+and the prefill thread prefills: no request may fail, and K1 and K2 grow.
+Then a ``-np 4 --llm-quant q8_0`` server serves three requests and K3
+grows.
+
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
 error, its time, its plain version's time, its bound (the least time the
@@ -252,6 +278,18 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are a check's or a reference's, not the path's own:
+    every kernel's count is put back on exit."""
+    saved = {m: m.launches for m in MODS}
+    try:
+        yield
+    finally:
+        for m, n in saved.items():
+            m.launches = n
 
 
 def least_time(nbytes: float, ops: float, peak: float) -> dict:
@@ -401,35 +439,48 @@ def k3_bound(T: int, K: int, N: int) -> dict:
     return least_time(nbytes, 2 * T * K * N, BF16_FLOP_S)
 
 
+def k3_weights(dev, gen, K: int, N: int):
+    """K3's inputs as the loader makes them: int8 in [-127, 127] and
+    f16-representable positive scales (quantize_q8_cols); also the dense
+    bf16 weight the unquantized path multiplies by (cuBLAS) and its
+    absolute values (for the error bound)."""
+    q = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
+    s = (torch.rand(K // k3.QBLOCK, N, generator=gen) * 0.02 + 1e-3).half().float().to(dev)
+    w_bf16 = (q.float() * s.repeat_interleave(k3.QBLOCK, dim=0)).to(torch.bfloat16)
+    return q, s, w_bf16, w_bf16.float().abs()
+
+
+def k3_case(leaf: str, x, q, s, w_abs) -> tuple[float, float, tuple]:
+    """K3 against its plain version on x [T, K]: every element within its
+    rounding bound, and two calls bit-equal. Returns (max abs error, the
+    largest error over its bound, the launch plan)."""
+    (T, K), N = x.shape, q.shape[1]
+    plan = k3.launch_shape(T, K, N, x.element_size())
+    got = k3.q8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    ref = k3.q8_matmul_plain(x, q, s)
+    bound = 2 * K * 2.0 ** -24 * (x.to(torch.bfloat16).float().abs() @ w_abs)
+    if got.shape != (T, N) or got.dtype != torch.float32:
+        raise AssertionError(f"K3 {leaf} T={T}: {tuple(got.shape)} {got.dtype}")
+    err = (got - ref).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"K3 {leaf} K={K} N={N} T={T} x={x.dtype}: error "
+                             f"{err.max().item()} exceeds its bound")
+    if not torch.equal(k3.q8_matmul(x, q, s), got):
+        raise AssertionError(f"K3 {leaf} T={T} x={x.dtype}: two calls differ ({plan.kind} "
+                             f"path, {plan.z} K splits)")
+    return err.max().item(), (err / bound).max().item(), plan
+
+
 def check_k3(dev, gen) -> dict:
     worst, rows = 0.0, {}
     for leaf, K, N in k3_shapes():
-        # the kernel's inputs as the loader makes them: int8 in [-127, 127],
-        # f16-representable positive scales (quantize_q8_cols)
-        q = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
-        s = (torch.rand(K // k3.QBLOCK, N, generator=gen) * 0.02 + 1e-3).half().float().to(dev)
-        # the dense bf16 weight the unquantized path multiplies by (cuBLAS)
-        w_bf16 = (q.float() * s.repeat_interleave(k3.QBLOCK, dim=0)).to(torch.bfloat16)
-        w_abs = w_bf16.float().abs()
+        q, s, w_bf16, w_abs = k3_weights(dev, gen, K, N)
         for T in (1, 8, 64):
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn(T, K, generator=gen).to(dev, dt)
-                plan = k3.launch_shape(T, K, N, x.element_size())
-                got = k3.q8_matmul(x, q, s)
-                torch.cuda.synchronize()
-                ref = k3.q8_matmul_plain(x, q, s)
-                bound = 2 * K * 2.0 ** -24 * (x.to(torch.bfloat16).float().abs() @ w_abs)
-                if got.shape != (T, N) or got.dtype != torch.float32:
-                    raise AssertionError(f"K3 {leaf} T={T}: {tuple(got.shape)} {got.dtype}")
-                err = (got - ref).abs()
-                if not bool((err <= bound).all()):
-                    raise AssertionError(f"K3 {leaf} K={K} N={N} T={T} x={dt}: error "
-                                         f"{err.max().item()} exceeds its bound")
-                if not torch.equal(k3.q8_matmul(x, q, s), got):
-                    raise AssertionError(f"K3 {leaf} T={T} x={dt}: two calls differ ({plan.kind} "
-                                         f"path, {plan.z} K splits)")
-                worst = max(worst, err.max().item())
-                ratio = (err / bound).max().item()
+                err, ratio, plan = k3_case(leaf, x, q, s, w_abs)
+                worst = max(worst, err)
                 if dt == torch.bfloat16 and T in (1, 64):
                     ms = cuda_ms(lambda: k3.q8_matmul(x, q, s))
                     plain = cuda_ms(lambda: k3.q8_matmul_plain(x, q, s))
@@ -441,7 +492,7 @@ def check_k3(dev, gen) -> dict:
                 else:
                     timing = ""
                 log(f"[k3] {leaf} K={K} N={N} T={T} x={str(dt)[6:]} launch={tuple(plan)}: "
-                    f"max_abs_err={err.max().item():.3e} err/bound<={ratio:.3e}"
+                    f"max_abs_err={err:.3e} err/bound<={ratio:.3e}"
                     f" bit-stable{timing}")
         del q, s, w_bf16, w_abs
     _, K, N = k3_shapes()[-1]
@@ -1242,6 +1293,436 @@ def fidelity(path: Path, device, codes, emb, sample_rate: int, what: str) -> Non
         raise AssertionError(f"{what}: mel-L1 {l1} >= {MEL_L1_MAX}")
 
 
+# -- the server phase --------------------------------------------------------------------
+
+SERVER_FLAGS = ["-np", "8", "-n", "250", "--ctx-size", "512"]
+SERVER_TEXTS = tuple(f"Request {i}: the quick brown fox jumps over the lazy dog, {w}."
+                     for i, w in enumerate(("once", "twice", "thrice", "again", "slowly",
+                                            "quickly", "quietly", "loudly")))
+SERVER_ROUNDS = (1, 4, 8)  # concurrency of the timed rounds, two rounds each
+
+
+def parse_wav_bytes(data: bytes, what: str) -> tuple[int, np.ndarray]:
+    """(sample rate, int16 samples) of a mono 16-bit WAV held in memory."""
+    riff, size, wave, fmt, _, pcm, ch, sr, _, _, bits, tag, n = struct.unpack_from(
+        "<4sI4s4sIHHIIHH4sI", data)
+    if (riff, wave, fmt, tag, pcm, ch, bits) != (b"RIFF", b"WAVE", b"fmt ", b"data", 1, 1, 16):
+        raise AssertionError(f"{what}: not a mono 16-bit PCM WAV")
+    if size != 36 + n or len(data) != 44 + n:
+        raise AssertionError(f"{what}: RIFF sizes do not match the body")
+    return sr, np.frombuffer(data[44:], "<i2")
+
+
+def start_server(dev, tmp: Path, llm: str, flags: list[str]):
+    """The port's MioTTSServer in this process on port 0 (so its launch
+    counters are readable), built from the server's own flags."""
+    from miotts_tpu_torch.serving import server as server_mod
+
+    argv = ["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / llm), "--port", "0",
+            "--output-dir", str(tmp / "server_out"),
+            "--reference-file", json.dumps({"key": "voice", "path": str(tmp / "voice.emb.gguf")}),
+            *flags]
+    srv = server_mod.MioTTSServer(
+        server_mod.config_from_args(server_mod.build_arg_parser().parse_args(argv)), dev)
+    srv.start_background()
+    return srv
+
+
+def http_post(srv, path: str, body: dict, timeout: float = 300):
+    """POST JSON; returns (status, headers, body bytes, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read(), time.perf_counter() - t0
+
+
+def sse_audio(srv, text: str, seed: int) -> dict:
+    """One SSE stream_audio request: its TTFA (to the first audio_chunk
+    event) and the audio it delivered."""
+    import urllib.request
+
+    body = {"text": text, "reference_key": "voice", "stream_tokens": True,
+            "stream_audio": True, "seed": seed}
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/mio/tts/stream",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    ttfa, n_samples, events = None, 0, {}
+    with urllib.request.urlopen(req, timeout=300) as r:
+        event = None
+        for raw in r:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+                events[event] = events.get(event, 0) + 1
+                if event == "audio_chunk" and ttfa is None:
+                    ttfa = (time.perf_counter() - t0) * 1e3
+            elif line.startswith("data: ") and event == "audio_chunk":
+                n_samples += json.loads(line[6:])["n_samples"]
+    if "error" in events or not n_samples or ttfa is None:
+        raise AssertionError(f"SSE stream_audio request {seed}: events {events}, "
+                             f"{n_samples} samples")
+    return {"ttfa_ms": ttfa, "samples": n_samples, "wall_s": time.perf_counter() - t0,
+            "events": events}
+
+
+def binary_tts(srv, text: str, seed: int, what: str) -> dict:
+    """One text /mio/tts/stream binary request: a WAV that parses and is not
+    silent; its slot, latency and audio seconds."""
+    status, headers, data, secs = http_post(srv, "/mio/tts/stream",
+                                            {"text": text, "reference_key": "voice", "seed": seed})
+    if status != 200:
+        raise AssertionError(f"{what}: HTTP {status}: {data[:300]!r}")
+    sr, pcm = parse_wav_bytes(data, what)
+    if not np.any(pcm != 0):
+        raise AssertionError(f"{what}: the WAV is silent")
+    return {"slot": int(headers["X-Slot"]), "latency_s": secs, "audio_s": pcm.size / sr}
+
+
+def concurrent_round(srv, n: int, what: str, offset: int = 0) -> dict:
+    """n text binary requests at once: aggregate audio-s per s, latencies,
+    distinct slots, and the engine's mean llm_ms and synth_ms."""
+    import concurrent.futures
+
+    eng = srv.engine
+    llm0, synth0, req0 = eng.llm_ms_total, eng.synth_ms_total, eng.requests_total
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(n) as ex:
+        res = list(ex.map(lambda i: binary_tts(srv, SERVER_TEXTS[(offset + i) % 8], offset + i,
+                                               f"{what} request {i}"), range(n)))
+    wall = time.perf_counter() - t0
+    slots = [r["slot"] for r in res]
+    if len(set(slots)) != n:
+        raise AssertionError(f"{what}: slots {slots} are not distinct")
+    n_req = eng.requests_total - req0
+    return {"wall_s": wall, "audio_s": sum(r["audio_s"] for r in res),
+            "latencies_s": [r["latency_s"] for r in res],
+            "llm_ms": (eng.llm_ms_total - llm0) / n_req,
+            "synth_ms": (eng.synth_ms_total - synth0) / n_req}
+
+
+def chunk_device_ms(srv, occupancy: int) -> float:
+    """Device ms of one replay of the batcher's chunk_max graph with
+    ``occupancy`` lanes live (the server idle; the graph runs all lanes
+    either way), median of 3 by CUDA events."""
+    b = srv.engine.batcher
+    g, st = b.graphs[b.chunk_max], b.state
+    times = []
+    with b._cv:
+        for _ in range(3):
+            st.done.fill_(True)
+            st.done[:occupancy] = False
+            st.pos.fill_(300)
+            b.rem.fill_(0)
+            b.rem[:occupancy] = b.chunk_max
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            g.run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        st.done.fill_(True)
+        b.rem.fill_(0)
+    return sorted(times)[1]
+
+
+def k2_at_server_s(dev, gen, S: int, B: int = 8) -> dict:
+    """K2 at the server's cache rows and lane count, ragged positions."""
+    KVH, G, HD = 2, 6, 64
+    bf = torch.bfloat16
+    q = torch.randn(B, KVH, G, HD, generator=gen).to(dev, bf)
+    kc, vc = (torch.randn(B, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
+    ck, cv = (torch.randn(B, S, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
+    pos_l = [int(p) for p in np.linspace(40, S - 1, B)]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, ck, cv, 1.0 / math.sqrt(HD), pos)
+    err = (k2.decode_attention(*args).float() - k2.decode_attention_plain(*args).float()
+           ).abs().max().item()
+    ms = cuda_ms(lambda: k2.decode_attention(*args))
+    plain = cuda_ms(lambda: k2.decode_attention_plain(*args))
+    nbytes = sum(2 * (2 * (p + 1) * KVH * HD + KVH * G * HD) + 2 * KVH * G * HD + 4 for p in pos_l)
+    ops = sum(4 * (p + 1) * KVH * G * HD for p in pos_l)
+    bound = least_time(nbytes, ops, BF16_FLOP_S)
+    if not err <= K2_TOL:
+        raise AssertionError(f"K2 error {err} > {K2_TOL} at the server's S={S}")
+    log(f"[server] K2 at B={B} S={S} pos={pos_l} launch={k2.launch_shape(B, S, KVH)}: "
+        f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain:.4f}ms "
+        f"bound={bound['bound_ms']:.5f}ms ({bound['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound, "S": S, "B": B}
+
+
+def k1_at_server(dev, gen, cfg, bucket: int, B: int = 8) -> dict:
+    """K1 at a served codec group's trunk shapes: B lanes of ragged length
+    in the prenet (T = the codes bucket) and the decoder (T = twice it),
+    each against its plain version; the decoder's timed."""
+    out = {}
+    for stack, H, T in (("prenet", cfg.prenet_heads, bucket),
+                        ("decoder", cfg.decoder_heads, 2 * bucket)):
+        lens = [int(n) for n in np.linspace(T, T // 4, B)]
+        err, q, k, v, lengths = k1_case(dev, gen, B, T, H, 64, lens)
+        out[f"{stack}_max_abs_err"] = err
+    mask = band_mask(T, lengths)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = cuda_ms(lambda: k1.banded_attention(q, k, v, lengths, K1_WINDOW))
+    plain = cuda_ms(lambda: k1.banded_attention_plain(q, k, v, lengths, K1_WINDOW))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    bound = least_time(4 * 4 * B * T * H * 64 + 4 * B, 4 * 64 * H * int(mask.sum()), F32_FLOP_S)
+    log(f"[server] K1 at B={B} H={H} T={T} lengths={lens}: prenet max_abs_err="
+        f"{out['prenet_max_abs_err']:.3e}, decoder max_abs_err={err:.3e} kernel={ms:.4f}ms "
+        f"plain={plain:.4f}ms SDPA(band mask)={lib:.4f}ms bound={bound['bound_ms']:.5f}ms "
+        f"({bound['bound_by']})")
+    return {**out, "ms": ms, "plain_ms": plain, "library_ms": lib, **bound, "B": B, "T": T}
+
+
+def k3_at_lanes(dev, gen, T: int) -> dict:
+    """K3 at T = the q8_0 server's lanes on every Q8_0 matmul of the 0.1B
+    LLM (bf16 x, as the served model gives it), each against its plain
+    version and timed: leaf -> [kernel, plain, dense bf16 cuBLAS, bound] ms."""
+    worst, rows = 0.0, {}
+    for leaf, K, N in k3_shapes():
+        q, s, w_bf16, w_abs = k3_weights(dev, gen, K, N)
+        x = torch.randn(T, K, generator=gen).to(dev, torch.bfloat16)
+        err, ratio, plan = k3_case(leaf, x, q, s, w_abs)
+        worst = max(worst, err)
+        rows[leaf] = [cuda_ms(lambda: k3.q8_matmul(x, q, s)),
+                      cuda_ms(lambda: k3.q8_matmul_plain(x, q, s)),
+                      cuda_ms(lambda: x @ w_bf16), k3_bound(T, K, N)["bound_ms"]]
+        log(f"[server] K3 {leaf} K={K} N={N} T={T} launch={tuple(plan)}: max_abs_err={err:.3e} "
+            f"err/bound<={ratio:.3e} kernel={rows[leaf][0]:.4f}ms plain={rows[leaf][1]:.4f}ms "
+            f"dense_bf16={rows[leaf][2]:.4f}ms bound={rows[leaf][3]:.5f}ms")
+    return {"max_abs_err": worst, "T": T, "by_leaf_ms": rows}
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def check_server(dev, tmp: Path, emb) -> dict:
+    """The port's HTTP server at full width (0.1B dense bf16 LLM, 24 kHz
+    wave codec, -np 8 -n 250 --ctx-size 512): warmed up, then health,
+    inline codes against pipeline.synthesize, lane independence, greedy
+    against the B=1 engine, timed rounds at concurrency 1/4/8, two SSE
+    stream_audio requests, chunk device ms at occupancy 1 and 8, and K1,
+    K2 and K3 held against their plain versions at the server's shapes; a
+    second server with --warmup off (codec captures overlapping LLM
+    replays), and a -np 4 q8_0 server (K3). The served requests of each
+    server must launch its kernels; the references and checks run between
+    them are not counted."""
+    import concurrent.futures
+
+    from miotts_tpu_torch.models.sampling import SamplerParams as SP
+
+    out: dict = {}
+    g0, c0 = graph_counts(), codec_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = start_server(dev, tmp, "llm.gguf", [*SERVER_FLAGS, "--warmup", "on"])
+    eng = srv.engine
+    out["startup_s"] = time.perf_counter() - t0
+    out["warmup_s"] = eng.warmup_s
+    out["max_memory_reserved_mib"] = torch.cuda.max_memory_reserved() / 2 ** 20
+    out["warm_graphs"] = {"codec": len(eng.pipeline.graphs), "chunk": len(eng.batcher.graphs)}
+    log(f"[server] -np 8 -n 250 --ctx-size 512 --warmup on: listening after "
+        f"{out['startup_s']:.2f}s (warm-up {eng.warmup_s:.2f}s: {out['warm_graphs']} graphs), "
+        f"max_memory_reserved {out['max_memory_reserved_mib']:.0f} MiB")
+    try:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/mio/health", timeout=30) as r:
+            health = json.loads(r.read())
+        if health["status"] != "ok" or not health["warmup_complete"]:
+            raise AssertionError(f"health: {health}")
+        served0 = {m: m.launches for m in MODS}
+
+        # inline codes against pipeline.synthesize, within one PCM16 step
+        codes = np.random.RandomState(5).randint(0, eng.pipeline.config.vocab_size, 150).tolist()
+        status, _, data, _ = http_post(srv, "/mio/tts/stream",
+                                       {"codes": codes, "reference_key": "voice"})
+        sr, pcm = parse_wav_bytes(data, "inline codes")
+        with uncounted():
+            ref = eng.pipeline.synthesize(codes, emb).audio
+        ref16 = np.rint(np.clip(ref, -1, 1) * 32767).astype(np.int32)
+        step = int(np.abs(pcm.astype(np.int32) - ref16).max()) if pcm.size == ref16.size else -1
+        if status != 200 or not 0 <= step <= 1:
+            raise AssertionError(f"inline codes: HTTP {status}, {pcm.size} vs {ref16.size} "
+                                 f"samples, largest difference {step} PCM16 steps")
+        log(f"[server] inline codes (150) equal pipeline.synthesize within {step} PCM16 step")
+
+        # lane independence: sampled codes_only, alone and among 7 neighbours
+        # that arrive 0.3 s later (so both of its prefills run alone and its
+        # decode steps run at B = 8 in both runs)
+        req = {"text": SERVER_TEXTS[0], "reference_key": "voice", "codes_only": True,
+               "seed": 7, "temp": 0.8, "top_k": 50}
+
+        def codes_of(body):
+            st, _, raw, _ = http_post(srv, "/mio/tts", body)
+            if st != 200:
+                raise AssertionError(f"codes_only: HTTP {st}: {raw[:300]!r}")
+            return json.loads(raw)["codes_values"]
+
+        alone = codes_of(req)
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            first = ex.submit(codes_of, req)
+            time.sleep(0.3)
+            others = [ex.submit(codes_of, {**req, "seed": 100 + i, "text": SERVER_TEXTS[i + 1]})
+                      for i in range(7)]
+            among = first.result()
+            [f.result() for f in others]
+        if among != alone:
+            n_same = next((i for i, (a, b) in enumerate(zip(alone, among)) if a != b),
+                          min(len(alone), len(among)))
+            raise AssertionError(f"lane independence: seed 7 gave {len(alone)} codes alone and "
+                                 f"{len(among)} among neighbours, equal for {n_same}")
+        out["lane_independence_codes"] = len(alone)
+        log(f"[server] seed 7 (temp 0.8, top_k 50): {len(alone)} codes alone == among 7 "
+            f"concurrent neighbours, bit for bit (its prefill alone)")
+        # the same 8 sent at once: seed 7's prefill may then be coalesced
+        # with its neighbours' (a padded group, a GEMM at another M), which
+        # can round its first logits otherwise (reported, not required)
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            futs = [ex.submit(codes_of, req)]
+            futs += [ex.submit(codes_of, {**req, "seed": 100 + i, "text": SERVER_TEXTS[i + 1]})
+                     for i in range(7)]
+            at_once = futs[0].result()
+            [f.result() for f in futs[1:]]
+        n_same = next((i for i, (a, b) in enumerate(zip(alone, at_once)) if a != b),
+                      min(len(alone), len(at_once)))
+        out["lane_independence_at_once"] = {"equal": at_once == alone, "common_prefix": n_same,
+                                            "codes": len(at_once)}
+        log(f"[server] seed 7 sent at once with its 7 neighbours: "
+            f"{'bit-equal to alone' if at_once == alone else 'differs from alone'} "
+            f"({n_same} of {len(at_once)} codes in common)")
+
+        # greedy against the B=1 engine path (reported, not required)
+        greedy = codes_of({**req, "temp": 0.0})
+        with uncounted():
+            toks = eng.llm.generate_audio_tokens(SERVER_TEXTS[0], n_predict=250, n_ctx=512,
+                                                 sampler=SP(temp=0.0))
+        single = eng.llm.tokens_to_codes(toks)
+        prefix = next((i for i, (a, b) in enumerate(zip(greedy, single)) if a != b),
+                      min(len(greedy), len(single)))
+        out["greedy_common_prefix"] = [prefix, len(greedy), len(single)]
+        log(f"[server] greedy: {prefix} of {len(greedy)} codes equal the B=1 engine's "
+            f"({len(single)} codes)")
+
+        # timed rounds at concurrency 1, 4 and 8, two rounds each
+        rounds = {}
+        for n in SERVER_ROUNDS:
+            rs = [concurrent_round(srv, n, f"conc {n} round {k}", offset=k * n) for k in (0, 1)]
+            lat = [x for r in rs for x in r["latencies_s"]]
+            rounds[n] = {
+                "audio_s_per_s": sum(r["audio_s"] for r in rs) / sum(r["wall_s"] for r in rs),
+                "rounds_audio_s_per_s": [r["audio_s"] / r["wall_s"] for r in rs],
+                "p50_ms": pct(lat, 50), "p90_ms": pct(lat, 90),
+                "llm_ms": float(np.mean([r["llm_ms"] for r in rs])),
+                "synth_ms": float(np.mean([r["synth_ms"] for r in rs])),
+                "audio_s": sum(r["audio_s"] for r in rs) / (2 * n)}
+            log(f"[server] concurrency {n}: audio-s/s {rounds[n]['audio_s_per_s']:.2f} "
+                f"(rounds {', '.join(f'{x:.2f}' for x in rounds[n]['rounds_audio_s_per_s'])}), "
+                f"latency p50 {rounds[n]['p50_ms']:.1f} ms p90 {rounds[n]['p90_ms']:.1f} ms, "
+                f"llm_ms {rounds[n]['llm_ms']:.1f} synth_ms {rounds[n]['synth_ms']:.1f}, "
+                f"{rounds[n]['audio_s']:.2f} s of audio a request")
+        out["rounds"] = rounds
+
+        # two concurrent SSE stream_audio requests
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            sse = list(ex.map(lambda i: sse_audio(srv, SERVER_TEXTS[i], 200 + i), range(2)))
+        out["sse"] = sse
+        ttfas = ", ".join(f"{x['ttfa_ms']:.1f}" for x in sse)
+        log(f"[server] 2 concurrent SSE stream_audio: TTFA {ttfas} ms, samples "
+            f"{[x['samples'] for x in sse]}")
+
+        g = {k: v - g0[k] for k, v in graph_counts().items()}
+        if g["eager_steps"] != 0 or g["replays"] <= 0:
+            raise AssertionError(f"server generation ran eager chunk steps or no replay: {g}")
+        out["decode_graph"] = g
+        grew = {m: m.launches - served0[m] for m in MODS}
+        out["served_launches"] = {m.__name__.rsplit(".", 1)[1]: n for m, n in grew.items()}
+        log(f"[server] the served requests launched {launch_text(grew)}")
+        if grew[k1] <= 0 or grew[k2] <= 0:
+            raise AssertionError(f"the served requests launched no K1 or no K2: "
+                                 f"{launch_text(grew)}")
+
+        with uncounted():
+            out["chunk_device_ms"] = {occ: chunk_device_ms(srv, occ) for occ in (1, 8)}
+            log(f"[server] one {eng.batcher.chunk_max}-step chunk replay: device "
+                f"{out['chunk_device_ms'][1]:.3f} ms at occupancy 1, "
+                f"{out['chunk_device_ms'][8]:.3f} ms at occupancy 8")
+            gen = torch.Generator().manual_seed(3)
+            out["k2_at_server_s"] = k2_at_server_s(dev, gen, eng.batcher.max_ctx)
+            out["k1_at_server"] = k1_at_server(dev, gen, eng.pipeline.config,
+                                               pick_bucket(len(alone)))
+            out["k3_at_lanes"] = k3_at_lanes(dev, gen, 4)
+    finally:
+        srv.shutdown()
+    del srv, eng
+    torch.cuda.empty_cache()
+
+    # --warmup off: codec keys get their eager decode and their capture, and
+    # the chunk graphs their capture, while the worker replays and the
+    # prefill thread prefills
+    srv = start_server(dev, tmp, "llm.gguf", [*SERVER_FLAGS, "--warmup", "off"])
+    try:
+        c1, d1, l1 = codec_counts(), graph_counts(), {m: m.launches for m in MODS}
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            futs = [ex.submit(binary_tts, srv, SERVER_TEXTS[i], 300 + i, f"warmup-off {i}")
+                    for i in range(4)]
+            futs += [ex.submit(sse_audio, srv, SERVER_TEXTS[i], 300 + i) for i in range(4, 8)]
+            failed = []
+            for f in futs:
+                try:
+                    f.result()
+                except Exception as e:  # counted, then raised below
+                    failed.append(repr(e))
+        c = {k: v - c1[k] for k, v in codec_counts().items()}
+        d = {k: v - d1[k] for k, v in graph_counts().items()}
+        grew = {m: m.launches - l1[m] for m in MODS}
+        out["warmup_off"] = {"failed": len(failed), "codec_graph": c, "decode_graph": d,
+                             "launches": {m.__name__.rsplit(".", 1)[1]: n
+                                          for m, n in grew.items()}}
+        log(f"[server] --warmup off round of 8 (4 binary, 4 SSE stream_audio): {len(failed)} "
+            f"failed; codec eager={c['eager_decodes']} captures={c['captures']} "
+            f"replays={c['replays']}; chunk captures={d['captures']} replays={d['replays']} "
+            f"eager_steps={d['eager_steps']}; launched {launch_text(grew)}")
+        if (failed or c["captures"] == 0 or d["captures"] == 0 or d["eager_steps"]
+                or grew[k1] <= 0 or grew[k2] <= 0):
+            raise AssertionError(f"--warmup off round: {failed}, {c}, {d}, {launch_text(grew)}")
+    finally:
+        srv.shutdown()
+    del srv
+    torch.cuda.empty_cache()
+
+    # a short q8_0 server: K3 at T = lanes
+    srv = start_server(dev, tmp, "llm_q8_0.gguf",
+                       ["-np", "4", "-n", "120", "--ctx-size", "512", "--llm-quant", "q8_0"])
+    try:
+        k3_0 = k3.launches
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            list(ex.map(lambda i: binary_tts(srv, SERVER_TEXTS[i], 400 + i, f"q8_0 {i}"),
+                        range(3)))
+    finally:
+        srv.shutdown()
+    del srv
+    torch.cuda.empty_cache()
+    out["q8_0_k3_launches"] = k3.launches - k3_0
+    if out["q8_0_k3_launches"] <= 0:
+        raise AssertionError("the q8_0 server's requests launched no K3")
+    log(f"[server] -np 4 --llm-quant q8_0: 3 requests launched K3 {out['q8_0_k3_launches']} "
+        f"times")
+    out["codec_graph"] = {k: v - c0[k] for k, v in codec_counts().items()}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1298,11 +1779,11 @@ def main() -> int:
         log(f"[graph] {time.perf_counter() - t0:.1f}s")
 
         # each path is driven with every count at 0 and read right after
-        launches, streams, codec_rows = {}, {}, {}
+        launches, streams, codec_rows, server_rows = {}, {}, {}, {}
         for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
                            ("codec_graph", None), ("wave441", WAVE441_REQUESTS),
-                           ("stream", STREAM_REQUESTS)):
+                           ("stream", STREAM_REQUESTS), ("server", None)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
@@ -1314,6 +1795,8 @@ def main() -> int:
             elif path == "wave441":
                 for name, extra, kernels in reqs:
                     wave441_request(name, tmp, wcfg, extra, kernels)
+            elif path == "server":
+                server_rows = check_server(dev, tmp, emb)
             elif path == "stream":
                 for name, codec, model, n_predict, extra, kernels in reqs:
                     streams[name] = stream_request(
@@ -1349,7 +1832,9 @@ def main() -> int:
                         "replaces": mod.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[mod]})
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows, "streams": streams}))
+    log(smi.stdout.strip().splitlines()[0])  # again, for readers of the output's tail
+    print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows, "streams": streams,
+                      "server": server_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,19 @@ port never carries on quietly on the CPU.
 The codec is held to f32 math (its fidelity bar is mel-L1 < 1e-2,
 BASELINE.md:24). On the card a float32 convolution goes through cuDNN in
 TF32 by default, so selecting a device turns both TF32 switches off.
+
+``to_device`` and ``to_host`` move arrays through pinned host memory. A
+copy from or to pageable memory is synchronous, and CUDA runs such
+copies one at a time: in a server, one thread's read of a chunk result
+(which waits for its chunk) would hold every other thread's small upload
+until that chunk ends.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 PLATFORMS = ("cuda", "cpu")
@@ -32,3 +39,23 @@ def select_device(platform: str | None = None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device(platform)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on CUDA an asynchronous copy from pinned
+    memory on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host; from CUDA through pinned memory, after
+    the current stream's work (not the whole card's) has run."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()

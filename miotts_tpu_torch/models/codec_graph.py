@@ -10,10 +10,14 @@ on static input buffers, then replayed, with no Python per op.
 - The graph keeps its static input buffers (``inputs``: tokens, lengths,
   cond, window starts) for its whole life. ``run`` copies a request's host
   arrays into them whole (the zeros past each length included), replays,
-  and brings the one packed output back with one ``.cpu()``.
-- Warm-up: the body first runs once eagerly on the capture stream, under
-  ``torch.cuda.set_sync_debug_mode("error")`` so that a hidden host sync
-  fails there and not as a wrong replay (``run_checked``). It fills what a
+  and brings the one packed output back with one host read.
+- Warm-up: the body first runs once eagerly on the capture stream, with
+  ``check_syncs`` under ``torch.cuda.set_sync_debug_mode("error")`` so that
+  a hidden host sync fails there and not as a wrong replay
+  (``run_checked``). That mode is global to the process, so only a caller
+  whose thread alone drives the card (the CLI, tests, ``chip_smoke.py``)
+  asks for it; a server, whose other threads read results from the card
+  meanwhile, runs its warm-ups plain. It fills what a
   capture cannot: the julius filters and K5/K6's permuted operands (both
   refuse to fill during capture), the kernels' attributes, cuDNN's plans
   and the stream's cuBLAS workspace. A caller that has just run that
@@ -24,6 +28,8 @@ on static input buffers, then replayed, with no Python per op.
   the pipeline copies each output to the host before the next replay. So
   a graph's ``out`` is valid only until the next replay of any graph of
   its pool.
+- The capture runs in ``graphs.CAPTURE_MODE`` ("thread_local"): other
+  threads' device work goes on while one thread captures.
 - A failed capture raises; nothing falls back to eager decodes.
 
 Counters (module level; a caller may reset them): ``captures``,
@@ -43,6 +49,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
 from ..ops.cuda import graphs
 
 captures = 0
@@ -52,8 +59,12 @@ replay_ms = 0.0
 eager_decodes = 0
 
 
-def run_checked(body: Callable, inputs: dict[str, torch.Tensor]) -> torch.Tensor:
-    """body(inputs) run eagerly on the card, any host sync an error."""
+def run_checked(body: Callable, inputs: dict[str, torch.Tensor],
+                check_syncs: bool = True) -> torch.Tensor:
+    """body(inputs) run eagerly on the card; with ``check_syncs`` any host
+    sync (of any thread, the mode being the process's) is an error."""
+    if not check_syncs:
+        return body(inputs)
     prev = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -65,10 +76,11 @@ def run_checked(body: Callable, inputs: dict[str, torch.Tensor]) -> torch.Tensor
 class CodecGraph:
     """``body(inputs) -> out`` captured on ``inputs``, the graph's static
     buffers, on ``stream`` and in the memory pool ``pool`` (None: a pool of
-    its own)."""
+    its own); ``check_syncs`` as in ``run_checked``."""
 
     def __init__(self, body: Callable, inputs: dict[str, torch.Tensor],
-                 stream: torch.cuda.Stream, pool=None, warm_up: bool = True):
+                 stream: torch.cuda.Stream, pool=None, warm_up: bool = True,
+                 check_syncs: bool = True):
         global captures, capture_ms
         dev = next(iter(inputs.values())).device
         if dev.type != "cuda":
@@ -78,11 +90,12 @@ class CodecGraph:
         if warm_up:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                run_checked(body, inputs)
+                run_checked(body, inputs, check_syncs)
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
-        with graphs.record_launches() as self.launches_per_replay, \
-                torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with graphs.capture_lock, graphs.record_launches() as self.launches_per_replay, \
+                torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                 capture_error_mode=graphs.CAPTURE_MODE):
             self.out = body(inputs)
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -105,7 +118,7 @@ class CodecGraph:
         global replay_ms
         t0 = time.perf_counter()
         for name, value in host.items():
-            self.inputs[name].copy_(torch.from_numpy(value))
-        out = self.replay().cpu().numpy()
+            self.inputs[name].copy_(to_device(value, self.inputs[name].device))
+        out = to_host(self.replay())
         replay_ms += (time.perf_counter() - t0) * 1e3
         return out

@@ -18,7 +18,13 @@ is one replay, with no Python per token.
 - The warm-up runs first-use side effects outside capture: the kernels'
   shared-memory attributes, CUDA's lazy module loading, cuBLAS workspaces.
 - Whoever captures a graph keeps it: ``LLMEngine`` keeps one for its
-  weights, and a graph lives as long as its owner holds it.
+  weights, the server's ``ContinuousBatcher`` one for each chunk size of
+  its ladder over one shared state, and a graph lives as long as its owner
+  holds it.
+- The capture runs in ``graphs.CAPTURE_MODE`` ("thread_local"), so a
+  server's other threads may use the card meanwhile; the warm-up's clone
+  and restore of the state make a capture on a state with live lanes
+  leave them as they were.
 
 Counters: each kernel wrapper's ``launches`` stays the number of its
 kernel's launches in this process, replays counted (``ops/cuda/graphs.py``).
@@ -80,8 +86,9 @@ class ChunkGraph:
         torch.cuda.synchronize(dev)
 
         self.graph = torch.cuda.CUDAGraph()
-        with graphs.record_launches() as self.launches_per_replay, \
-                torch.cuda.graph(self.graph, stream=stream):
+        with graphs.capture_lock, graphs.record_launches() as self.launches_per_replay, \
+                torch.cuda.graph(self.graph, stream=stream,
+                                 capture_error_mode=graphs.CAPTURE_MODE):
             body(state, self.out, self.n_new)
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3

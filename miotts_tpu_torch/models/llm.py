@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import to_device, to_host
 from ..gguf import GGMLType, GGUFReader
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.quant_matmul import (
@@ -47,7 +48,9 @@ from ..ops.quant_matmul import (
 from ..ops.rope import apply_rope
 from ..runtime.tokenizer import BPETokenizer
 from . import decode_graph
-from .sampling import SamplerParams, SamplerState, sample_token, sampler_key
+from .sampling import (
+    BatchSamplerParams, SamplerParams, SamplerState, sample_token, sample_token_batched,
+    sampler_key, sampler_keys)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,8 +520,8 @@ def fetch_chunk_result(out: torch.Tensor, n_new: torch.Tensor, state: GenState
     """One device -> host copy a chunk: [n_new | done | tokens] packed on
     the device into int32 [B, 2 + n_steps]. Returns (out, n_new, done) as
     numpy arrays."""
-    packed = torch.cat([n_new.to(torch.int32)[:, None], state.done.to(torch.int32)[:, None],
-                        out.to(torch.int32)], dim=1).cpu().numpy()
+    packed = to_host(torch.cat([n_new.to(torch.int32)[:, None],
+                                state.done.to(torch.int32)[:, None], out.to(torch.int32)], dim=1))
     return packed[:, 2:], packed[:, 0], packed[:, 1].astype(bool)
 
 
@@ -568,6 +571,113 @@ def llm_generate(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
     tokens = np.pad(tokens, ((0, 0), (0, n_predict - tokens.shape[1])))
     return (torch.from_numpy(tokens.astype(np.int64)),
             torch.from_numpy(np.minimum(total, n_predict)))
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: each lane of one state is its own request
+# ---------------------------------------------------------------------------
+
+def init_batched_state(cfg: LLMConfig, n_lanes: int, max_ctx: int, device: torch.device,
+                       seed: int = 0) -> GenState:
+    """A state of ``n_lanes`` lanes over a cache of ``max_ctx`` rows, every
+    lane done (miotts_tpu/models/llm.py:1145); the key is per lane, [B, 2]."""
+    st = empty_gen_state(cfg, n_lanes, max_ctx, device)
+    st.done.fill_(True)
+    st.key = sampler_keys(np.arange(n_lanes) + seed, device)
+    return st
+
+
+def attach_lanes(state: GenState, lanes, logits_k: torch.Tensor, new_k: torch.Tensor,
+                 new_v: torch.Tensor, lengths, seeds) -> GenState:
+    """Install k prefilled requests into lanes ``lanes`` of ``state`` IN
+    PLACE (miotts_tpu/models/llm.py:1110): row i of ``llm_prefill_kv``'s
+    result (logits [k, V], K/V [L, k, T, KVH, HD]) goes to lane
+    ``lanes[i]``, with pos = lengths[i], an empty penalty ring, done False
+    and a fresh key from seeds[i]. ``lanes``, ``lengths`` and ``seeds`` are
+    host arrays; a row whose lane is out of range (a pad row) is dropped.
+    Only the prompt span [0, T) of a lane's cache is written: decode never
+    reads past pos, and writes each row before pos reaches it. The ring
+    cursor stays shared."""
+    B, S = state.pos.shape[0], state.cache_k.shape[2]
+    lanes = np.asarray(lanes).reshape(-1)
+    rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
+    if not rows:
+        return state
+    dev = state.pos.device
+    r = to_device(np.asarray(rows, np.int64), dev)
+    ln = to_device(lanes[rows].astype(np.int64), dev)
+    T = min(new_k.shape[2], S)
+    state.logits.index_copy_(0, ln, logits_k.index_select(0, r).to(state.logits.dtype))
+    for cache, new in ((state.cache_k, new_k), (state.cache_v, new_v)):
+        cache.narrow(2, 0, T).index_copy_(1, ln, new[:, :, :T].index_select(1, r).to(cache.dtype))
+    state.pos.index_copy_(0, ln, to_device(np.asarray(lengths).reshape(-1)[rows].astype(np.int32),
+                                           dev))
+    state.ring.index_fill_(0, ln, -1)
+    state.done.index_fill_(0, ln, False)
+    state.key.index_copy_(0, ln, sampler_keys(np.asarray(seeds).reshape(-1)[rows], dev))
+    return state
+
+
+def set_lane_done(state: GenState, lane: int) -> GenState:
+    """Mark lane ``lane`` done in place: it emits nothing and keeps its pos."""
+    state.done[int(lane)] = True
+    return state
+
+
+def _chunk_body_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                        sampler: BatchSamplerParams, rem: torch.Tensor, state: GenState,
+                        out: torch.Tensor, n_new: torch.Tensor) -> None:
+    """The continuous-batching chunk (miotts_tpu/models/llm.py:891
+    ``_chunk_loop_batched``): ``_chunk_body`` with per-lane sampler tensors
+    and keys, and ``rem`` [B] int32, each lane's remaining token budget: a
+    lane whose ``rem``-th token of this chunk was just emitted is done, as
+    after an EOG. No early exit and no host read: the graph of a
+    ``n_steps`` rung stands in for JAX's run-time ``step_cap``."""
+    sstate = SamplerState(state.ring, state.ring_idx)
+    done = state.done
+    count = torch.zeros_like(n_new)
+    toks = []
+    for _ in range(n_steps):
+        tok = sample_token_batched(state.logits, sampler, sstate, state.key)
+        state.key[:, 1].add_(1)
+        sstate.update(tok)
+        toks.append(torch.where(done, torch.zeros_like(tok), tok))
+        count = count + (~done).to(count.dtype)
+        done = done | (tok[:, None] == eog_ids[None, :]).any(dim=-1) | (count >= rem)
+        state.logits.copy_(llm_decode_step(cfg, w, tok, state.pos, state.cache_k, state.cache_v))
+        state.pos.add_((~done).to(torch.int32))
+    state.done.copy_(done)
+    out.copy_(torch.stack(toks, dim=1))
+    n_new.copy_(count)
+
+
+def llm_generate_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                               sampler: BatchSamplerParams, state: GenState, rem: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
+    """``n_steps`` batched steps from ``state`` eagerly (the plain version
+    of a ``capture_chunk_batched`` replay): (tokens [B, n_steps], n_new
+    [B] int32, state). On CUDA the server replays graphs instead."""
+    dev = state.logits.device
+    B = state.pos.shape[0]
+    out = torch.empty((B, n_steps), dtype=torch.int64, device=dev)
+    n_new = torch.empty((B,), dtype=torch.int32, device=dev)
+    _chunk_body_batched(cfg, w, eog_ids, n_steps, sampler, rem, state, out, n_new)
+    if dev.type == "cuda":
+        decode_graph.eager_steps += n_steps
+    return out, n_new, state
+
+
+def capture_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                          sampler: BatchSamplerParams, rem: torch.Tensor, state: GenState
+                          ) -> decode_graph.ChunkGraph:
+    """Capture ``n_steps`` batched steps on ``state`` (CUDA). ``sampler``'s
+    four tensors and ``rem`` are static buffers of the graph too: a caller
+    writes each dispatch's settings into them before the replay, so one
+    capture serves any mix of requests."""
+    def body(st, out, n_new):
+        _chunk_body_batched(cfg, w, eog_ids, n_steps, sampler, rem, st, out, n_new)
+
+    return decode_graph.ChunkGraph(body, state, n_steps)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,13 @@ is an integer hash of (seed, draw, element index). A replayed graph and
 the eager body therefore draw the same numbers from the same key, and a
 seed reproduces its tokens without any generator state outside the graph.
 
+The server's lanes each carry their own request (``sample_token_batched``,
+miotts_tpu/models/sampling.py:165-232): every knob is a [B] device tensor,
+and the key is per lane, [B, 2] (seed, draws so far), each lane's uniforms
+indexed within its own row (``uniform_lanes``). So a lane's draws depend
+only on its seed and its steps since it attached, never on its
+neighbours; at B = 1 they are ``uniform``'s bit for bit.
+
 The JAX tile prefilter for top-k is a TPU sort workaround and is not
 ported. Token-exact RNG parity with JAX (or llama.cpp) is impossible by
 construction: conformance is distributional.
@@ -30,7 +37,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
+
+from ..device import to_device
 
 PENALTY_LAST_N = 64
 _M32 = 0xFFFFFFFF
@@ -78,13 +88,26 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return (x >> 16) ^ x
 
 
+def _unit(base: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """f32 in (0, 1) from the hash of (base + element index): its top 23
+    bits plus a half, so 0 and 1 never occur."""
+    return ((_mix32((base + i) & _M32) >> 9).float() + 0.5) * 2.0 ** -23
+
+
 def uniform(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """f32 uniforms in (0, 1) for draw ``key[1]`` of seed ``key[0]``: the
-    hash of (hash(hash(seed) + draw) + element index), its top 23 bits plus
-    a half, so 0 and 1 never occur."""
+    hash of (hash(hash(seed) + draw) + element index)."""
     base = _mix32((_mix32(key[0]) + key[1]) & _M32)
     i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device).reshape(shape)
-    return ((_mix32((base + i) & _M32) >> 9).float() + 0.5) * 2.0 ** -23
+    return _unit(base, i)
+
+
+def uniform_lanes(key: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] f32 uniforms in (0, 1), row b for draw ``key[b, 1]`` of seed
+    ``key[b, 0]``, its elements indexed 0..n-1 within the row: row b is
+    ``uniform(key[b], (1, n))`` bit for bit."""
+    base = _mix32((_mix32(key[:, 0]) + key[:, 1]) & _M32)[:, None]
+    return _unit(base, torch.arange(n, dtype=torch.int64, device=key.device)[None, :])
 
 
 def apply_repeat_penalty(logits: torch.Tensor, state: SamplerState, penalty: float) -> torch.Tensor:
@@ -131,4 +154,78 @@ def sample_token(logits: torch.Tensor, params: SamplerParams, state: SamplerStat
         choice = torch.argmax(vals / params.temp - torch.log(-torch.log(u)), dim=-1)
     if idx is None:
         return choice
+    return torch.gather(idx, 1, choice[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# per-lane (batched) sampler: a server's lanes carry different requests
+# ---------------------------------------------------------------------------
+
+MAX_TOP_K = 256  # the static candidate pool; a lane's top_k masks within it
+
+
+@dataclasses.dataclass
+class BatchSamplerParams:
+    """Per-lane sampler settings, four [B] device tensors (a chunk graph
+    reads them as static buffers, so one capture serves any mix)."""
+    temp: torch.Tensor  # f32
+    top_k: torch.Tensor  # int32; 0 = off
+    top_p: torch.Tensor  # f32
+    repeat_penalty: torch.Tensor  # f32
+
+    @classmethod
+    def make(cls, temps, top_ks, top_ps, penalties, device: torch.device
+             ) -> "BatchSamplerParams":
+        def t(v, dtype):
+            return to_device(np.asarray(v, dtype).reshape(-1), device)
+        return cls(t(temps, np.float32), t(top_ks, np.int32), t(top_ps, np.float32),
+                   t(penalties, np.float32))
+
+    def set_lane(self, i: int, p: "SamplerParams") -> None:
+        """Write one lane's settings into these tensors in place."""
+        self.temp[i] = p.temp
+        self.top_k[i] = min(p.top_k, MAX_TOP_K) if p.top_k > 0 else 0
+        self.top_p[i] = p.top_p
+        self.repeat_penalty[i] = p.repeat_penalty
+
+
+def sampler_keys(seeds, device: torch.device) -> torch.Tensor:
+    """Per-lane random state [k, 2] int64: (seed mod 2^32, 0 draws)."""
+    seeds = np.asarray(seeds, np.int64).reshape(-1) & _M32
+    return to_device(np.stack([seeds, np.zeros_like(seeds)], axis=1), device)
+
+
+def sample_token_batched(logits: torch.Tensor, params: BatchSamplerParams,
+                         state: SamplerState, key: torch.Tensor) -> torch.Tensor:
+    """The chain of ``sample_token`` with every knob a per-lane tensor and
+    ``key`` per lane ([B, 2]); logits [B, V] f32 -> tokens [B] int64.
+
+    The JAX package's documented deviation holds: a lane with top_k <= 0
+    or top_k > MAX_TOP_K samples from the MAX_TOP_K highest logits, not the
+    whole vocabulary. For top_k <= MAX_TOP_K a lane picks what
+    ``sample_token`` picks from the same logits, ring and key."""
+    B, V = logits.shape
+    pen = params.repeat_penalty[:, None]
+    presence = torch.zeros((B, V + 1), dtype=torch.bool, device=logits.device)
+    presence.scatter_(1, torch.where(state.ring >= 0, state.ring, torch.full_like(state.ring, V)),
+                      True)
+    penalized = torch.where(logits > 0, logits / pen, logits * pen)
+    logits = torch.where(presence[:, :V] & (pen != 1.0), penalized, logits)
+
+    K = min(MAX_TOP_K, V)
+    vals, idx = torch.topk(logits, K, dim=-1)  # [B, K] descending
+    rank = torch.arange(K, dtype=torch.int32, device=logits.device)[None, :]
+    k_eff = torch.where(params.top_k > 0, params.top_k.clamp(max=K), K)
+    vals = vals.masked_fill(rank >= k_eff[:, None], float("-inf"))
+    probs = torch.softmax(vals, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    p_on = (params.top_p > 0.0) & (params.top_p < 1.0)
+    keep = ((cum - probs) < params.top_p[:, None]) | ~p_on[:, None]
+    keep[:, 0] = True
+    vals = vals.masked_fill(~keep, float("-inf"))
+
+    greedy = torch.argmax(vals, dim=-1)
+    temp = params.temp.clamp(min=1e-6)[:, None]
+    sampled = torch.argmax(vals / temp - torch.log(-torch.log(uniform_lanes(key, K))), dim=-1)
+    choice = torch.where(params.temp <= 0.0, greedy, sampled)
     return torch.gather(idx, 1, choice[:, None])[:, 0]

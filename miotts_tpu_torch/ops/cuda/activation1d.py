@@ -147,7 +147,6 @@ def check_act(act: dict, C: int, device: torch.device, what: str) -> None:
 def activation1d(x, lengths, up_filter, alpha, beta, down_filter) -> torch.Tensor:
     """x [B, T, C] f32, lengths [B], 1-D filters (up >= 2 taps), alpha/beta
     [C] -> [B, T, C] f32, rows t >= length 0."""
-    global launches
     if x.device.type == "cpu":
         return activation1d_plain(x, lengths, up_filter, alpha, beta, down_filter)
     if x.device.type != "cuda":
@@ -170,5 +169,5 @@ def activation1d(x, lengths, up_filter, alpha, beta, down_filter) -> torch.Tenso
                       fd.shape[0], a.data_ptr(), inv.data_ptr(), out.data_ptr(), B, T, C,
                       plan.run, plan.warps, stream)
     build.check(status, "activation1d")
-    launches += 1
+    graphs.launched(__name__)
     return out

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..attention import banded_attention_plain
-from . import build
+from . import build, graphs
 
 SOURCE = "miotts_tpu_torch/csrc/banded_attention.cu"
 REPLACES = "miotts_tpu/ops/pallas/banded_attention.py:33"
@@ -85,7 +85,6 @@ def _entry():
 def banded_attention(q, k, v, lengths, window: int) -> torch.Tensor:
     """q/k/v: [B, T, H, D] f32 contiguous, lengths [B] int32 ->
     [B, T, H, D] f32 contiguous."""
-    global launches
     if q.device.type == "cpu":
         return banded_attention_plain(q, k, v, lengths, window)
     if q.dim() != 4:
@@ -114,5 +113,5 @@ def banded_attention(q, k, v, lengths, window: int) -> torch.Tensor:
                       out.data_ptr(), B, T, H, D, max(0, window // 2), plan.warps,
                       1.0 / math.sqrt(D), stream)
     build.check(status, "banded_attention")
-    launches += 1
+    graphs.launched(__name__)
     return out

@@ -16,7 +16,7 @@ import torch
 
 from ..masking import mask_time
 from ..resample import conv1d_zeropad
-from . import build
+from . import build, graphs
 
 SOURCE = "miotts_tpu_torch/csrc/conv1d.cu"
 REPLACES = "miotts_tpu/ops/pallas/conv1d.py:144"
@@ -84,7 +84,6 @@ def device_lengths(lengths: torch.Tensor, B: int, device: torch.device) -> torch
 def conv1d_same(x, lengths, w, b=None, dilation: int = 1, residual=None) -> torch.Tensor:
     """x [B, T, Cin] f32, lengths [B], w [Cout, Cin, k] (odd k), b [Cout] or
     None, residual [B, T, Cout] or None -> [B, T, Cout] f32, rows t >= length 0."""
-    global launches
     if x.device.type == "cpu":
         return conv1d_same_plain(x, lengths, w, b, dilation, residual)
     if x.device.type != "cuda":
@@ -117,5 +116,5 @@ def conv1d_same(x, lengths, w, b=None, dilation: int = 1, residual=None) -> torc
                       None if residual is None else residual.data_ptr(), out.data_ptr(),
                       B, T, Cin, Cout, k, dilation, tile, stream)
     build.check(status, "conv1d_same")
-    launches += 1
+    graphs.launched(__name__)
     return out

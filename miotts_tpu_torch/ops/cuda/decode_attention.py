@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, graphs
 
 SOURCE = "miotts_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "miotts_tpu/ops/pallas/decode_attention.py:168"
@@ -74,7 +74,6 @@ def decode_attention_plain(q, k_cur, v_cur, cache_k, cache_v, scale: float, pos)
 def decode_attention(q, k_cur, v_cur, cache_k, cache_v, scale: float, pos) -> torch.Tensor:
     """Dispatch by device: plain version on the CPU, the kernel on CUDA
     (bf16 operands, bf16 output [B, KVH*G*HD])."""
-    global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cur, v_cur, cache_k, cache_v, scale, pos)
     if q.device.type != "cuda":
@@ -103,5 +102,5 @@ def decode_attention(q, k_cur, v_cur, cache_k, cache_v, scale: float, pos) -> to
                       cache_v.data_ptr(), pos.data_ptr(), out.data_ptr(),
                       B, S, KVH, G, HD, rows, float(scale), stream)
     build.check(status, "decode_attention")
-    launches += 1
+    graphs.launched(__name__)
     return out

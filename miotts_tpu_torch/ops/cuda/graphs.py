@@ -1,19 +1,35 @@
 """The kernel wrappers' launch counters across CUDA graph captures and
 replays, and the capture check of first-use caches.
 
-Each wrapper (``ops/cuda/*.py``) adds one to its module's ``launches``
-when Python calls it, and a replay calls no Python. So a graph module
-(``models/decode_graph.py``, ``models/codec_graph.py``) records the
-launches its capture made, takes them back (the capture ran nothing), and
-adds them again on every replay: a wrapper's ``launches`` stays the number
-of its kernel's launches in this process.
+Each wrapper (``ops/cuda/*.py``) calls ``launched`` where it launches its
+kernel, and a replay calls no Python. While a thread records a capture
+(``record_launches``), its calls count into the graph's per-replay counts
+and leave the module's ``launches`` alone (the capture ran nothing); the
+graph module (``models/decode_graph.py``, ``models/codec_graph.py``) adds
+them on every replay. Other threads' launches meanwhile count as usual,
+so a wrapper's ``launches`` stays the number of its kernel's launches in
+this process while a server's threads share the card.
+
+Captures run in ``CAPTURE_MODE`` "thread_local": a call that is unsafe
+during a capture (a host sync, ``cudaMalloc`` outside the caching
+allocator) fails only when the capturing thread makes it, so other
+threads' device work goes on while one thread captures. ``capture_lock``
+keeps two captures from overlapping each other.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
+import threading
 
 import torch
+
+CAPTURE_MODE = "thread_local"
+
+capture_lock = threading.Lock()
+_tls = threading.local()
+_lock = threading.Lock()
 
 
 def kernel_modules() -> tuple:
@@ -22,24 +38,36 @@ def kernel_modules() -> tuple:
     return (banded_attention, decode_attention, q8_matmul, conv1d, activation1d, resblock)
 
 
+def launched(module_name: str) -> None:
+    """A wrapper launched its kernel: count it in the module's ``launches``,
+    or, while this thread records a capture, in the graph's counts."""
+    rec = getattr(_tls, "recording", None)
+    if rec is not None:
+        rec[module_name] = rec.get(module_name, 0) + 1
+        return
+    with _lock:
+        sys.modules[module_name].launches += 1
+
+
 @contextlib.contextmanager
 def record_launches():
-    """Around a capture: yields a dict that, on exit, maps each kernel
-    module to the launches made inside, and puts every counter back."""
-    before = {m: m.launches for m in kernel_modules()}
+    """Around a capture in this thread: yields a dict that, on exit, maps
+    each kernel module to the launches made inside."""
     per_replay: dict = {}
+    _tls.recording = rec = {}
     try:
         yield per_replay
     finally:
-        for m, n in before.items():
-            per_replay[m] = m.launches - n
-            m.launches = n
+        _tls.recording = None
+        for m in kernel_modules():
+            per_replay[m] = rec.get(m.__name__, 0)
 
 
 def count_replay(per_replay: dict) -> None:
     """After a replay: count the launches the graph ran."""
-    for m, n in per_replay.items():
-        m.launches += n
+    with _lock:
+        for m, n in per_replay.items():
+            m.launches += n
 
 
 def capturing() -> bool:

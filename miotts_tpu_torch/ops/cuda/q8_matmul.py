@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, graphs
 
 SOURCE = "miotts_tpu_torch/csrc/q8_matmul.cu"
 REPLACES = "miotts_tpu/ops/pallas/quant_matmul.py:50"
@@ -127,7 +127,6 @@ def q8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.
 def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Dispatch by device: plain version on the CPU, the kernel on CUDA.
     x [T, K] bf16 or f32, q [K, N] int8, s [K/32, N] f32 -> [T, N] f32."""
-    global launches
     if x.device.type == "cpu":
         return q8_matmul_plain(x, q, s)
     if x.device.type != "cuda":
@@ -157,5 +156,5 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor
     else:
         status = _entry()(*args, plan.z, plan.per, stream)
     build.check(status, "q8_matmul")
-    launches += 1
+    graphs.launched(__name__)
     return out

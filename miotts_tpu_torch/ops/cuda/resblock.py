@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, graphs
 from .activation1d import (
     act_geom, activation1d_plain, activation_operands, cached, check_act)
 from .conv1d import check_f32, conv1d_same_plain, device_lengths
@@ -114,7 +114,6 @@ def resblock_layer_plain(x, lengths, actA, w1, b1, dilation: int, actB, w2, b2) 
 def resblock_layer(x, lengths, actA, w1, b1, dilation: int, actB, w2, b2) -> torch.Tensor:
     """x [B, T, C] f32, lengths [B], w1/w2 [C, C, k] (odd k), b1/b2 [C] ->
     [B, T, C] f32, rows t >= length 0."""
-    global launches
     if x.device.type == "cpu":
         return resblock_layer_plain(x, lengths, actA, w1, b1, dilation, actB, w2, b2)
     if x.device.type != "cuda":
@@ -156,5 +155,5 @@ def resblock_layer(x, lengths, actA, w1, b1, dilation: int, actB, w2, b2) -> tor
                       w2_kio.data_ptr(), b2.data_ptr(), w2.shape[-1], out.data_ptr(), B, T, C,
                       plan.variant, plan.n_out, stream)
     build.check(status, "resblock_layer")
-    launches += 1
+    graphs.launched(__name__)
     return out

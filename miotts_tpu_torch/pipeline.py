@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from . import MIO_CODE_MAX, MIO_CODE_MIN
+from .device import to_device, to_host
+from .gguf.writer import load_embedding_gguf, save_embedding_gguf
 from .models import codec_graph
 from .models.miocodec import codec_synthesize, load_miocodec
 
@@ -58,12 +60,16 @@ def _pack(audio: torch.Tensor, n_samples: torch.Tensor, pcm16: bool) -> torch.Te
     return torch.cat([pcm, n_samples.to(torch.int32)[:, None].view(torch.int16)], dim=1)
 
 
-def _unpack(packed: np.ndarray, pcm16: bool) -> tuple[np.ndarray, np.ndarray]:
+def _unpack(packed: np.ndarray, pcm16: bool, as_int16: bool = False
+            ) -> tuple[np.ndarray, np.ndarray]:
     """``_pack``'s result on the host -> (audio [B, L] f32, counts [B]); the
-    pcm16 audio is scaled back to f32."""
+    pcm16 audio is scaled back to f32, or with ``as_int16`` kept as the
+    int16 PCM values."""
     if not pcm16:
         return packed[:, :-1], packed[:, -1].astype(np.int64)
     counts = np.ascontiguousarray(packed[:, -2:]).view(np.int32)[:, 0].astype(np.int64)
+    if as_int16:
+        return packed[:, :-2], counts
     return packed[:, :-2].astype(np.float32) / np.float32(32767.0), counts
 
 
@@ -108,9 +114,13 @@ class MioTTSPipeline:
     """Codec weights on one device, shared by every synthesis call."""
 
     def __init__(self, codec_path: str | Path, device: torch.device,
-                 buckets: tuple[int, ...] = DEFAULT_BUCKETS):
+                 buckets: tuple[int, ...] = DEFAULT_BUCKETS, check_syncs: bool = True):
         self.codec_path = str(codec_path)
         self.device = device
+        # run a key's eager decode and a capture's warm-up with every host
+        # sync an error (a process-wide mode: a server, whose other threads
+        # read the card meanwhile, turns it off)
+        self.check_syncs = check_syncs
         self.config, self.weights = load_miocodec(self.codec_path, device)
         self.buckets = buckets
         # decodes run and their host time, for callers that count them
@@ -132,6 +142,18 @@ class MioTTSPipeline:
     @property
     def samples_per_token(self) -> int:
         return self.config.samples_per_token
+
+    @property
+    def is_dynamic_global(self) -> bool:
+        return self.config.dynamic_global
+
+    @staticmethod
+    def load_embedding(path: str | Path) -> np.ndarray:
+        return load_embedding_gguf(path)
+
+    @staticmethod
+    def save_embedding(path: str | Path, embedding: np.ndarray) -> None:
+        save_embedding_gguf(path, embedding)
 
     def validate_request(self, codes, embedding) -> tuple[np.ndarray, np.ndarray | None]:
         """mio_tts_synthesize preconditions (mio-tts-lib.cpp:1198-1234).
@@ -189,13 +211,15 @@ class MioTTSPipeline:
     def decode(self, tokens: np.ndarray, lengths: np.ndarray, cond: np.ndarray | None = None, *,
                interp_anchor: int | None = None, peak_normalize: bool = True,
                window: int | None = None, starts: np.ndarray | None = None,
-               pcm16: bool = False) -> tuple[np.ndarray, np.ndarray, float]:
+               pcm16: bool = False, as_int16: bool = False
+               ) -> tuple[np.ndarray, np.ndarray, float]:
         """One decode of B lanes: tokens [B, bucket] (zeros past each
         length), lengths [B], cond [B, Dc] or None; with ``window``, lane b
         brings back audio[starts[b]:starts[b] + window]. Returns (audio [B,
-        L] f32 on the host, valid-sample counts [B], host ms). On CUDA the
-        key's first decode is eager, its second captures its graph, and the
-        rest replay it."""
+        L] f32 on the host, or the int16 PCM under ``pcm16`` and
+        ``as_int16``, valid-sample counts [B], host ms). On CUDA the key's
+        first decode is eager, its second captures its graph, and the rest
+        replay it."""
         key, host = self._prepare(tokens, lengths, cond, interp_anchor=interp_anchor,
                                   peak_normalize=peak_normalize, window=window, starts=starts,
                                   pcm16=pcm16)
@@ -211,7 +235,7 @@ class MioTTSPipeline:
             decode_ms = (time.perf_counter() - t0) * 1e3
             self.n_decodes += 1
             self.decode_ms_total += decode_ms
-        audio, counts = _unpack(packed, pcm16)
+        audio, counts = _unpack(packed, pcm16, as_int16)
         return audio, counts, decode_ms
 
     def decode_eager(self, tokens: np.ndarray, lengths: np.ndarray,
@@ -258,11 +282,11 @@ class MioTTSPipeline:
         and on CUDA a key's first decode (any host sync inside it an error)
         or a reference asked for by name. Returns the packed rows."""
         with self._on_stream():
-            inputs = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+            inputs = {k: to_device(v, self.device) for k, v in host.items()}
             if self.device.type != "cuda":
                 return self._body(key)(inputs).numpy()
             codec_graph.eager_decodes += 1
-            return codec_graph.run_checked(self._body(key), inputs).cpu().numpy()
+            return to_host(codec_graph.run_checked(self._body(key), inputs, self.check_syncs))
 
     def _body(self, key: CodecKey):
         cfg, w = self.config, self.weights
@@ -287,7 +311,7 @@ class MioTTSPipeline:
         if key.window is not None:
             inputs["starts"] = torch.zeros((key.B,), dtype=torch.int32, device=dev)
         graph = codec_graph.CodecGraph(self._body(key), inputs, self._stream, self.graph_pool,
-                                       warm_up=warm_up)
+                                       warm_up=warm_up, check_syncs=self.check_syncs)
         self.graphs[key] = graph
         return graph
 

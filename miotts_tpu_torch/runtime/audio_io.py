@@ -2,8 +2,9 @@
 
 Only what the port writes: the canonical 44-byte mono header, the
 streaming header whose sizes are patched when the stream ends, the f32 ->
-int16 encoding (clamp to [-1, 1], round half to even at 32767 scale) and a
-file writer. Reading and decoding reference audio (native, FLAC, MP3) is
+int16 encoding (clamp to [-1, 1], round half to even at 32767 scale), a
+whole WAV in memory (the server's response body; the JAX package's native
+C++ encoder gives the same bytes) and a file writer. Reading and decoding reference audio (native, FLAC, MP3) is
 voice-cloning input, not yet ported.
 """
 
@@ -51,6 +52,13 @@ def encode_pcm16(audio: np.ndarray) -> bytes:
         return audio.astype("<i2", copy=False).tobytes()
     x = np.clip(audio.astype(np.float32), -1.0, 1.0)
     return np.rint(x * 32767.0).astype("<i2").tobytes()
+
+
+def encode_wav16(audio: np.ndarray, sample_rate: int) -> bytes:
+    """A whole mono 16-bit WAV: header + ``encode_pcm16`` of ``audio``
+    (device-quantized int16 passes through)."""
+    pcm = encode_pcm16(audio)
+    return wav16_header(len(pcm) // 2, sample_rate) + pcm
 
 
 def save_wav16(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:

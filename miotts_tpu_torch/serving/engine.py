@@ -1,0 +1,556 @@
+"""Serving engine: model ownership and the request flows
+(miotts_tpu/serving/engine.py; run_tts_request, tts-mio-server.cpp:2153-2453).
+
+Output JSON fields and error strings are the JAX server's. Admission is a
+counting slot pool (slot ids for the X-Slot header). All requests share one
+pipeline and one LLM: text requests attach to lanes of the continuous
+batcher (``batching.py``), synthesis calls share codec decodes through the
+micro-batcher (``codec_batching.py``).
+
+The codec pipeline runs with ``check_syncs`` off: the sync-debug mode that
+the CLI keeps on a key's first, eager decode is global to the process, and
+here the LLM worker and the prefill thread read from the card meanwhile.
+
+``--warmup on`` captures every chunk graph of the batcher's ladder and the
+codec graphs of every key a default request can land in, at every lane
+count the micro-batcher decodes at (1, 2, 4, ... up to the power of two at
+or above ``-np``), all before the server listens: a key first met while
+serving pays an eager decode and, at its second decode, a capture.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+import uuid
+
+import numpy as np
+import torch
+
+from ..device import select_device
+from ..pipeline import MioTTSPipeline, pick_bucket
+from ..runtime.audio_io import save_wav16
+from ..runtime.codes_io import load_codes, save_codes
+from .state import ReferenceCache, RequestError, RequestParams, ServerConfig
+
+
+def now_ms() -> float:
+    return time.perf_counter() * 1e3
+
+
+def unported_option(cfg: ServerConfig) -> str | None:
+    """The first configured option whose path the port does not run yet."""
+    checks = (
+        (cfg.wavlm_model, "--tts-wavlm-model (voice cloning)"),
+        (cfg.llm_api_url, "--llm-api-url (external LLM API)"),
+        (cfg.mio_backend_devices, "--mio-backend-devices (multi-device serving)"),
+        (cfg.codec_devices, "--codec-devices (multi-device serving)"),
+        (cfg.tensor_parallel > 1, "-tp/--tensor-parallel > 1"),
+    )
+    return next((name for given, name in checks if given), None)
+
+
+class SlotPool:
+    """Round-robin slot acquisition (tts-mio-server.cpp:3014-3042): slot ids
+    for logging/headers + admission control."""
+
+    def __init__(self, n: int):
+        self._free = list(range(n))
+        self._cv = threading.Condition()
+
+    def acquire(self, timeout: float | None = None) -> int:
+        """Blocks for a free slot; with a timeout, raises RequestError 503
+        when the pool stays exhausted."""
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        with self._cv:
+            while not self._free:
+                remaining = None if deadline is None else deadline - time.perf_counter()
+                if remaining is not None and remaining <= 0:
+                    raise RequestError("server is overloaded: no free synthesis slot", 503)
+                self._cv.wait(remaining)
+            return self._free.pop(0)
+
+    def release(self, idx: int) -> None:
+        with self._cv:
+            self._free.append(idx)
+            self._cv.notify()
+
+
+class ServingEngine:
+    def __init__(self, cfg: ServerConfig, device: torch.device | None = None):
+        option = unported_option(cfg)
+        if option:
+            raise ValueError(f"{option} not yet ported to miotts_tpu_torch")
+        self.cfg = cfg
+        self.device = device if device is not None else select_device()
+        self.pipeline = MioTTSPipeline(cfg.model_vocoder, self.device, check_syncs=False)
+        from .codec_batching import CodecMicroBatcher
+
+        self.codec_batcher = CodecMicroBatcher(self.pipeline, max_batch=max(1, cfg.n_parallel))
+        self.llm = None
+        self.batcher = None
+        if cfg.model:
+            from ..models.llm import LLMEngine
+            from .batching import ContinuousBatcher
+
+            self.llm = LLMEngine(cfg.model, self.device, quantize=(cfg.llm_quant or None))
+            self.batcher = ContinuousBatcher(
+                self.llm, n_lanes=max(1, cfg.n_parallel),
+                max_ctx=cfg.n_ctx + cfg.n_predict + 64,
+                # SSE token granularity stays sub-second (32 tokens = 1.3 s
+                # of audio)
+                chunk=32, seed=cfg.seed)
+        # the LLM engine's own (B = 1) generation serves oversized prompts,
+        # one at a time
+        self._oversized_lock = threading.Lock()
+        self.ref_cache = ReferenceCache()
+        self.slots = SlotPool(max(1, cfg.n_parallel))
+        n_ref = cfg.n_parallel_reference_generation or cfg.n_parallel
+        self.ref_slots = SlotPool(max(1, n_ref))
+        self.inflight = 0
+        self.ref_gen_inflight = 0
+        self.requests_total = 0
+        self.errors_total = 0
+        self.codes_total = 0
+        self.audio_seconds_total = 0.0
+        self.llm_ms_total = 0.0
+        self.synth_ms_total = 0.0
+        self._counter_lock = threading.Lock()
+        self.reference_init_done = True
+        self.warmup_bg_done = True  # no background warm-up tail in the port
+        self.warmup_s = 0.0
+        if cfg.reference_file_json:
+            self._preload_references(cfg.reference_file_json)
+        if cfg.warmup:
+            self.warmup()
+
+    def shutdown(self) -> None:
+        """Stop the batchers' threads."""
+        if self.batcher is not None:
+            self.batcher.shutdown()
+        self.codec_batcher.shutdown()
+
+    # -- warm-up ----------------------------------------------------------------
+
+    def _codec_warm_calls(self) -> list:
+        """Every (bucket, options) codec key a default request can land in,
+        through pick_bucket(n_predict) (miotts_tpu/serving/engine.py:197):
+        full synthesis (pcm16), the streaming re-decode's window and its
+        f32 full-decode fallback."""
+        from ..streaming import StreamingSynthesizer
+
+        top = pick_bucket(max(1, self.cfg.n_predict), self.pipeline.buckets)
+        warm_buckets = [b for b in self.pipeline.buckets if b <= top]
+        if top not in warm_buckets:
+            warm_buckets.append(top)
+        calls: list[tuple[int, dict]] = []
+        for bucket in warm_buckets:
+            calls.append((bucket, dict(pcm16=True)))
+            calls.append((bucket, dict(interp_anchor=StreamingSynthesizer.INTERP_ANCHOR,
+                                       peak_normalize=False, pcm16=True,
+                                       wlen=StreamingSynthesizer.WINDOW_SAMPLES)))
+            calls.append((bucket, dict(interp_anchor=StreamingSynthesizer.INTERP_ANCHOR,
+                                       peak_normalize=False)))
+        return calls
+
+    def warmup(self) -> None:
+        """Capture the serving graphs before the first request: the codec
+        keys of ``_codec_warm_calls`` (every lane count), one prefill
+        per prompt bucket (and the burst groups of the small ones), every
+        chunk graph of the ladder, then one real request through attach,
+        chunk and read. Prints the time and the reserved device memory."""
+        t0 = time.perf_counter()
+        codec_calls = self._codec_warm_calls()
+        for bucket, kw in codec_calls:
+            self.codec_batcher.warm(bucket, **kw)
+        if self.batcher is not None:
+            from ..models.sampling import SamplerParams
+            from .batching import _PROMPT_BUCKETS
+
+            b = self.batcher
+            max_prompt = b.max_ctx - 8
+            llm_buckets = [x for x in _PROMPT_BUCKETS if x <= max_prompt] or [max(8, max_prompt)]
+            burst = 1 << max(0, b.n_lanes - 1).bit_length()
+            for bucket in llm_buckets:
+                g = 1
+                while g <= (burst if bucket <= 128 else 1):
+                    b.warm_prefill(bucket, n_lanes=g)
+                    g *= 2
+            b.warm_chunks()
+            for _ in b.submit("warmup", sampler=SamplerParams(),
+                              n_predict=b.first_chunk + 4).tokens():
+                pass
+        self.warmup_s = time.perf_counter() - t0
+        reserved = (torch.cuda.max_memory_reserved(self.device)
+                    if self.device.type == "cuda" else 0)
+        n_chunk = len(self.batcher.graphs) if self.batcher is not None else 0
+        print(f"warmup: {len(self.pipeline.graphs)} codec graphs, {n_chunk} chunk graphs "
+              f"({len(codec_calls)} codec keys) in {self.warmup_s:.1f}s; "
+              f"max_memory_reserved={reserved / 2**20:.0f} MiB", file=sys.stderr)
+
+    # -- counters ---------------------------------------------------------------
+
+    def _count(self, attr: str, delta) -> None:
+        with self._counter_lock:
+            setattr(self, attr, getattr(self, attr) + delta)
+
+    def record_request(self, out: dict, error: bool = False) -> None:
+        """Accumulate served-request totals for /metrics."""
+        with self._counter_lock:
+            self.requests_total += 1
+            if error:
+                self.errors_total += 1
+            self.codes_total += int(out.get("codes", 0) or 0)
+            self.audio_seconds_total += float(out.get("duration_sec", 0.0) or 0.0)
+            self.llm_ms_total += float(out.get("llm_ms", 0.0) or 0.0)
+            self.synth_ms_total += float(out.get("synth_ms", 0.0) or 0.0)
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of the serving counters."""
+        gauges = [
+            ("miotts_inflight", self.inflight, "requests currently running"),
+            ("miotts_reference_generation_inflight", self.ref_gen_inflight,
+             "reference generations currently running"),
+            ("miotts_reference_cache_size", len(self.ref_cache), "cached speaker references"),
+            ("miotts_slots", self.cfg.n_parallel, "configured worker slots"),
+        ]
+        counters = [
+            ("miotts_requests_total", self.requests_total, "served requests"),
+            ("miotts_errors_total", self.errors_total, "failed requests"),
+            ("miotts_codes_total", self.codes_total, "audio codes generated"),
+            ("miotts_audio_seconds_total", self.audio_seconds_total,
+             "seconds of audio synthesized"),
+            ("miotts_llm_ms_total", self.llm_ms_total, "milliseconds spent in LLM generation"),
+            ("miotts_synth_ms_total", self.synth_ms_total,
+             "milliseconds spent in codec synthesis"),
+        ]
+        if self.batcher is not None:
+            counters.append(
+                ("miotts_device_stall_events_total", self.batcher.stall_events,
+                 "chunk fetches slower than MIOTTS_STALL_EVENT_S "
+                 "(intermittent device-link pauses)"))
+            gauges.append(
+                ("miotts_longest_chunk_fetch_seconds", round(self.batcher.longest_fetch_s, 3),
+                 "slowest chunk fetch observed since start"))
+        lines = []
+        for name, val, help_ in gauges:
+            lines += [f"# HELP {name} {help_}", f"# TYPE {name} gauge", f"{name} {val}"]
+        for name, val, help_ in counters:
+            lines += [f"# HELP {name} {help_}", f"# TYPE {name} counter", f"{name} {val}"]
+        return "\n".join(lines) + "\n"
+
+    # -- reference preload (tts-mio-server.cpp:2608-2629) ------------------------
+
+    def _preload_references(self, spec: str) -> None:
+        data = json.loads(spec)
+        entries = data if isinstance(data, list) else [data]
+        for e in entries:
+            key = e.get("key") or e.get("reference_key")
+            path = e.get("path") or e.get("file")
+            if not key or not path:
+                continue
+            self.ref_cache.put(key, self.pipeline.load_embedding(path))
+
+    # -- codes acquisition --------------------------------------------------------
+
+    def _generate_codes(self, rp: RequestParams, out: dict, on_token=None) -> list[int]:
+        from ..models.sampling import SamplerParams
+
+        t0 = now_ms()
+        if self.llm is None:
+            raise RequestError("text generation requested but LLM model is not loaded")
+        sampler = SamplerParams(temp=rp.temp, top_k=rp.top_k, top_p=rp.top_p,
+                                repeat_penalty=rp.repeat_penalty, seed=rp.seed)
+        try:
+            # only incremental consumers (SSE token stream, stream_audio,
+            # overlap synthesis) ask for the small first chunk
+            handle = self.batcher.submit(rp.text, sampler=sampler, n_predict=rp.n_predict,
+                                         early_tokens=on_token is not None)
+        except ValueError as e:
+            if "prompt is too long" in str(e):
+                # beyond the batcher's fixed KV budget: a dedicated
+                # generation sized like the reference's context
+                return self._generate_codes_oversized(rp, out, sampler, on_token, t0)
+            raise RequestError(str(e))
+        eog_set = set(int(t) for t in self.llm.eog_ids.tolist())
+        tokens: list[int] = []
+        try:
+            for tok in handle.tokens():
+                tokens.append(tok)
+                if on_token is not None and not on_token(tok, len(tokens) - 1, tok in eog_set):
+                    handle.cancel()
+                    break
+        except BaseException:
+            # an exception from on_token (codec failure, client gone) must
+            # free the lane
+            handle.cancel()
+            raise
+        out["n_tokens"] = len(tokens)
+        codes = self.llm.tokens_to_codes(tokens)
+        if not codes:
+            raise RequestError("no Mio audio codes were found in token sequence")
+        out["llm_ms"] = now_ms() - t0
+        return codes
+
+    def _generate_codes_oversized(self, rp: RequestParams, out: dict, sampler, on_token,
+                                  t0: float) -> list[int]:
+        """Dedicated generation for prompts beyond the batcher's KV budget
+        (see _generate_codes); same token-callback contract."""
+        eog_set = set(int(t) for t in self.llm.eog_ids.tolist())
+        tokens: list[int] = []
+
+        def cb(tok, index, is_eog):
+            tokens.append(int(tok))
+            if on_token is not None:
+                return on_token(int(tok), index, int(tok) in eog_set)
+            return True
+
+        with self._oversized_lock:
+            self.llm.generate_audio_tokens_streaming(rp.text, cb, n_predict=rp.n_predict,
+                                                     n_ctx=rp.n_ctx, sampler=sampler)
+        out["n_tokens"] = len(tokens)
+        codes = self.llm.tokens_to_codes(tokens)
+        if not codes:
+            raise RequestError("no Mio audio codes were found in token sequence")
+        out["llm_ms"] = now_ms() - t0
+        return codes
+
+    # -- embedding resolution (tts-mio-server.cpp:2258-2324 order) ----------------
+
+    def _resolve_embedding(self, rp: RequestParams) -> np.ndarray | None:
+        if rp.embedding_in:
+            try:
+                return self.pipeline.load_embedding(rp.embedding_in)
+            except Exception as e:
+                raise RequestError(f"mio_tts_embedding_load_gguf failed: {e}")
+        if rp.reference_key:
+            embedding = self.ref_cache.get(rp.reference_key)
+            if embedding is None or embedding.size == 0:
+                raise RequestError(f"reference_key not found: {rp.reference_key}")
+            return embedding
+        if rp.reference_audio:
+            raise RequestError("reference_audio is not supported in synthesis requests. "
+                               "use /mio/generate_reference then reference_key")
+        default_emb = rp.embedding_default_in or self.cfg.embedding_default_in
+        if default_emb and self.pipeline.is_dynamic_global:
+            try:
+                return self.pipeline.load_embedding(default_emb)
+            except Exception as e:
+                raise RequestError(f"mio_tts_embedding_load_gguf (default) failed: {e}")
+        return None
+
+    # -- streaming request flow ---------------------------------------------------
+
+    def run_streaming_request(self, rp: RequestParams, out: dict, on_token=None,
+                              on_audio=None, on_codes=None,
+                              embedding: np.ndarray | None = None) -> tuple[np.ndarray, int]:
+        """Incremental synthesis: token generation (a batcher lane)
+        interleaved with prefix re-decodes, so PCM leaves the server while
+        the LLM still generates. ``on_audio(pcm)`` fires per stabilized
+        chunk, ``on_token`` as in ``_generate_codes``, ``on_codes(codes)``
+        once code acquisition completes. Returns (audio f32, sample_rate)
+        and fills ``out`` like ``run_tts_request``."""
+        from ..streaming import StreamingSynthesizer
+
+        if embedding is None:
+            embedding = self._resolve_embedding(rp)
+        ss = StreamingSynthesizer(self.pipeline, embedding,
+                                  synth_fn=self.codec_batcher.synthesize, transfer_pcm16=True)
+        pieces: list[np.ndarray] = []
+        pending: list[int] = []
+        t_synth = 0.0
+
+        def emit_pending():
+            nonlocal t_synth
+            if not pending:
+                return
+            t0 = now_ms()
+            pcm = ss.feed(pending)
+            t_synth += now_ms() - t0
+            pending.clear()
+            if pcm.size:
+                pieces.append(pcm)
+                if on_audio is not None:
+                    on_audio(pcm)
+
+        token_chunk = 16
+        # first audio as early as the lookahead window allows, then steady
+        # chunks of token_chunk codes
+        first_feed = ss.lookahead + 4
+
+        def tok_cb(tok, index, is_eog):
+            cont = True
+            if on_token is not None:
+                cont = on_token(tok, index, is_eog)
+            code = self.llm.token_to_code_or_none(tok) if self.llm else None
+            if code is not None:
+                pending.append(code)
+            if len(pending) >= token_chunk or (
+                    ss.emitted == 0 and len(ss.codes) + len(pending) >= first_feed):
+                emit_pending()
+            return cont
+
+        if rp.inline_codes:
+            codes = list(rp.inline_codes)
+            out["codes"] = len(codes)
+        elif rp.codes_in:
+            try:
+                codes = load_codes(rp.codes_in)
+            except (OSError, ValueError) as e:
+                raise RequestError(f"mio_tts_codes_load failed: {e}")
+            out["codes"] = len(codes)
+        elif rp.text:
+            codes = self._generate_codes(rp, out, on_token=tok_cb)
+            out["codes"] = len(codes)
+        else:
+            raise RequestError("either text/prompt, codes, or codes_in is required")
+
+        if on_codes is not None:
+            on_codes(codes)
+        if rp.codes_out:
+            try:
+                save_codes(rp.codes_out, codes)
+            except (OSError, ValueError) as e:
+                raise RequestError(f"mio_tts_codes_save failed: {e}")
+        if not ss.codes and not pending:
+            # codes that did not stream in: feed them in chunks for
+            # incremental output
+            for off in range(0, len(codes), token_chunk):
+                pending.extend(codes[off:off + token_chunk])
+                emit_pending()
+        else:
+            emit_pending()
+        t0 = now_ms()
+        tail = ss.finalize()
+        t_synth += now_ms() - t0
+        if tail.size:
+            pieces.append(tail)
+            if on_audio is not None:
+                on_audio(tail)
+
+        audio = np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+        sr = self.pipeline.sample_rate
+        out["synth_ms"] = t_synth
+        out["ok"] = True
+        out["mode"] = "streaming_synthesis"
+        out["sample_rate"] = sr
+        out["n_audio"] = int(audio.size)
+        out["duration_sec"] = audio.size / sr
+        out["embedding_dim"] = int(embedding.size) if embedding is not None else 0
+        out["reference_key"] = rp.reference_key
+        out["key"] = rp.reference_key
+        return audio, sr
+
+    def _run_overlapped(self, rp: RequestParams, out: dict,
+                        on_token=None) -> tuple[np.ndarray, int]:
+        """Non-streaming response, streaming-interleaved synthesis: codec
+        prefix re-decodes run while the LLM lane still generates; the
+        reference's final peak normalization is applied to the whole
+        result."""
+        embedding = self._resolve_embedding(rp)
+        if rp.embedding_out and (embedding is None or embedding.size == 0):
+            raise RequestError("--embedding_out requested but no embedding available")
+        audio, sr = self.run_streaming_request(rp, out, on_token=on_token, embedding=embedding)
+        if rp.embedding_out:
+            self.pipeline.save_embedding(rp.embedding_out, embedding)
+        peak = float(np.max(np.abs(audio))) if audio.size else 0.0
+        if peak > 0.98:
+            audio = audio * np.float32(0.95 / peak)
+        out["mode"] = "synthesis_overlap"
+        out["codes_out"] = rp.codes_out
+        out["embedding_out"] = rp.embedding_out
+        return audio, sr
+
+    # -- main request flow (run_tts_request parity) -------------------------------
+
+    def run_tts_request(self, rp: RequestParams, out: dict,
+                        on_token=None) -> tuple[np.ndarray, int] | None:
+        """Fills ``out`` with the reference's JSON fields. Returns (audio,
+        sample_rate) for synthesis requests (int16 PCM from a full decode),
+        None for codes/embedding-only."""
+        if (rp.overlap_synthesis and rp.text and not rp.inline_codes and not rp.codes_in
+                and not rp.codes_only and not rp.embedding_only and self.llm is not None):
+            return self._run_overlapped(rp, out, on_token=on_token)
+        need_codes = (not rp.embedding_only) or rp.codes_only or bool(rp.codes_out)
+
+        codes: list[int] | None = None
+        if need_codes:
+            if rp.inline_codes:
+                codes = list(rp.inline_codes)
+            elif rp.codes_in:
+                try:
+                    codes = load_codes(rp.codes_in)
+                except (OSError, ValueError) as e:
+                    raise RequestError(f"mio_tts_codes_load failed: {e}")
+            elif rp.text:
+                codes = self._generate_codes(rp, out, on_token=on_token)
+                if not codes:
+                    raise RequestError("token generation produced no audio codes")
+            else:
+                raise RequestError("either text/prompt, codes, or codes_in is required")
+
+        if rp.codes_out:
+            if not codes:
+                raise RequestError("--codes_out requested but no codes available")
+            try:
+                save_codes(rp.codes_out, codes)
+            except (OSError, ValueError) as e:
+                raise RequestError(f"mio_tts_codes_save failed: {e}")
+
+        embedding = self._resolve_embedding(rp)
+
+        if rp.embedding_out:
+            if embedding is None or embedding.size == 0:
+                raise RequestError("--embedding_out requested but no embedding available")
+            self.pipeline.save_embedding(rp.embedding_out, embedding)
+
+        out["codes"] = len(codes) if codes else 0
+        out["embedding_dim"] = int(embedding.size) if embedding is not None else 0
+        out["codes_out"] = rp.codes_out
+        out["embedding_out"] = rp.embedding_out
+        out["reference_key"] = rp.reference_key
+        out["key"] = rp.reference_key
+
+        if rp.codes_only or rp.embedding_only:
+            if rp.codes_only and codes:
+                out["codes_values"] = codes
+            out["ok"] = True
+            out["mode"] = ("codes+embedding-only" if rp.codes_only and rp.embedding_only
+                           else "codes-only" if rp.codes_only else "embedding-only")
+            return None
+
+        if not codes:
+            raise RequestError("synthesis requires codes")
+
+        t0 = now_ms()
+        try:
+            # micro-batched; quantized to PCM16 on the device (served as
+            # WAV16 either way)
+            result = self.codec_batcher.synthesize(codes, embedding, pcm16=True)
+        except ValueError as e:
+            raise RequestError(f"mio_tts_synthesize failed: {e}")
+        out["synth_ms"] = now_ms() - t0
+        out["ok"] = True
+        out["mode"] = "synthesis"
+        out["sample_rate"] = result.sample_rate
+        out["n_audio"] = int(result.audio.size)
+        out["duration_sec"] = result.audio.size / result.sample_rate
+        return result.audio, result.sample_rate
+
+    def run_tts_request_to_file(self, rp: RequestParams, out: dict) -> None:
+        """Non-stream /mio/tts: writes a wav under output_dir like the
+        reference (tts-mio-server.cpp:2420-2447)."""
+        res = self.run_tts_request(rp, out)
+        if res is None:
+            return
+        audio, sr = res
+        output_file = rp.output_file or os.path.join(
+            self.cfg.output_dir, f"mio-tts-{int(time.time() * 1000)}-{uuid.uuid4().hex[:8]}.wav")
+        parent = os.path.dirname(output_file)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        save_wav16(output_file, audio, sr)
+        out["output_file"] = output_file

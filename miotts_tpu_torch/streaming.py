@@ -16,6 +16,8 @@ replay of a captured decode graph) with these re-decodes.
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 
 from .models.llm import CHUNK
@@ -60,18 +62,26 @@ class StreamingSynthesizer:
         # pluggable decode with pipeline.synthesize's signature (a server's
         # batcher can share device calls between streams)
         self._synth = synth_fn or pipeline.synthesize
+        # first-feed priority: a synth_fn that takes ``priority`` (the
+        # server's codec micro-batcher) runs the TTFA-critical first decode
+        # ahead of other streams' steady feeds
+        try:
+            self._synth_priority = "priority" in inspect.signature(self._synth).parameters
+        except (TypeError, ValueError):
+            self._synth_priority = False
 
     def _decode_window(self, start: int, need: int) -> tuple[np.ndarray, int]:
         """Decode the current prefix; return (win, n_total): ``win`` covers
         [start, start + len(win)) of the decode and ``n_total`` is its count
         of valid samples. Brings back one fixed window unless the caller
         needs more than a window (then the full decode)."""
+        first = {"priority": True} if self._synth_priority and self.emitted == 0 else {}
         if need + self.crossfade > self.window:
             result = self._synth(self.codes, self.embedding, interp_anchor=self.INTERP_ANCHOR,
-                                 peak_normalize=False)
+                                 peak_normalize=False, **first)
             total = int(result.audio.size)
             return np.asarray(result.audio[start:], np.float32), total
-        kw = {"pcm16": True} if self.transfer_pcm16 else {}
+        kw = {"pcm16": True, **first} if self.transfer_pcm16 else first
         result = self._synth(self.codes, self.embedding, interp_anchor=self.INTERP_ANCHOR,
                              peak_normalize=False, window=(start, self.window), **kw)
         total = (result.n_total if result.n_total is not None

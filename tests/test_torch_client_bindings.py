@@ -1,0 +1,104 @@
+"""The native C client bridge (miotts_tpu/bindings) end to end against the
+port's server, the flow of tests/test_client_bindings.py. The port runs no
+WavLM yet, so creating a reference from audio gets the server's own 400
+("server requires --tts-wavlm-model ..."); the reference is added from a
+GGUF instead."""
+
+import json
+import math
+import shutil
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from miotts_tpu_torch.gguf.writer import save_embedding_gguf
+from miotts_tpu_torch.serving.server import MioTTSServer
+from miotts_tpu_torch.serving.state import ServerConfig
+from miotts_tpu_torch.testing import (
+    tiny_codec_config, write_synthetic_llm_gguf, write_synthetic_miocodec_gguf)
+
+pytestmark = pytest.mark.skipif(
+    shutil.which("g++") is None and shutil.which("clang++") is None,
+    reason="no C++ compiler")
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def bridge_server(tmp_path_factory):
+    d = tmp_path_factory.mktemp("bridge")
+    cfg_codec = tiny_codec_config()
+    write_synthetic_miocodec_gguf(str(d / "codec.gguf"), cfg_codec, seed=0)
+    write_synthetic_llm_gguf(str(d / "llm.gguf"), n_audio=cfg_codec.vocab_size, seed=1,
+                             audio_logit_scale=3.0)
+    save_embedding_gguf(d / "voice.emb.gguf",
+                        np.random.RandomState(0).randn(cfg_codec.decoder_adanorm_dim)
+                        .astype(np.float32))
+    cfg = ServerConfig(
+        model_vocoder=str(d / "codec.gguf"), model=str(d / "llm.gguf"), host="127.0.0.1",
+        port=0, output_dir=str(d / "out"), n_parallel=2, n_predict=16, n_ctx=128,
+        reference_file_json=json.dumps({"key": "preset", "path": str(d / "voice.emb.gguf")}))
+    srv = MioTTSServer(cfg, torch.device("cpu"))
+    srv.start_background()
+    yield srv, d
+    srv.shutdown()
+
+
+def _make_wav(path, seconds=1.0, sr=16000):
+    n = int(sr * seconds)
+    pcm = b"".join(struct.pack("<h", int(8000 * math.sin(2 * math.pi * 180 * i / sr)))
+                   for i in range(n))
+    path.write_bytes(b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVEfmt "
+                     + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16)
+                     + b"data" + struct.pack("<I", len(pcm)) + pcm)
+
+
+def test_bridge_end_to_end(bridge_server, tmp_path):
+    from miotts_tpu.bindings import MioTPUClient
+
+    srv, d = bridge_server
+    with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
+        assert json.loads(c.health_json())["status"] == "ok"
+        _make_wav(tmp_path / "voice.wav")
+        with pytest.raises(RuntimeError, match="tts-wavlm-model"):
+            c.create_reference_from_audio("bridge_voice", str(tmp_path / "voice.wav"),
+                                          max_reference_seconds=5.0,
+                                          embedding_out_path=str(tmp_path / "bridge.emb.gguf"))
+        c.add_reference_from_gguf("bridge_copy", str(d / "voice.emb.gguf"))
+        keys = [r["key"] for r in json.loads(c.list_references_json())["references"]]
+        assert {"preset", "bridge_copy"} <= set(keys)
+
+        # text -> wav (UTF-8 + JSON escaping through the C layer)
+        c.set_generation_params(n_predict=12, top_k=40, top_p=0.95, temp=0.7, seed=3)
+        out = tmp_path / "tts.wav"
+        c.synthesize_to_wav('こんにちは、"テスト"です。\n', "bridge_copy", str(out))
+        assert out.read_bytes()[:4] == b"RIFF"
+
+        # codes -> wav (chunked-WAV decode in the C client)
+        out2 = tmp_path / "codes.wav"
+        c.synthesize_codes_to_wav([1, 2, 3, 4, 5, 6, 7, 8], "preset", str(out2))
+        data = out2.read_bytes()
+        assert data[:4] == b"RIFF" and len(data) > 44
+
+        c.remove_reference("bridge_copy")
+        keys = [r["key"] for r in json.loads(c.list_references_json())["references"]]
+        assert "bridge_copy" not in keys
+
+
+def test_bridge_error_paths(bridge_server, tmp_path):
+    from miotts_tpu.bindings import MioTPUClient
+
+    srv, _ = bridge_server
+    with pytest.raises(ConnectionError):
+        MioTPUClient("http://127.0.0.1:9")  # nothing listens on port 9
+    with pytest.raises(ConnectionError):
+        MioTPUClient("ftp://bad.scheme")
+    with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
+        with pytest.raises(RuntimeError, match="not found"):
+            c.synthesize_to_wav("x", "no_such_ref", str(tmp_path / "x.wav"))
+        with pytest.raises(RuntimeError, match="not found"):
+            c.remove_reference("never_existed")
+        with pytest.raises(RuntimeError, match="cannot open file"):
+            c.add_reference_from_gguf("k", str(tmp_path / "missing.gguf"))

@@ -32,7 +32,7 @@ class _EagerCodecGraph(codec_graph.CodecGraph):
     runs the body on them. Counts the graphs made and each one's replays."""
     made = 0
 
-    def __init__(self, body, inputs, stream, pool=None, warm_up=True):
+    def __init__(self, body, inputs, stream, pool=None, warm_up=True, check_syncs=True):
         _EagerCodecGraph.made += 1
         self.body, self.inputs, self.warm_up, self.n_replays = body, inputs, warm_up, 0
 
@@ -290,3 +290,73 @@ def test_capture_needs_cuda(codec_path):
     with pytest.raises(ValueError, match="CUDA"):
         pipe.capture(32)
     assert not pipe.graphs
+
+
+def test_capture_counts_only_its_own_thread():
+    """While one thread records a capture, another thread's kernel launches
+    count in the module as usual and stay out of the graph's per-replay
+    counts; a replay adds those counts once."""
+    from miotts_tpu_torch.ops.cuda import banded_attention as k1
+    from miotts_tpu_torch.ops.cuda import decode_attention as k2
+    from miotts_tpu_torch.ops.cuda import graphs
+
+    assert graphs.CAPTURE_MODE == "thread_local"
+    base1, base2 = k1.launches, k2.launches
+    inside, go = threading.Event(), threading.Event()
+
+    def other():
+        inside.wait()
+        for _ in range(3):
+            graphs.launched(k1.__name__)
+        go.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    with graphs.record_launches() as per_replay:
+        graphs.launched(k2.__name__)
+        graphs.launched(k2.__name__)
+        inside.set()
+        go.wait()
+    t.join()
+    assert per_replay[k2] == 2 and per_replay[k1] == 0
+    assert (k1.launches, k2.launches) == (base1 + 3, base2)
+    graphs.count_replay(per_replay)
+    assert k2.launches == base2 + 2
+
+
+def test_sync_check_is_optional(monkeypatch):
+    """Without ``check_syncs`` the eager run never touches the process-wide
+    sync-debug mode (a server's other threads read the card meanwhile)."""
+    def refuse(*a, **k):
+        raise AssertionError("sync-debug mode touched")
+
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", refuse)
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", refuse)
+    assert codec_graph.run_checked(lambda inputs: inputs["x"] + 1, {"x": torch.ones(2)},
+                                   check_syncs=False).tolist() == [2.0, 2.0]
+    with pytest.raises(AssertionError, match="touched"):
+        codec_graph.run_checked(lambda inputs: inputs["x"], {"x": torch.ones(2)})
+
+
+def test_launch_counter_loses_no_update_under_threads():
+    """Sixteen threads counting launches at once with a short switch
+    interval: the module's count is exact (the count is a locked
+    read-modify-write)."""
+    from miotts_tpu_torch.ops.cuda import conv1d as k4
+    from miotts_tpu_torch.ops.cuda import graphs
+
+    base, n_threads, per = k4.launches, 16, 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [graphs.launched(k4.__name__)
+                                                    for _ in range(per)])
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert k4.launches == base + n_threads * per

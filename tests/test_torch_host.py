@@ -129,3 +129,86 @@ def test_wav16_streaming_header_matches(sample_rate, channels):
     got = audio_io.wav16_streaming_header(sample_rate, channels)
     assert got == jax_audio.wav16_streaming_header(sample_rate, channels)
     assert len(got) == 44 and got[4:8] == got[40:44] == b"\xff\xff\xff\xff"
+
+
+def test_encode_wav16_matches():
+    audio = (np.random.RandomState(2).randn(3000) * 0.6).astype(np.float32)
+    assert audio_io.encode_wav16(audio, 24000) == jax_audio.encode_wav16(audio, 24000)
+    pcm = np.rint(np.clip(audio, -1, 1) * 32767).astype(np.int16)
+    assert audio_io.encode_wav16(pcm, 44100) == jax_audio.encode_wav16(pcm, 44100)
+
+
+def test_webui_copy_matches():
+    from miotts_tpu.serving import webui as jax_webui
+    from miotts_tpu_torch.serving import webui
+
+    for name in ("INDEX_HTML", "UI_CSS", "UI_JS"):
+        assert getattr(webui, name) == getattr(jax_webui, name), name
+
+
+_BODIES = [
+    {"text": "hi", "reference_key": "voice", "n_predict": 12, "temp": 0.3, "top_k": 7,
+     "stream_tokens": True, "seed": 4},
+    {"prompt": "p", "tts_reference_key": "k.1", "codes_only": True, "n_ctx": 50},
+    {"codes": [1, "<|s_5|>", 7.0], "key": "a-b", "stream_audio": True, "overlap_synthesis": 1},
+    {"input": "x", "embedding_only": True, "embedding_in": "e.gguf", "top_p": 0.5},
+    {"codes": [1, 2]},
+    {"codes": "1 2", "reference_key": "k"},
+    {"codes": [99999], "reference_key": "k"},
+    {"codes": ["<|bad|>"], "reference_key": "k"},
+    {"codes": [{}], "reference_key": "k"},
+    {"text": "hi", "reference_key": "a/b"},
+    {"text": "hi", "reference_key": "k", "n_ctx": 0},
+    {"text": "hi", "reference_key": "k", "n_ctx": 100000},
+    {"text": "hi", "reference_key": "k", "n_predict": 0},
+    {"embedding_only": True},
+]
+
+
+@pytest.mark.parametrize("i", range(len(_BODIES)))
+def test_server_state_copy_matches(i):
+    """The port's serving/state.py copy parses every request as the JAX
+    package's: the same fields, or the same error text and code."""
+    import dataclasses
+
+    from miotts_tpu.serving import state as jax_state
+    from miotts_tpu_torch.serving import state
+
+    def run(mod):
+        try:
+            return dataclasses.asdict(mod.parse_request_json(_BODIES[i], mod.ServerConfig()))
+        except mod.RequestError as e:
+            return (str(e), e.code)
+
+    assert run(state) == run(jax_state)
+    assert ([(f.name, f.default) for f in dataclasses.fields(state.ServerConfig)]
+            == [(f.name, f.default) for f in dataclasses.fields(jax_state.ServerConfig)])
+    for key in ("ok_key-1.2", "a/b", "", "x" * 129):
+        assert state.is_valid_reference_key(key) == jax_state.is_valid_reference_key(key)
+
+
+def test_reference_cache_copy_matches():
+    from miotts_tpu.serving import state as jax_state
+    from miotts_tpu_torch.serving import state
+
+    caches = [state.ReferenceCache(), jax_state.ReferenceCache()]
+    for c in caches:
+        c.put("b", np.ones((2, 3)))
+        c.put("a", np.zeros(4))
+        assert c.remove("b") and not c.remove("missing")
+    assert caches[0].items() == caches[1].items() and len(caches[0]) == len(caches[1]) == 1
+    assert np.array_equal(caches[0].get("a"), caches[1].get("a"))
+
+
+def test_server_parser_matches():
+    """The port's server flags are the JAX server's, plus the
+    --reference-file alias of --reference-file-json."""
+    from miotts_tpu.serving.server import build_arg_parser as jax_parser
+    from miotts_tpu_torch.serving.server import build_arg_parser
+
+    ours, ref = _options(build_arg_parser()), _options(jax_parser())
+    alias = ("--reference-file-json", "--reference-file")
+    assert ours.pop(alias) == ref.pop(("--reference-file-json",))
+    assert ours == ref
+    argv = ["-mv", "c.gguf", "-m", "l.gguf", "-np", "8", "--warmup", "on", "--llm-quant", "q8_0"]
+    assert vars(build_arg_parser().parse_args(argv)) == vars(jax_parser().parse_args(argv))

@@ -37,8 +37,10 @@ def test_no_module_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 32  # every module was walked, the streaming slice's among them
+    assert len(names) >= 39  # every module was walked, the serving slice's among them
     assert {"miotts_tpu_torch.streaming", "miotts_tpu_torch.models.decode_graph"} <= set(names)
+    assert {f"miotts_tpu_torch.serving.{m}" for m in (
+        "batching", "codec_batching", "engine", "server", "state", "webui")} <= set(names)
 
 
 def test_select_device(monkeypatch):
