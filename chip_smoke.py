@@ -109,6 +109,27 @@ them were replays and their wall time printed. Every CLI request's codec
 decodes follow the graph's key policy: one eager decode a key, and every
 decode of a key after its second a replay.
 
+Then a clone phase (voice cloning: ``models/wavlm.py``, the codec's global
+encoder, ``pipeline.reference_embedding``), on a WavLM Base+ GGUF at its
+published widths (2 layers, 12 heads of 64, ffn 3072, the 7-conv stack at
+512 channels, 320 buckets) and the 24 kHz codec written with its global
+encoder (input 768, dim 384, 4 ConvNeXt blocks, output 128): 24 kHz
+references of 3, 20 and 25 s (WAV; the 25 s one cut to 20 s by the default
+--tts-max-reference-seconds) and the 3 s one as a FLAC each give on the
+card (the device chain under sync-debug "error") and on the CPU (the same
+port module) the rung ssl, embeddings within 1e-3 max abs and cosine
+>= 0.9999, and the same bucket table; host decode ms, device chain ms, the
+profiler's busy ms and the peak allocated memory are printed. Through
+``cli.main``: a text request cloned from the 20 s reference (-n 120, K1 and
+K2 grow, --tts-mio-embedding-out bit-equal to the in-process card
+embedding), --tts-mio-embedding-only (an embedding, no WAV), and 400 codes
+with --tts-mio-embedding-in of that embedding, whose decode card vs CPU
+has mel-L1 < 1e-2. Then a --tts-wavlm-model server (-np 2 -n 120
+--warmup on, --parallel-reference-generation 2): /mio/generate_reference
+as JSON and as a multipart upload (each embedding within 1e-3 of the
+in-process one), /mio/tts/stream with both keys, and two generations
+concurrent with two text /mio/tts requests, none failing.
+
 Last, a server phase (``miotts_tpu_torch/serving/``): the port's
 MioTTSServer in this process (port 0, so the launch counters are readable)
 on the dense 0.1B LLM and the 24 kHz wave codec with ``-np 8 -n 250
@@ -165,7 +186,7 @@ import torch.nn.functional as F
 
 from miotts_tpu_torch import cli
 from miotts_tpu_torch import pipeline as pipeline_mod
-from miotts_tpu_torch.device import select_device
+from miotts_tpu_torch.device import select_device, to_host
 from miotts_tpu_torch.models import codec_graph, decode_graph
 from miotts_tpu_torch.models.llm import (
     CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, init_kv_cache, llm_generate_chunk,
@@ -181,9 +202,9 @@ from miotts_tpu_torch.ops.cuda import resblock as k6
 from miotts_tpu_torch.pipeline import CodecKey, MioTTSPipeline, pick_bucket
 from miotts_tpu_torch.streaming import StreamingSynthesizer
 from miotts_tpu_torch.testing import (
-    full_codec441_config, full_codec_config, full_mel_codec_config, mel_l1, save_embedding_gguf,
-    synthetic_vocab, tame_vocoder_weights, write_synthetic_llm_gguf,
-    write_synthetic_mel_vocoder_gguf, write_synthetic_miocodec_gguf)
+    full_codec441_config, full_codec_config, full_mel_codec_config, full_wavlm_kwargs, mel_l1,
+    save_embedding_gguf, synthetic_vocab, tame_vocoder_weights, write_synthetic_llm_gguf,
+    write_synthetic_mel_vocoder_gguf, write_synthetic_miocodec_gguf, write_synthetic_wavlm_gguf)
 
 MODS = (k1, k2, k3, k4, k5, k6)
 K1_TOL = 1e-5
@@ -1293,6 +1314,266 @@ def fidelity(path: Path, device, codes, emb, sample_rate: int, what: str) -> Non
         raise AssertionError(f"{what}: mel-L1 {l1} >= {MEL_L1_MAX}")
 
 
+# -- the clone phase ---------------------------------------------------------------------
+
+# references: (file, seconds of 24 kHz audio written); the 25 s one is cut
+# to the default --tts-max-reference-seconds (20)
+CLONE_REFS = (("ref3.wav", 3.0), ("ref20.wav", 20.0), ("ref25.wav", 25.0), ("ref3.flac", 3.0))
+CLONE_MAX_SECONDS = 20.0
+CLONE_EMB_TOL = 1e-3  # max abs, card vs CPU
+CLONE_COS_MIN = 0.9999
+CLONE_PROMPT = "A cloned voice reads this sentence aloud."
+
+
+def clone_assets(tmp: Path) -> None:
+    """The full-width WavLM Base+ GGUF and the reference clips: a voice-like
+    tone with vibrato, a harmonic and noise (24 kHz mono), 3, 20 and 25 s as
+    16-bit WAVs and the 3 s clip as a FLAC (tests/flac_encoder.py)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from flac_encoder import encode_flac
+
+    from miotts_tpu_torch.runtime.audio_io import save_wav16
+
+    write_synthetic_wavlm_gguf(str(tmp / "wavlm.gguf"), seed=5, **full_wavlm_kwargs())
+    sr = 24000
+    rng = np.random.RandomState(21)
+    t = np.arange(int(25 * sr)) / sr
+    f0 = 180 + 20 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    clip = ((0.35 * np.sin(phase) + 0.12 * np.sin(2 * phase) + 0.02 * rng.randn(t.size))
+            * (0.6 + 0.4 * np.sin(2 * np.pi * 1.3 * t) ** 2)).astype(np.float32)
+    for name, secs in CLONE_REFS:
+        x = clip[:int(secs * sr)]
+        if name.endswith(".flac"):
+            pcm = np.rint(np.clip(x, -1, 1) * 32767).astype(np.int64)
+            (tmp / name).write_bytes(encode_flac(pcm, sr, subframe_kind="lpc2"))
+        else:
+            save_wav16(tmp / name, x, sr)
+
+
+def check_references(dev, tmp: Path) -> dict:
+    """Each reference through ``reference_embedding`` on the card (its
+    device chain under sync-debug "error") and on the CPU (the same port
+    module): rung ssl on both, card vs CPU within CLONE_EMB_TOL max abs and
+    CLONE_COS_MIN cosine, the card's bucket table equal to the CPU's, and
+    two card runs bit-equal. Host decode ms, device chain ms (first and
+    warm run), the profiler's busy ms and max_memory_allocated printed."""
+    from miotts_tpu_torch.models.wavlm import bucket_table
+
+    card = MioTTSPipeline(tmp / "codec.gguf", dev, wavlm_path=tmp / "wavlm.gguf")
+    cpu = MioTTSPipeline(tmp / "codec.gguf", torch.device("cpu"), wavlm_path=tmp / "wavlm.gguf")
+    if not card.check_syncs:
+        raise AssertionError("the card's reference chain must run under the sync check")
+    rows = {}
+    for name, secs in CLONE_REFS:
+        path = tmp / name
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        emb, st = card.reference_embedding(path, CLONE_MAX_SECONDS)
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        emb2, st2 = card.reference_embedding(path, CLONE_MAX_SECONDS)
+        busy = busy_ms(lambda: card.reference_embedding(path, CLONE_MAX_SECONDS))
+        ref, cst = cpu.reference_embedding(path, CLONE_MAX_SECONDS)
+        host_t, dev_t = card.wavlm.bucket_table(st.frames)
+        table_ok = (np.array_equal(to_host(dev_t), host_t)
+                    and np.array_equal(host_t, bucket_table(cpu.wavlm.config, st.frames))
+                    and np.array_equal(host_t, cpu.wavlm.bucket_table(cst.frames)[0]))
+        err = float(np.abs(emb - ref).max())
+        cos = float(np.dot(emb, ref) / (np.linalg.norm(emb) * np.linalg.norm(ref)))
+        want_n = int(min(secs, CLONE_MAX_SECONDS) * 16000)
+        rows[name] = {"seconds": secs, "n_samples": st.n_samples, "bucket": st.bucket,
+                      "frames": st.frames, "rung": st.rung, "max_abs_err": err, "cosine": cos,
+                      "decode_ms": [st.decode_ms, st2.decode_ms],
+                      "device_ms": [st.device_ms, st2.device_ms], "busy_ms": busy,
+                      "peak_allocated_mib": peak_mib, "cpu_device_ms": cst.device_ms,
+                      "repeat_bit_equal": bool(np.array_equal(emb, emb2))}
+        log(f"[clone] {name}: {st.n_samples} samples at 16 kHz, bucket {st.bucket}, "
+            f"{st.frames} frames, rung {st.rung} (CPU {cst.rung}); host decode+resample "
+            f"{st.decode_ms:.1f}/{st2.decode_ms:.1f} ms, device chain {st.device_ms:.1f} ms "
+            f"first / {st2.device_ms:.1f} ms warm, busy {busy:.2f} ms, max_memory_allocated "
+            f"{peak_mib:.0f} MiB over the loaded weights; card vs CPU max abs {err:.3e} cosine {cos:.7f}; CPU chain "
+            f"{cst.device_ms:.0f} ms; bucket table card == CPU: {table_ok}; two card runs "
+            f"bit-equal: {rows[name]['repeat_bit_equal']}")
+        if (st.rung != "ssl" or cst.rung != "ssl" or st.n_samples != want_n
+                or not np.isfinite(emb).all() or not err <= CLONE_EMB_TOL
+                or not cos >= CLONE_COS_MIN or not table_ok):
+            raise AssertionError(f"reference {name}: {rows[name]}, table equal {table_ok}")
+        rows[name]["embedding"] = emb
+    return rows
+
+
+def clone_cli(tmp: Path, refs: dict, dev, ccfg) -> dict:
+    """The CLI's voice-cloning flags: a one-shot text request cloned from
+    the 20 s reference (K1 and K2 grow, --tts-mio-embedding-out equals the
+    in-process card embedding bit for bit), --tts-mio-embedding-only (an
+    embedding, no WAV), and codes with --tts-mio-embedding-in of that
+    embedding, whose decode meets the fidelity bar card vs CPU."""
+    from miotts_tpu_torch.gguf.writer import load_embedding_gguf
+
+    out = {}
+    wavlm = ["--tts-wavlm-model", str(tmp / "wavlm.gguf")]
+    text, n_codes, sr, pcm, grew, _ = drive_cli(
+        "clone-text", tmp, ["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm.gguf"),
+                            "-p", CLONE_PROMPT, "-n", "120", "--seed", "1",
+                            "--tts-reference-audio", str(tmp / "ref20.wav"), *wavlm,
+                            "--tts-mio-embedding-out", str(tmp / "e.gguf")], (k1, k2))
+    m = re.search(r"reference breakdown: decode_ms=([0-9.]+) device_ms=([0-9.]+) bucket=(\d+) "
+                  r"frames=(\d+) rung=(\w+)", text)
+    e = load_embedding_gguf(tmp / "e.gguf")
+    if (not m or m.group(5) != "ssl" or pcm.size != wav_samples(ccfg, n_codes)
+            or not np.array_equal(e, refs["ref20.wav"]["embedding"])):
+        raise AssertionError(f"clone one-shot: {m and m.groups()}, {pcm.size} samples for "
+                             f"{n_codes} codes, e.gguf bit-equal "
+                             f"{np.array_equal(e, refs['ref20.wav']['embedding'])}")
+    out["one_shot"] = {"decode_ms": float(m.group(1)), "device_ms": float(m.group(2)),
+                       "bucket": int(m.group(3)), "frames": int(m.group(4)), "codes": n_codes,
+                       "audio_s": pcm.size / sr}
+    log(f"[clone] CLI one-shot (ref20.wav, -n 120): reference breakdown decode_ms="
+        f"{m.group(1)} device_ms={m.group(2)} bucket={m.group(3)} frames={m.group(4)} "
+        f"rung={m.group(5)}; {n_codes} codes, {pcm.size / sr:.2f} s of audio; e.gguf "
+        f"bit-equal to the in-process card embedding; {graph_text(text)} launches: "
+        f"{launch_text(grew)}")
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["-mv", str(tmp / "codec.gguf"), "--tts-reference-audio",
+                       str(tmp / "ref3.flac"), *wavlm, "--tts-mio-embedding-out",
+                       str(tmp / "e_only.gguf"), "--tts-mio-embedding-only",
+                       "-o", str(tmp / "e_only.wav")])
+    e_only = load_embedding_gguf(tmp / "e_only.gguf") if (tmp / "e_only.gguf").exists() else None
+    if (rc != 0 or (tmp / "e_only.wav").exists() or e_only is None
+            or not np.array_equal(e_only, refs["ref3.flac"]["embedding"])
+            or f"saved embedding: {tmp / 'e_only.gguf'}" not in err.getvalue()):
+        raise AssertionError(f"--tts-mio-embedding-only: rc {rc}:\n{err.getvalue()}")
+    log("[clone] --tts-mio-embedding-only (ref3.flac): an embedding bit-equal to the "
+        "in-process card one, no WAV")
+
+    text, n_codes, sr, pcm, grew, _ = drive_cli(
+        "clone-codes", tmp, ["-mv", str(tmp / "codec.gguf"), "--tts-mio-codes-in",
+                             str(tmp / "codes400.txt"), "--tts-mio-embedding-in",
+                             str(tmp / "e.gguf")], (k1,))
+    if pcm.size != wav_samples(ccfg, n_codes):
+        raise AssertionError(f"clone codes: {pcm.size} samples for {n_codes} codes")
+    log(f"[clone] codes (400) with --tts-mio-embedding-in e.gguf: {pcm.size / sr:.2f} s of "
+        f"audio; launches: {launch_text(grew)}")
+    with uncounted():
+        fidelity(tmp / "codec.gguf", dev, np.random.RandomState(8).randint(0, ccfg.vocab_size,
+                                                                           250),
+                 e, ccfg.sample_rate, "clone")
+    return out
+
+
+def generate_reference(srv, tmp: Path, key: str, ref: str, multipart: bool, want) -> dict:
+    """One /mio/generate_reference, JSON naming the file or a multipart
+    upload of it: HTTP 200, the embedding attached and cached under
+    ``key``, within CLONE_EMB_TOL of ``want`` (the in-process card's)."""
+    from miotts_tpu_torch.gguf.writer import load_embedding_gguf
+
+    if multipart:
+        boundary = "miottsclonephase"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"reference_key\"\r\n\r\n"
+                f"{key}\r\n--{boundary}\r\nContent-Disposition: form-data; name=\"audio\"; "
+                f"filename=\"{ref}\"\r\nContent-Type: application/octet-stream\r\n\r\n").encode()
+        body += (tmp / ref).read_bytes() + f"\r\n--{boundary}--\r\n".encode()
+        ctype = f"multipart/form-data; boundary={boundary}"
+    else:
+        body = json.dumps({"reference_key": key, "reference_audio": str(tmp / ref)}).encode()
+        ctype = "application/json"
+    status, headers, data, secs = http_post_raw(srv, "/mio/generate_reference", body, ctype)
+    if status != 200:
+        raise AssertionError(f"generate_reference {key}: HTTP {status}: {data[:300]!r}")
+    p = tmp / f"served_{key}.emb.gguf"
+    p.write_bytes(data)
+    emb = load_embedding_gguf(p)
+    err = float(np.abs(emb - want).max())
+    if (headers.get("X-Reference-Key") != key or not err <= CLONE_EMB_TOL
+            or not np.array_equal(srv.engine.ref_cache.get(key), emb)):
+        raise AssertionError(f"generate_reference {key}: headers {headers}, max abs {err}")
+    return {"latency_ms": secs * 1e3, "max_abs_err": err, "multipart": multipart}
+
+
+def clone_server(dev, tmp: Path, refs: dict) -> dict:
+    """A ``--tts-wavlm-model`` server (-np 2, --parallel-reference-generation
+    2): /mio/generate_reference as JSON and as a multipart upload, text
+    /mio/tts/stream requests with the generated key, then two generations
+    concurrent with two text /mio/tts requests, with no failure."""
+    import concurrent.futures
+
+    out: dict = {}
+    srv = start_server(dev, tmp, "llm.gguf",
+                       ["-np", "2", "-n", "120", "--ctx-size", "512", "--warmup", "on",
+                        "--tts-wavlm-model", str(tmp / "wavlm.gguf"),
+                        "--parallel-reference-generation", "2"])
+    try:
+        out["json"] = generate_reference(srv, tmp, "clone_json", "ref20.wav", False,
+                                         refs["ref20.wav"]["embedding"])
+        out["multipart"] = generate_reference(srv, tmp, "clone_upload", "ref3.wav", True,
+                                              refs["ref3.wav"]["embedding"])
+        log(f"[clone server] generate_reference JSON (ref20.wav) {out['json']['latency_ms']:.1f} "
+            f"ms, max abs vs in-process {out['json']['max_abs_err']:.2e}; multipart (ref3.wav) "
+            f"{out['multipart']['latency_ms']:.1f} ms, {out['multipart']['max_abs_err']:.2e}")
+        streams = []
+        for i, key in enumerate(("clone_json", "clone_upload")):
+            status, headers, data, secs = http_post(
+                srv, "/mio/tts/stream", {"text": CLONE_PROMPT, "reference_key": key,
+                                         "seed": 40 + i})
+            sr, pcm = parse_wav_bytes(data, f"cloned stream {key}")
+            if status != 200 or headers.get("X-Reference-Key") != key or not np.any(pcm != 0):
+                raise AssertionError(f"cloned stream {key}: HTTP {status}")
+            streams.append({"key": key, "latency_ms": secs * 1e3, "audio_s": pcm.size / sr})
+        out["streams"] = streams
+        log("[clone server] /mio/tts/stream with the generated keys: " + ", ".join(
+            f"{s['key']} {s['latency_ms']:.1f} ms for {s['audio_s']:.2f} s" for s in streams))
+
+        def text_request(i):
+            status, _, data, secs = http_post(srv, "/mio/tts", {
+                "text": SERVER_TEXTS[i], "reference_key": "clone_json", "seed": 50 + i})
+            j = json.loads(data)
+            if status != 200 or not j.get("ok"):
+                raise AssertionError(f"text request {i} during generations: HTTP {status} {j}")
+            return {"latency_ms": secs * 1e3, "llm_ms": j["llm_ms"], "synth_ms": j["synth_ms"]}
+
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            gens = [ex.submit(generate_reference, srv, tmp, f"clone_c{i}", ref, i == 1,
+                              refs[ref]["embedding"])
+                    for i, ref in enumerate(("ref20.wav", "ref3.flac"))]
+            texts = [ex.submit(text_request, i) for i in range(2)]
+            failed, res = [], {"generations": [], "texts": []}
+            for kind, futs in (("generations", gens), ("texts", texts)):
+                for f in futs:
+                    try:
+                        res[kind].append(f.result())
+                    except Exception as e:  # counted, then raised below
+                        failed.append(repr(e))
+        out["concurrent"] = {**res, "failed": len(failed)}
+        log(f"[clone server] 2 generations concurrent with 2 text requests: {len(failed)} "
+            f"failed; generations " + ", ".join(f"{g['latency_ms']:.1f} ms"
+                                                 for g in res["generations"])
+            + "; text llm_ms/synth_ms " + ", ".join(f"{t['llm_ms']:.1f}/{t['synth_ms']:.1f}"
+                                                     for t in res["texts"]))
+        if failed:
+            raise AssertionError(f"concurrent generations and text requests: {failed}")
+    finally:
+        srv.shutdown()
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_clone(dev, tmp: Path, ccfg) -> dict:
+    """The clone phase: references card vs CPU, the CLI's flags, the server."""
+    t0 = time.perf_counter()
+    refs = check_references(dev, tmp)
+    out = {"references": {k: {kk: vv for kk, vv in v.items() if kk != "embedding"}
+                          for k, v in refs.items()}}
+    out["cli"] = clone_cli(tmp, refs, dev, ccfg)
+    out["server"] = clone_server(dev, tmp, refs)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[clone] {out['wall_s']:.1f}s")
+    return out
+
+
 # -- the server phase --------------------------------------------------------------------
 
 SERVER_FLAGS = ["-np", "8", "-n", "250", "--ctx-size", "512"]
@@ -1330,12 +1611,16 @@ def start_server(dev, tmp: Path, llm: str, flags: list[str]):
 
 def http_post(srv, path: str, body: dict, timeout: float = 300):
     """POST JSON; returns (status, headers, body bytes, seconds)."""
+    return http_post_raw(srv, path, json.dumps(body).encode(), "application/json", timeout)
+
+
+def http_post_raw(srv, path: str, body: bytes, ctype: str, timeout: float = 300):
+    """POST a body of ``ctype``; returns (status, headers, body bytes, seconds)."""
     import urllib.error
     import urllib.request
 
-    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
-                                 data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", data=body,
+                                 headers={"Content-Type": ctype})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -1754,8 +2039,9 @@ def main() -> int:
         tmp = Path(d)
         t0 = time.perf_counter()
         ccfg = full_codec_config()
-        write_synthetic_miocodec_gguf(str(tmp / "codec.gguf"), ccfg, seed=0,
-                                      with_global_encoder=False)
+        # with the global encoder, appended after every other tensor (whose
+        # draws it leaves as they were; tests/test_torch_clone.py)
+        write_synthetic_miocodec_gguf(str(tmp / "codec.gguf"), ccfg, seed=0)
         write_synthetic_llm_gguf(str(tmp / "llm.gguf"), **LLM_WIDTHS)
         write_synthetic_llm_gguf(str(tmp / "llm_q8_0.gguf"), quant="q8_0", **LLM_WIDTHS)
         mcfg = full_mel_codec_config()
@@ -1770,8 +2056,10 @@ def main() -> int:
         for n in (40, 400):
             (tmp / f"codes{n}.txt").write_text(
                 "\n".join(map(str, rng.randint(0, mcfg.vocab_size, n))))
+        clone_assets(tmp)
         log(f"[assets] wave (24 and 44.1 kHz) and mel codecs + 0.1B llm (f32, Q8_0) + "
-            f"embedding written in {time.perf_counter() - t0:.1f}s")
+            f"embedding + WavLM Base+ and references written in "
+            f"{time.perf_counter() - t0:.1f}s")
         cfgs = {"wave": ccfg, "wave441": wcfg, "mel": mcfg}
 
         t0 = time.perf_counter()
@@ -1779,11 +2067,11 @@ def main() -> int:
         log(f"[graph] {time.perf_counter() - t0:.1f}s")
 
         # each path is driven with every count at 0 and read right after
-        launches, streams, codec_rows, server_rows = {}, {}, {}, {}
+        launches, streams, codec_rows, server_rows, clone_rows = {}, {}, {}, {}, {}
         for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
                            ("codec_graph", None), ("wave441", WAVE441_REQUESTS),
-                           ("stream", STREAM_REQUESTS), ("server", None)):
+                           ("stream", STREAM_REQUESTS), ("clone", None), ("server", None)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
@@ -1797,6 +2085,8 @@ def main() -> int:
                     wave441_request(name, tmp, wcfg, extra, kernels)
             elif path == "server":
                 server_rows = check_server(dev, tmp, emb)
+            elif path == "clone":
+                clone_rows = check_clone(dev, tmp, ccfg)
             elif path == "stream":
                 for name, codec, model, n_predict, extra, kernels in reqs:
                     streams[name] = stream_request(
@@ -1834,7 +2124,7 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     log(smi.stdout.strip().splitlines()[0])  # again, for readers of the output's tail
     print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows, "streams": streams,
-                      "server": server_rows}))
+                      "server": server_rows, "clone": clone_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,12 @@ WAV, with either codec mode (wave: iSTFT head; mel: the bundled vocoder):
 
 - input from -p/--prompt, --prompt-file (local LLM, -m), --tts-mio-codes
   or --tts-mio-codes-in;
-- a speaker embedding from -emb or --tts-mio-embedding-in;
+- a speaker embedding from -emb or --tts-mio-embedding-in, or cloned
+  from a reference recording (--tts-reference-audio with
+  --tts-wavlm-model, cut to --tts-max-reference-seconds; WAV, FLAC or mp3),
+  saved by --tts-mio-embedding-out, and --tts-mio-embedding-only to stop
+  there. The order of precedence is the JAX CLI's: reference audio, then
+  --tts-mio-embedding-in, then -emb;
 - --tts-mio-codes-out and --tts-mio-codes-only;
 - --llm-quant (or MIOTTS_LLM_QUANT), the whole ladder: bf16, output,
   output_int8, output_int4, q8_0, int8, int8_output_int4;
@@ -23,8 +28,11 @@ replay of a captured CUDA graph (``models/decode_graph.py``), and the
 ``llm breakdown:`` line gives the capture's host time. On CUDA a codec
 decode is eager the first time its key (bucket and options) is seen, then
 captured and replayed (``models/codec_graph.py``); the ``synth
-breakdown:`` line counts each route (all 0 on the CPU). The WAV's rate is
-the codec's (24 or 44.1 kHz).
+breakdown:`` line counts each route (all 0 on the CPU). A cloned
+embedding prints ``reference breakdown:``: the host's decode and resample
+ms, the device chain's wall ms, the WavLM bucket and frames, and the rung
+of the fallback ladder taken (ssl, ssl_pre or audio_stat). The WAV's rate
+is the codec's (24 or 44.1 kHz).
 
 Flags whose path is not ported exit 1 with
 ``error: ... not yet ported to miotts_tpu_torch``. ``-fa`` has no effect:
@@ -132,9 +140,6 @@ def _err(msg: str) -> int:
 def _unported_flag(args) -> str | None:
     """The first flag given whose path this port does not run yet."""
     checks = (
-        (args.tts_reference_audio, "--tts-reference-audio (voice cloning)"),
-        (args.tts_wavlm_model, "--tts-wavlm-model (voice cloning)"),
-        (args.tts_mio_embedding_only, "--tts-mio-embedding-only (voice cloning)"),
         (args.llm_api_url, "--llm-api-url (external LLM API)"),
         (args.sequence_parallel > 1, "--sequence-parallel"),
         (args.cpu_native == "on", "--cpu-native on"),
@@ -295,7 +300,8 @@ def main(argv: list[str] | None = None) -> int:
     except (RuntimeError, ValueError) as e:
         return _err(str(e))
     try:
-        pipe = MioTTSPipeline(args.model_vocoder, device)
+        pipe = MioTTSPipeline(args.model_vocoder, device,
+                              wavlm_path=args.tts_wavlm_model or None)
     except NotImplementedError as e:
         return _err(str(e))
     except Exception as e:
@@ -312,14 +318,32 @@ def main(argv: list[str] | None = None) -> int:
         return _err(f"reference key not found: {args.tts_remove_reference_key}")
 
     embedding = None
-    for path, what in ((args.tts_mio_embedding_in, "embedding"),
-                       (args.embedding_default_in, "default embedding")):
-        if path:
-            try:
-                embedding = load_embedding_gguf(path)
-            except Exception as e:
-                return _err(f"failed to load {what} GGUF: {e}")
-            break
+    if args.tts_reference_audio:
+        if not args.tts_wavlm_model:
+            return _err("--tts-wavlm-model is required with --tts-reference-audio")
+        try:
+            embedding, ref = pipe.reference_embedding(args.tts_reference_audio,
+                                                      args.tts_max_reference_seconds)
+        except Exception as e:
+            return _err(f"failed to extract reference embedding: {e}")
+        print(f"reference breakdown: decode_ms={ref.decode_ms:.1f} device_ms={ref.device_ms:.1f} "
+              f"bucket={ref.bucket} frames={ref.frames} rung={ref.rung}", file=sys.stderr)
+        if args.tts_mio_embedding_out:
+            pipe.save_embedding(args.tts_mio_embedding_out, embedding)
+            print(f"saved embedding: {args.tts_mio_embedding_out}", file=sys.stderr)
+        if args.tts_mio_embedding_only:
+            return 0
+    else:
+        for path, what in ((args.tts_mio_embedding_in, "embedding"),
+                           (args.embedding_default_in, "default embedding")):
+            if path:
+                try:
+                    embedding = load_embedding_gguf(path)
+                except Exception as e:
+                    return _err(f"failed to load {what} GGUF: {e}")
+                break
+    if args.tts_mio_embedding_only:
+        return _err("--tts-mio-embedding-only requires --tts-reference-audio")
 
     # --tts-mio-codes-only skips synthesis, so it takes precedence over
     # streaming output

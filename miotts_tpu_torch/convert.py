@@ -1,7 +1,7 @@
 """Turn the JAX package's parameter trees into the port's.
 
 Both take the tree as ``miotts_tpu`` builds it (``load_miocodec`` /
-``load_llm_gguf``), with numpy (or any array convertible by
+``load_llm_gguf`` / ``load_wavlm``), with numpy (or any array convertible by
 ``np.asarray``) leaves, so tests can run both packages on the same
 in-memory weights.
 """
@@ -15,6 +15,7 @@ import torch
 
 from .models.llm import LLMConfig, weights_to_device
 from .models.miocodec import MioCodecConfig, check_supported, to_device
+from .models.wavlm import WavLMConfig
 from .ops.istft import hann_periodic
 
 _CODEC_KEYS = ("token_embd", "prenet_blocks", "prenet_norm_w", "prenet_norm_b",
@@ -22,7 +23,7 @@ _CODEC_KEYS = ("token_embd", "prenet_blocks", "prenet_norm_w", "prenet_norm_b",
                "decoder_blocks", "norm_cond_w", "norm_cond_b", "decoder_norm_w",
                "decoder_norm_b", "istft_out_w", "istft_out_b", "istft_tables", "mel_postnet",
                "vocoder", "wave_upsampler", "ups_out_proj_w", "ups_out_proj_b",
-               "ups_out_snake_alpha", "ups_out_snake_beta")
+               "ups_out_snake_alpha", "ups_out_snake_beta", "global_encoder")
 
 
 def _f32(tree):
@@ -38,8 +39,7 @@ def _f32(tree):
 def miocodec_params_from_jax(cfg, tree: dict, device: torch.device
                              ) -> tuple[MioCodecConfig, dict]:
     """JAX MioCodec (config, weight tree) -> the port's, at f32 on
-    ``device``. Leaves the port does not run (global encoder) are dropped.
-    The JAX tree's iSTFT tables are the two DFT matrices; the port's also
+    ``device``, the global encoder's subtree among them. The JAX tree's iSTFT tables are the two DFT matrices; the port's also
     hold the Hann window (``ops/istft.py dft_tables``)."""
     pcfg = MioCodecConfig(**dataclasses.asdict(cfg))
     check_supported(pcfg)
@@ -66,3 +66,9 @@ def llm_params_from_jax(cfg, tree: dict, device: torch.device,
             and not (cfg.output_token_major and out.shape[-1] == cfg.dim)):
         w["output"] = np.ascontiguousarray(out.T)
     return pcfg, weights_to_device(w, device, dtype)
+
+
+def wavlm_params_from_jax(cfg, tree: dict, device: torch.device) -> tuple[WavLMConfig, dict]:
+    """JAX WavLM (config, weight tree) -> the port's, at f32 on ``device``:
+    the same keys and layout (linear weights [in, out], a dict a layer)."""
+    return WavLMConfig(**dataclasses.asdict(cfg)), to_device(_f32(tree), device)

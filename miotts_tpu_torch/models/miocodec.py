@@ -13,9 +13,11 @@ Weights are a plain dict of tensors with the JAX package's tree layout:
 linear weights pre-transposed to [in, out], transformer and resnet blocks
 stacked along a leading layer axis.
 
-Not yet ported: the global encoder (ROADMAP M8), which raises
-NotImplementedError. Mel mode without bundled vocoder tensors raises too,
-as in the JAX package.
+The global (speaker) encoder, loaded when the GGUF carries its tensors,
+turns WavLM SSL features into the 128-d embedding that conditions the
+decoder (``encode_global_embedding``: a ConvNeXt backbone and attentive-
+stats pooling). Mel mode without bundled vocoder tensors raises, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from ..gguf import GGUFReader
 from ..ops.attention import banded_attention
-from ..ops.convs import conv1d_same, conv_transpose1d, linear_interpolate
+from ..ops.convs import conv1d_depthwise_same, conv1d_same, conv_transpose1d, linear_interpolate
 from ..ops.istft import dft_tables, spec_to_audio
 from ..ops.masking import mask_time, time_mask
 from ..ops.norms import adaln_modulate, layer_norm, masked_group_norm
@@ -310,7 +312,41 @@ def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict
             })
         if cfg.has_vocoder:
             w["vocoder"] = load_vocoder_weights(get, cfg)
+        if r.has_tensor("global_encoder.backbone.embed.weight"):
+            w["global_encoder"] = _load_global_encoder(get, cfg)
     return cfg, to_device(w, device)
+
+
+def _load_global_encoder(get, cfg: MioCodecConfig) -> dict:
+    """The optional global encoder (miocodec-decoder.cpp:713-744)."""
+    g = "global_encoder.backbone"
+    return {
+        "embed_w": get(f"{g}.embed.weight"),  # conv [dim, in, k]
+        "embed_b": get(f"{g}.embed.bias"),
+        "norm_w": get(f"{g}.norm.weight"),
+        "norm_b": get(f"{g}.norm.bias"),
+        "final_norm_w": get(f"{g}.final_norm.weight"),
+        "final_norm_b": get(f"{g}.final_norm.bias"),
+        "blocks": _stack_blocks(get, cfg.global_encoder_layers, {
+            "dwconv_w": (g + ".blk.{i}.dwconv.weight", False),
+            "dwconv_b": (g + ".blk.{i}.dwconv.bias", False),
+            "norm_w": (g + ".blk.{i}.norm.weight", False),
+            "norm_b": (g + ".blk.{i}.norm.bias", False),
+            "pw1_w": (g + ".blk.{i}.pw1.weight", True),
+            "pw1_b": (g + ".blk.{i}.pw1.bias", False),
+            "pw2_w": (g + ".blk.{i}.pw2.weight", True),
+            "pw2_b": (g + ".blk.{i}.pw2.bias", False),
+            "gamma": (g + ".blk.{i}.gamma", False),
+        }),
+        "pool_attn0_w": get("global_encoder.pool.attn0.weight"),  # conv k=1
+        "pool_attn0_b": get("global_encoder.pool.attn0.bias"),
+        "pool_attn2_w": get("global_encoder.pool.attn2.weight"),
+        "pool_attn2_b": get("global_encoder.pool.attn2.bias"),
+        "pool_proj_w": _t(get("global_encoder.pool.proj.weight")),
+        "pool_proj_b": get("global_encoder.pool.proj.bias"),
+        "pool_norm_w": get("global_encoder.pool.norm.weight"),
+        "pool_norm_b": get("global_encoder.pool.norm.bias"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +524,37 @@ def codec_synthesize(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     return audio, n_samples
 
 
-def encode_global_embedding(*_args, **_kwargs):
-    """Reference audio -> speaker embedding (voice cloning)."""
-    raise NotImplementedError("the MioCodec global encoder (voice cloning) is not yet "
-                              "ported to miotts_tpu_torch (ROADMAP M8)")
+def encode_global_embedding(cfg: MioCodecConfig, w: dict, ssl: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """SSL features -> speaker embedding: ConvNeXt backbone and attentive-
+    stats pooling (miocodec-decoder.cpp:824-941). ssl [B, T, Cin], lengths
+    [B] int32; returns [B, Cout], a row with a non-finite value replaced by
+    zeros (:1048-1061)."""
+    ge = w["global_encoder"]
+    x = mask_time(ssl.float(), lengths)
+    x = mask_time(conv1d_same(x, ge["embed_w"], ge["embed_b"]), lengths)  # k from the weight
+    x = layer_norm(x, ge["norm_w"], ge["norm_b"], eps=1e-6)
+
+    blocks = ge["blocks"]
+    for i in range(blocks["dwconv_w"].shape[0]):
+        blk = {k: v[i] for k, v in blocks.items()}
+        y = conv1d_depthwise_same(mask_time(x, lengths), blk["dwconv_w"], blk["dwconv_b"])
+        y = layer_norm(mask_time(y, lengths), blk["norm_w"], blk["norm_b"], eps=1e-6)
+        y = F.gelu(y @ blk["pw1_w"] + blk["pw1_b"], approximate="tanh")  # ggml_gelu
+        x = x + (y @ blk["pw2_w"] + blk["pw2_b"]) * blk["gamma"]
+
+    x = mask_time(layer_norm(x, ge["final_norm_w"], ge["final_norm_b"], eps=1e-6), lengths)
+
+    # attentive stats pooling: the k = 1 convs are linears; a softmax over
+    # TIME for each channel, -inf on padding
+    a = torch.tanh(x @ ge["pool_attn0_w"][:, :, 0].T + ge["pool_attn0_b"])
+    a = a @ ge["pool_attn2_w"][:, :, 0].T + ge["pool_attn2_b"]
+    a = a.masked_fill(~time_mask(x.shape[1], lengths)[:, :, None], float("-inf"))
+    alpha = torch.softmax(a, dim=1)
+    mean = (alpha * x).sum(dim=1)
+    var = torch.clamp((alpha * x * x).sum(dim=1) - mean * mean, 1e-4, 1e4)
+    stat = torch.cat([mean, torch.sqrt(var)], dim=-1)
+    out = layer_norm(stat @ ge["pool_proj_w"] + ge["pool_proj_b"], ge["pool_norm_w"],
+                     ge["pool_norm_b"], eps=1e-5)
+    bad = (~torch.isfinite(out)).any(dim=-1, keepdim=True)
+    return torch.where(bad, torch.zeros((), device=out.device), out)

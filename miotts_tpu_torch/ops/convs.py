@@ -4,6 +4,10 @@ channels-last layout; the convolutions themselves run channels-first
 through ``torch.nn.functional``.
 
 - ``conv1d_same``: pad k//2 on both sides (ggml_conv_1d_ph).
+- ``conv1d_strided``: torch Conv1d semantics (stride, symmetric pad,
+  dilation), for the WavLM feature stack.
+- ``conv1d_depthwise_same``: depthwise, pad k//2 (ggml_conv_1d_dw_ph), for
+  the global encoder's ConvNeXt blocks.
 - ``conv_transpose1d``: stride s, pad 0, out_len = (T-1)*s + k.
 - ``linear_interpolate``: half-pixel bilinear resize along time, with the
   scale taken from each example's TRUE source/target lengths (or pinned by
@@ -20,6 +24,27 @@ def conv1d_same(x: torch.Tensor, w: torch.Tensor, b=None, dilation: int = 1) -> 
     """x [B, T, Cin], w [Cout, Cin, k]; pad k//2 both sides."""
     k = w.shape[-1]
     y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, padding=k // 2, dilation=dilation)
+    y = y.transpose(1, 2)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def conv1d_strided(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1, pad: int = 0,
+                   dilation: int = 1) -> torch.Tensor:
+    """x [B, T, Cin], w [Cout, Cin, k]; out_len = (T + 2 pad - d (k - 1) - 1) // stride + 1."""
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, stride=stride, padding=pad,
+                 dilation=dilation)
+    y = y.transpose(1, 2)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def conv1d_depthwise_same(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """x [B, T, C], w [C, 1, k]; one filter a channel, pad k//2 both sides."""
+    k = w.shape[-1]
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), None, padding=k // 2, groups=x.shape[-1])
     y = y.transpose(1, 2)
     if b is not None:
         y = y + b.to(y.dtype)

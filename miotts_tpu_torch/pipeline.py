@@ -17,6 +17,19 @@ and a stream or a server that decodes a bucket again reuses its graph.
 ``capture`` captures a key ahead of time. All of a pipeline's graphs share
 one memory pool; a lock makes copy-in -> replay -> copy-out one step, so
 threads may share a pipeline. On the CPU every decode is eager.
+
+Voice cloning (``reference_to_embedding``, with ``wavlm_path``): a
+reference file is decoded, peak-normalized and resampled to 16 kHz on the
+host, padded to its WavLM bucket, and the whole chain to the packed
+``[embedding | ssl_ok | pre_ok]`` (WavLM, the ssl -> ssl_pre choice over
+the valid frames, the global encoder; ``_reference_embedding_fused``)
+runs on the device with one host read at its end, as the JAX package
+makes one fetch. On CUDA it runs on a stream of its own (so a server's
+reference generations do not queue behind codec decodes and LLM chunks),
+eagerly: under ``torch.cuda.set_sync_debug_mode("error")`` where
+``check_syncs`` allows it, so a hidden host sync inside the chain fails.
+The last rung of the fallback ladder (audio statistics) is computed on the
+host and re-runs only the encoder.
 """
 
 from __future__ import annotations
@@ -34,7 +47,8 @@ from . import MIO_CODE_MAX, MIO_CODE_MIN
 from .device import to_device, to_host
 from .gguf.writer import load_embedding_gguf, save_embedding_gguf
 from .models import codec_graph
-from .models.miocodec import codec_synthesize, load_miocodec
+from .models.miocodec import codec_synthesize, encode_global_embedding, load_miocodec
+from .ops.masking import time_mask
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
 
@@ -71,6 +85,40 @@ def _unpack(packed: np.ndarray, pcm16: bool, as_int16: bool = False
     if as_int16:
         return packed[:, :-2], counts
     return packed[:, :-2].astype(np.float32) / np.float32(32767.0), counts
+
+
+def _reference_embedding_fused(codec_cfg, wavlm_cfg, codec_w: dict, wavlm_w: dict,
+                               wav: torch.Tensor, n: torch.Tensor,
+                               buckets: torch.Tensor) -> torch.Tensor:
+    """wav16k [1, bucket], n [1] int32 -> packed [emb (adanorm_dim) |
+    ssl_ok | pre_ok] f32 (miotts_tpu/pipeline.py:66-88): the WavLM forward,
+    the finite-fallback choice between ssl and ssl_pre (checked over the
+    VALID frames only), the padded frames zeroed, and the global encoder."""
+    from .models.wavlm import wavlm_forward
+
+    ssl, ssl_pre, fl = wavlm_forward(wavlm_cfg, wavlm_w, wav, n, buckets)
+    valid = time_mask(ssl.shape[1], fl)[:, :, None]
+    ssl_ok = (torch.isfinite(ssl) | ~valid).all()
+    pre_ok = (torch.isfinite(ssl_pre) | ~valid).all()
+    zero = torch.zeros((), device=ssl.device)
+    feats = torch.where(ssl_ok, ssl, torch.where(pre_ok, ssl_pre, zero))
+    feats = torch.where(valid, feats, zero)  # padded frames stay exactly 0
+    emb = encode_global_embedding(codec_cfg, codec_w, feats, fl)
+    return torch.cat([emb[0].float(), torch.stack([ssl_ok, pre_ok]).float()])
+
+
+@dataclasses.dataclass
+class ReferenceStats:
+    """How one reference became an embedding: host ms of decode, peak
+    normalization and resampling; wall ms of the device chain (upload to
+    the host read, the audio-stat rung's encoder included); the 16 kHz
+    samples, their WavLM bucket and its frames; the fallback rung taken."""
+    decode_ms: float
+    device_ms: float
+    n_samples: int
+    bucket: int
+    frames: int
+    rung: str  # "ssl", "ssl_pre" or "audio_stat"
 
 
 def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
@@ -114,7 +162,8 @@ class MioTTSPipeline:
     """Codec weights on one device, shared by every synthesis call."""
 
     def __init__(self, codec_path: str | Path, device: torch.device,
-                 buckets: tuple[int, ...] = DEFAULT_BUCKETS, check_syncs: bool = True):
+                 buckets: tuple[int, ...] = DEFAULT_BUCKETS, check_syncs: bool = True,
+                 wavlm_path: str | Path | None = None):
         self.codec_path = str(codec_path)
         self.device = device
         # run a key's eager decode and a capture's warm-up with every host
@@ -134,6 +183,14 @@ class MioTTSPipeline:
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.graph_pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self._lock = threading.Lock()
+        self.wavlm = None
+        self._ref_stream = None
+        if wavlm_path:
+            from .models.wavlm import WavLMExtractor
+
+            self.wavlm = WavLMExtractor(str(wavlm_path), device)
+            if device.type == "cuda":
+                self._ref_stream = torch.cuda.Stream(device)
 
     @property
     def sample_rate(self) -> int:
@@ -146,6 +203,10 @@ class MioTTSPipeline:
     @property
     def is_dynamic_global(self) -> bool:
         return self.config.dynamic_global
+
+    @property
+    def has_global_encoder(self) -> bool:
+        return "global_encoder" in self.weights
 
     @staticmethod
     def load_embedding(path: str | Path) -> np.ndarray:
@@ -315,11 +376,80 @@ class MioTTSPipeline:
         self.graphs[key] = graph
         return graph
 
-    def _on_stream(self):
+    # -- voice cloning ---------------------------------------------------------
+
+    def reference_to_embedding(self, reference_audio: str | Path,
+                               max_reference_seconds: float = 20.0) -> np.ndarray:
+        """Reference audio -> speaker embedding [adanorm_dim] f32
+        (mio_tts_reference_to_embedding, mio-tts-lib.cpp:1048-1125)."""
+        return self.reference_embedding(reference_audio, max_reference_seconds)[0]
+
+    def reference_embedding(self, reference_audio: str | Path,
+                            max_reference_seconds: float = 20.0
+                            ) -> tuple[np.ndarray, ReferenceStats]:
+        """``reference_to_embedding`` and how it went (``ReferenceStats``)."""
+        if not self.is_dynamic_global:
+            raise ValueError("reference embedding requires dynamic-global MioCodec")
+        if not self.has_global_encoder:
+            raise ValueError("reference embedding requires global_encoder tensors in MioCodec GGUF")
+        if self.wavlm is None:
+            raise ValueError("WavLM model is not loaded")
+        t0 = time.perf_counter()
+        wav16k = self.wavlm.preprocess_reference(
+            reference_audio, source_rate=self.config.sample_rate,
+            max_seconds=max_reference_seconds)
+        n = int(wav16k.size)
+        bucket = self.wavlm.pick_wav_bucket(n)
+        padded = np.zeros((1, bucket), np.float32)
+        padded[0, :n] = wav16k
+        t1 = time.perf_counter()
+        frames = self.wavlm.config.conv_out_len(bucket)
+        with self._on_stream(self._ref_stream):
+            inputs = {"wav": to_device(padded, self.device),
+                      "lengths": to_device(np.array([n], np.int32), self.device),
+                      "buckets": self.wavlm.bucket_table(frames)[1]}
+
+            def chain(x: dict[str, torch.Tensor]) -> torch.Tensor:
+                return _reference_embedding_fused(self.config, self.wavlm.config, self.weights,
+                                                  self.wavlm.weights, x["wav"], x["lengths"],
+                                                  x["buckets"])
+
+            packed = to_host(codec_graph.run_checked(
+                chain, inputs, self.check_syncs and self.device.type == "cuda"))
+            d = self.config.decoder_adanorm_dim
+            emb, ssl_ok, pre_ok = packed[:d], packed[d] > 0, packed[d + 1] > 0
+            rung = "ssl" if ssl_ok else "ssl_pre" if pre_ok else "audio_stat"
+            if rung == "audio_stat":
+                # both SSL feature sets non-finite: the reference's last rung,
+                # on the host (rare), through the encoder alone
+                from .models.wavlm import _audio_stat_fallback
+
+                fb = _audio_stat_fallback(wav16k, self.wavlm.config.embed_dim)
+                emb = to_host(encode_global_embedding(
+                    self.config, self.weights, to_device(fb[None], self.device),
+                    to_device(np.array([fb.shape[0]], np.int32), self.device))[0])
+        t2 = time.perf_counter()
+        stats = ReferenceStats(decode_ms=(t1 - t0) * 1e3, device_ms=(t2 - t1) * 1e3,
+                               n_samples=n, bucket=bucket, frames=frames, rung=rung)
+        return np.array(emb, dtype=np.float32), stats
+
+    def estimate_reference_workspace_bytes(self, max_reference_seconds: float = 20.0) -> int:
+        """Rough device-memory footprint of one reference chain
+        (miotts_tpu/pipeline.py:350-358)."""
+        if self.wavlm is None:
+            raise ValueError("WavLM model is not loaded")
+        frames = self.wavlm.estimate_ssl_frames(self.config.sample_rate, max_reference_seconds)
+        e = self.wavlm.config.embed_dim
+        h = self.wavlm.config.n_heads
+        return int(4 * frames * e * 20 + 4 * frames * frames * h * 2)
+
+    def _on_stream(self, stream: torch.cuda.Stream | None = None):
         """CUDA work of a decode runs on the pipeline's own stream, the one
         its graphs are captured on (so the first, eager decode of a key warms
-        up that stream's cuBLAS workspace)."""
-        if self._stream is None:
+        up that stream's cuBLAS workspace); a reference chain's on
+        ``stream``, its own."""
+        stream = stream or self._stream
+        if stream is None:
             return contextlib.nullcontext()
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        return torch.cuda.stream(self._stream)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(stream)

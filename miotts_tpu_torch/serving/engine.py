@@ -16,6 +16,13 @@ codec graphs of every key a default request can land in, at every lane
 count the micro-batcher decodes at (1, 2, 4, ... up to the power of two at
 or above ``-np``), all before the server listens: a key first met while
 serving pays an eager decode and, at its second decode, a capture.
+
+With ``--tts-wavlm-model`` the pipeline also loads WavLM, and
+``generate_reference`` turns a reference recording into a speaker
+embedding (``pipeline.reference_to_embedding``). Its device chain runs on
+the pipeline's reference stream, not behind the worker's chunk replays or
+the codec decodes, and its copies go through pinned memory;
+``--parallel-reference-generation`` bounds how many run at once.
 """
 
 from __future__ import annotations
@@ -44,7 +51,6 @@ def now_ms() -> float:
 def unported_option(cfg: ServerConfig) -> str | None:
     """The first configured option whose path the port does not run yet."""
     checks = (
-        (cfg.wavlm_model, "--tts-wavlm-model (voice cloning)"),
         (cfg.llm_api_url, "--llm-api-url (external LLM API)"),
         (cfg.mio_backend_devices, "--mio-backend-devices (multi-device serving)"),
         (cfg.codec_devices, "--codec-devices (multi-device serving)"),
@@ -86,7 +92,8 @@ class ServingEngine:
             raise ValueError(f"{option} not yet ported to miotts_tpu_torch")
         self.cfg = cfg
         self.device = device if device is not None else select_device()
-        self.pipeline = MioTTSPipeline(cfg.model_vocoder, self.device, check_syncs=False)
+        self.pipeline = MioTTSPipeline(cfg.model_vocoder, self.device, check_syncs=False,
+                                       wavlm_path=cfg.wavlm_model or None)
         from .codec_batching import CodecMicroBatcher
 
         self.codec_batcher = CodecMicroBatcher(self.pipeline, max_batch=max(1, cfg.n_parallel))
@@ -554,3 +561,17 @@ class ServingEngine:
             os.makedirs(parent, exist_ok=True)
         save_wav16(output_file, audio, sr)
         out["output_file"] = output_file
+
+    # -- reference generation (voice cloning) -----------------------------------
+
+    def generate_reference(self, audio_path: str, key: str,
+                           max_reference_seconds: float) -> np.ndarray:
+        """Reference audio -> embedding, cached under ``key`` (and saved to
+        ``--reference-added-output-dir`` when set)."""
+        emb = self.pipeline.reference_to_embedding(audio_path, max_reference_seconds)
+        self.ref_cache.put(key, emb)
+        if self.cfg.reference_added_output_dir:
+            os.makedirs(self.cfg.reference_added_output_dir, exist_ok=True)
+            self.pipeline.save_embedding(
+                os.path.join(self.cfg.reference_added_output_dir, f"{key}.emb.gguf"), emb)
+        return emb

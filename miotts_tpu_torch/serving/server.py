@@ -20,10 +20,11 @@ Routes:
 Error shape: {"ok": false, "error": {"message", "code"}} (:2455-2463).
 
 Stdlib-only (ThreadingHTTPServer); the card's work runs in the batchers'
-threads (``engine.py``). Reference generation needs WavLM, which the port
-does not run yet: the route answers as the JAX server does without
-``--tts-wavlm-model``. Flags whose paths are not ported exit with
-``error: ... not yet ported to miotts_tpu_torch``.
+threads (``engine.py``). Reference generation needs ``--tts-wavlm-model``
+(without it the route answers as the JAX server does); it takes a JSON
+body naming a file or a multipart upload (field ``audio``), at most
+``--parallel-reference-generation`` at once. Flags whose paths are not
+ported exit with ``error: ... not yet ported to miotts_tpu_torch``.
 
 Run: ``python -m miotts_tpu_torch.serving.server -mv CODEC.gguf -m LLM.gguf
 -np 8 ...`` (``MIOTTS_PLATFORM=cpu`` for the CPU).
@@ -609,11 +610,89 @@ class MioTTSServer:
                           file=sys.stderr)
 
             def _handle_generate_reference(self):
-                # the port runs no WavLM yet, so it never has one configured
-                # (main refuses --tts-wavlm-model): the JAX server's answer
-                # without one
-                raise RequestError(
-                    "server requires --tts-wavlm-model for reference generation")
+                eng = server.engine
+                cfg = server.cfg
+                if not cfg.wavlm_model:
+                    raise RequestError(
+                        "server requires --tts-wavlm-model for reference generation")
+                ctype = self.headers.get("Content-Type", "")
+                reference_key = ""
+                reference_audio = ""
+                max_ref_sec = cfg.max_reference_seconds
+                upload_path = ""
+                if ctype.startswith("multipart/form-data"):
+                    fields, files = _parse_multipart(ctype, self._read_body())
+                    reference_key = fields.get("reference_key", "")
+                    reference_audio = fields.get("reference_audio", "")
+                    if fields.get("max_reference_seconds"):
+                        try:
+                            max_ref_sec = float(fields["max_reference_seconds"])
+                        except ValueError:
+                            raise RequestError("invalid max_reference_seconds")
+                    if "audio" in files:
+                        filename, data = files["audio"]
+                        suffix = os.path.splitext(filename)[1] or ".wav"
+                        if len(suffix) > 8:
+                            suffix = ".wav"
+                        upload_path = os.path.join(cfg.output_dir,
+                                                   f"mio-upload-{uuid.uuid4().hex}{suffix}")
+                        os.makedirs(cfg.output_dir, exist_ok=True)
+                        with open(upload_path, "wb") as f:
+                            f.write(data)
+                        reference_audio = upload_path
+                else:
+                    body = self._json_body()
+                    reference_key = body.get("reference_key", "") or ""
+                    reference_audio = (body.get("reference_audio", "")
+                                       or body.get("tts_reference_audio", "") or "")
+                    if body.get("max_reference_seconds") is not None:
+                        max_ref_sec = float(body["max_reference_seconds"])
+
+                try:
+                    if not is_valid_reference_key(reference_key):
+                        raise RequestError("reference_key is invalid")
+                    if not reference_audio:
+                        raise RequestError(
+                            "reference_audio or multipart file 'audio' is required")
+                    slot = eng.ref_slots.acquire(timeout=server.cfg.slot_timeout or None)
+                    eng._count("ref_gen_inflight", 1)
+                    try:
+                        emb = eng.generate_reference(reference_audio, reference_key, max_ref_sec)
+                    except RequestError:
+                        raise
+                    except Exception as e:
+                        raise RequestError(f"mio_tts_reference_to_embedding failed: {e}")
+                    finally:
+                        eng.ref_slots.release(slot)
+                        eng._count("ref_gen_inflight", -1)
+                finally:
+                    if upload_path:
+                        try:
+                            os.remove(upload_path)
+                        except OSError:
+                            pass
+
+                from ..gguf.writer import save_embedding_gguf
+
+                buf_path = os.path.join(cfg.output_dir, f"mio-emb-{uuid.uuid4().hex}.emb.gguf")
+                os.makedirs(cfg.output_dir, exist_ok=True)
+                save_embedding_gguf(buf_path, emb)
+                with open(buf_path, "rb") as f:
+                    payload = f.read()
+                os.remove(buf_path)
+
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Disposition",
+                                 f'attachment; filename="{reference_key}.emb.gguf"')
+                self.send_header("X-Reference-Key", reference_key)
+                self.send_header("X-Embedding-Dim", str(emb.size))
+                if cfg.reference_added_output_dir:
+                    self.send_header("X-Reference-Saved-Path", os.path.join(
+                        cfg.reference_added_output_dir, f"{reference_key}.emb.gguf"))
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
 
             def _handle_add_reference(self):
                 eng = server.engine

@@ -1,4 +1,4 @@
-"""Synthetic model assets without JAX (miotts_tpu/testing.py:20-311, :398-540).
+"""Synthetic model assets without JAX (miotts_tpu/testing.py:20-540).
 
 No model weights ship with the repo, so tests and ``chip_smoke.py`` write
 GGUFs with the converter's tensor names and shapes and random weights from
@@ -254,6 +254,97 @@ def write_synthetic_miocodec_gguf(path: str, cfg: MioCodecConfig, seed: int = 0,
         w.add_tensor("global_encoder.pool.norm.bias", rnd(gout, scale=0.05))
 
     w.write()
+
+
+def write_synthetic_wavlm_gguf(
+    path: str,
+    n_layers: int = 2,
+    n_heads: int = 4,
+    head_dim: int = 8,
+    ffn: int = 48,
+    num_buckets: int = 32,
+    max_distance: int = 50,
+    conv_kernel: tuple = (10, 3, 2),
+    conv_stride: tuple = (5, 2, 2),
+    conv_dim: int = 16,
+    seed: int = 0,
+) -> None:
+    """Small-config WavLM with the converter's tensor contract
+    (convert_wavlm_base_plus_to_gguf.py:119-181). Pads kernel/stride lists to
+    the fixed 7 conv slots with k=s=1 no-op convs."""
+    rng = np.random.RandomState(seed)
+    embed = n_heads * head_dim
+
+    def rnd(*shape, scale=None):
+        if scale is None:
+            fan_in = shape[-1] if len(shape) >= 2 else shape[0]
+            scale = 1.0 / np.sqrt(max(1, fan_in))
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    kernels = list(conv_kernel) + [1] * (7 - len(conv_kernel))
+    strides = list(conv_stride) + [1] * (7 - len(conv_stride))
+
+    w = GGUFWriter(path, arch="wavlm")
+    w.add_string("general.type", "model")
+    w.add_uint32("wavlm.sample_rate", 16000)
+    w.add_uint32("wavlm.n_layers", n_layers)
+    w.add_uint32("wavlm.n_heads", n_heads)
+    w.add_uint32("wavlm.head_dim", head_dim)
+    w.add_uint32("wavlm.embed_dim", embed)
+    w.add_uint32("wavlm.num_buckets", num_buckets)
+    w.add_uint32("wavlm.max_distance", max_distance)
+    w.add_float32("wavlm.layer_norm_eps", 1e-5)
+    for i in range(7):
+        w.add_uint32(f"wavlm.feat.conv{i}.kernel", kernels[i])
+        w.add_uint32(f"wavlm.feat.conv{i}.stride", strides[i])
+
+    w.add_tensor("wavlm.feat.conv0.norm.weight", 1.0 + rnd(conv_dim, scale=0.05))
+    w.add_tensor("wavlm.feat.conv0.norm.bias", rnd(conv_dim, scale=0.05))
+    w.add_tensor("wavlm.feat.conv0.weight", rnd(conv_dim, 1, kernels[0]))
+    for i in range(1, 7):
+        w.add_tensor(f"wavlm.feat.conv{i}.weight", rnd(conv_dim, conv_dim, kernels[i]))
+
+    w.add_tensor("wavlm.proj.norm.weight", 1.0 + rnd(conv_dim, scale=0.05))
+    w.add_tensor("wavlm.proj.norm.bias", rnd(conv_dim, scale=0.05))
+    w.add_tensor("wavlm.proj.weight", rnd(embed, conv_dim))
+    w.add_tensor("wavlm.proj.bias", rnd(embed, scale=0.05))
+
+    groups = 16 if embed % 16 == 0 else n_heads
+    w.add_tensor("wavlm.pos_conv.weight", rnd(embed, embed // groups, 128))
+    w.add_tensor("wavlm.pos_conv.bias", rnd(embed, scale=0.05))
+    w.add_tensor("wavlm.transformer.norm.weight", 1.0 + rnd(embed, scale=0.05))
+    w.add_tensor("wavlm.transformer.norm.bias", rnd(embed, scale=0.05))
+    w.add_tensor("wavlm.layer.0.attn.rel_embed.weight", rnd(num_buckets, n_heads, scale=0.2))
+
+    for i in range(n_layers):
+        p = f"wavlm.layer.{i}"
+        w.add_tensor(f"{p}.attn.in_proj.weight", rnd(3 * embed, embed))
+        w.add_tensor(f"{p}.attn.in_proj.bias", rnd(3 * embed, scale=0.05))
+        w.add_tensor(f"{p}.attn.out_proj.weight", rnd(embed, embed))
+        w.add_tensor(f"{p}.attn.out_proj.bias", rnd(embed, scale=0.05))
+        w.add_tensor(f"{p}.attn.gru.weight", rnd(8, head_dim))
+        w.add_tensor(f"{p}.attn.gru.bias", rnd(8, scale=0.1))
+        w.add_tensor(f"{p}.attn.gru_const", rnd(n_heads, scale=0.3))
+        w.add_tensor(f"{p}.norm1.weight", 1.0 + rnd(embed, scale=0.05))
+        w.add_tensor(f"{p}.norm1.bias", rnd(embed, scale=0.05))
+        w.add_tensor(f"{p}.ffn.w1.weight", rnd(ffn, embed))
+        w.add_tensor(f"{p}.ffn.w1.bias", rnd(ffn, scale=0.05))
+        w.add_tensor(f"{p}.ffn.w2.weight", rnd(embed, ffn))
+        w.add_tensor(f"{p}.ffn.w2.bias", rnd(embed, scale=0.05))
+        w.add_tensor(f"{p}.norm2.weight", 1.0 + rnd(embed, scale=0.05))
+        w.add_tensor(f"{p}.norm2.bias", rnd(embed, scale=0.05))
+    w.write()
+
+
+def full_wavlm_kwargs(**overrides) -> dict:
+    """``write_synthetic_wavlm_gguf`` arguments for WavLM Base+'s published
+    widths (12 heads of 64, embed 768, ffn 3072, 512 conv channels, the
+    seven-conv stack, 320 buckets up to distance 800) at its 2 layers."""
+    base = dict(n_layers=2, n_heads=12, head_dim=64, ffn=3072, num_buckets=320,
+                max_distance=800, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                conv_stride=(5, 2, 2, 2, 2, 2, 2), conv_dim=512)
+    base.update(overrides)
+    return base
 
 
 def write_synthetic_mel_vocoder_gguf(path: str, cfg: MioCodecConfig, seed: int = 0,
