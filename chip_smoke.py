@@ -53,8 +53,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    of kernel 4; testing.full_codec441_config) and the 0.1B
    LLM (qwen2, dim 768, 12 layers, ~151.8k vocab), once with f32 and once
    with Q8_0 matmul weights.
-10. requests: three text -> WAV runs through ``miotts_tpu_torch.cli.main``
-    on the dense bf16 path; each WAV parses, has the sample count its codes
+10. requests: four text -> WAV runs through ``miotts_tpu_torch.cli.main``
+    on the dense bf16 path (one at ``--repeat-penalty 1.1``); each WAV parses, has the sample count its codes
     imply, is not silent, and only the K1 and K2 launch counters grew.
 11. quantized requests on the Q8_0 GGUF: ``--llm-quant q8_0`` and
     ``output`` (K1, K2 and K3 grew), and ``int8`` (W8A8 on exact int8
@@ -133,28 +133,55 @@ concurrent with two text /mio/tts requests, none failing.
 Last, a server phase (``miotts_tpu_torch/serving/``): the port's
 MioTTSServer in this process (port 0, so the launch counters are readable)
 on the dense 0.1B LLM and the 24 kHz wave codec with ``-np 8 -n 250
---ctx-size 512 --warmup on`` (its warm-up time and max_memory_reserved
-printed): /mio/health answers; inline codes through /mio/tts/stream equal
-``pipeline.synthesize`` of them within one PCM16 step; a sampled codes_only
-request (seed 7, temp 0.8, top_k 50) gives the same codes alone and with 7
-neighbours of other seeds sent 0.3 s after it (its prefill runs alone both
-times, its decode steps at B = 8), and whether it still does when all 8
-are sent at once (reported: its prefill may then be coalesced); greedy
-codes against the B=1 engine (the common prefix reported); two rounds each
-at concurrency 1, 4 and 8 of text /mio/tts/stream requests (WAVs parse,
-not silent, distinct X-Slot; aggregate audio-s per s, p50/p90 latency,
-mean llm_ms and synth_ms); two concurrent SSE stream_audio requests
-deliver audio (TTFA printed); generation ran on chunk-graph replays only
-(no eager step), and the served requests alone launched K1 and K2 (the
+--ctx-size 512 --warmup on`` and the JAX batcher's defaults (width-sliced
+chunks, the fused prefill, the attach hold, depth 1): the time until it
+listens (the foreground warm-up) and until the background tail ends, the
+max_memory_reserved at each, and every chunk graph (rungs 12/32/64 x
+widths 1/2/4/8) and fused first-chunk graph (k = 1/2/4/8) captured;
+/mio/health answers; inline codes through /mio/tts/stream equal
+``pipeline.synthesize`` of them within one PCM16 step; a sampled
+codes_only request (seed 7, temp 0.8, top_k 50) gives the same codes alone
+and with 7 neighbours of other seeds sent 0.3 s after it, with slicing off
+(its prefill runs alone both times, its decode steps at B = 8), and
+whether it still does when all 8 are sent at once (reported: its prefill
+may then be coalesced); seed 7 beside one neighbour and then another, each
+time one prefill group of two run at width 2 to the end, gives the same
+tokens; greedy codes against the B=1 engine and width 1 against the full
+width (the common prefixes reported); a request at repeat penalty 1.1;
+two rounds each at concurrency 1, 4 and 8 of text /mio/tts/stream
+requests (WAVs parse, are not silent, hold all 250 codes, distinct
+X-Slot; aggregate audio-s per s, p50/p90 latency, mean llm_ms and
+synth_ms, the attach holds and their ms, K1 and K2 launches a request and
+chunks by width) and two at concurrency 4 with MIOTTS_CHUNK_DEPTH=2
+(reported); with the fused prefill off, a concurrency-4 round whose every
+prefill group takes the unfused path (``llm_prefill_kv`` on the prefill
+stream, the worker's attach after its event), each request its 250 tokens,
+and seed 7 alone == among 7 neighbours again (slicing off); two concurrent SSE stream_audio requests
+deliver audio (first token, first chunk token and TTFA printed);
+generation ran on chunk-graph replays only (no eager step), and the served
+requests alone launched K1 and K2 with chunks at widths 1, 2, 4 and 8 (the
 reference runs between them are not counted); a 64-step chunk's device ms
-at occupancy 1 and 8; K2 at the server's cache rows, K1 at a served
-group's B = 8 ragged trunk shapes and K3 at T = 4 lanes, each against its
-plain version. Then a second server with ``--warmup off``: one round of 8
-(4 binary, 4 SSE stream_audio) in which codec keys get their eager decode
-and capture and the chunk graphs their capture while the worker replays
-and the prefill thread prefills: no request may fail, and K1 and K2 grow.
-Then a ``-np 4 --llm-quant q8_0`` server serves three requests and K3
-grows.
+at occupancy 1, 2, 4 and 8 at the width picked; each width's graph (3
+live lanes and a pad at width 4) and each fused first-chunk graph
+replayed bit-equal to its eager body from the same state; K2 at B = 1, 2,
+4 and 8 and S = 512 and the server's cache rows (beside SDPA), K1 at a
+served group's B = 8 ragged trunk shapes and K3 at T = 1, 2 and 4 lanes,
+each against its plain version. Then a second server with ``--warmup
+off``: one round of 8 (4 binary, 4 SSE stream_audio) in which codec keys
+get their eager decode and capture and the chunk and fused graphs their
+capture while the worker replays and the prefill thread prefills: no
+request may fail, and K1 and K2 grow. Then a ``-np 4 --llm-quant q8_0``
+server serves 1, 2 and 3 requests at once: chunks at widths 1 and 2, and
+K3 grows. Then ``--llm-api-url`` against an in-process stub endpoint, in
+openai-chat and generic mode: ``cli.main`` text -> WAV with no -m, and a
+server with no LLM serving a text request; each WAV equals
+``pipeline.synthesize`` of the stub's codes within one PCM16 step, K1
+launches and K2 does not. Last, a CLI request (400 codes) in a child
+process with ``MIOTTS_PROFILE_DIR`` set must leave one Chrome trace with
+the ``miocodec_synthesize`` range and K1's kernel in it. The graph phase
+also holds a repeat penalty of 1.1 (greedy, and sampled with seed 5)
+replayed against the eager body, and the dense requests include one at
+``--repeat-penalty 1.1``.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
@@ -189,8 +216,8 @@ from miotts_tpu_torch import pipeline as pipeline_mod
 from miotts_tpu_torch.device import select_device, to_host
 from miotts_tpu_torch.models import codec_graph, decode_graph
 from miotts_tpu_torch.models.llm import (
-    CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, init_kv_cache, llm_generate_chunk,
-    llm_start, load_llm_gguf)
+    CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, finish_chunk_fetch, init_kv_cache,
+    llm_generate_chunk, llm_start, load_llm_gguf)
 from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key
 from miotts_tpu_torch.ops.cuda import activation1d as k5
 from miotts_tpu_torch.ops.cuda import banded_attention as k1
@@ -244,6 +271,8 @@ REQUESTS = (  # (prompt, n_predict, extra flags)
     ("The quick brown fox jumps over the lazy dog, twice.", 250, ["--seed", "1"]),
     ("A longer request: it reads a whole paragraph of text aloud, clause by clause, "
      "so that the codec decodes a long bucket of codes.", 400, ["--seed", "2", "--top-p", "0.9"]),
+    # a repeat penalty other than 1: its scatter inside the captured graph
+    ("Hello there.", 120, ["--temp", "0", "--repeat-penalty", "1.1"]),
 )
 QUANT_REQUESTS = (  # (prompt, n_predict, extra flags, kernels that must launch)
     ("The quick brown fox jumps over the lazy dog, twice.", 250,
@@ -917,6 +946,33 @@ def capture(cfg, w, no_eog, sampler: SamplerParams, dev):
                    **{k: v - g0[k] for k, v in graph_counts().items()}}
 
 
+def check_penalty_graph(cfg, w, prompt, no_eog, dev) -> dict:
+    """A repeat penalty of 1.1 on the captured graph: greedy, the replayed
+    tokens and final logits equal the eager body's bit for bit; sampled
+    (temp 0.8, top-k 50, seed 5), the graph run's tokens equal the eager
+    run's."""
+    out = {}
+    for name, sampler, seed in (("greedy", SamplerParams(temp=0.0, repeat_penalty=1.1), 0),
+                                ("sampled", SamplerParams(temp=0.8, top_k=50,
+                                                          repeat_penalty=1.1), 5)):
+        eager = chunk_run(cfg, w, prompt, no_eog, sampler, seed)
+        graph, _ = capture(cfg, w, no_eog, sampler, dev)
+        run = chunk_run(cfg, w, prompt, no_eog, sampler, seed, graph)
+        same_logits = bool(torch.equal(eager["logits"], run["logits"]))
+        if eager["tokens"] != run["tokens"] or (name == "greedy" and not same_logits):
+            n_same = next((i for i, (a, b) in enumerate(zip(eager["tokens"], run["tokens"]))
+                           if a != b), GRAPH_TOKENS)
+            raise AssertionError(f"graph, repeat penalty 1.1, {name}: the replay differs from "
+                                 f"the eager body (tokens equal for {n_same}, final logits "
+                                 f"equal: {same_logits})")
+        out[name] = {"tokens": GRAPH_TOKENS, "logits_equal": same_logits}
+        log(f"[graph bf16] repeat penalty 1.1, {name} (seed {seed}): {GRAPH_TOKENS} tokens of "
+            f"the replayed graph equal the eager body's, final logits "
+            f"{'bit-equal' if same_logits else 'differ'}")
+        del graph
+    return out
+
+
 def check_graph(dev, tmp: Path) -> dict:
     """The chunk graph against the eager chunk body at full width, for each
     --llm-quant mode of GRAPH_MODES; see the module docstring."""
@@ -975,8 +1031,11 @@ def check_graph(dev, tmp: Path) -> dict:
             f"{row['graph_ms_per_token']:.3f} ms/token ({1e3 / row['graph_ms_per_token']:.1f} "
             f"tok/s), device {event_ms:.4f} ms/step (events around a replay), busy "
             f"{fmt(row['graph_busy_ms_per_step'])} ms/step, capture {cap['capture_ms']:.1f} ms")
-        if mode == "bf16":  # sampled: the draws follow the key, in the graph and eagerly
+        if mode == "bf16":
             del graph, state
+            # a repeat penalty of 1.1: the replay equals the eager body
+            row["repeat_penalty_1.1"] = check_penalty_graph(cfg, w, prompt, no_eog, dev)
+            # sampled: the draws follow the key, in the graph and eagerly
             graph, _ = capture(cfg, w, no_eog, sampled, dev)
             seeds = (1, 1, 2)  # three runs in a row on one graph's buffers
             runs = [chunk_run(cfg, w, prompt, no_eog, sampled, s, graph)["tokens"] for s in seeds]
@@ -1576,7 +1635,8 @@ def check_clone(dev, tmp: Path, ccfg) -> dict:
 
 # -- the server phase --------------------------------------------------------------------
 
-SERVER_FLAGS = ["-np", "8", "-n", "250", "--ctx-size", "512"]
+SERVER_TOKENS = 250  # random weights: every request runs its whole budget, 10 s of audio
+SERVER_FLAGS = ["-np", "8", "-n", str(SERVER_TOKENS), "--ctx-size", "512"]
 SERVER_TEXTS = tuple(f"Request {i}: the quick brown fox jumps over the lazy dog, {w}."
                      for i, w in enumerate(("once", "twice", "thrice", "again", "slowly",
                                             "quickly", "quietly", "loudly")))
@@ -1594,13 +1654,14 @@ def parse_wav_bytes(data: bytes, what: str) -> tuple[int, np.ndarray]:
     return sr, np.frombuffer(data[44:], "<i2")
 
 
-def start_server(dev, tmp: Path, llm: str, flags: list[str]):
+def start_server(dev, tmp: Path, llm: str | None, flags: list[str]):
     """The port's MioTTSServer in this process on port 0 (so its launch
-    counters are readable), built from the server's own flags."""
+    counters are readable), built from the server's own flags; ``llm``
+    None serves without a local LLM."""
     from miotts_tpu_torch.serving import server as server_mod
 
-    argv = ["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / llm), "--port", "0",
-            "--output-dir", str(tmp / "server_out"),
+    argv = ["-mv", str(tmp / "codec.gguf"), *(["-m", str(tmp / llm)] if llm else []),
+            "--port", "0", "--output-dir", str(tmp / "server_out"),
             "--reference-file", json.dumps({"key": "voice", "path": str(tmp / "voice.emb.gguf")}),
             *flags]
     srv = server_mod.MioTTSServer(
@@ -1629,9 +1690,11 @@ def http_post_raw(srv, path: str, body: bytes, ctype: str, timeout: float = 300)
         return e.code, dict(e.headers), e.read(), time.perf_counter() - t0
 
 
-def sse_audio(srv, text: str, seed: int) -> dict:
-    """One SSE stream_audio request: its TTFA (to the first audio_chunk
-    event) and the audio it delivered."""
+def sse_audio(srv, text: str, seed: int, first_chunk: int = 12) -> dict:
+    """One SSE stream_audio request with its token events: the time to its
+    first token event (the fused prefill's tokens), to its first token that
+    a chunk made (index ``first_chunk``), to its first audio_chunk event
+    (TTFA), and the audio it delivered."""
     import urllib.request
 
     body = {"text": text, "reference_key": "voice", "stream_tokens": True,
@@ -1640,45 +1703,59 @@ def sse_audio(srv, text: str, seed: int) -> dict:
                                  data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
-    ttfa, n_samples, events = None, 0, {}
+    ttfa = first_tok = chunk_tok = None
+    n_samples, events = 0, {}
     with urllib.request.urlopen(req, timeout=300) as r:
         event = None
         for raw in r:
             line = raw.decode().rstrip("\n")
+            now = (time.perf_counter() - t0) * 1e3
             if line.startswith("event: "):
                 event = line[7:]
                 events[event] = events.get(event, 0) + 1
                 if event == "audio_chunk" and ttfa is None:
-                    ttfa = (time.perf_counter() - t0) * 1e3
+                    ttfa = now
             elif line.startswith("data: ") and event == "audio_chunk":
                 n_samples += json.loads(line[6:])["n_samples"]
+            elif line.startswith("data: ") and event == "token":
+                i = json.loads(line[6:])["i"]
+                first_tok = now if first_tok is None else first_tok
+                if i >= first_chunk and chunk_tok is None:
+                    chunk_tok = now
     if "error" in events or not n_samples or ttfa is None:
         raise AssertionError(f"SSE stream_audio request {seed}: events {events}, "
                              f"{n_samples} samples")
-    return {"ttfa_ms": ttfa, "samples": n_samples, "wall_s": time.perf_counter() - t0,
-            "events": events}
+    return {"ttfa_ms": ttfa, "first_token_ms": first_tok, "first_chunk_token_ms": chunk_tok,
+            "samples": n_samples, "wall_s": time.perf_counter() - t0, "events": events}
 
 
-def binary_tts(srv, text: str, seed: int, what: str) -> dict:
+def binary_tts(srv, text: str, seed: int, what: str, extra: dict | None = None) -> dict:
     """One text /mio/tts/stream binary request: a WAV that parses and is not
     silent; its slot, latency and audio seconds."""
-    status, headers, data, secs = http_post(srv, "/mio/tts/stream",
-                                            {"text": text, "reference_key": "voice", "seed": seed})
+    status, headers, data, secs = http_post(
+        srv, "/mio/tts/stream", {"text": text, "reference_key": "voice", "seed": seed,
+                                 **(extra or {})})
     if status != 200:
         raise AssertionError(f"{what}: HTTP {status}: {data[:300]!r}")
     sr, pcm = parse_wav_bytes(data, what)
     if not np.any(pcm != 0):
         raise AssertionError(f"{what}: the WAV is silent")
-    return {"slot": int(headers["X-Slot"]), "latency_s": secs, "audio_s": pcm.size / sr}
+    return {"slot": int(headers["X-Slot"]), "latency_s": secs, "audio_s": pcm.size / sr,
+            "pcm": pcm}
 
 
 def concurrent_round(srv, n: int, what: str, offset: int = 0) -> dict:
     """n text binary requests at once: aggregate audio-s per s, latencies,
-    distinct slots, and the engine's mean llm_ms and synth_ms."""
+    distinct slots, the engine's mean llm_ms and synth_ms, the batcher's
+    attach holds (count and ms), and the round's K1 and K2 launches and
+    chunks by width."""
     import concurrent.futures
 
     eng = srv.engine
+    b = eng.batcher
     llm0, synth0, req0 = eng.llm_ms_total, eng.synth_ms_total, eng.requests_total
+    holds0, hold_ms0 = b.attach_holds, b.attach_hold_ms
+    k1_0, k2_0, widths0 = k1.launches, k2.launches, dict(b.width_counts)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(n) as ex:
         res = list(ex.map(lambda i: binary_tts(srv, SERVER_TEXTS[(offset + i) % 8], offset + i,
@@ -1687,27 +1764,70 @@ def concurrent_round(srv, n: int, what: str, offset: int = 0) -> dict:
     slots = [r["slot"] for r in res]
     if len(set(slots)) != n:
         raise AssertionError(f"{what}: slots {slots} are not distinct")
+    full = wav_samples(eng.pipeline.config, SERVER_TOKENS) / eng.pipeline.sample_rate
+    if min(r["audio_s"] for r in res) < full:
+        raise AssertionError(f"{what}: audio of {[r['audio_s'] for r in res]} s, not every "
+                             f"request the {full} s of its {SERVER_TOKENS} tokens")
     n_req = eng.requests_total - req0
     return {"wall_s": wall, "audio_s": sum(r["audio_s"] for r in res),
             "latencies_s": [r["latency_s"] for r in res],
             "llm_ms": (eng.llm_ms_total - llm0) / n_req,
-            "synth_ms": (eng.synth_ms_total - synth0) / n_req}
+            "synth_ms": (eng.synth_ms_total - synth0) / n_req,
+            "attach_holds": b.attach_holds - holds0, "attach_hold_ms": b.attach_hold_ms - hold_ms0,
+            "k1": k1.launches - k1_0, "k2": k2.launches - k2_0,
+            "widths": {wd: c - widths0.get(wd, 0) for wd, c in sorted(b.width_counts.items())
+                       if c > widths0.get(wd, 0)}}
 
 
-def chunk_device_ms(srv, occupancy: int) -> float:
-    """Device ms of one replay of the batcher's chunk_max graph with
-    ``occupancy`` lanes live (the server idle; the graph runs all lanes
-    either way), median of 3 by CUDA events."""
+def round_stats(rs: list[dict]) -> dict:
+    lat = [x for r in rs for x in r["latencies_s"]]
+    return {"audio_s_per_s": sum(r["audio_s"] for r in rs) / sum(r["wall_s"] for r in rs),
+            "rounds_audio_s_per_s": [r["audio_s"] / r["wall_s"] for r in rs],
+            "p50_ms": pct(lat, 50), "p90_ms": pct(lat, 90),
+            "llm_ms": float(np.mean([r["llm_ms"] for r in rs])),
+            "synth_ms": float(np.mean([r["synth_ms"] for r in rs])),
+            "audio_s": sum(r["audio_s"] for r in rs) / len(lat),
+            "attach_holds": [r["attach_holds"] for r in rs],
+            "attach_hold_ms": [r["attach_hold_ms"] for r in rs],
+            "k1_per_request": sum(r["k1"] for r in rs) / len(lat),
+            "k2_per_request": sum(r["k2"] for r in rs) / len(lat),
+            "widths": [r["widths"] for r in rs]}
+
+
+def round_text(n: int, r: dict) -> str:
+    return (f"audio-s/s {r['audio_s_per_s']:.2f} (rounds "
+            f"{', '.join(f'{x:.2f}' for x in r['rounds_audio_s_per_s'])}), latency p50 "
+            f"{r['p50_ms']:.1f} ms p90 {r['p90_ms']:.1f} ms, llm_ms {r['llm_ms']:.1f} synth_ms "
+            f"{r['synth_ms']:.1f}, {r['audio_s']:.2f} s of audio a request, attach holds "
+            f"{r['attach_holds']} ({', '.join(f'{x:.1f}' for x in r['attach_hold_ms'])} ms), "
+            f"launches a request K1 {r['k1_per_request']:.1f} K2 {r['k2_per_request']:.1f}, "
+            f"chunks by width {r['widths']}")
+
+
+def width_lanes(b, live: int, width: int) -> np.ndarray:
+    """A sliced chunk's lane list: lanes 0..live-1, then distinct pad lanes
+    (n_lanes + lane) outside them."""
+    return np.array(list(range(live)) + [b.n_lanes + i for i in range(live, width)], np.int64)
+
+
+def chunk_device_ms(srv, occupancy: int) -> dict:
+    """Device ms of one replay of the batcher's chunk_max graph at the width
+    it picks for ``occupancy`` live lanes (the server idle), median of 3 by
+    CUDA events."""
     b = srv.engine.batcher
-    g, st = b.graphs[b.chunk_max], b.state
+    st, rung = b.state, b.chunk_max
+    width = b._pick_width(rung, occupancy) or b.n_lanes
+    g = b.graphs[(rung, width)]
     times = []
     with b._cv:
+        if width < b.n_lanes:
+            b._lanes_bufs[width].copy_(torch.from_numpy(width_lanes(b, occupancy, width)))
         for _ in range(3):
             st.done.fill_(True)
             st.done[:occupancy] = False
             st.pos.fill_(300)
             b.rem.fill_(0)
-            b.rem[:occupancy] = b.chunk_max
+            b.rem[:occupancy] = rung
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
@@ -1717,32 +1837,220 @@ def chunk_device_ms(srv, occupancy: int) -> float:
             times.append(start.elapsed_time(end))
         st.done.fill_(True)
         b.rem.fill_(0)
-    return sorted(times)[1]
+    return {"width": width, "ms": sorted(times)[1]}
+
+
+# (width, live lanes) of the width graphs' replay-vs-eager check: width 4
+# holds a pad lane; the full width five live lanes
+WIDTH_CASES = ((1, 1), (2, 2), (4, 3), (8, 5))
+WIDTH_SAMPLERS = (SamplerParams(temp=0.0), SamplerParams(temp=0.8, top_k=50, repeat_penalty=1.1),
+                  SamplerParams(temp=0.0, repeat_penalty=1.1), SamplerParams(temp=0.8, top_k=50),
+                  SamplerParams(temp=1.0, top_p=0.9))
+
+
+def check_width_graphs(srv) -> dict:
+    """Each width's graph (the middle rung) replayed from a state with live
+    lanes (prompts prefilled and attached; greedy, sampled and penalty-1.1
+    lanes) equals the eager width-w body run from the same state, bit for
+    bit: tokens, counts and every state tensor. Then, reported: the width-1
+    body against the full-width body from the one-lane state (tokens in
+    common, the lane's final logits' max abs gap)."""
+    from miotts_tpu_torch.models.llm import (
+        CHAT_TEMPLATE, attach_lanes, llm_generate_chunk_batched,
+        llm_generate_chunk_batched_sliced, llm_prefill_kv)
+
+    b, llm = srv.engine.batcher, srv.engine.llm
+    cfg, w, eog, dev, rung = b.cfg, llm.weights, llm.eog_ids, b.device, b.chunk
+    out, one_lane = {}, None
+
+    def eager(width, st):
+        if width < b.n_lanes:
+            o, n, _ = llm_generate_chunk_batched_sliced(cfg, w, eog, rung, width, b.sampler, st,
+                                                        b._lanes_bufs[width], b.rem)
+        else:
+            o, n, _ = llm_generate_chunk_batched(cfg, w, eog, rung, b.sampler, st, b.rem)
+        return o.clone(), n.clone()
+
+    def load(values):
+        for k, t in vars(b.state).items():
+            t.copy_(values[k])
+
+    with b._cv:
+        torch.cuda.synchronize()
+        for width, live in WIDTH_CASES:
+            width = min(width, b.n_lanes)
+            ids = [llm.tokenizer.encode(CHAT_TEMPLATE.format(text=SERVER_TEXTS[i]),
+                                        parse_special=True) for i in range(live)]
+            toks = np.zeros((live, max(map(len, ids))), np.int64)
+            for i, x in enumerate(ids):
+                toks[i, :len(x)] = x
+            lens = np.array([len(x) for x in ids], np.int32)
+            logits, kk, vv = llm_prefill_kv(cfg, w, torch.from_numpy(toks).to(dev),
+                                            torch.from_numpy(lens).to(dev))
+            b.state.done.fill_(True)
+            attach_lanes(b.state, np.arange(live), logits, kk, vv, lens, np.arange(live) + 11)
+            for i in range(live):
+                b.sampler.set_lane(i, WIDTH_SAMPLERS[i])
+            b.rem.zero_()
+            b.rem[:live] = 200
+            if width < b.n_lanes:
+                b._lanes_bufs[width].copy_(torch.from_numpy(width_lanes(b, live, width)))
+            s0 = {k: t.clone() for k, t in vars(b.state).items()}
+            o1, n1 = (t.clone() for t in b.graphs[(rung, width)].run())
+            s1 = {k: t.clone() for k, t in vars(b.state).items()}
+            load(s0)
+            o2, n2 = eager(width, b.state)
+            torch.cuda.synchronize()
+            diff = [k for k, t in vars(b.state).items() if not torch.equal(t, s1[k])]
+            if not (torch.equal(o1, o2) and torch.equal(n1, n2)) or diff:
+                raise AssertionError(f"width {width} ({live} live): the replay differs from the "
+                                     f"eager body (tokens equal: {torch.equal(o1, o2)}, state "
+                                     f"tensors that differ: {diff})")
+            out[width] = {"live": live, "tokens": int(n1.sum())}
+            pads = width - live if width < b.n_lanes else 0
+            log(f"[server] width {width} ({live} live lanes, {pads} pad): "
+                f"one {rung}-step replay equals the eager width-{width} body bit for bit "
+                f"({int(n1.sum())} tokens, every state tensor)")
+            if width == 1:
+                one_lane = (s0, o2, b.state.logits[0].clone())
+        # width 1 against the full width from the one-lane state (reported)
+        s0, o_w1, logits_w1 = one_lane
+        load(s0)
+        o_full, _ = eager(b.n_lanes, b.state)
+        gap = (b.state.logits[0] - logits_w1).abs().max().item()
+        a, c = o_w1[0].tolist(), o_full[0].tolist()
+        same = next((i for i, (x, y) in enumerate(zip(a, c)) if x != y), len(a))
+        out["width1_vs_full"] = {"tokens_in_common": same, "of": len(a), "logits_max_abs_gap": gap}
+        log(f"[server] one lane, width 1 vs the full width ({b.n_lanes}): {same} of {len(a)} "
+            f"greedy tokens in common, final logits max abs gap {gap:.3e} (reported)")
+        b.state.done.fill_(True)
+        b.rem.zero_()
+        torch.cuda.synchronize()
+    return out
+
+
+def check_fused_graphs(srv) -> dict:
+    """Each fused first-chunk graph (k = 1, 2, 4, 8 lanes), replayed after
+    the prefill of k prompts (greedy, sampled and penalty-1.1 lanes),
+    equals its eager body from the same prefill into a fresh state of the
+    same max_ctx rows, bit for bit: tokens, counts, done, pos, ring, key,
+    logits and each lane's cache rows below its pos."""
+    from miotts_tpu_torch.models.llm import (
+        CHAT_TEMPLATE, NO_BUDGET, fused_state, llm_generate_chunk_batched, prefill_into)
+    from miotts_tpu_torch.models.sampling import BatchSamplerParams
+
+    b, llm = srv.engine.batcher, srv.engine.llm
+    cfg, w, eog, dev = b.cfg, llm.weights, llm.eog_ids, b.device
+    out = {}
+    for k in sorted(b._fused):
+        ids = [llm.tokenizer.encode(CHAT_TEMPLATE.format(text=SERVER_TEXTS[i]),
+                                    parse_special=True) for i in range(k)]
+        toks = np.zeros((k, max(map(len, ids))), np.int64)
+        for i, x in enumerate(ids):
+            toks[i, :len(x)] = x
+        lens = np.array([len(x) for x in ids], np.int32)
+        seeds = np.arange(k, dtype=np.int64) + 20
+        params = [WIDTH_SAMPLERS[i % len(WIDTH_SAMPLERS)] for i in range(k)]
+        fetch, gst, event = b._prefill_fused(toks, lens, seeds, params)
+        o1, n1, d1 = finish_chunk_fetch(fetch)
+        event.synchronize()
+        sampler = BatchSamplerParams.make([p.temp for p in params], [p.top_k for p in params],
+                                          [p.top_p for p in params],
+                                          [p.repeat_penalty for p in params], dev)
+        st = prefill_into(cfg, w, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+                          seeds, fused_state(cfg, k, b.max_ctx, dev))
+        o2, n2, _ = llm_generate_chunk_batched(
+            cfg, w, eog, b.first_chunk, sampler, st,
+            torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        # a lane's cache rows below its pos: the rows decode reads (those at
+        # or above it hold an earlier group's values in the graph's state,
+        # zeros in a fresh one, and are written before they are read)
+        pos = st.pos.tolist()
+        same = {"tokens": np.array_equal(o1, o2.cpu().numpy()),
+                "n_new": np.array_equal(n1, n2.cpu().numpy()),
+                "done": np.array_equal(d1, st.done.cpu().numpy()),
+                **{f: bool(torch.equal(getattr(gst, f), getattr(st, f)))
+                   for f in ("pos", "ring", "key", "logits")},
+                "cache": all(torch.equal(g[:, i, :p], e[:, i, :p])
+                             for g, e in ((gst.cache_k, st.cache_k), (gst.cache_v, st.cache_v))
+                             for i, p in enumerate(pos))}
+        if not all(same.values()):
+            raise AssertionError(f"fused graph k={k}: the replay differs from the eager body: "
+                                 f"{same}")
+        out[k] = int(n1.sum())
+        log(f"[server] fused first chunk, k={k}: the replay after a prefill of {k} prompts "
+            f"equals the eager body bit for bit ({int(n1.sum())} tokens; done, pos, ring, key, "
+            f"logits, each lane's cache rows below its pos {pos})")
+    return out
+
+
+def width2_pair(b, text: str, neighbour: str) -> list[int]:
+    """Seed 7's tokens beside one neighbour, both prefilled in one group of
+    two and run at width 2 from their attach to their end: a one-token
+    request is prefilled first while the fused path's lock is held, so
+    both queue before the prefill thread drains again."""
+    groups = []
+    real = b._prefill_group
+
+    def spy(bucket, group):
+        groups.append(len(group))
+        return real(bucket, group)
+
+    b._prefill_group = spy
+    try:
+        with b._fused_lock:
+            hold = b.submit("hold", SamplerParams(temp=0.0), n_predict=1)
+            time.sleep(0.3)
+            mine = b.submit(text, SamplerParams(temp=0.8, top_k=50, seed=7), n_predict=250,
+                            early_tokens=False)
+            other = b.submit(neighbour, SamplerParams(temp=0.8, top_k=50, seed=8),
+                             n_predict=250, early_tokens=False)
+        hold.collect()
+        toks = mine.collect()
+        other.collect()
+    finally:
+        del b._prefill_group
+    if groups != [1, 2]:
+        raise AssertionError(f"width-2 pair: prefill groups {groups}, not [1, 2]")
+    return toks
 
 
 def k2_at_server_s(dev, gen, S: int, B: int = 8) -> dict:
-    """K2 at the server's cache rows and lane count, ragged positions."""
+    """K2 at a server's cache rows and a chunk width B, ragged positions:
+    against its plain version, timed beside its bound and one SDPA call
+    over the whole cache and this step's k/v, masked to each lane's
+    positions (GQA)."""
     KVH, G, HD = 2, 6, 64
     bf = torch.bfloat16
     q = torch.randn(B, KVH, G, HD, generator=gen).to(dev, bf)
     kc, vc = (torch.randn(B, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
     ck, cv = (torch.randn(B, S, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
-    pos_l = [int(p) for p in np.linspace(40, S - 1, B)]
+    pos_l = [int(p) for p in np.linspace(S - 1, 40, B)]
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
     args = (q, kc, vc, ck, cv, 1.0 / math.sqrt(HD), pos)
     err = (k2.decode_attention(*args).float() - k2.decode_attention_plain(*args).float()
            ).abs().max().item()
     ms = cuda_ms(lambda: k2.decode_attention(*args))
     plain = cuda_ms(lambda: k2.decode_attention_plain(*args))
+    keys = torch.cat([ck, kc[:, None]], 1).transpose(1, 2).contiguous()
+    vals = torch.cat([cv, vc[:, None]], 1).transpose(1, 2).contiguous()
+    j = torch.arange(S + 1, device=dev)
+    mask = ((j[None, :] < pos[:, None]) | (j[None, :] == S))[:, None, None, :]
+    qh = q.reshape(B, KVH * G, 1, HD)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, keys, vals, attn_mask=mask,
+                                                         enable_gqa=True))
     nbytes = sum(2 * (2 * (p + 1) * KVH * HD + KVH * G * HD) + 2 * KVH * G * HD + 4 for p in pos_l)
     ops = sum(4 * (p + 1) * KVH * G * HD for p in pos_l)
     bound = least_time(nbytes, ops, BF16_FLOP_S)
     if not err <= K2_TOL:
-        raise AssertionError(f"K2 error {err} > {K2_TOL} at the server's S={S}")
+        raise AssertionError(f"K2 error {err} > {K2_TOL} at the server's S={S} B={B}")
     log(f"[server] K2 at B={B} S={S} pos={pos_l} launch={k2.launch_shape(B, S, KVH)}: "
         f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain:.4f}ms "
-        f"bound={bound['bound_ms']:.5f}ms ({bound['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound, "S": S, "B": B}
+        f"SDPA(masked cache, GQA)={lib:.4f}ms bound={bound['bound_ms']:.5f}ms "
+        f"({bound['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **bound, "S": S,
+            "B": B}
 
 
 def k1_at_server(dev, gen, cfg, bucket: int, B: int = 8) -> dict:
@@ -1787,23 +2095,89 @@ def k3_at_lanes(dev, gen, T: int) -> dict:
     return {"max_abs_err": worst, "T": T, "by_leaf_ms": rows}
 
 
+def unfused_rounds(srv, req: dict, codes_of, common) -> dict:
+    """The unfused submit path (MIOTTS_FUSED_PREFILL=0, or a prompt bucket
+    with no room for the first chunk): ``llm_prefill_kv`` on the prefill
+    stream, then the worker's attach after its event. With fusing off,
+    every prefill group must take it: a concurrency-4 round (default
+    slicing) whose requests all run their 250 tokens and launch K2, and
+    seed 7 alone == among 7 neighbours with slicing off too (both runs at
+    B = 8, as in the fused check)."""
+    import concurrent.futures
+
+    b = srv.engine.batcher
+    calls = {"unfused": 0, "fused": 0}
+    plain, fused = b._prefill, b._prefill_fused
+
+    def count_plain(*a):
+        calls["unfused"] += 1
+        return plain(*a)
+
+    def count_fused(*a):
+        calls["fused"] += 1
+        return fused(*a)
+
+    out: dict = {}
+    b.fused_prefill = False
+    b._prefill, b._prefill_fused = count_plain, count_fused
+    try:
+        out["conc4"] = round_stats([concurrent_round(srv, 4, "unfused round", offset=4)])
+        if out["conc4"]["k2_per_request"] <= 0 or calls["unfused"] == 0 or calls["fused"]:
+            raise AssertionError(f"unfused round: prefill groups {calls}, K2 "
+                                 f"{out['conc4']['k2_per_request']} a request")
+        log(f"[server] MIOTTS_FUSED_PREFILL=0, concurrency 4 ({calls['unfused']} unfused prefill "
+            f"groups): {round_text(4, out['conc4'])}")
+        b.slice_chunks = False
+        try:
+            alone = codes_of(req)
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                first = ex.submit(codes_of, req)
+                time.sleep(0.3)
+                others = [ex.submit(codes_of, {**req, "seed": 100 + i,
+                                               "text": SERVER_TEXTS[i + 1]}) for i in range(7)]
+                among = first.result()
+                [f.result() for f in others]
+        finally:
+            b.slice_chunks = True
+        if among != alone or calls["fused"]:
+            raise AssertionError(f"lane independence, unfused: seed 7 gave {len(alone)} codes "
+                                 f"alone and {len(among)} among neighbours, equal for "
+                                 f"{common(alone, among)}; prefill groups {calls}")
+    finally:
+        b.fused_prefill = True
+        b._prefill, b._prefill_fused = plain, fused
+    out["lane_independence_codes"] = len(alone)
+    out["prefill_groups"] = calls
+    log(f"[server] seed 7, unfused, slicing off: {len(alone)} codes alone == among 7 concurrent "
+        f"neighbours, bit for bit ({calls['unfused']} unfused prefill groups in all)")
+    return out
+
+
 def pct(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs) * 1e3, q))
 
 
 def check_server(dev, tmp: Path, emb) -> dict:
     """The port's HTTP server at full width (0.1B dense bf16 LLM, 24 kHz
-    wave codec, -np 8 -n 250 --ctx-size 512): warmed up, then health,
-    inline codes against pipeline.synthesize, lane independence, greedy
-    against the B=1 engine, timed rounds at concurrency 1/4/8, two SSE
-    stream_audio requests, chunk device ms at occupancy 1 and 8, and K1,
-    K2 and K3 held against their plain versions at the server's shapes; a
-    second server with --warmup off (codec captures overlapping LLM
-    replays), and a -np 4 q8_0 server (K3). The served requests of each
-    server must launch its kernels; the references and checks run between
-    them are not counted."""
+    wave codec, -np 8 -n 250 --ctx-size 512, the JAX batcher's defaults:
+    width-sliced chunks, the fused prefill, the attach hold, depth 1):
+    listening after the foreground warm-up, then its background tail;
+    health, inline codes against pipeline.synthesize, lane independence
+    (slicing off, as both of its runs then keep B = 8), a lane at width 2
+    beside two different neighbours, greedy against the B=1 engine and
+    width 1 against the full width, timed rounds at concurrency 1/4/8 (the
+    attach holds of each burst) and a depth-2 round, the unfused submit
+    path (a round and lane independence with fusing off), two SSE stream_audio
+    requests (first token, first chunk token, first audio), a served lane
+    at repeat penalty 1.1, chunk device ms at occupancy 1, 2, 4 and 8, each
+    width's replay against its eager body, and K1, K2 and K3 held against
+    their plain versions at the server's shapes; a second server with
+    --warmup off, and a -np 4 q8_0 server (K3 at widths 1 and 2). The
+    served requests of each server must launch its kernels at the new
+    widths; the references and checks run between them are not counted."""
     import concurrent.futures
 
+    from miotts_tpu_torch.models.llm import CHAT_TEMPLATE
     from miotts_tpu_torch.models.sampling import SamplerParams as SP
 
     out: dict = {}
@@ -1813,21 +2187,42 @@ def check_server(dev, tmp: Path, emb) -> dict:
     t0 = time.perf_counter()
     srv = start_server(dev, tmp, "llm.gguf", [*SERVER_FLAGS, "--warmup", "on"])
     eng = srv.engine
+    b = eng.batcher
     out["startup_s"] = time.perf_counter() - t0
     out["warmup_s"] = eng.warmup_s
-    out["max_memory_reserved_mib"] = torch.cuda.max_memory_reserved() / 2 ** 20
-    out["warm_graphs"] = {"codec": len(eng.pipeline.graphs), "chunk": len(eng.batcher.graphs)}
+    out["max_memory_reserved_listen_mib"] = torch.cuda.max_memory_reserved() / 2 ** 20
+    out["warm_graphs_listen"] = {"codec": len(eng.pipeline.graphs), "chunk": len(b.graphs),
+                                 "fused": len(b._fused)}
     log(f"[server] -np 8 -n 250 --ctx-size 512 --warmup on: listening after "
-        f"{out['startup_s']:.2f}s (warm-up {eng.warmup_s:.2f}s: {out['warm_graphs']} graphs), "
-        f"max_memory_reserved {out['max_memory_reserved_mib']:.0f} MiB")
+        f"{out['startup_s']:.2f}s (foreground warm-up {eng.warmup_s:.2f}s, "
+        f"{eng.warmup_fg_calls} calls: {out['warm_graphs_listen']} graphs), "
+        f"max_memory_reserved {out['max_memory_reserved_listen_mib']:.0f} MiB")
     try:
         import urllib.request
 
+        while not eng.warmup_bg_done:
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the warm-up tail did not end in 600 s")
+            time.sleep(0.05)
+        out["ready_s"] = time.perf_counter() - t0
+        out["warmup_tail_s"] = eng.warmup_bg_s
+        out["max_memory_reserved_mib"] = torch.cuda.max_memory_reserved() / 2 ** 20
+        out["warm_graphs"] = {"codec": len(eng.pipeline.graphs), "chunk": len(b.graphs),
+                              "fused": len(b._fused)}
+        want = {(r, wd) for r in b.ladder for wd in b.widths()}
+        if set(b.graphs) != want or set(b._fused) != {1, 2, 4, 8}:
+            raise AssertionError(f"warm-up: chunk graphs {sorted(b.graphs)}, fused graphs "
+                                 f"{sorted(b._fused)}")
+        log(f"[server] background tail ({eng.warmup_bg_calls} calls) done in "
+            f"{eng.warmup_bg_s:.2f}s, {out['ready_s']:.2f}s after the start: "
+            f"{out['warm_graphs']} graphs (chunk graphs: rungs {b.ladder} x widths "
+            f"{b.widths()}), max_memory_reserved {out['max_memory_reserved_mib']:.0f} MiB")
         with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/mio/health", timeout=30) as r:
             health = json.loads(r.read())
         if health["status"] != "ok" or not health["warmup_complete"]:
             raise AssertionError(f"health: {health}")
         served0 = {m: m.launches for m in MODS}
+        widths0 = dict(b.width_counts)
 
         # inline codes against pipeline.synthesize, within one PCM16 step
         codes = np.random.RandomState(5).randint(0, eng.pipeline.config.vocab_size, 150).tolist()
@@ -1844,8 +2239,8 @@ def check_server(dev, tmp: Path, emb) -> dict:
         log(f"[server] inline codes (150) equal pipeline.synthesize within {step} PCM16 step")
 
         # lane independence: sampled codes_only, alone and among 7 neighbours
-        # that arrive 0.3 s later (so both of its prefills run alone and its
-        # decode steps run at B = 8 in both runs)
+        # that arrive 0.3 s later (so both of its prefills run alone), with
+        # slicing off, so that its decode steps run at B = 8 in both runs
         req = {"text": SERVER_TEXTS[0], "reference_key": "voice", "codes_only": True,
                "seed": 7, "temp": 0.8, "top_k": 50}
 
@@ -1855,107 +2250,142 @@ def check_server(dev, tmp: Path, emb) -> dict:
                 raise AssertionError(f"codes_only: HTTP {st}: {raw[:300]!r}")
             return json.loads(raw)["codes_values"]
 
-        alone = codes_of(req)
-        with concurrent.futures.ThreadPoolExecutor(8) as ex:
-            first = ex.submit(codes_of, req)
-            time.sleep(0.3)
-            others = [ex.submit(codes_of, {**req, "seed": 100 + i, "text": SERVER_TEXTS[i + 1]})
-                      for i in range(7)]
-            among = first.result()
-            [f.result() for f in others]
-        if among != alone:
-            n_same = next((i for i, (a, b) in enumerate(zip(alone, among)) if a != b),
-                          min(len(alone), len(among)))
-            raise AssertionError(f"lane independence: seed 7 gave {len(alone)} codes alone and "
-                                 f"{len(among)} among neighbours, equal for {n_same}")
-        out["lane_independence_codes"] = len(alone)
-        log(f"[server] seed 7 (temp 0.8, top_k 50): {len(alone)} codes alone == among 7 "
-            f"concurrent neighbours, bit for bit (its prefill alone)")
-        # the same 8 sent at once: seed 7's prefill may then be coalesced
-        # with its neighbours' (a padded group, a GEMM at another M), which
-        # can round its first logits otherwise (reported, not required)
-        with concurrent.futures.ThreadPoolExecutor(8) as ex:
-            futs = [ex.submit(codes_of, req)]
-            futs += [ex.submit(codes_of, {**req, "seed": 100 + i, "text": SERVER_TEXTS[i + 1]})
-                     for i in range(7)]
-            at_once = futs[0].result()
-            [f.result() for f in futs[1:]]
-        n_same = next((i for i, (a, b) in enumerate(zip(alone, at_once)) if a != b),
-                      min(len(alone), len(at_once)))
-        out["lane_independence_at_once"] = {"equal": at_once == alone, "common_prefix": n_same,
-                                            "codes": len(at_once)}
-        log(f"[server] seed 7 sent at once with its 7 neighbours: "
-            f"{'bit-equal to alone' if at_once == alone else 'differs from alone'} "
-            f"({n_same} of {len(at_once)} codes in common)")
+        def common(x, y):
+            return next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
 
-        # greedy against the B=1 engine path (reported, not required)
+        b.slice_chunks = False
+        try:
+            alone = codes_of(req)
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                first = ex.submit(codes_of, req)
+                time.sleep(0.3)
+                others = [ex.submit(codes_of, {**req, "seed": 100 + i,
+                                               "text": SERVER_TEXTS[i + 1]}) for i in range(7)]
+                among = first.result()
+                [f.result() for f in others]
+            if among != alone:
+                raise AssertionError(f"lane independence: seed 7 gave {len(alone)} codes alone "
+                                     f"and {len(among)} among neighbours, equal for "
+                                     f"{common(alone, among)}")
+            out["lane_independence_codes"] = len(alone)
+            log(f"[server] seed 7 (temp 0.8, top_k 50): {len(alone)} codes alone == among 7 "
+                f"concurrent neighbours, bit for bit (its prefill alone, slicing off: B = 8)")
+            # the same 8 sent at once: seed 7's prefill may then be coalesced
+            # with its neighbours' (a padded group, a GEMM at another M),
+            # which can round its first logits otherwise (reported)
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                futs = [ex.submit(codes_of, req)]
+                futs += [ex.submit(codes_of, {**req, "seed": 100 + i, "text": SERVER_TEXTS[i + 1]})
+                         for i in range(7)]
+                at_once = futs[0].result()
+                [f.result() for f in futs[1:]]
+            n_same = common(alone, at_once)
+            out["lane_independence_at_once"] = {"equal": at_once == alone, "common_prefix": n_same,
+                                                "codes": len(at_once)}
+            log(f"[server] seed 7 sent at once with its 7 neighbours (slicing off): "
+                f"{'bit-equal to alone' if at_once == alone else 'differs from alone'} "
+                f"({n_same} of {len(at_once)} codes in common)")
+            greedy_full = codes_of({**req, "temp": 0.0})
+        finally:
+            b.slice_chunks = True
+
+        # a lane at width 2, beside one neighbour and then another: equal
+        def bucket(text):
+            n = len(eng.llm.tokenizer.encode(CHAT_TEMPLATE.format(text=text), parse_special=True))
+            return next(x for x in (32, 64, 128, 256, 512) if n <= x)
+
+        pals = [t for t in SERVER_TEXTS[1:] if bucket(t) == bucket(SERVER_TEXTS[0])][:2]
+        w2 = [width2_pair(b, SERVER_TEXTS[0], pal) for pal in pals]
+        if len(pals) < 2 or w2[0] != w2[1]:
+            raise AssertionError(f"width 2: seed 7 beside two neighbours gave {len(w2[0])} and "
+                                 f"{len(w2[-1])} tokens, equal for {common(w2[0], w2[-1])}")
+        out["width2_lane_tokens"] = len(w2[0])
+        log(f"[server] seed 7 at width 2 beside two different neighbours (one prefill group of "
+            f"two each time): {len(w2[0])} tokens, bit for bit")
+
+        # greedy: against the B=1 engine, and width 1 against the full width
+        # (both reported)
         greedy = codes_of({**req, "temp": 0.0})
         with uncounted():
             toks = eng.llm.generate_audio_tokens(SERVER_TEXTS[0], n_predict=250, n_ctx=512,
                                                  sampler=SP(temp=0.0))
         single = eng.llm.tokens_to_codes(toks)
-        prefix = next((i for i, (a, b) in enumerate(zip(greedy, single)) if a != b),
-                      min(len(greedy), len(single)))
-        out["greedy_common_prefix"] = [prefix, len(greedy), len(single)]
-        log(f"[server] greedy: {prefix} of {len(greedy)} codes equal the B=1 engine's "
-            f"({len(single)} codes)")
+        out["greedy_common_prefix"] = [common(greedy, single), len(greedy), len(single)]
+        out["greedy_width1_vs_full"] = [common(greedy, greedy_full), len(greedy),
+                                        len(greedy_full)]
+        log(f"[server] greedy alone: {out['greedy_common_prefix'][0]} of {len(greedy)} codes "
+            f"equal the B=1 engine's ({len(single)} codes); width 1 vs the full width (slicing "
+            f"off): {out['greedy_width1_vs_full'][0]} in common (reported)")
+
+        # a served lane at repeat penalty 1.1
+        pen = binary_tts(srv, SERVER_TEXTS[3], 9, "repeat penalty 1.1", {"repeat_penalty": 1.1})
+        log(f"[server] a request at repeat penalty 1.1: {pen['audio_s']:.2f} s of audio")
 
         # timed rounds at concurrency 1, 4 and 8, two rounds each
         rounds = {}
         for n in SERVER_ROUNDS:
-            rs = [concurrent_round(srv, n, f"conc {n} round {k}", offset=k * n) for k in (0, 1)]
-            lat = [x for r in rs for x in r["latencies_s"]]
-            rounds[n] = {
-                "audio_s_per_s": sum(r["audio_s"] for r in rs) / sum(r["wall_s"] for r in rs),
-                "rounds_audio_s_per_s": [r["audio_s"] / r["wall_s"] for r in rs],
-                "p50_ms": pct(lat, 50), "p90_ms": pct(lat, 90),
-                "llm_ms": float(np.mean([r["llm_ms"] for r in rs])),
-                "synth_ms": float(np.mean([r["synth_ms"] for r in rs])),
-                "audio_s": sum(r["audio_s"] for r in rs) / (2 * n)}
-            log(f"[server] concurrency {n}: audio-s/s {rounds[n]['audio_s_per_s']:.2f} "
-                f"(rounds {', '.join(f'{x:.2f}' for x in rounds[n]['rounds_audio_s_per_s'])}), "
-                f"latency p50 {rounds[n]['p50_ms']:.1f} ms p90 {rounds[n]['p90_ms']:.1f} ms, "
-                f"llm_ms {rounds[n]['llm_ms']:.1f} synth_ms {rounds[n]['synth_ms']:.1f}, "
-                f"{rounds[n]['audio_s']:.2f} s of audio a request")
+            rounds[n] = round_stats([concurrent_round(srv, n, f"conc {n} round {k}",
+                                                      offset=k * n) for k in (0, 1)])
+            log(f"[server] concurrency {n}: {round_text(n, rounds[n])}")
         out["rounds"] = rounds
+        b.depth = 2
+        try:
+            out["depth2_conc4"] = round_stats([concurrent_round(srv, 4, f"depth 2 round {k}",
+                                                                offset=k * 4) for k in (0, 1)])
+        finally:
+            b.depth = 1
+        log(f"[server] MIOTTS_CHUNK_DEPTH=2, concurrency 4: {round_text(4, out['depth2_conc4'])} "
+            f"(depth 1: {rounds[4]['audio_s_per_s']:.2f} audio-s/s)")
+        out["unfused"] = unfused_rounds(srv, req, codes_of, common)
 
         # two concurrent SSE stream_audio requests
         with concurrent.futures.ThreadPoolExecutor(2) as ex:
-            sse = list(ex.map(lambda i: sse_audio(srv, SERVER_TEXTS[i], 200 + i), range(2)))
+            sse = list(ex.map(lambda i: sse_audio(srv, SERVER_TEXTS[i], 200 + i, b.first_chunk),
+                              range(2)))
         out["sse"] = sse
-        ttfas = ", ".join(f"{x['ttfa_ms']:.1f}" for x in sse)
-        log(f"[server] 2 concurrent SSE stream_audio: TTFA {ttfas} ms, samples "
-            f"{[x['samples'] for x in sse]}")
+        def ms_of(key):
+            return ", ".join(f"{x[key]:.1f}" for x in sse)
+
+        log(f"[server] 2 concurrent SSE stream_audio: first token {ms_of('first_token_ms')} ms "
+            f"(the fused prefill's), first chunk token {ms_of('first_chunk_token_ms')} ms, "
+            f"TTFA {ms_of('ttfa_ms')} ms, samples {[x['samples'] for x in sse]}")
 
         g = {k: v - g0[k] for k, v in graph_counts().items()}
         if g["eager_steps"] != 0 or g["replays"] <= 0:
             raise AssertionError(f"server generation ran eager chunk steps or no replay: {g}")
         out["decode_graph"] = g
         grew = {m: m.launches - served0[m] for m in MODS}
+        widths = {wd: n - widths0.get(wd, 0) for wd, n in b.width_counts.items()
+                  if n > widths0.get(wd, 0)}
         out["served_launches"] = {m.__name__.rsplit(".", 1)[1]: n for m, n in grew.items()}
-        log(f"[server] the served requests launched {launch_text(grew)}")
-        if grew[k1] <= 0 or grew[k2] <= 0:
-            raise AssertionError(f"the served requests launched no K1 or no K2: "
-                                 f"{launch_text(grew)}")
+        out["served_widths"] = widths
+        log(f"[server] the served requests launched {launch_text(grew)}; chunks by width "
+            f"{dict(sorted(widths.items()))}")
+        if grew[k1] <= 0 or grew[k2] <= 0 or not {1, 2, 4, b.n_lanes} <= set(widths):
+            raise AssertionError(f"the served requests launched no K1 or no K2, or not at every "
+                                 f"width: {launch_text(grew)}, widths {widths}")
 
         with uncounted():
-            out["chunk_device_ms"] = {occ: chunk_device_ms(srv, occ) for occ in (1, 8)}
-            log(f"[server] one {eng.batcher.chunk_max}-step chunk replay: device "
-                f"{out['chunk_device_ms'][1]:.3f} ms at occupancy 1, "
-                f"{out['chunk_device_ms'][8]:.3f} ms at occupancy 8")
+            out["chunk_device_ms"] = {occ: chunk_device_ms(srv, occ) for occ in (1, 2, 4, 8)}
+            log(f"[server] one {b.chunk_max}-step chunk replay: device " + ", ".join(
+                f"{v['ms']:.3f} ms at occupancy {occ} (width {v['width']})"
+                for occ, v in out["chunk_device_ms"].items()))
+            out["width_graphs"] = check_width_graphs(srv)
+            out["fused_graphs"] = check_fused_graphs(srv)
             gen = torch.Generator().manual_seed(3)
-            out["k2_at_server_s"] = k2_at_server_s(dev, gen, eng.batcher.max_ctx)
+            out["k2_at_server_s"] = {f"B={B} S={S}": k2_at_server_s(dev, gen, S, B)
+                                     for S in (512, b.max_ctx) for B in (1, 2, 4, 8)}
             out["k1_at_server"] = k1_at_server(dev, gen, eng.pipeline.config,
                                                pick_bucket(len(alone)))
-            out["k3_at_lanes"] = k3_at_lanes(dev, gen, 4)
+            out["k3_at_lanes"] = {T: k3_at_lanes(dev, gen, T) for T in (1, 2, 4)}
     finally:
         srv.shutdown()
-    del srv, eng
+    del srv, eng, b
     torch.cuda.empty_cache()
 
-    # --warmup off: codec keys get their eager decode and their capture, and
-    # the chunk graphs their capture, while the worker replays and the
-    # prefill thread prefills
+    # --warmup off: codec keys get their eager decode and their capture, the
+    # chunk graphs (each width) and fused graphs their capture, while the
+    # worker replays and the prefill thread prefills
     srv = start_server(dev, tmp, "llm.gguf", [*SERVER_FLAGS, "--warmup", "off"])
     try:
         c1, d1, l1 = codec_counts(), graph_counts(), {m: m.launches for m in MODS}
@@ -1974,11 +2404,13 @@ def check_server(dev, tmp: Path, emb) -> dict:
         grew = {m: m.launches - l1[m] for m in MODS}
         out["warmup_off"] = {"failed": len(failed), "codec_graph": c, "decode_graph": d,
                              "launches": {m.__name__.rsplit(".", 1)[1]: n
-                                          for m, n in grew.items()}}
+                                          for m, n in grew.items()},
+                             "widths": dict(srv.engine.batcher.width_counts)}
         log(f"[server] --warmup off round of 8 (4 binary, 4 SSE stream_audio): {len(failed)} "
             f"failed; codec eager={c['eager_decodes']} captures={c['captures']} "
             f"replays={c['replays']}; chunk captures={d['captures']} replays={d['replays']} "
-            f"eager_steps={d['eager_steps']}; launched {launch_text(grew)}")
+            f"eager_steps={d['eager_steps']}; chunks by width "
+            f"{out['warmup_off']['widths']}; launched {launch_text(grew)}")
         if (failed or c["captures"] == 0 or d["captures"] == 0 or d["eager_steps"]
                 or grew[k1] <= 0 or grew[k2] <= 0):
             raise AssertionError(f"--warmup off round: {failed}, {c}, {d}, {launch_text(grew)}")
@@ -1987,25 +2419,160 @@ def check_server(dev, tmp: Path, emb) -> dict:
     del srv
     torch.cuda.empty_cache()
 
-    # a short q8_0 server: K3 at T = lanes
+    # a short q8_0 server: K3 at T = 1, 2 (width graphs) and 4 (all lanes)
     srv = start_server(dev, tmp, "llm_q8_0.gguf",
                        ["-np", "4", "-n", "120", "--ctx-size", "512", "--llm-quant", "q8_0"])
     try:
+        b = srv.engine.batcher
         k3_0 = k3.launches
-        with concurrent.futures.ThreadPoolExecutor(3) as ex:
-            list(ex.map(lambda i: binary_tts(srv, SERVER_TEXTS[i], 400 + i, f"q8_0 {i}"),
-                        range(3)))
+        out["q8_0_by_concurrency"] = {}
+        for n in (1, 2, 3):
+            k3_n, widths_n = k3.launches, dict(b.width_counts)
+            with concurrent.futures.ThreadPoolExecutor(n) as ex:
+                list(ex.map(lambda i: binary_tts(srv, SERVER_TEXTS[i], 400 + i, f"q8_0 {i}"),
+                            range(n)))
+            out["q8_0_by_concurrency"][n] = {
+                "k3_per_request": (k3.launches - k3_n) / n,
+                "widths": {wd: c - widths_n.get(wd, 0) for wd, c in sorted(b.width_counts.items())
+                           if c > widths_n.get(wd, 0)}}
+        out["q8_0_widths"] = dict(b.width_counts)
     finally:
         srv.shutdown()
-    del srv
+    del srv, b
     torch.cuda.empty_cache()
     out["q8_0_k3_launches"] = k3.launches - k3_0
-    if out["q8_0_k3_launches"] <= 0:
-        raise AssertionError("the q8_0 server's requests launched no K3")
-    log(f"[server] -np 4 --llm-quant q8_0: 3 requests launched K3 {out['q8_0_k3_launches']} "
-        f"times")
+    if out["q8_0_k3_launches"] <= 0 or not {1, 2} <= set(out["q8_0_widths"]):
+        raise AssertionError(f"the q8_0 server's requests launched K3 {out['q8_0_k3_launches']} "
+                             f"times, chunks by width {out['q8_0_widths']}")
+    log(f"[server] -np 4 --llm-quant q8_0: 1, 2 and 3 requests at once launched K3 "
+        f"{out['q8_0_k3_launches']} times; chunks by width {out['q8_0_widths']}; by concurrency "
+        f"{out['q8_0_by_concurrency']}")
     out["codec_graph"] = {k: v - c0[k] for k, v in codec_counts().items()}
     return out
+
+
+# -- the external LLM and the profiler ----------------------------------------------------
+
+API_CODES = [int(c) for c in np.random.RandomState(11).randint(0, 12800, 200)]
+
+
+@contextlib.contextmanager
+def llm_api_stub():
+    """An external LLM API on a local port: an openai-chat request gets
+    API_CODES as ``<|s_N|>`` message text, a generic one as a ``text``
+    field. Yields (url, the modes of the requests it answered)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen: list[str] = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            chat = "messages" in body
+            seen.append("openai-chat" if chat else "generic")
+            text = "".join(f"<|s_{c}|>" for c in API_CODES)
+            data = json.dumps({"choices": [{"message": {"content": text}}]} if chat
+                              else {"text": text}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}/v1/chat/completions", seen
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+
+
+def check_llm_api(dev, tmp: Path, emb) -> dict:
+    """--llm-api-url, in both modes: ``cli.main`` text -> WAV with no -m, and
+    a server with no LLM serving text /mio/tts/stream requests; each WAV
+    equals ``pipeline.synthesize`` of the stub's codes within one PCM16 step;
+    K1 launches and K2 does not."""
+    with uncounted():
+        ref = MioTTSPipeline(str(tmp / "codec.gguf"), dev).synthesize(API_CODES, emb).audio
+    ref16 = np.rint(np.clip(ref, -1, 1) * 32767).astype(np.int32)
+    out = {}
+
+    def steps(pcm, what):
+        step = (int(np.abs(pcm.astype(np.int32) - ref16).max()) if pcm.size == ref16.size
+                else -1)
+        if not 0 <= step <= 1:
+            raise AssertionError(f"{what}: {pcm.size} vs {ref16.size} samples, largest "
+                                 f"difference {step} PCM16 steps")
+        return step
+
+    with llm_api_stub() as (url, seen):
+        for mode in ("openai-chat", "generic"):
+            _, n_codes, _, pcm, grew, _ = drive_cli(
+                f"api-{mode}", tmp, ["-mv", str(tmp / "codec.gguf"), "--llm-api-url", url,
+                                     "--llm-api-mode", mode, "-p", "Hello from an external LLM."],
+                (k1,))
+            out[f"cli {mode}"] = {"codes": n_codes, "pcm16_steps": steps(pcm, f"cli {mode}"),
+                                  "k1": grew[k1]}
+            srv = start_server(dev, tmp, None, ["-np", "2", "--llm-api-url", url,
+                                                "--llm-api-mode", mode])
+            try:
+                l0 = {m: m.launches for m in MODS}
+                res = binary_tts(srv, "Hello from an external LLM.", 0, f"server {mode}")
+                grew = {m: m.launches - l0[m] for m in MODS}
+            finally:
+                srv.shutdown()
+            if grew[k1] <= 0 or grew[k2] != 0:
+                raise AssertionError(f"server {mode}: {launch_text(grew)}")
+            out[f"server {mode}"] = {"pcm16_steps": steps(res["pcm"], f"server {mode}"),
+                                     "k1": grew[k1]}
+        if seen != ["openai-chat", "openai-chat", "generic", "generic"]:
+            raise AssertionError(f"the stub answered {seen}")
+    log(f"[llm api] --llm-api-url in openai-chat and generic mode: the CLI (no -m) and a server "
+        f"with no LLM each wrote the WAV of the stub's {len(API_CODES)} codes, within "
+        f"{max(v['pcm16_steps'] for v in out.values())} PCM16 step of pipeline.synthesize; K1 "
+        f"launched, K2 did not")
+    return out
+
+
+def check_trace(tmp: Path) -> dict:
+    """A CLI request (400 codes -> WAV) in a child process with
+    MIOTTS_PROFILE_DIR set leaves one Chrome trace, written at its normal
+    exit, that holds the miocodec_synthesize range and K1's kernel."""
+    import os
+
+    prof = tmp / "profile"
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, MIOTTS_PROFILE_DIR=str(prof), MIOTTS_PLATFORM="cuda",
+               PYTHONPATH=str(repo))
+    cmd = [sys.executable, "-m", "miotts_tpu_torch.cli", "-mv", str(tmp / "codec.gguf"),
+           "--tts-mio-codes-in", str(tmp / "codes400.txt"), "-emb", str(tmp / "voice.emb.gguf"),
+           "-o", str(tmp / "traced.wav")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"traced CLI request exited {proc.returncode}: {proc.stderr[-2000:]}")
+    traces = list(prof.glob("miotts_*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"MIOTTS_PROFILE_DIR holds {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    phases = [e for e in events if e.get("name") == "miocodec_synthesize"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in kernels if "banded_attention_kernel" in e.get("name", "")]
+    row = {"wall_s": time.perf_counter() - t0, "bytes": traces[0].stat().st_size,
+           "phases": len(phases), "kernels": len(kernels), "k1_kernels": len(k1_events)}
+    log(f"[trace] MIOTTS_PROFILE_DIR: {traces[0].name} ({row['bytes']} bytes) with "
+        f"{len(phases)} miocodec_synthesize range(s), {len(kernels)} kernels, of them "
+        f"{len(k1_events)} banded_attention_kernel, in {row['wall_s']:.1f}s")
+    if not phases or not k1_events:
+        raise AssertionError(f"the trace lacks the miocodec_synthesize range or K1: {row}")
+    return row
 
 
 def main() -> int:
@@ -2067,11 +2634,12 @@ def main() -> int:
         log(f"[graph] {time.perf_counter() - t0:.1f}s")
 
         # each path is driven with every count at 0 and read right after
-        launches, streams, codec_rows, server_rows, clone_rows = {}, {}, {}, {}, {}
+        launches, streams, codec_rows, server_rows, clone_rows, api_rows = {}, {}, {}, {}, {}, {}
         for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
                            ("codec_graph", None), ("wave441", WAVE441_REQUESTS),
-                           ("stream", STREAM_REQUESTS), ("clone", None), ("server", None)):
+                           ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
+                           ("llm_api", None)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
@@ -2085,6 +2653,8 @@ def main() -> int:
                     wave441_request(name, tmp, wcfg, extra, kernels)
             elif path == "server":
                 server_rows = check_server(dev, tmp, emb)
+            elif path == "llm_api":
+                api_rows = check_llm_api(dev, tmp, emb)
             elif path == "clone":
                 clone_rows = check_clone(dev, tmp, ccfg)
             elif path == "stream":
@@ -2110,6 +2680,7 @@ def main() -> int:
         t0 = time.perf_counter()
         codec_rows["pool_memory"] = pool_memory(dev, tmp)
         log(f"[codec graph] pool memory in {time.perf_counter() - t0:.1f}s")
+        trace_row = check_trace(tmp)
 
     if any(m == "jax" or m.startswith(("jax.", "miotts_tpu.")) or m == "miotts_tpu"
            for m in sys.modules):
@@ -2124,7 +2695,8 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     log(smi.stdout.strip().splitlines()[0])  # again, for readers of the output's tail
     print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows, "streams": streams,
-                      "server": server_rows, "clone": clone_rows}))
+                      "server": server_rows, "clone": clone_rows, "llm_api": api_rows,
+                      "trace": trace_row}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

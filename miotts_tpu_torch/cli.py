@@ -5,7 +5,9 @@ The flag surface is the reference's: ``build_parser`` is a copy of
 defaults and help. This port runs the paths that take codes or text to a
 WAV, with either codec mode (wave: iSTFT head; mel: the bundled vocoder):
 
-- input from -p/--prompt, --prompt-file (local LLM, -m), --tts-mio-codes
+- input from -p/--prompt, --prompt-file (local LLM, -m, or an external
+  one: --llm-api-url in openai-chat or generic mode, with
+  MIO_TTS_LLM_API_URL/_KEY/_MODEL/_HEADERS as fallbacks), --tts-mio-codes
   or --tts-mio-codes-in;
 - a speaker embedding from -emb or --tts-mio-embedding-in, or cloned
   from a reference recording (--tts-reference-audio with
@@ -34,8 +36,10 @@ ms, the device chain's wall ms, the WavLM bucket and frames, and the rung
 of the fallback ladder taken (ssl, ssl_pre or audio_stat). The WAV's rate
 is the codec's (24 or 44.1 kHz).
 
-Flags whose path is not ported exit 1 with
-``error: ... not yet ported to miotts_tpu_torch``. ``-fa`` has no effect:
+Flags whose path is not ported (--sequence-parallel, --cpu-native on)
+exit 1 with ``error: ... not yet ported to miotts_tpu_torch``.
+MIOTTS_PROFILE_DIR leaves a ``torch.profiler`` trace of the codec decode
+(``runtime/tracing.py``). ``-fa`` has no effect:
 on CUDA the codec attention always runs the banded-attention kernel.
 
 The device comes from MIOTTS_PLATFORM=cuda|cpu (default cuda); asking for
@@ -140,7 +144,6 @@ def _err(msg: str) -> int:
 def _unported_flag(args) -> str | None:
     """The first flag given whose path this port does not run yet."""
     checks = (
-        (args.llm_api_url, "--llm-api-url (external LLM API)"),
         (args.sequence_parallel > 1, "--sequence-parallel"),
         (args.cpu_native == "on", "--cpu-native on"),
     )
@@ -279,6 +282,9 @@ def main(argv: list[str] | None = None) -> int:
         parser.print_usage(sys.stderr)
         return 0
     args.llm_api_url = args.llm_api_url or os.environ.get("MIO_TTS_LLM_API_URL", "")
+    args.llm_api_key = args.llm_api_key or os.environ.get("MIO_TTS_LLM_API_KEY", "")
+    args.llm_api_model = args.llm_api_model or os.environ.get("MIO_TTS_LLM_API_MODEL", "")
+    args.llm_api_headers = args.llm_api_headers or os.environ.get("MIO_TTS_LLM_API_HEADERS", "")
     if not args.model_vocoder:
         return _err("-mv/--model-vocoder is required")
     flag = _unported_flag(args)
@@ -362,6 +368,13 @@ def main(argv: list[str] | None = None) -> int:
             codes = load_codes(args.tts_mio_codes_in)
         except (OSError, ValueError) as e:
             return _err(f"failed to load codes: {e}")
+    elif prompt and args.llm_api_url:
+        from .runtime.llm_api import generate_audio_codes_external
+
+        try:
+            codes = generate_audio_codes_external(args, prompt)
+        except Exception as e:
+            return _err(f"external LLM API request failed: {e}")
     elif prompt:
         if not args.model:
             return _err("-m/--model is required with --prompt (or set --llm-api-url)")

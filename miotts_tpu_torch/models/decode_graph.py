@@ -17,14 +17,22 @@ is one replay, with no Python per token.
   from the same state.
 - The warm-up runs first-use side effects outside capture: the kernels'
   shared-memory attributes, CUDA's lazy module loading, cuBLAS workspaces.
+  The warm-up and the capture both run on ``graphs.capture_stream``, under
+  ``graphs.capture_lock``.
+- The graph keeps its body, so every tensor the body closes over lives as
+  long as the graph: a replay reads them by address, and a freed one
+  would be memory the allocator hands to someone else.
 - Whoever captures a graph keeps it: ``LLMEngine`` keeps one for its
   weights, the server's ``ContinuousBatcher`` one for each chunk size of
   its ladder over one shared state, and a graph lives as long as its owner
   holds it.
 - The capture runs in ``graphs.CAPTURE_MODE`` ("thread_local"), so a
-  server's other threads may use the card meanwhile; the warm-up's clone
-  and restore of the state make a capture on a state with live lanes
-  leave them as they were.
+  server's other threads may use the card meanwhile. The warm-up clones
+  the state, runs the body on it and restores it; with ``warm_state`` (a
+  throwaway state of the same shapes) it runs on that instead and leaves
+  ``state`` untouched. A capture executes nothing, so only the latter may
+  run while another thread replays graphs on ``state``, as a server's
+  background warm-up does.
 
 Counters: each kernel wrapper's ``launches`` stays the number of its
 kernel's launches in this process, replays counted (``ops/cuda/graphs.py``).
@@ -61,9 +69,10 @@ class ChunkGraph:
     ``body(state, out, n_new)`` is the eager chunk body; it reads and writes
     ``state``'s tensors in place and writes the chunk's tokens into ``out``
     [B, n_steps] and the count of each lane's new tokens into ``n_new``
-    [B]."""
+    [B]. ``warm_state``, if given, takes the warm-up run instead of
+    ``state``."""
 
-    def __init__(self, body: Callable, state, n_steps: int):
+    def __init__(self, body: Callable, state, n_steps: int, warm_state=None):
         global captures, capture_ms, warmup_steps
         self.state = state
         self.n_steps = n_steps
@@ -71,26 +80,35 @@ class ChunkGraph:
         if dev.type != "cuda":
             raise ValueError(f"a chunk graph needs a CUDA device, not {dev}")
         t0 = time.perf_counter()
+        # a replay reads the tensors the body closes over (a sampler's or a
+        # budget's static buffers) by address: the graph keeps the body, and
+        # with it those tensors, alive as long as itself
+        self.body = body
         B = state.pos.shape[0]
         self.out = torch.zeros((B, n_steps), dtype=torch.int64, device=dev)
         self.n_new = torch.zeros((B,), dtype=torch.int32, device=dev)
-        saved = {k: v.clone() for k, v in _tensors(state).items()}
+        saved = (None if warm_state is not None
+                 else {k: v.clone() for k, v in _tensors(state).items()})
 
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            body(state, self.out, self.n_new)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        warmup_steps += n_steps
-        self.load(dataclasses.replace(state, **saved))
-        torch.cuda.synchronize(dev)
+        # the warm-up and the capture both run on the capture stream, which
+        # no other thread's work reaches (graphs.capture_stream)
+        with graphs.capture_lock:
+            stream = graphs.capture_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                body(state if warm_state is None else warm_state, self.out, self.n_new)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            warmup_steps += n_steps
+            if saved is not None:
+                self.load(dataclasses.replace(state, **saved))
+            torch.cuda.synchronize(dev)
 
-        self.graph = torch.cuda.CUDAGraph()
-        with graphs.capture_lock, graphs.record_launches() as self.launches_per_replay, \
-                torch.cuda.graph(self.graph, stream=stream,
-                                 capture_error_mode=graphs.CAPTURE_MODE):
-            body(state, self.out, self.n_new)
-        torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with graphs.record_launches() as self.launches_per_replay, \
+                    torch.cuda.graph(self.graph, stream=stream,
+                                     capture_error_mode=graphs.CAPTURE_MODE):
+                body(state, self.out, self.n_new)
+            torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         captures += 1
         capture_ms += self.capture_ms

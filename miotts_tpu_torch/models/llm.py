@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import to_device, to_host
+from ..device import to_device
 from ..gguf import GGMLType, GGUFReader
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.quant_matmul import (
@@ -515,14 +515,44 @@ def capture_chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
     return decode_graph.ChunkGraph(body, state, n_steps)
 
 
+class ChunkFetch:
+    """A chunk's host-visible results on their way to the host
+    (miotts_tpu/models/llm.py ``start_chunk_fetch``): [n_new | done |
+    tokens] packed on the device into one int32 [B, 2 + n_steps] tensor. On
+    CUDA the pack, an asynchronous copy into pinned host memory and an event
+    are queued on the current stream, so a graph's static ``out``/``n_new``
+    may be overwritten by the next replay queued after them, and ``result``
+    waits for this chunk's event only."""
+
+    def __init__(self, out: torch.Tensor, n_new: torch.Tensor, state: GenState):
+        packed = torch.cat([n_new.to(torch.int32)[:, None],
+                            state.done.to(torch.int32)[:, None], out.to(torch.int32)], dim=1)
+        self.event = None
+        if packed.device.type == "cuda":
+            self.host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            self.host.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = packed.clone()
+
+    def result(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Block for the copy; returns (out, n_new, done) as numpy arrays."""
+        if self.event is not None:
+            self.event.synchronize()
+        packed = self.host.numpy()
+        return packed[:, 2:], packed[:, 0], packed[:, 1].astype(bool)
+
+
+# JAX's names for the two halves of a chunk's read
+start_chunk_fetch = ChunkFetch
+finish_chunk_fetch = ChunkFetch.result
+
+
 def fetch_chunk_result(out: torch.Tensor, n_new: torch.Tensor, state: GenState
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One device -> host copy a chunk: [n_new | done | tokens] packed on
-    the device into int32 [B, 2 + n_steps]. Returns (out, n_new, done) as
-    numpy arrays."""
-    packed = to_host(torch.cat([n_new.to(torch.int32)[:, None],
-                                state.done.to(torch.int32)[:, None], out.to(torch.int32)], dim=1))
-    return packed[:, 2:], packed[:, 0], packed[:, 1].astype(bool)
+    """A chunk's one device -> host copy, waited for: (out, n_new, done)."""
+    return ChunkFetch(out, n_new, state).result()
 
 
 def _chunks(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, sampler: SamplerParams,
@@ -668,16 +698,194 @@ def llm_generate_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n
 
 
 def capture_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                          sampler: BatchSamplerParams, rem: torch.Tensor, state: GenState
-                          ) -> decode_graph.ChunkGraph:
+                          sampler: BatchSamplerParams, rem: torch.Tensor, state: GenState,
+                          warm_state: GenState | None = None) -> decode_graph.ChunkGraph:
     """Capture ``n_steps`` batched steps on ``state`` (CUDA). ``sampler``'s
     four tensors and ``rem`` are static buffers of the graph too: a caller
     writes each dispatch's settings into them before the replay, so one
-    capture serves any mix of requests."""
+    capture serves any mix of requests. ``warm_state`` (a throwaway state of
+    ``state``'s shapes) takes the warm-up run instead of ``state``
+    (``decode_graph.ChunkGraph``)."""
     def body(st, out, n_new):
         _chunk_body_batched(cfg, w, eog_ids, n_steps, sampler, rem, st, out, n_new)
 
-    return decode_graph.ChunkGraph(body, state, n_steps)
+    return decode_graph.ChunkGraph(body, state, n_steps, warm_state=warm_state)
+
+
+# ---------------------------------------------------------------------------
+# width-sliced chunks: the chunk runs on ``width`` gathered lanes only
+# ---------------------------------------------------------------------------
+
+def _chunk_body_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                       sampler: BatchSamplerParams, rem: torch.Tensor, lanes: torch.Tensor,
+                       state: GenState, out: torch.Tensor, n_new: torch.Tensor) -> None:
+    """The width-sliced chunk (miotts_tpu/models/llm.py:978-1049,
+    ``llm_generate_chunk_batched_sliced``), IN PLACE: gather the lanes of
+    ``lanes`` [w] into a width-w sub-state, run ``_chunk_body_batched`` on
+    it with the gathered sampler settings and budgets, and scatter it back
+    into ``state``. ``out`` [B, n_steps] and ``n_new`` [B] stay full width,
+    zero outside the gathered lanes, so delivery reads them as it reads a
+    full-width chunk. The ring cursor is the state's, advanced as the
+    full-width chunk advances it, so a live lane's tokens are the
+    full-width chunk's.
+
+    Pad rows. JAX pads ``lanes`` with the out-of-range lane B and drops
+    their writes (``mode="drop"``). ``index_copy_`` has no drop mode, and
+    duplicate indices leave its result undefined, so here a pad row names
+    a DISTINCT lane outside the live set, written ``B + lane``: that lane's
+    row is gathered, forced done from the first step (it emits nothing and
+    keeps its pos), and written back. A width below the lane count always
+    leaves enough such lanes: w < B lanes cover at most w live ones and
+    need w - live pads, and B - live >= w - live lanes are not live. The
+    write-back changes only lanes that hold no running request (free, or
+    reserved with their attach still to come): the next use of such a lane
+    is an attach, which rewrites its logits, pos, ring, done, key and the
+    cache below its new pos, and decode writes every cache row at or above
+    pos before it reads it."""
+    B = state.pos.shape[0]
+    pad = lanes >= B
+    idx = torch.where(pad, lanes - B, lanes)
+
+    def take(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t.index_select(dim, idx)
+
+    sub = GenState(take(state.logits), take(state.cache_k, 1), take(state.cache_v, 1),
+                   take(state.pos), take(state.ring), state.ring_idx, take(state.done) | pad,
+                   take(state.key))
+    sub_sampler = BatchSamplerParams(take(sampler.temp), take(sampler.top_k),
+                                     take(sampler.top_p), take(sampler.repeat_penalty))
+    width = lanes.shape[0]
+    out_w = torch.empty((width, n_steps), dtype=out.dtype, device=out.device)
+    n_new_w = torch.empty((width,), dtype=n_new.dtype, device=n_new.device)
+    _chunk_body_batched(cfg, w, eog_ids, n_steps, sub_sampler, take(rem), sub, out_w, n_new_w)
+    for name in ("logits", "pos", "ring", "done", "key"):
+        getattr(state, name).index_copy_(0, idx, getattr(sub, name))
+    state.cache_k.index_copy_(1, idx, sub.cache_k)
+    state.cache_v.index_copy_(1, idx, sub.cache_v)
+    out.zero_().index_copy_(0, idx, out_w)
+    n_new.zero_().index_copy_(0, idx, n_new_w)
+
+
+def llm_generate_chunk_batched_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor,
+                                      n_steps: int, width: int, sampler: BatchSamplerParams,
+                                      state: GenState, lanes, rem: torch.Tensor
+                                      ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
+    """``n_steps`` steps of the ``width`` lanes ``lanes`` (pad rows ``B +
+    lane``, see ``_chunk_body_sliced``) eagerly: the plain version of a
+    ``capture_chunk_batched_sliced`` replay. Returns full-width (tokens [B,
+    n_steps], n_new [B] int32, state)."""
+    dev = state.logits.device
+    B = state.pos.shape[0]
+    lanes = torch.as_tensor(np.asarray(lanes, np.int64) if not torch.is_tensor(lanes) else lanes,
+                            dtype=torch.int64, device=dev)
+    if tuple(lanes.shape) != (width,):
+        raise ValueError(f"lanes {tuple(lanes.shape)} for a width-{width} chunk")
+    out = torch.empty((B, n_steps), dtype=torch.int64, device=dev)
+    n_new = torch.empty((B,), dtype=torch.int32, device=dev)
+    _chunk_body_sliced(cfg, w, eog_ids, n_steps, sampler, rem, lanes, state, out, n_new)
+    if dev.type == "cuda":
+        decode_graph.eager_steps += n_steps
+    return out, n_new, state
+
+
+def capture_chunk_batched_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                                 sampler: BatchSamplerParams, rem: torch.Tensor,
+                                 lanes: torch.Tensor, state: GenState,
+                                 warm_state: GenState | None = None) -> decode_graph.ChunkGraph:
+    """Capture ``n_steps`` width-sliced steps on ``state`` (CUDA): one replay
+    gathers the lanes of ``lanes`` (a static [width] int64 buffer the
+    caller writes before each replay, as it writes ``sampler`` and
+    ``rem``), runs them and scatters them back. The gathered sub-state's
+    tensors are the graph's own (its memory pool)."""
+    def body(st, out, n_new):
+        _chunk_body_sliced(cfg, w, eog_ids, n_steps, sampler, rem, lanes, st, out, n_new)
+
+    return decode_graph.ChunkGraph(body, state, n_steps, warm_state=warm_state)
+
+
+# ---------------------------------------------------------------------------
+# the fused submit path: prefill + a request's first steps, then an attach
+# ---------------------------------------------------------------------------
+
+NO_BUDGET = 1 << 30  # a ``rem`` no chunk reaches: the fused steps run unbudgeted, as JAX's
+
+
+def prefill_into(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.Tensor,
+                 seeds, state: GenState) -> GenState:
+    """Prefill a padded group [k, T] into the k lanes of ``state`` IN PLACE
+    (the start of miotts_tpu/models/llm.py:579-617
+    ``llm_prefill_generate_jit``): logits of each last prompt token, the
+    prompt's K/V at [0, T) (rows at t >= length carry garbage that decode
+    never reads), pos = length, an empty ring at cursor 0, not done, and a
+    fresh key from each seed."""
+    T = tokens.shape[1]
+    last, new_k, new_v = llm_prefill_kv(cfg, w, tokens, lengths)
+    state.logits.copy_(last)
+    state.cache_k.narrow(2, 0, T).copy_(new_k)
+    state.cache_v.narrow(2, 0, T).copy_(new_v)
+    state.pos.copy_(lengths)
+    state.ring.fill_(-1)
+    state.ring_idx.zero_()
+    state.done.zero_()
+    state.key.copy_(sampler_keys(seeds, state.key.device))
+    return state
+
+
+def fused_state(cfg: LLMConfig, k: int, S: int, device: torch.device) -> GenState:
+    """A k-lane state over S cache rows with per-lane keys: the buffers of a
+    fused first chunk (``prefill_into``, then the batched chunk body)."""
+    st = empty_gen_state(cfg, k, S, device)
+    st.key = sampler_keys(np.zeros(k, np.int64), device)
+    return st
+
+
+def llm_prefill_generate(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+                         tokens: torch.Tensor, lengths: torch.Tensor, seeds,
+                         sampler: BatchSamplerParams
+                         ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
+    """Prefill + each request's FIRST ``n_steps`` decode steps, eagerly
+    (miotts_tpu/models/llm.py:579-617 ``llm_prefill_generate_jit``).
+    Returns (out [k, n_steps], n_new [k], mini state); the mini state's
+    cache holds T + n_steps rows, as JAX's, and ``attach_lanes_gen``
+    installs it into the batched state. The steps run with no budget (the
+    batcher clamps the delivered tokens). At repeat penalty 1 a lane's
+    tokens are the unfused path's; otherwise the ring crosses the attach
+    with its entries at mini-loop positions (the ring cursor stays the
+    batched state's), so the 64-token window is approximate across that
+    boundary, exactly as in JAX.
+
+    The server's CUDA path runs the same steps as a replay of a graph on a
+    ``fused_state`` of ``max_ctx`` rows (``capture_chunk_batched``)."""
+    k, T = tokens.shape
+    state = prefill_into(cfg, w, tokens, lengths, seeds,
+                         fused_state(cfg, k, T + n_steps, tokens.device))
+    rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=tokens.device)
+    out, n_new, state = llm_generate_chunk_batched(cfg, w, eog_ids, n_steps, sampler, state, rem)
+    return out, n_new, state
+
+
+def attach_lanes_gen(state: GenState, lanes, gst: GenState) -> GenState:
+    """Install k fused lanes (``llm_prefill_generate``) into ``state`` IN
+    PLACE (miotts_tpu/models/llm.py:620-640): row i of the mini state goes
+    to lane ``lanes[i]`` mid-generation (its logits, cache rows [0, T') for
+    the mini state's T' rows, pos, ring, done and key); ``lanes`` is a host
+    array, and a row whose lane is out of range (a pad row) is dropped. The
+    batched state's ring cursor stays as it is."""
+    B, S = state.pos.shape[0], state.cache_k.shape[2]
+    lanes = np.asarray(lanes).reshape(-1)
+    rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
+    if not rows:
+        return state
+    dev = state.pos.device
+    r = to_device(np.asarray(rows, np.int64), dev)
+    ln = to_device(lanes[rows].astype(np.int64), dev)
+    T = min(gst.cache_k.shape[2], S)
+    state.logits.index_copy_(0, ln, gst.logits.index_select(0, r).to(state.logits.dtype))
+    for cache, new in ((state.cache_k, gst.cache_k), (state.cache_v, gst.cache_v)):
+        cache.narrow(2, 0, T).index_copy_(1, ln, new[:, :, :T].index_select(1, r).to(cache.dtype))
+    for name in ("pos", "ring", "done", "key"):
+        getattr(state, name).index_copy_(0, ln, getattr(gst, name).index_select(0, r))
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -181,6 +181,11 @@ class BatchSamplerParams:
         return cls(t(temps, np.float32), t(top_ks, np.int32), t(top_ps, np.float32),
                    t(penalties, np.float32))
 
+    def copy_(self, src: "BatchSamplerParams") -> None:
+        """Copy ``src``'s settings into these tensors in place."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(src, f.name))
+
     def set_lane(self, i: int, p: "SamplerParams") -> None:
         """Write one lane's settings into these tensors in place."""
         self.temp[i] = p.temp

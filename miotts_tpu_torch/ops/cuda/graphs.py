@@ -15,6 +15,16 @@ during a capture (a host sync, ``cudaMalloc`` outside the caching
 allocator) fails only when the capturing thread makes it, so other
 threads' device work goes on while one thread captures. ``capture_lock``
 keeps two captures from overlapping each other.
+
+That holds only while no other thread works on the stream being
+captured. PyTorch hands out its streams round robin from a pool of 32 a
+priority, so a stream made for one capture can be the very stream that a
+server's worker or prefill thread runs on: the capture then takes in
+that thread's work, and its event calls fail. A chunk graph's warm-up
+and capture therefore run on ``capture_stream``, one stream a device from
+the high-priority pool, from which no other stream of the port comes; a
+codec graph captures on its pipeline's own stream, which only the
+pipeline's lock holder uses.
 """
 
 from __future__ import annotations
@@ -30,6 +40,20 @@ CAPTURE_MODE = "thread_local"
 capture_lock = threading.Lock()
 _tls = threading.local()
 _lock = threading.Lock()
+_capture_streams: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream chunk graphs warm up and capture on: one a device, from
+    the high-priority pool (the port's other streams are all made at the
+    default priority). Use it under ``capture_lock``."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    with _lock:
+        stream = _capture_streams.get(index)
+        if stream is None:
+            stream = _capture_streams[index] = torch.cuda.Stream(index, priority=-1)
+        return stream
 
 
 def kernel_modules() -> tuple:

@@ -49,6 +49,7 @@ from .gguf.writer import load_embedding_gguf, save_embedding_gguf
 from .models import codec_graph
 from .models.miocodec import codec_synthesize, encode_global_embedding, load_miocodec
 from .ops.masking import time_mask
+from .runtime.tracing import maybe_start_profiler, trace_phase
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
 
@@ -254,11 +255,13 @@ class MioTTSPipeline:
         tokens = np.zeros((1, pick_bucket(n, self.buckets)), np.int64)
         tokens[0, :n] = codes
         start = 0 if window is None else int(window[0])
-        audio, counts, decode_ms = self.decode(
-            tokens, np.array([n], np.int32), None if embedding is None else embedding[None],
-            interp_anchor=interp_anchor, peak_normalize=peak_normalize,
-            window=None if window is None else int(window[1]),
-            starts=None if window is None else np.array([start], np.int32), pcm16=pcm16)
+        maybe_start_profiler()
+        with trace_phase("miocodec_synthesize"):
+            audio, counts, decode_ms = self.decode(
+                tokens, np.array([n], np.int32), None if embedding is None else embedding[None],
+                interp_anchor=interp_anchor, peak_normalize=peak_normalize,
+                window=None if window is None else int(window[1]),
+                starts=None if window is None else np.array([start], np.int32), pcm16=pcm16)
         n_valid = int(counts[0])
         if window is not None:
             audio_np = audio[0, :max(0, min(int(window[1]), n_valid - start))]
@@ -394,6 +397,11 @@ class MioTTSPipeline:
             raise ValueError("reference embedding requires global_encoder tensors in MioCodec GGUF")
         if self.wavlm is None:
             raise ValueError("WavLM model is not loaded")
+        with trace_phase("reference_chain"):
+            return self._reference_embedding(reference_audio, max_reference_seconds)
+
+    def _reference_embedding(self, reference_audio, max_reference_seconds: float
+                             ) -> tuple[np.ndarray, ReferenceStats]:
         t0 = time.perf_counter()
         wav16k = self.wavlm.preprocess_reference(
             reference_audio, source_rate=self.config.sample_rate,

@@ -22,6 +22,7 @@ from concurrent.futures import Future
 import numpy as np
 
 from ..pipeline import MioTTSPipeline, SynthesisResult, pick_bucket
+from ..runtime.tracing import trace_phase
 
 
 def _pow2_lanes(n_active: int) -> int:
@@ -140,11 +141,12 @@ class CodecMicroBatcher:
                 starts[i] = item[4]
                 if cond is not None:
                     cond[i] = np.asarray(item[1], np.float32).reshape(-1)
-            audio, counts, decode_ms = self.pipeline.decode(
-                tokens, lengths, cond, interp_anchor=interp_anchor,
-                peak_normalize=peak_normalize, window=wlen,
-                starts=starts if wlen is not None else None, pcm16=pcm16,
-                as_int16=pcm16 and wlen is None)
+            with trace_phase(f"codec_group B={B} bucket={bucket}"):
+                audio, counts, decode_ms = self.pipeline.decode(
+                    tokens, lengths, cond, interp_anchor=interp_anchor,
+                    peak_normalize=peak_normalize, window=wlen,
+                    starts=starts if wlen is not None else None, pcm16=pcm16,
+                    as_int16=pcm16 and wlen is None)
             for i, item in enumerate(batch):
                 n_valid = int(counts[i])
                 if wlen is not None:

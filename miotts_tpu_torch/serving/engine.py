@@ -11,11 +11,18 @@ The codec pipeline runs with ``check_syncs`` off: the sync-debug mode that
 the CLI keeps on a key's first, eager decode is global to the process, and
 here the LLM worker and the prefill thread read from the card meanwhile.
 
-``--warmup on`` captures every chunk graph of the batcher's ladder and the
-codec graphs of every key a default request can land in, at every lane
-count the micro-batcher decodes at (1, 2, 4, ... up to the power of two at
-or above ``-np``), all before the server listens: a key first met while
-serving pays an eager decode and, at its second decode, a capture.
+``--warmup on`` captures the batcher's chunk graphs (each rung of the
+ladder at each width), its fused first-chunk graphs, one prefill group a
+prompt bucket and the codec graphs of every key a default request can
+land in, at every lane count the micro-batcher decodes at (1, 2, 4, ... up
+to the power of two at or above ``-np``). As in JAX, a foreground part
+runs before the server listens and the rest on a background thread
+(``warmup``); a key first met while serving pays an eager decode and, at
+its second decode, a capture.
+
+With ``--llm-api-url`` a text request's codes come from the external LLM
+(``runtime/llm_api.py``), not the batcher. ``MIOTTS_PROFILE_DIR`` starts a
+``torch.profiler`` trace of the process (``runtime/tracing.py``).
 
 With ``--tts-wavlm-model`` the pipeline also loads WavLM, and
 ``generate_reference`` turns a reference recording into a speaker
@@ -41,6 +48,7 @@ from ..device import select_device
 from ..pipeline import MioTTSPipeline, pick_bucket
 from ..runtime.audio_io import save_wav16
 from ..runtime.codes_io import load_codes, save_codes
+from ..runtime.tracing import maybe_start_profiler
 from .state import ReferenceCache, RequestError, RequestParams, ServerConfig
 
 
@@ -51,7 +59,6 @@ def now_ms() -> float:
 def unported_option(cfg: ServerConfig) -> str | None:
     """The first configured option whose path the port does not run yet."""
     checks = (
-        (cfg.llm_api_url, "--llm-api-url (external LLM API)"),
         (cfg.mio_backend_devices, "--mio-backend-devices (multi-device serving)"),
         (cfg.codec_devices, "--codec-devices (multi-device serving)"),
         (cfg.tensor_parallel > 1, "-tp/--tensor-parallel > 1"),
@@ -92,6 +99,7 @@ class ServingEngine:
             raise ValueError(f"{option} not yet ported to miotts_tpu_torch")
         self.cfg = cfg
         self.device = device if device is not None else select_device()
+        maybe_start_profiler()
         self.pipeline = MioTTSPipeline(cfg.model_vocoder, self.device, check_syncs=False,
                                        wavlm_path=cfg.wavlm_model or None)
         from .codec_batching import CodecMicroBatcher
@@ -127,15 +135,20 @@ class ServingEngine:
         self.synth_ms_total = 0.0
         self._counter_lock = threading.Lock()
         self.reference_init_done = True
-        self.warmup_bg_done = True  # no background warm-up tail in the port
-        self.warmup_s = 0.0
+        self.warmup_bg_done = True  # False while a warm-up tail runs
+        self.warmup_s = 0.0  # the foreground warm-up's seconds
+        self.warmup_bg_s = 0.0  # the background tail's, once it has ended
+        self.warmup_fg_calls = self.warmup_bg_calls = 0
+        self._warmup_bg_thread: threading.Thread | None = None
         if cfg.reference_file_json:
             self._preload_references(cfg.reference_file_json)
         if cfg.warmup:
             self.warmup()
 
     def shutdown(self) -> None:
-        """Stop the batchers' threads."""
+        """Stop the batchers' threads (after the warm-up tail, if one runs)."""
+        if self._warmup_bg_thread is not None:
+            self._warmup_bg_thread.join()
         if self.batcher is not None:
             self.batcher.shutdown()
         self.codec_batcher.shutdown()
@@ -163,39 +176,154 @@ class ServingEngine:
                                        peak_normalize=False)))
         return calls
 
+    def _llm_warm_calls(self) -> list:
+        """The batcher's warm calls (miotts_tpu/serving/engine.py:230-278):
+        one prefill group a prompt bucket (``(bucket, None)``), the
+        power-of-two burst groups of the buckets up to 128
+        (``{"prefill_lanes": k}``), and every chunk graph, each rung of the
+        ladder at each width (``(rung, {"chunk_width": w})``; JAX has one
+        executable a width). Empty without a local LLM."""
+        if self.batcher is None:
+            return []
+        from .batching import _PROMPT_BUCKETS
+
+        b = self.batcher
+        max_prompt = b.max_ctx - 8
+        llm_buckets = [x for x in _PROMPT_BUCKETS if x <= max_prompt] or [max(8, max_prompt)]
+        calls: list[tuple[int, dict | None]] = [(x, None) for x in llm_buckets]
+        burst = 1 << max(0, b.n_lanes - 1).bit_length()
+        ladder, g = [], 2
+        while g <= burst:
+            ladder.append(g)
+            g *= 2
+        calls += [(x, {"prefill_lanes": g}) for x in llm_buckets if x <= 128 for g in ladder]
+        calls += [(rung, {"chunk_width": wd}) for rung in b.ladder for wd in b.widths()]
+        return calls
+
+    def _do_warm(self, bk) -> None:
+        bucket, kw = bk
+        if kw is None:
+            self.batcher.warm_prefill(bucket)
+        elif "prefill_lanes" in kw:
+            self.batcher.warm_prefill(bucket, n_lanes=kw["prefill_lanes"])
+        elif "chunk_width" in kw:
+            self.batcher.warm_chunk(bucket, width=kw["chunk_width"])
+        else:
+            self.codec_batcher.warm(bucket, **kw)
+
+    def _warm_is_fg(self, bk) -> bool:
+        """Whether a warm call runs before the server listens
+        (miotts_tpu/serving/engine.py:296-310): the small prompt buckets'
+        single prefills, the chunk graphs at width 1 and at full width (the
+        fallback while the other widths warm), and the codec keys up to
+        MIOTTS_WARMUP_FG_BUCKET (default 256) but the f32 streaming
+        fallback's."""
+        bucket, kw = bk
+        if kw is None:
+            return bucket <= 128
+        if "prefill_lanes" in kw:
+            return False
+        if "chunk_width" in kw:
+            return kw["chunk_width"] in (1, self.batcher.n_lanes)
+        if "interp_anchor" in kw and "wlen" not in kw:
+            return False
+        return bucket <= int(os.environ.get("MIOTTS_WARMUP_FG_BUCKET", "256"))
+
     def warmup(self) -> None:
-        """Capture the serving graphs before the first request: the codec
-        keys of ``_codec_warm_calls`` (every lane count), one prefill
-        per prompt bucket (and the burst groups of the small ones), every
-        chunk graph of the ladder, then one real request through attach,
-        chunk and read. Prints the time and the reserved device memory."""
+        """Capture the serving graphs, split as JAX splits its warm-up
+        (miotts_tpu/serving/engine.py:312-457): the foreground part
+        (``_warm_is_fg``), then one real request through the fused prefill,
+        attach, chunk and read, before the server listens; the rest (the
+        other chunk widths first, then the burst prefill groups, the big
+        prompt buckets and codec keys) on a background thread of
+        MIOTTS_WARMUP_BG_POOL (default 1) workers, while the server serves.
+        Meanwhile ``warmup_bg_done`` is False (``/mio/health``'s
+        ``warmup_complete``) and the batcher splits a burst into warm group
+        sizes and picks warm widths only. MIOTTS_WARMUP_BG=0 warms all of
+        it in the foreground. Prints the foreground's time and the reserved
+        device memory, and the tail's time when it ends."""
         t0 = time.perf_counter()
         codec_calls = self._codec_warm_calls()
-        for bucket, kw in codec_calls:
-            self.codec_batcher.warm(bucket, **kw)
-        if self.batcher is not None:
-            from ..models.sampling import SamplerParams
-            from .batching import _PROMPT_BUCKETS
+        warm_calls = codec_calls + self._llm_warm_calls()
+        fg_calls = [bk for bk in warm_calls if self._warm_is_fg(bk)]
+        bg_calls = [bk for bk in warm_calls if bk not in fg_calls]
+        if os.environ.get("MIOTTS_WARMUP_BG", "1") in ("0", "off"):
+            fg_calls, bg_calls = warm_calls, []
 
-            b = self.batcher
-            max_prompt = b.max_ctx - 8
-            llm_buckets = [x for x in _PROMPT_BUCKETS if x <= max_prompt] or [max(8, max_prompt)]
-            burst = 1 << max(0, b.n_lanes - 1).bit_length()
-            for bucket in llm_buckets:
-                g = 1
-                while g <= (burst if bucket <= 128 else 1):
-                    b.warm_prefill(bucket, n_lanes=g)
-                    g *= 2
-            b.warm_chunks()
+        def bg_order(bk):
+            bucket, kw = bk
+            if kw is not None and "chunk_width" in kw:
+                return (0, kw["chunk_width"], bucket)
+            if kw is not None and "prefill_lanes" in kw:
+                return (1, bucket, kw["prefill_lanes"])
+            if kw is None:
+                return (2, bucket, 0)
+            return (3, bucket, 0)
+
+        bg_calls.sort(key=bg_order)
+        for bk in fg_calls:
+            self._do_warm(bk)
+        b = self.batcher
+        if b is not None:
+            from ..models.sampling import SamplerParams
+
             for _ in b.submit("warmup", sampler=SamplerParams(),
                               n_predict=b.first_chunk + 4).tokens():
                 pass
         self.warmup_s = time.perf_counter() - t0
+        self.warmup_fg_calls, self.warmup_bg_calls = len(fg_calls), len(bg_calls)
+        self.warmup_bg_done = not bg_calls
+        if bg_calls:
+            if b is not None:
+                b.split_cold_until_warm = True
+            self._warmup_bg_thread = threading.Thread(target=self._warm_tail, args=(bg_calls,),
+                                                      daemon=True, name="warmup-bg")
+            self._warmup_bg_thread.start()
+        elif b is not None:
+            b.release_warm_state()
         reserved = (torch.cuda.max_memory_reserved(self.device)
                     if self.device.type == "cuda" else 0)
-        n_chunk = len(self.batcher.graphs) if self.batcher is not None else 0
-        print(f"warmup: {len(self.pipeline.graphs)} codec graphs, {n_chunk} chunk graphs "
-              f"({len(codec_calls)} codec keys) in {self.warmup_s:.1f}s; "
+        n_chunk = len(b.graphs) if b is not None else 0
+        print(f"warmup: {len(fg_calls)} foreground calls ({len(self.pipeline.graphs)} codec "
+              f"graphs, {n_chunk} chunk graphs) in {self.warmup_s:.1f}s; {len(bg_calls)} "
+              f"warming in background; max_memory_reserved={reserved / 2**20:.0f} MiB",
+              file=sys.stderr)
+
+    def _warm_tail(self, calls: list) -> None:
+        """The background part of ``warmup``: chunk widths first (the only
+        users of the batcher's throwaway warm state, released right after
+        them), then the rest; one failing call is logged and skipped."""
+        import concurrent.futures
+
+        tb = time.perf_counter()
+
+        def do_warm_logged(bk):
+            tw = time.perf_counter()
+            try:
+                self._do_warm(bk)
+                print(f"warmup: bg {bk} in {time.perf_counter() - tw:.1f}s", file=sys.stderr)
+            except Exception as e:
+                print(f"warmup: bg {bk} FAILED after {time.perf_counter() - tw:.1f}s: {e!r}",
+                      file=sys.stderr)
+
+        is_chunk = [bk[1] is not None and "chunk_width" in bk[1] for bk in calls]
+        b = self.batcher
+        try:
+            pool = max(1, int(os.environ.get("MIOTTS_WARMUP_BG_POOL", "1")))
+            with concurrent.futures.ThreadPoolExecutor(pool) as ex:
+                list(ex.map(do_warm_logged, [bk for bk, c in zip(calls, is_chunk) if c]))
+                if b is not None:
+                    b.release_warm_state()
+                list(ex.map(do_warm_logged, [bk for bk, c in zip(calls, is_chunk) if not c]))
+        finally:
+            if b is not None:
+                b.split_cold_until_warm = False
+                b.release_warm_state()
+            self.warmup_bg_s = time.perf_counter() - tb
+            self.warmup_bg_done = True
+        reserved = (torch.cuda.max_memory_reserved(self.device)
+                    if self.device.type == "cuda" else 0)
+        print(f"warmup: background tail ({len(calls)} calls) done in {self.warmup_bg_s:.1f}s; "
               f"max_memory_reserved={reserved / 2**20:.0f} MiB", file=sys.stderr)
 
     # -- counters ---------------------------------------------------------------
@@ -267,6 +395,14 @@ class ServingEngine:
         from ..models.sampling import SamplerParams
 
         t0 = now_ms()
+        if self.cfg.llm_api_enabled:
+            from ..runtime.llm_api import generate_audio_codes_external_cfg
+
+            codes = generate_audio_codes_external_cfg(self.cfg, rp)
+            if not codes:
+                raise RequestError("token generation failed: external LLM API returned empty codes")
+            out["llm_ms"] = now_ms() - t0
+            return codes
         if self.llm is None:
             raise RequestError("text generation requested but LLM model is not loaded")
         sampler = SamplerParams(temp=rp.temp, top_k=rp.top_k, top_p=rp.top_p,
@@ -479,7 +615,8 @@ class ServingEngine:
         sample_rate) for synthesis requests (int16 PCM from a full decode),
         None for codes/embedding-only."""
         if (rp.overlap_synthesis and rp.text and not rp.inline_codes and not rp.codes_in
-                and not rp.codes_only and not rp.embedding_only and self.llm is not None):
+                and not rp.codes_only and not rp.embedding_only and not self.cfg.llm_api_enabled
+                and self.llm is not None):
             return self._run_overlapped(rp, out, on_token=on_token)
         need_codes = (not rp.embedding_only) or rp.codes_only or bool(rp.codes_out)
 

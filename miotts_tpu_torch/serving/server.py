@@ -423,7 +423,7 @@ class MioTTSServer:
                         finish()
                         return
 
-                    if eng.llm is None:
+                    if eng.llm is None and not server.cfg.llm_api_enabled:
                         sse("error", json.dumps(
                             {"error": "text generation requested but LLM model is not loaded"}))
                         finish()
@@ -545,7 +545,7 @@ class MioTTSServer:
                 # resolve before headers so failures are still normal JSON
                 # errors; pass the result down to avoid a second disk load
                 emb = eng._resolve_embedding(rp)
-                if rp.text and eng.llm is None:
+                if rp.text and eng.llm is None and not server.cfg.llm_api_enabled:
                     raise RequestError("text generation requested but LLM model is not loaded")
 
                 slot = eng.slots.acquire(timeout=server.cfg.slot_timeout or None)

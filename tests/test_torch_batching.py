@@ -332,15 +332,26 @@ def test_worker_survives_chunk_failure(batcher, monkeypatch):
     b = _own(eng)
     try:
         real = bmod.llm_generate_chunk_batched
+        real_sliced = bmod.llm_generate_chunk_batched_sliced
         calls = {"n": 0}
 
-        def boom(*a, **k):
+        def maybe_boom():
             calls["n"] += 1
             if calls["n"] == 1:
                 raise RuntimeError("injected device failure")
+
+        def boom(*a, **k):
+            maybe_boom()
             return real(*a, **k)
 
+        def boom_sliced(*a, **k):
+            maybe_boom()
+            return real_sliced(*a, **k)
+
         monkeypatch.setattr(bmod, "llm_generate_chunk_batched", boom)
+        monkeypatch.setattr(bmod, "llm_generate_chunk_batched_sliced", boom_sliced)
+        # n_predict beyond first_chunk: the fused prefill serves the first
+        # tokens without a chunk, and the failure targets a chunk
         with pytest.raises(RuntimeError, match="injected device failure"):
             b.submit("fail me", n_predict=40).collect()
         assert len(b.submit("works again", n_predict=40).collect()) > 0
@@ -401,12 +412,14 @@ def test_prefill_thread_survives_finish_failure(batcher, monkeypatch):
         b.shutdown()
 
 
-def test_worker_survives_attach_failure(batcher, monkeypatch):
-    """A failed attach fails only that group; the worker keeps serving."""
+def _attach_failure(batcher, monkeypatch, fused):
     eng = batcher[0]
+    if not fused:
+        monkeypatch.setenv("MIOTTS_FUSED_PREFILL", "0")
     b = _own(eng)
     try:
-        real = bmod.attach_lanes
+        name = "attach_lanes_gen" if fused else "attach_lanes"
+        real = getattr(bmod, name)
         calls = {"n": 0}
 
         def boom(state, *args, **kwargs):
@@ -415,12 +428,23 @@ def test_worker_survives_attach_failure(batcher, monkeypatch):
                 raise RuntimeError("injected attach failure")
             return real(state, *args, **kwargs)
 
-        monkeypatch.setattr(bmod, "attach_lanes", boom)
+        monkeypatch.setattr(bmod, name, boom)
         with pytest.raises(RuntimeError, match="injected attach failure"):
             b.submit("fail in attach", n_predict=8).collect()
         assert len(b.submit("works again", n_predict=8).collect()) > 0
     finally:
         b.shutdown()
+
+
+def test_worker_survives_attach_failure(batcher, monkeypatch):
+    """A failed attach (the fused path's ``attach_lanes_gen``) fails only
+    that group; the worker keeps serving."""
+    _attach_failure(batcher, monkeypatch, True)
+
+
+def test_worker_survives_unfused_attach_failure(batcher, monkeypatch):
+    """The same with MIOTTS_FUSED_PREFILL=0 (``attach_lanes``)."""
+    _attach_failure(batcher, monkeypatch, False)
 
 
 def test_device_stall_watchdog(batcher):
@@ -445,7 +469,7 @@ class _EagerGraph(decode_graph.ChunkGraph):
     """A chunk graph without CUDA: it keeps the state and runs the body on
     it where a replay would. Records the sizes made and replayed."""
 
-    def __init__(self, body, state, n_steps):
+    def __init__(self, body, state, n_steps, warm_state=None):
         self.state, self.body, self.n_steps = state, body, n_steps
         self.out = torch.zeros((state.pos.shape[0], n_steps), dtype=torch.int64)
         self.n_new = torch.zeros((state.pos.shape[0],), dtype=torch.int32)
@@ -465,17 +489,21 @@ class _EagerGraph(decode_graph.ChunkGraph):
     (False, 4, [16, 8]),
 ])
 def test_graph_per_rung_matches_eager(batcher, monkeypatch, early, first_chunk, expect):
-    """The CUDA path on stand-in graphs: one graph per ladder size over one
-    shared state, each dispatch replays the smallest rung at or above its
-    size, and the tokens equal the eager batcher's."""
+    """The CUDA path on stand-in graphs, unfused and at full width: one
+    graph per ladder size over one shared state, each dispatch replays the
+    smallest rung at or above its size, and the tokens equal the eager
+    batcher's."""
     eng = batcher[0]
+    monkeypatch.setenv("MIOTTS_FUSED_PREFILL", "0")
+    monkeypatch.setenv("MIOTTS_CHUNK_SLICE", "0")
     monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
     _EagerGraph.made, _EagerGraph.replayed = [], []
     b = _own(eng, first_chunk=first_chunk)
     b.use_graph = True
     try:
-        assert b.ladder == (first_chunk, 8, 16)
-        b.warm_chunks()
+        assert b.ladder == (first_chunk, 8, 16) and b.widths() == [b.n_lanes]
+        for rung in b.ladder:
+            b.warm_chunk(rung)
         assert _EagerGraph.made == [first_chunk, 8, 16]
         assert all(g.state is b.state for g in b.graphs.values())
         got = b.submit("hi", SamplerParams(temp=0.0), n_predict=24, early_tokens=early).collect()
@@ -528,3 +556,504 @@ def test_ladder_env_knobs(batcher, monkeypatch):
         b.shutdown()
     assert got == eng.generate_audio_tokens("hi", n_predict=20, n_ctx=64,
                                             sampler=SamplerParams(temp=0.0))
+
+
+# -- width-sliced chunks and the fused prefill against JAX --------------------------
+
+def _attach_both(jcfg, jw, cfg, w, jstate, state, rows, lens, seeds, n_lanes, seed):
+    kp = 1 << max(0, len(rows) - 1).bit_length()
+    toks, lengths, lanes = _group(rows, lens, kp, 32, n_lanes, seed)
+    seeds = np.array(list(seeds) + [0] * (kp - len(seeds)), np.uint32)
+    jl, jk, jv = jllm.llm_prefill_kv(jcfg, jw, jnp.asarray(toks), jnp.asarray(lengths))
+    jstate = jllm.attach_lanes(jstate, jnp.asarray(lanes), jl, jk, jv, jnp.asarray(lengths),
+                               jnp.asarray(seeds))
+    lg, k, v = llm_mod.llm_prefill_kv(cfg, w, torch.from_numpy(toks).long(),
+                                      torch.from_numpy(lengths))
+    llm_mod.attach_lanes(state, lanes, lg, k, v, lengths, seeds)
+    return jstate
+
+
+@pytest.mark.parametrize("penalty", [1.0, 1.1])
+def test_sliced_chunk_matches_jax_and_leaves_other_lanes(tiny_llm, penalty):
+    """Greedy f32, 8 lanes, lanes 0, 3, 5 and 6 live: a width-4 chunk over
+    lanes 0, 3 and 5 (JAX pads with lane 8; the port with the distinct free
+    lane 1, written 8 + 1) gives JAX's sliced tokens, n_new, done, pos and
+    ring on the gathered lanes, their logits and cache within tolerance,
+    the full-width chunk's tokens on them, and leaves lane 6 (live, outside
+    the slice) and every other lane but the pad exactly as it was."""
+    jcfg, jw, _ = jllm.load_llm_gguf(tiny_llm, dtype=jnp.float32)
+    cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
+    B, S, steps = 8, 64, 6
+    jstate = jllm.init_batched_state(jcfg, B, S)
+    state = llm_mod.init_batched_state(cfg, B, S, CPU)
+    pens = [penalty] * B
+    jsampler = jsampling.BatchSamplerParams.make([0.0] * B, [50] * B, [1.0] * B, pens)
+    sampler = BatchSamplerParams.make([0.0] * B, [50] * B, [1.0] * B, pens, CPU)
+    jstate = _attach_both(jcfg, jw, cfg, w, jstate, state, [0, 3, 5, 6], [11, 5, 17, 9],
+                          [1, 2, 3, 4], B, 0)
+    full = llm_mod.GenState(*(t.clone() for t in (
+        state.logits, state.cache_k, state.cache_v, state.pos, state.ring, state.ring_idx,
+        state.done, state.key)))
+    eog = [-1]
+    rem = np.array([20, 0, 0, 3, 0, 20, 20, 0], np.int32)
+    for chunk in range(2):
+        before = {k: v.clone() for k, v in vars(state).items()}
+        jout, jn, jstate = jllm.llm_generate_chunk_batched_sliced(
+            jcfg, jw, jnp.asarray(eog, jnp.int32), steps, 4, jsampler, jstate,
+            jnp.asarray([0, 3, 5, 8], jnp.int32), jnp.asarray(steps, jnp.int32),
+            jnp.asarray(rem))
+        jo, jn_np, jdone = jllm.fetch_chunk_result(jout, jn, jstate)
+        out, n_new, _ = llm_mod.llm_generate_chunk_batched_sliced(
+            cfg, w, torch.tensor(eog), steps, 4, sampler, state, [0, 3, 5, B + 1],
+            torch.from_numpy(rem))
+        o, n_np, done = llm_mod.fetch_chunk_result(out, n_new, state)
+        np.testing.assert_array_equal(o, jo)
+        np.testing.assert_array_equal(n_np, jn_np)
+        live = [0, 3, 5]
+        np.testing.assert_array_equal(done[live], jdone[live])
+        np.testing.assert_array_equal(state.pos.numpy()[live], np.asarray(jstate.pos)[live])
+        np.testing.assert_array_equal(state.ring.numpy()[live], np.asarray(jstate.ring)[live])
+        assert int(state.ring_idx) == int(jstate.ring_idx)
+        np.testing.assert_allclose(state.logits.numpy()[live], np.asarray(jstate.logits)[live],
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(state.cache_k.float().numpy()[:, live],
+                                   np.asarray(jstate.cache_k.astype(jnp.float32))[:, live],
+                                   rtol=2e-2, atol=2e-2)
+        for lane in (2, 4, 6, 7):  # outside the slice (6 live), and not the pad
+            for name, t in vars(state).items():
+                if name == "ring_idx":
+                    continue
+                dim = 1 if name.startswith("cache") else 0
+                assert torch.equal(t.select(dim, lane), before[name].select(dim, lane)), (
+                    name, lane)
+        # the full-width chunk gives the gathered lanes the same tokens
+        fo, fn, _ = llm_mod.llm_generate_chunk_batched(cfg, w, torch.tensor(eog), steps, sampler,
+                                                       full, torch.from_numpy(rem))
+        np.testing.assert_array_equal(fo.numpy()[live], o[live])
+        rem = np.maximum(0, rem - n_np).astype(np.int32)
+
+
+@pytest.mark.parametrize("penalty", [1.0, 1.1])
+def test_fused_prefill_and_attach_match_jax(tiny_llm, penalty):
+    """Greedy f32: the fused prefill + 5 steps of a padded group of 3 (k =
+    4; prompts 11, 5 and 17 long) gives JAX's llm_prefill_generate_jit
+    tokens, n_new, done, pos, ring and key, its logits and cache rows within
+    tolerance; attach_lanes_gen into lanes 2, 0 and 3 of a 4-lane state and
+    two more chunks give JAX's tokens (at penalty 1.1 the ring crosses the
+    attach with its entries at mini-loop positions, as in JAX)."""
+    jcfg, jw, _ = jllm.load_llm_gguf(tiny_llm, dtype=jnp.float32)
+    cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
+    toks, lengths, lanes = _group([2, 0, 3], [11, 5, 17], 4, 32, 4, seed=3)
+    seeds = np.array([5, 6, 7, 0], np.uint32)
+    n, eog = 5, [-1]
+    pens = [penalty] * 4
+    jout, jn, jg = jllm.llm_prefill_generate_jit(
+        jcfg, jw, jnp.asarray(eog, jnp.int32), n, jnp.asarray(toks), jnp.asarray(lengths),
+        jnp.asarray(seeds), jsampling.BatchSamplerParams.make([0.0] * 4, [50] * 4, [1.0] * 4,
+                                                              pens))
+    out, n_new, g = llm_mod.llm_prefill_generate(
+        cfg, w, torch.tensor(eog), n, torch.from_numpy(toks).long(), torch.from_numpy(lengths),
+        seeds, BatchSamplerParams.make([0.0] * 4, [50] * 4, [1.0] * 4, pens, CPU))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(n_new.numpy(), np.asarray(jn))
+    for name in ("pos", "done", "ring"):
+        np.testing.assert_array_equal(getattr(g, name).numpy(), np.asarray(getattr(jg, name)))
+    assert g.cache_k.shape[2] == jg.cache_k.shape[2] == 32 + n
+    np.testing.assert_allclose(g.logits.numpy(), np.asarray(jg.logits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(g.cache_v.float().numpy(),
+                               np.asarray(jg.cache_v.astype(jnp.float32)), rtol=2e-2, atol=2e-2)
+
+    B, S = 4, 64
+    jstate = jllm.init_batched_state(jcfg, B, S)
+    state = llm_mod.init_batched_state(cfg, B, S, CPU)
+    jstate = jllm.attach_lanes_gen(jstate, jnp.asarray(lanes), jg)
+    llm_mod.attach_lanes_gen(state, lanes, g)
+    np.testing.assert_array_equal(state.pos.numpy(), np.asarray(jstate.pos))
+    np.testing.assert_array_equal(state.ring.numpy(), np.asarray(jstate.ring))
+    assert state.done.tolist() == [False, True, False, False]
+    jsampler = jsampling.BatchSamplerParams.make([0.0] * B, [50] * B, [1.0] * B, pens)
+    sampler = BatchSamplerParams.make([0.0] * B, [50] * B, [1.0] * B, pens, CPU)
+    rem = np.full(B, 30, np.int32)
+    for _ in range(2):
+        jo, jn2, jstate = jllm.llm_generate_chunk_batched(
+            jcfg, jw, jnp.asarray(eog, jnp.int32), 6, jsampler, jstate,
+            jnp.asarray(6, jnp.int32), jnp.asarray(rem))
+        o, n2, _ = llm_mod.llm_generate_chunk_batched(cfg, w, torch.tensor(eog), 6, sampler,
+                                                      state, torch.from_numpy(rem))
+        np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
+        np.testing.assert_array_equal(n2.numpy(), np.asarray(jn2))
+
+
+def test_attach_lanes_gen_drops_pad_rows(tiny_llm):
+    """A fused row whose lane is out of range writes nothing; the others
+    take the mini state's rows mid-generation, and the ring cursor stays
+    the batched state's."""
+    cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
+    toks, lengths, lanes = _group([1], [7], 2, 32, 3)
+    sampler = BatchSamplerParams.make([0.0] * 2, [50] * 2, [1.0] * 2, [1.0] * 2, CPU)
+    _out, _n, g = llm_mod.llm_prefill_generate(cfg, w, torch.tensor([-1]), 4,
+                                               torch.from_numpy(toks).long(),
+                                               torch.from_numpy(lengths), [9, 0], sampler)
+    state = llm_mod.init_batched_state(cfg, 3, 64, CPU)
+    state.ring_idx.fill_(17)
+    before = {k: v.clone() for k, v in vars(state).items()}
+    llm_mod.attach_lanes_gen(state, lanes, g)
+    assert state.pos[1] == 7 + 4 and not state.done[1] and int(state.ring_idx) == 17
+    assert state.key[1].tolist() == [9, 4]
+    assert torch.equal(state.cache_k[:, 1, :36], g.cache_k[:, 0])
+    for name in ("logits", "pos", "ring", "done", "key"):
+        assert torch.equal(getattr(state, name)[[0, 2]], before[name][[0, 2]]), name
+
+
+# -- the batcher's slicing, fused prefill, warm registries, hold and depth ------------
+
+def test_width_sliced_chunk_used_and_identical(batcher, jax_engine, monkeypatch):
+    """Below full occupancy the worker dispatches the width-sliced chunk
+    and the tokens equal JAX's engine and the port's single-request path;
+    the full-width chunk never runs for a lone request on a 4-lane batcher;
+    a sampled lane is seed-reproducible through the sliced path."""
+    eng, b, _ = batcher
+    assert b.slice_chunks
+    widths, full_calls = [], []
+    real_sliced = bmod.llm_generate_chunk_batched_sliced
+    real_full = bmod.llm_generate_chunk_batched
+
+    def spy_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem):
+        widths.append(width)
+        assert tuple(lanes.shape) == (width,)
+        return real_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem)
+
+    def spy_full(*a, **k):
+        full_calls.append(1)
+        return real_full(*a, **k)
+
+    monkeypatch.setattr(bmod, "llm_generate_chunk_batched_sliced", spy_sliced)
+    monkeypatch.setattr(bmod, "llm_generate_chunk_batched", spy_full)
+    got = b.submit("slice me", SamplerParams(temp=0.0), n_predict=24).collect()
+    assert got == jax_engine.generate_audio_tokens("slice me", n_predict=24, n_ctx=64,
+                                                   sampler=jsampling.SamplerParams(temp=0.0))
+    assert got == eng.generate_audio_tokens("slice me", n_predict=24, n_ctx=64,
+                                            sampler=SamplerParams(temp=0.0))
+    assert widths and set(widths) == {1}
+    assert not full_calls
+    s = SamplerParams(temp=0.9, top_k=40, seed=7)
+    assert b.submit("vary", s, n_predict=20).collect() == b.submit("vary", s, n_predict=20).collect()
+
+
+def test_pick_width_warm_gate(batcher):
+    """An unwarmed width falls back to the next warm power of two, then to
+    the full width; while the warm-up tail runs (split_cold_until_warm)
+    nothing new is captured."""
+    b = batcher[1]
+    assert b._pick_width(8, 0) is None
+    assert b._pick_width(8, 5) is None  # pow2(5) = 8 >= n_lanes = 4: full
+    saved = (b.split_cold_until_warm, b._warm_chunks)
+    try:
+        b.split_cold_until_warm = True
+        b._warm_chunks = frozenset({(8, 2)})
+        assert b._pick_width(8, 1) == 2
+        assert b._pick_width(8, 2) == 2
+        assert b._pick_width(8, 3) is None
+        assert b._pick_width(16, 1) is None
+        b.split_cold_until_warm = False
+        assert b._pick_width(8, 1) == 2
+        assert b._pick_width(16, 1) == 1
+        b._warm_chunks = frozenset({(8, b.n_lanes)})
+        assert b._pick_width(8, 1) is None
+    finally:
+        b.split_cold_until_warm, b._warm_chunks = saved
+
+
+def test_warm_chunk_registers_and_releases(batcher):
+    """warm_chunk registers (size, width) (the full width for None) without
+    touching the live state, and release_warm_state drops the throwaway
+    state."""
+    b = batcher[1]
+    b.warm_chunk(width=2)
+    b.warm_chunk()
+    assert {(b.chunk_max, 2), (b.chunk_max, b.n_lanes)} <= set(b._warm_chunks)
+    assert b._warm_state is not None and b._warm_state.pos is not b.state.pos
+    b.release_warm_state()
+    assert b._warm_state is None
+
+
+def test_unfused_prefill_fallback(batcher, monkeypatch):
+    """MIOTTS_FUSED_PREFILL=0 is the unfused path with the same greedy
+    tokens; a prompt bucket with no room for the fused steps falls back
+    by itself (_use_fused)."""
+    eng = batcher[0]
+    monkeypatch.setenv("MIOTTS_FUSED_PREFILL", "0")
+    b = _own(eng)
+    try:
+        assert not b.fused_prefill
+        got = b.submit("hi", SamplerParams(temp=0.0), n_predict=20).collect()
+    finally:
+        b.shutdown()
+    assert got == eng.generate_audio_tokens("hi", n_predict=20, n_ctx=64,
+                                            sampler=SamplerParams(temp=0.0))
+    monkeypatch.delenv("MIOTTS_FUSED_PREFILL")
+    b2 = _own(eng, max_ctx=39)  # bucket 32 + first_chunk 8 > 39
+    try:
+        assert b2.fused_prefill and not b2._use_fused(32)
+        got2 = b2.submit("hi", SamplerParams(temp=0.0), n_predict=4).collect()
+    finally:
+        b2.shutdown()
+    assert got2 == eng.generate_audio_tokens("hi", n_predict=4, n_ctx=64,
+                                             sampler=SamplerParams(temp=0.0))
+
+
+def test_fused_prefill_early_eog_and_budget(batcher):
+    """Requests that end inside the fused steps (n_predict 3 < first_chunk)
+    complete with their tokens and free their lane, over and over."""
+    eng, b, _ = batcher
+    expect = eng.generate_audio_tokens("hello", n_predict=3, n_ctx=64,
+                                       sampler=SamplerParams(temp=0.0))
+    for _ in range(6):
+        assert b.submit("hello", SamplerParams(temp=0.0), n_predict=3).collect() == expect
+    assert all(lane is None for lane in b.lanes)
+
+
+def test_binary_lane_skips_first_chunk(batcher, monkeypatch):
+    """Both a binary lane (early_tokens=False) and a streaming one get
+    their first first_chunk tokens from the fused prefill; the binary lane
+    then votes chunk_max at once, the lone streaming lane skips the middle
+    rung: chunks of 16, then the remaining 4, for both."""
+    eng = batcher[0]
+    b = _own(eng, first_chunk=4)
+    try:
+        assert b.first_chunk == 4 and b.ladder == (4, 8, 16)
+        sizes = []
+        real = bmod.llm_generate_chunk_batched
+        real_sliced = bmod.llm_generate_chunk_batched_sliced
+
+        def spy(cfg, w, eog, steps, sampler, state, rem):
+            sizes.append(steps)
+            return real(cfg, w, eog, steps, sampler, state, rem)
+
+        def spy_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem):
+            sizes.append(steps)
+            return real_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem)
+
+        monkeypatch.setattr(bmod, "llm_generate_chunk_batched", spy)
+        monkeypatch.setattr(bmod, "llm_generate_chunk_batched_sliced", spy_sliced)
+        got = b.submit("hi", SamplerParams(temp=0.0), n_predict=24, early_tokens=False).collect()
+        binary_sizes, sizes[:] = list(sizes), []
+        got_early = b.submit("hi", SamplerParams(temp=0.0), n_predict=24).collect()
+        early_sizes = list(sizes)
+    finally:
+        b.shutdown()
+    expect = eng.generate_audio_tokens("hi", n_predict=24, n_ctx=64,
+                                       sampler=SamplerParams(temp=0.0))
+    assert got == expect and got_early == expect
+    assert binary_sizes[0] != 4
+    if len(expect) == 24:
+        assert binary_sizes == [16, 4] and early_sizes == [16, 4]
+
+
+def test_cold_group_sizes_split_to_warmed_during_warmup_tail(batcher, monkeypatch):
+    """While the warm-up tail runs (split_cold_until_warm), a burst that
+    would coalesce into a group size not yet warm splits into the largest
+    warm one, and greedy results still equal the single-request path."""
+    eng = batcher[0]
+    b = _own(eng, n_lanes=4, max_ctx=128)
+    try:
+        b.warm_prefill(32)
+        b.warm_prefill(32, n_lanes=2)
+        assert {(32, 1), (32, 2)} <= set(b._warm_prefills)
+        b.split_cold_until_warm = True
+        seen = []
+        real = bmod.llm_prefill_generate
+
+        def spy(cfg, w, eog, n_steps, toks, lens, seeds, sampler):
+            seen.append(int(toks.shape[0]))
+            return real(cfg, w, eog, n_steps, toks, lens, seeds, sampler)
+
+        monkeypatch.setattr(bmod, "llm_prefill_generate", spy)
+        texts = ["a", "bb", "ccc", "dddd"]
+        barrier = threading.Barrier(len(texts))
+
+        def one(text):
+            barrier.wait()
+            return b.submit(text, SamplerParams(temp=0.0), n_predict=8).collect()
+
+        with concurrent.futures.ThreadPoolExecutor(len(texts)) as ex:
+            results = list(ex.map(one, texts))
+        assert seen and max(seen) <= 2
+        for text, got in zip(texts, results):
+            assert got == eng.generate_audio_tokens(text, n_predict=8, n_ctx=64,
+                                                    sampler=SamplerParams(temp=0.0)), text
+    finally:
+        b.shutdown()
+
+
+def test_graph_per_rung_width_and_fused_match_eager(batcher, monkeypatch):
+    """The CUDA path on stand-in graphs with slicing and the fused prefill
+    on: the fused first chunk replays a graph of k = 1 lanes on its own
+    state of max_ctx rows, then width-1 graphs of the live state run 16 and
+    4 steps, and the tokens equal the eager path's."""
+    eng = batcher[0]
+    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
+    _EagerGraph.made, _EagerGraph.replayed = [], []
+    b = _own(eng, first_chunk=4)
+    b.use_graph = True
+    try:
+        got = b.submit("hi", SamplerParams(temp=0.0), n_predict=24, early_tokens=False).collect()
+        fused_graph = b._fused[1][0]
+        assert fused_graph.state.cache_k.shape[2] == b.max_ctx
+        assert set(b.graphs) <= {(16, 1), (4, 1)}
+        assert all(g.state is b.state for g in b.graphs.values())
+    finally:
+        b.shutdown()
+    expect = eng.generate_audio_tokens("hi", n_predict=24, n_ctx=64,
+                                       sampler=SamplerParams(temp=0.0))
+    assert got == expect
+    if len(got) == 24:
+        assert _EagerGraph.replayed == [4, 16, 4]
+
+
+def _slow_prefill(b, monkeypatch, delay):
+    real = b._prefill_group
+
+    def slow(bucket, group):
+        time.sleep(delay)
+        return real(bucket, group)
+
+    monkeypatch.setattr(b, "_prefill_group", slow)
+
+
+def test_attach_hold_waits_for_a_burst(batcher, monkeypatch):
+    """One lane running and two reserved lanes still prefilling (a strict
+    majority): the worker holds its dispatch (counted, in waits of at most
+    50 ms) until they attach; every lane's greedy tokens stay the
+    single-request path's."""
+    eng = batcher[0]
+    b = _own(eng, n_lanes=4)
+    try:
+        assert b.attach_hold_s == 1.0
+        first = b.submit("hold a", SamplerParams(temp=0.0), n_predict=60)
+        toks = first.tokens()
+        head = [next(toks)]  # attached and running
+        _slow_prefill(b, monkeypatch, 0.3)
+        others = [b.submit(t, SamplerParams(temp=0.0), n_predict=20) for t in ("hold b", "hold c")]
+        got = head + list(toks)
+        rest = [h.collect() for h in others]
+        assert b.attach_holds >= 1 and b.attach_hold_ms > 50
+    finally:
+        b.shutdown()
+    assert got == eng.generate_audio_tokens("hold a", n_predict=60, n_ctx=64,
+                                            sampler=SamplerParams(temp=0.0))
+    for text, r in zip(("hold b", "hold c"), rest):
+        assert r == eng.generate_audio_tokens(text, n_predict=20, n_ctx=64,
+                                              sampler=SamplerParams(temp=0.0))
+
+
+def test_attach_hold_skips_a_trickle_and_is_bounded(batcher, monkeypatch):
+    """One new lane beside one running lane never holds (not a strict
+    majority); with MIOTTS_ATTACH_HOLD_S=0.1 a hold ends after its cap
+    while the burst's prefill still runs."""
+    eng = batcher[0]
+    b = _own(eng, n_lanes=4)
+    try:
+        first = b.submit("trickle a", SamplerParams(temp=0.0), n_predict=40)
+        toks = first.tokens()
+        next(toks)
+        _slow_prefill(b, monkeypatch, 0.3)
+        b.submit("trickle b", SamplerParams(temp=0.0), n_predict=8).collect()
+        list(toks)
+        assert b.attach_holds == 0
+    finally:
+        b.shutdown()
+    monkeypatch.undo()  # the slow prefill above
+    monkeypatch.setenv("MIOTTS_ATTACH_HOLD_S", "0.1")
+    b = _own(eng, n_lanes=4)
+    try:
+        assert b.attach_hold_s == 0.1
+        first = b.submit("bounded a", SamplerParams(temp=0.0), n_predict=60)
+        toks = first.tokens()
+        next(toks)
+        _slow_prefill(b, monkeypatch, 1.0)
+        others = [b.submit(t, SamplerParams(temp=0.0), n_predict=4) for t in ("b", "c")]
+        t0 = time.monotonic()
+        list(toks)  # runs on after the 0.1 s hold, before the 1 s prefill ends
+        assert time.monotonic() - t0 < 0.9
+        for h in others:
+            h.collect()
+        assert b.attach_holds >= 1 and b.attach_hold_ms < 300
+    finally:
+        b.shutdown()
+
+
+def test_chunk_depth_two_dispatches_ahead(batcher, monkeypatch):
+    """MIOTTS_CHUNK_DEPTH=2: chunks are dispatched ahead of their reads
+    (up to three queued), and greedy lanes of mixed budgets, attached and
+    freed while chunks are in flight, keep the single-request tokens."""
+    eng = batcher[0]
+    monkeypatch.setenv("MIOTTS_CHUNK_DEPTH", "2")
+    counts = {"out": 0, "max": 0}
+    real_start, real_finish = bmod.start_chunk_fetch, bmod.finish_chunk_fetch
+
+    def start(*a):
+        counts["out"] += 1
+        counts["max"] = max(counts["max"], counts["out"])
+        return real_start(*a)
+
+    def finish(f):
+        counts["out"] -= 1
+        return real_finish(f)
+
+    monkeypatch.setattr(bmod, "start_chunk_fetch", start)
+    monkeypatch.setattr(bmod, "finish_chunk_fetch", finish)
+    b = _own(eng, n_lanes=2)
+    try:
+        assert b.depth == 2
+        texts = [("depth a", 50), ("depth b", 13), ("depth c", 30), ("depth d", 21)]
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            got = list(ex.map(lambda tn: b.submit(tn[0], SamplerParams(temp=0.0),
+                                                  n_predict=tn[1]).collect(), texts))
+    finally:
+        b.shutdown()
+    assert counts["max"] >= 3
+    for (text, n), g in zip(texts, got):
+        assert g == eng.generate_audio_tokens(text, n_predict=n, n_ctx=64,
+                                              sampler=SamplerParams(temp=0.0)), text
+
+
+def test_delivery_skips_a_lane_attached_again(batcher):
+    """A chunk in flight whose lane was freed and taken by a new request
+    delivers nothing to the new request (the snapshot holds lane objects)."""
+    b = batcher[1]
+    old = bmod._Lane(handle=bmod.GenerationHandle(), n_predict=10, started=True)
+    new = bmod._Lane(handle=bmod.GenerationHandle(), n_predict=10, started=True)
+    with b._cv:
+        b.lanes[3] = new
+    try:
+        out = np.full((b.n_lanes, 4), 7, np.int32)
+        b._deliver_chunk(out, np.full(b.n_lanes, 4, np.int32), np.zeros(b.n_lanes, bool),
+                         [(3, old)])
+        assert new.generated == 0 and new.handle._q.empty() and old.handle._q.empty()
+        b._deliver_chunk(out, np.full(b.n_lanes, 4, np.int32), np.zeros(b.n_lanes, bool),
+                         [(3, new)])
+        assert new.generated == 4 and new.handle._q.get_nowait() == [7, 7, 7, 7]
+    finally:
+        with b._cv:
+            b.lanes[3] = None
+
+
+def test_fused_graph_runs_unbudgeted(batcher, monkeypatch):
+    """The fused first chunk's graph runs its steps with no budget, as
+    JAX's (rem None): its body reads a ``rem`` buffer of NO_BUDGET that
+    only the graph holds, through the body it keeps. Checked on the CPU
+    with a stand-in for the capture."""
+    eng = batcher[0]
+    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
+    _EagerGraph.made, _EagerGraph.replayed = [], []
+    b = _own(eng, first_chunk=4)
+    b.use_graph = True
+    try:
+        b.submit("hi", SamplerParams(temp=0.0), n_predict=6).collect()
+        graph = b._fused[1][0]
+        rems = [c.cell_contents for c in graph.body.__closure__
+                if torch.is_tensor(c.cell_contents) and c.cell_contents.dtype == torch.int32]
+        assert rems and all(int(r.min()) == llm_mod.NO_BUDGET for r in rems)
+    finally:
+        b.shutdown()

@@ -154,13 +154,18 @@ def test_codes_only(assets, tmp_path):
     ["--cpu-native", "on"],
 ])
 def test_unported_flags_exit_1(assets, extra, capsys, monkeypatch):
-    """Each flag exits 1 on this codes request: the voice-cloning flags
-    (ported) with the JAX CLI's error, the others as not yet ported."""
+    """Each flag exits 1 on this codes request: the voice-cloning flags and
+    --llm-api-url (ported; codes win over it, and this request has no
+    embedding) with the JAX CLI's error, the others as not yet ported."""
+    ported = ("--tts-reference-audio", "--tts-wavlm-model", "--tts-mio-embedding-only",
+              "--llm-api-url")
+    if extra[0] == "--llm-api-url":  # it gets as far as the codec, on the CPU
+        monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
     argv = ["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "1 2 3"] + extra
     rc = cli.main(argv)
     err = capsys.readouterr().err
     assert rc == 1
-    if extra[0] in ("--tts-reference-audio", "--tts-wavlm-model", "--tts-mio-embedding-only"):
+    if extra[0] in ported:
         monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
         assert jax_cli.main(argv) == 1
         assert err == capsys.readouterr().err and "not yet ported" not in err

@@ -1,7 +1,8 @@
 """The native C client bridge (miotts_tpu/bindings) end to end against the
-port's server, the flow of tests/test_client_bindings.py. The port runs no
-WavLM yet, so creating a reference from audio gets the server's own 400
-("server requires --tts-wavlm-model ..."); the reference is added from a
+port's server, the flow of tests/test_client_bindings.py: a server with
+``--tts-wavlm-model`` turns an uploaded recording into a reference that
+text requests then use; a server without it answers the JAX server's own
+400 ("server requires --tts-wavlm-model ...") and takes a reference from a
 GGUF instead."""
 
 import json
@@ -17,7 +18,8 @@ from miotts_tpu_torch.gguf.writer import save_embedding_gguf
 from miotts_tpu_torch.serving.server import MioTTSServer
 from miotts_tpu_torch.serving.state import ServerConfig
 from miotts_tpu_torch.testing import (
-    tiny_codec_config, write_synthetic_llm_gguf, write_synthetic_miocodec_gguf)
+    tiny_codec_config, write_synthetic_llm_gguf, write_synthetic_miocodec_gguf,
+    write_synthetic_wavlm_gguf)
 
 pytestmark = pytest.mark.skipif(
     shutil.which("g++") is None and shutil.which("clang++") is None,
@@ -26,22 +28,39 @@ pytestmark = pytest.mark.skipif(
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def bridge_server(tmp_path_factory):
-    d = tmp_path_factory.mktemp("bridge")
-    cfg_codec = tiny_codec_config()
+def _server(d, wavlm: bool):
+    # a global encoder of 32 input channels matches the tiny WavLM's width
+    cfg_codec = tiny_codec_config(global_encoder_input_channels=32)
     write_synthetic_miocodec_gguf(str(d / "codec.gguf"), cfg_codec, seed=0)
     write_synthetic_llm_gguf(str(d / "llm.gguf"), n_audio=cfg_codec.vocab_size, seed=1,
                              audio_logit_scale=3.0)
+    if wavlm:
+        write_synthetic_wavlm_gguf(str(d / "wavlm.gguf"), seed=2)
     save_embedding_gguf(d / "voice.emb.gguf",
                         np.random.RandomState(0).randn(cfg_codec.decoder_adanorm_dim)
                         .astype(np.float32))
     cfg = ServerConfig(
-        model_vocoder=str(d / "codec.gguf"), model=str(d / "llm.gguf"), host="127.0.0.1",
+        model_vocoder=str(d / "codec.gguf"), model=str(d / "llm.gguf"),
+        wavlm_model=str(d / "wavlm.gguf") if wavlm else "", host="127.0.0.1",
         port=0, output_dir=str(d / "out"), n_parallel=2, n_predict=16, n_ctx=128,
         reference_file_json=json.dumps({"key": "preset", "path": str(d / "voice.emb.gguf")}))
     srv = MioTTSServer(cfg, torch.device("cpu"))
     srv.start_background()
+    return srv
+
+
+@pytest.fixture(scope="module")
+def bridge_server(tmp_path_factory):
+    d = tmp_path_factory.mktemp("bridge")
+    srv = _server(d, wavlm=True)
+    yield srv, d
+    srv.shutdown()
+
+
+@pytest.fixture(scope="module")
+def bridge_server_no_wavlm(tmp_path_factory):
+    d = tmp_path_factory.mktemp("bridge_nowavlm")
+    srv = _server(d, wavlm=False)
     yield srv, d
     srv.shutdown()
 
@@ -61,19 +80,21 @@ def test_bridge_end_to_end(bridge_server, tmp_path):
     srv, d = bridge_server
     with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
         assert json.loads(c.health_json())["status"] == "ok"
-        _make_wav(tmp_path / "voice.wav")
-        with pytest.raises(RuntimeError, match="tts-wavlm-model"):
-            c.create_reference_from_audio("bridge_voice", str(tmp_path / "voice.wav"),
-                                          max_reference_seconds=5.0,
-                                          embedding_out_path=str(tmp_path / "bridge.emb.gguf"))
-        c.add_reference_from_gguf("bridge_copy", str(d / "voice.emb.gguf"))
-        keys = [r["key"] for r in json.loads(c.list_references_json())["references"]]
-        assert {"preset", "bridge_copy"} <= set(keys)
 
-        # text -> wav (UTF-8 + JSON escaping through the C layer)
+        # voice clone through the bridge (multipart upload, GGUF download)
+        _make_wav(tmp_path / "voice.wav")
+        c.create_reference_from_audio("bridge_voice", str(tmp_path / "voice.wav"),
+                                      max_reference_seconds=5.0,
+                                      embedding_out_path=str(tmp_path / "bridge.emb.gguf"))
+        assert (tmp_path / "bridge.emb.gguf").read_bytes()[:4] == b"GGUF"
+        c.add_reference_from_gguf("bridge_copy", str(tmp_path / "bridge.emb.gguf"))
+        keys = [r["key"] for r in json.loads(c.list_references_json())["references"]]
+        assert {"preset", "bridge_voice", "bridge_copy"} <= set(keys)
+
+        # text -> wav with the new key (UTF-8 + JSON escaping through the C layer)
         c.set_generation_params(n_predict=12, top_k=40, top_p=0.95, temp=0.7, seed=3)
         out = tmp_path / "tts.wav"
-        c.synthesize_to_wav('こんにちは、"テスト"です。\n', "bridge_copy", str(out))
+        c.synthesize_to_wav('こんにちは、"テスト"です。\n', "bridge_voice", str(out))
         assert out.read_bytes()[:4] == b"RIFF"
 
         # codes -> wav (chunked-WAV decode in the C client)
@@ -82,9 +103,29 @@ def test_bridge_end_to_end(bridge_server, tmp_path):
         data = out2.read_bytes()
         assert data[:4] == b"RIFF" and len(data) > 44
 
+        c.remove_reference("bridge_voice")
         c.remove_reference("bridge_copy")
         keys = [r["key"] for r in json.loads(c.list_references_json())["references"]]
-        assert "bridge_copy" not in keys
+        assert "bridge_voice" not in keys and "bridge_copy" not in keys
+
+
+def test_bridge_reference_needs_wavlm(bridge_server_no_wavlm, tmp_path):
+    """Without --tts-wavlm-model the clone call gets the server's 400; a
+    reference added from a GGUF serves a text request."""
+    from miotts_tpu.bindings import MioTPUClient
+
+    srv, d = bridge_server_no_wavlm
+    with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
+        _make_wav(tmp_path / "voice.wav")
+        with pytest.raises(RuntimeError, match="tts-wavlm-model"):
+            c.create_reference_from_audio("bridge_voice", str(tmp_path / "voice.wav"),
+                                          max_reference_seconds=5.0,
+                                          embedding_out_path=str(tmp_path / "bridge.emb.gguf"))
+        c.add_reference_from_gguf("bridge_copy", str(d / "voice.emb.gguf"))
+        c.set_generation_params(n_predict=12, top_k=40, top_p=0.95, temp=0.7, seed=3)
+        out = tmp_path / "tts.wav"
+        c.synthesize_to_wav("hello", "bridge_copy", str(out))
+        assert out.read_bytes()[:4] == b"RIFF"
 
 
 def test_bridge_error_paths(bridge_server, tmp_path):

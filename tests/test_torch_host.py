@@ -212,3 +212,40 @@ def test_server_parser_matches():
     assert ours == ref
     argv = ["-mv", "c.gguf", "-m", "l.gguf", "-np", "8", "--warmup", "on", "--llm-quant", "q8_0"]
     assert vars(build_arg_parser().parse_args(argv)) == vars(jax_parser().parse_args(argv))
+
+
+_API_RESPONSES = [
+    {"codes": [1, 2, 3]},
+    {"codes_values": [4]},
+    {"audio_codes": [5, "6"]},
+    {"codes": []},
+    {"codes": "1 2"},
+    {"choices": [{"message": {"content": "<|s_7|><|s_8|>"}}]},
+    {"choices": [{"text": "<|s_9|> <|s_-3|>"}]},
+    {"output_text": "<|s_10|>"},
+    {"text": ["<|s_11|>", {"text": "<|s_12|>"}, {"type": "x"}]},
+    {"choices": [{"message": {"content": [{"type": "text", "text": "<|s_1|>"}, "<|s_2|>"]}}]},
+    {"choices": [{"message": {"content": "nope"}}]},
+    {"choices": []},
+    {},
+]
+
+
+@pytest.mark.parametrize("i", range(len(_API_RESPONSES)))
+def test_llm_api_copy_matches(i):
+    """The port's runtime/llm_api.py copy parses every response shape as
+    the JAX package's: the same codes and text, or the same error."""
+    from miotts_tpu.runtime import llm_api as jax_api
+    from miotts_tpu_torch.runtime import llm_api
+
+    def run(mod):
+        rsp = _API_RESPONSES[i]
+        try:
+            codes = mod.parse_codes_from_response(rsp)
+        except ValueError as e:
+            codes = ("error", str(e))
+        return codes, mod.extract_text_from_response(rsp)
+
+    assert run(llm_api) == run(jax_api)
+    text = "a <|s_1|><|s_22|> and <|s_333|> <|s_x|>"
+    assert llm_api.extract_codes_from_text(text) == jax_api.extract_codes_from_text(text)

@@ -37,12 +37,13 @@ def test_no_module_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 44  # every module was walked, the voice-cloning slice's among them
+    assert len(names) >= 46  # every module was walked, the serving slice's among them
     assert {"miotts_tpu_torch.streaming", "miotts_tpu_torch.models.decode_graph"} <= set(names)
     assert {f"miotts_tpu_torch.serving.{m}" for m in (
         "batching", "codec_batching", "engine", "server", "state", "webui")} <= set(names)
     assert {"miotts_tpu_torch.embed", "miotts_tpu_torch.models.wavlm"} | {
-        f"miotts_tpu_torch.runtime.{m}" for m in ("flac", "mp3", "mp3_tables")} <= set(names)
+        f"miotts_tpu_torch.runtime.{m}" for m in ("flac", "mp3", "mp3_tables", "llm_api",
+                                                  "tracing")} <= set(names)
 
 
 def test_select_device(monkeypatch):

@@ -438,11 +438,47 @@ def test_server_pipeline_skips_the_process_wide_sync_check(engine_dir):
 
 def test_warmup_runs_before_listening(engine_dir):
     """--warmup on on the CPU: nothing to capture, one warm request through
-    the batcher, and the server is warm once constructed."""
+    the batcher before the server is constructed; the rest of the warm-up
+    runs on a background thread, which ends with warmup_bg_done set and the
+    batcher's cold-group split off."""
     eng, _ = _engine(engine_dir, warmup=True)
     try:
-        assert eng.warmup_bg_done and eng.warmup_s > 0
+        assert eng.warmup_s > 0 and eng.warmup_fg_calls > 0 and eng.warmup_bg_calls > 0
+        eng._warmup_bg_thread.join(timeout=120)
+        assert eng.warmup_bg_done and eng.warmup_bg_s > 0
+        assert not eng.batcher.split_cold_until_warm and eng.batcher._warm_state is None
         assert all(lane is None for lane in eng.batcher.lanes)
+    finally:
+        eng.shutdown()
+
+
+def test_warmup_foreground_split(engine_dir, monkeypatch):
+    """The warm calls split as JAX splits them: width 1 and the full width,
+    the small prompt buckets' single prefills and the codec keys up to
+    MIOTTS_WARMUP_FG_BUCKET (but the f32 streaming fallback's) before
+    listening; MIOTTS_WARMUP_BG=0 warms everything in the foreground."""
+    eng, _ = _engine(engine_dir)
+    try:
+        calls = eng._codec_warm_calls() + eng._llm_warm_calls()
+        fg = {bk[0] if bk[1] is None else (bk[0], tuple(sorted(bk[1].items())))
+              for bk in calls if eng._warm_is_fg(bk)}
+        b = eng.batcher
+        for rung in b.ladder:
+            for wd in b.widths():
+                assert eng._warm_is_fg((rung, {"chunk_width": wd})) == (wd in (1, b.n_lanes))
+        assert eng._warm_is_fg((32, None)) and not eng._warm_is_fg((256, None))
+        assert not eng._warm_is_fg((32, {"prefill_lanes": 2}))
+        assert not eng._warm_is_fg((32, {"interp_anchor": 1024, "peak_normalize": False}))
+        monkeypatch.setenv("MIOTTS_WARMUP_FG_BUCKET", "16")
+        assert not eng._warm_is_fg((32, {"pcm16": True}))
+        assert fg
+    finally:
+        eng.shutdown()
+    monkeypatch.setenv("MIOTTS_WARMUP_BG", "0")
+    eng, _ = _engine(engine_dir, warmup=True)
+    try:
+        assert eng.warmup_bg_done and eng.warmup_bg_calls == 0
+        assert eng._warmup_bg_thread is None
     finally:
         eng.shutdown()
 
@@ -566,14 +602,16 @@ def test_reference_file_alias():
     (["-tp", "2"], "-tp/--tensor-parallel"),
 ])
 def test_unported_flags_exit(capsys, monkeypatch, argv, flag):
-    """Each flag not yet ported exits 1 naming it. --tts-wavlm-model is
-    ported: main goes past the flag check to the device (an unknown
-    platform here, so it stops there without loading a model)."""
-    if flag == "--tts-wavlm-model":
+    """Each flag not yet ported exits 1 naming it. --tts-wavlm-model and
+    --llm-api-url are ported: main goes past the flag check to the device
+    (an unknown platform here, so it stops there without loading a
+    model)."""
+    ported = flag in ("--tts-wavlm-model", "--llm-api-url")
+    if ported:
         monkeypatch.setenv("MIOTTS_PLATFORM", "none")
     assert server_mod.main(["-mv", "c.gguf", *argv]) == 1
     err = capsys.readouterr().err
-    if flag == "--tts-wavlm-model":
+    if ported:
         assert err.startswith("error: MIOTTS_PLATFORM must be one of") and "not yet" not in err
     else:
         assert err.startswith(f"error: {flag}") and "not yet ported to miotts_tpu_torch" in err
