@@ -77,13 +77,20 @@ Phases, in order; any failure exits nonzero and prints no result:
     captured ahead (``MioTTSPipeline.capture``) and replayed on two ragged
     lanes. Eager, capture and replay wall ms, the profiler's busy ms and
     the reserved memory after all captures are printed.
-14. 44.1 kHz requests: text -> WAV (-n 120) and codes -> WAV (400 codes)
+14. the codec's precision knob, each pipeline built with its own setting:
+    MIOTTS_CODEC_MATMUL float32, tensorfloat32 (the f32 path) and bfloat16
+    for a 400-code wave decode (mel-L1 against the CPU's f32 decode) and
+    for mel decodes (64 codes against the CPU's f32 decode, 400 codes
+    against the card's f32 decode): mel-L1 < 1e-2 required of every mode
+    but the mel codec's bfloat16, which is reported (this is also the mel
+    codec's fidelity check); K4-K6 launches by the dispatch rules. Eager,
+    capture and replay ms and a replay's busy ms printed for each.
+15. 44.1 kHz requests: text -> WAV (-n 120) and codes -> WAV (400 codes)
     through ``cli.main``; each WAV is 44 100 Hz with the upsampled iSTFT's
     sample count, not silent, one eager decode (K1 14 times).
-15. fidelity: the same 250 codes through the wave codec, the same 64
-    codes through the mel codec and the same 250 through the 44.1 kHz
-    codec, each decoded on the card and on the CPU (plain versions, f32):
-    mel-L1 < 1e-2. Then the reserved memory of the mel codec's graphs at
+16. fidelity: the same 250 codes through the wave codec and the same 250
+    through the 44.1 kHz codec, each decoded on the card and on the CPU
+    (plain versions, f32): mel-L1 < 1e-2. Then the reserved memory of the mel codec's graphs at
     buckets 512 and 2 048, in one shared pool and with a pool each.
 
 The decode loop (``models/decode_graph.py``): every text request above
@@ -115,11 +122,20 @@ published widths (2 layers, 12 heads of 64, ffn 3072, the 7-conv stack at
 512 channels, 320 buckets) and the 24 kHz codec written with its global
 encoder (input 768, dim 384, 4 ConvNeXt blocks, output 128): 24 kHz
 references of 3, 20 and 25 s (WAV; the 25 s one cut to 20 s by the default
---tts-max-reference-seconds) and the 3 s one as a FLAC each give on the
-card (the device chain under sync-debug "error") and on the CPU (the same
-port module) the rung ssl, embeddings within 1e-3 max abs and cosine
->= 0.9999, and the same bucket table; host decode ms, device chain ms, the
-profiler's busy ms and the peak allocated memory are printed. Through
+--tts-max-reference-seconds) and the 3 s one as a FLAC, each four times on
+one card pipeline (a WavLM bucket's first chain eager under sync-debug
+"error", its second the capture of the bucket's CUDA graph, then replays;
+a reference whose bucket has its graph replays all four), every run
+bit-equal to the first and to the chain run eagerly by name, and once on
+the CPU (the same port module): the rung ssl, embeddings within 1e-3 max
+abs and cosine >= 0.9999, and the same bucket table. A 2.5 s reference
+(another length in the 3 s one's bucket) replays that graph bit-equal to
+its own eager chain; two threads running chains at once (of one bucket,
+and of two) each get their eager embedding; the reference graphs keep a
+memory pool apart from the codec graphs'. Host decode ms, the device
+chain's wall ms of each run and the capture's, the profiler's busy ms of
+an eager chain and of a replay, the peak allocated memory and the
+reference pool's MiB are printed. Through
 ``cli.main``: a text request cloned from the 20 s reference (-n 120, K1 and
 K2 grow, --tts-mio-embedding-out bit-equal to the in-process card
 embedding), --tts-mio-embedding-only (an embedding, no WAV), and 400 codes
@@ -127,8 +143,10 @@ with --tts-mio-embedding-in of that embedding, whose decode card vs CPU
 has mel-L1 < 1e-2. Then a --tts-wavlm-model server (-np 2 -n 120
 --warmup on, --parallel-reference-generation 2): /mio/generate_reference
 as JSON and as a multipart upload (each embedding within 1e-3 of the
-in-process one), /mio/tts/stream with both keys, and two generations
-concurrent with two text /mio/tts requests, none failing.
+in-process one; each bucket's eager chain), /mio/tts/stream with both
+keys, two generations concurrent with two text /mio/tts requests (the
+buckets' captures), two alone and two more beside two text requests
+(replays), none failing, each bucket captured once.
 
 Last, a server phase (``miotts_tpu_torch/serving/``): the port's
 MioTTSServer in this process (port 0, so the launch counters are readable)
@@ -196,9 +214,11 @@ temporary directory and the kernels' build directory.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
+import os
 import re
 import struct
 import subprocess
@@ -292,7 +312,7 @@ STREAM_REQUESTS = (  # (name, codec, llm, n_predict, extra flags, kernels that m
     ("wave441-bf16", "codec441.gguf", "llm.gguf", 250, ["--seed", "1"], (k1, k2)),
 )
 GRAPH_COUNTERS = ("captures", "replays", "capture_ms", "warmup_steps", "eager_steps")
-CODEC_COUNTERS = ("captures", "replays", "capture_ms", "replay_ms", "eager_decodes")
+CODEC_COUNTERS = ("captures", "replays", "capture_ms", "replay_ms", "eager")
 WAVE441_REQUESTS = (  # (name, extra flags, kernels that must launch)
     ("text-120", ["-m", "llm.gguf", "-p", "Hello there, in forty-four kilohertz.", "-n", "120",
                   "--seed", "1"], (k1, k2)),
@@ -794,7 +814,7 @@ class TrackedPipeline(MioTTSPipeline):
 
 
 def codec_counts() -> dict:
-    return {k: getattr(codec_graph, k) for k in CODEC_COUNTERS}
+    return {k: getattr(codec_graph.codec, k) for k in CODEC_COUNTERS}
 
 
 def check_codec_routes(name: str, pipe: MioTTSPipeline, c0: dict) -> dict:
@@ -803,9 +823,9 @@ def check_codec_routes(name: str, pipe: MioTTSPipeline, c0: dict) -> dict:
     replay. Returns the codec graph counters of the request."""
     c = {k: v - c0[k] for k, v in codec_counts().items()}
     replays = {key: g.n_replays for key, g in pipe.graphs.items()}
-    if (c["eager_decodes"] != len(pipe.seen) or c["captures"] != len(pipe.graphs)
+    if (c["eager"] != len(pipe.seen) or c["captures"] != len(pipe.graphs)
             or c["replays"] != sum(replays.values()) or min(replays.values(), default=1) < 1
-            or c["eager_decodes"] + c["replays"] != pipe.n_decodes):
+            or c["eager"] + c["replays"] != pipe.n_decodes):
         raise AssertionError(f"{name}: {pipe.n_decodes} codec decodes of {len(pipe.seen)} keys "
                              f"went {c}, replays by key {replays}")
     return c
@@ -1077,12 +1097,12 @@ def stream_request(name: str, tmp: Path, codec: str, model: str, n_predict: int,
     m = re.search(r"streaming ttfa=([0-9.]+)ms .*redecodes=(\d+) redecode_ms=([0-9.]+)", text)
     ttfa, redecodes, redecode_ms = float(m.group(1)), int(m.group(2)), float(m.group(3))
     n_tok = int(re.search(r"n_tokens=(\d+)", text).group(1))
-    if redecodes != routes["eager_decodes"] + routes["replays"]:
+    if redecodes != routes["eager"] + routes["replays"]:
         raise AssertionError(f"stream {name}: {redecodes} re-decodes, codec graph {routes}")
     log(f"[stream {name}] n_predict={n_predict} {' '.join(extra)}: tokens={n_tok} "
         f"codes={n_codes} ttfa_ms={ttfa} redecodes={redecodes} redecode_ms={redecode_ms} "
         f"of them replays={routes['replays']} replay_ms={routes['replay_ms']:.1f} "
-        f"eager={routes['eager_decodes']} captures={routes['captures']} "
+        f"eager={routes['eager']} captures={routes['captures']} "
         f"capture_ms={routes['capture_ms']:.1f} wall_s={wall_s:.3f} audio_s={pcm.size / sr} "
         f"{graph_text(text)} launches: {launch_text(grew)}")
     return {"tokens": n_tok, "codes": n_codes, "ttfa_ms": ttfa, "redecodes": redecodes,
@@ -1241,7 +1261,7 @@ def graph_key(pipe, cfg, emb, codec: str, bucket: int, windowed: bool) -> dict:
         got = pipe.decode(tokens, lengths, cond, **kw)
         c = {k: v - c0[k] for k, v in codec_counts().items()}
         grews.append({m: m.launches - l0[m] for m in MODS})
-        routes.append("eager" if c["eager_decodes"] else "capture" if c["captures"] else
+        routes.append("eager" if c["eager"] else "capture" if c["captures"] else
                       "replay" if c["replays"] else "?")
         walls.append(got[2])
         if i == 0 or windowed or n != long_:
@@ -1294,7 +1314,7 @@ def graph_batch(pipe, cfg, emb, codec: str, bucket: int) -> dict:
     check = same_decode(f"{codec} bucket {bucket} B=2 lengths {lens}", got, ref, None,
                         cfg.sample_rate, False)
     want = [wav_samples(cfg, n) for n in lens]
-    if (list(got[1]) != want or grew != K1_PER_DECODE or c["eager_decodes"]
+    if (list(got[1]) != want or grew != K1_PER_DECODE or c["eager"]
             or (c["captures"], c["replays"]) != (1, 1)):
         raise AssertionError(f"{codec} B=2: counts {list(got[1])} (want {want}), K1 {grew}, {c}")
     log(f"[codec graph] {codec} bucket {bucket} B=2 lengths {lens}: captured ahead "
@@ -1373,11 +1393,134 @@ def fidelity(path: Path, device, codes, emb, sample_rate: int, what: str) -> Non
         raise AssertionError(f"{what}: mel-L1 {l1} >= {MEL_L1_MAX}")
 
 
+# -- the codec knobs ---------------------------------------------------------------------
+
+KNOB_CODES = 400
+KNOB_MEL_CPU_CODES = 64  # the mel decode the CPU makes in ~20 s (400 codes: minutes)
+MATMUL_MODES = ("float32", "tensorfloat32", "bfloat16")
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """Environment variables set (a value of None: unset) inside, put back
+    on exit."""
+    def put(settings: dict) -> None:
+        for k, v in settings.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        put(values)
+        yield
+    finally:
+        put(saved)
+
+
+def knob_pipeline(path: Path, dev, matmul: str) -> MioTTSPipeline:
+    """A pipeline built with MIOTTS_CODEC_MATMUL set to ``matmul``; it keeps
+    what it read."""
+    with environment(MIOTTS_CODEC_MATMUL=matmul):
+        pipe = MioTTSPipeline(path, dev)
+    if pipe.codec_matmul != matmul:
+        raise AssertionError(f"pipeline read {pipe.codec_matmul}, not {matmul}")
+    return pipe
+
+
+def knob_decodes(pipe: MioTTSPipeline, codes, emb) -> tuple[dict, dict]:
+    """Three decodes of ``codes`` on one pipeline (the key's eager decode,
+    its capture and replay, a replay): a row with the last one's audio,
+    whether the three are bit-equal and the profiler's busy ms of a
+    replay, and the last one's launches."""
+    audio, walls, grews = [], [], []
+    for _ in range(3):
+        l0 = {m: m.launches for m in MODS}
+        res = pipe.synthesize(codes, emb)
+        grews.append({m: m.launches - l0[m] for m in MODS})
+        audio.append(res.audio)
+        walls.append(res.decode_ms)
+    return {"audio": audio[-1], "eager_ms": walls[0], "capture_decode_ms": walls[1],
+            "replay_ms": walls[2], "replay_busy_ms": busy_ms(lambda: pipe.synthesize(codes, emb)),
+            "launches": launch_text(grews[-1]), "repeats_bit_equal": all(
+                a.tobytes() == audio[0].tobytes() for a in audio)}, grews[-1]
+
+
+def knob_text(row: dict) -> str:
+    busy = row["replay_busy_ms"]
+    return (f"eager {row['eager_ms']:.2f} ms, capture+replay {row['capture_decode_ms']:.1f} "
+            f"ms, replay {row['replay_ms']:.2f} ms wall (busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}); the three decodes "
+            f"bit-equal: {row['repeats_bit_equal']}; launches a decode: {row['launches']}")
+
+
+def check_codec_knobs(dev, tmp: Path, emb, cfgs: dict) -> dict:
+    """The codec's precision knob, each pipeline built with its own setting:
+    MIOTTS_CODEC_MATMUL float32, tensorfloat32 and bfloat16 for a 400-code
+    wave decode (mel-L1 against the CPU's f32 decode) and for mel decodes
+    (64 codes against the CPU's f32 decode, 400 codes against the card's
+    f32 decode); mel-L1 < 1e-2 (the fidelity bar) is required of every
+    mode but the mel codec's bfloat16, whose vocoder's conv_post at bf16
+    misses it, and that one is reported. K4/K5/K6 launches as the dispatch
+    rules give them. Eager, capture and replay ms and a replay's busy ms
+    printed."""
+    rng = np.random.RandomState(12)
+    cpu = torch.device("cpu")
+    out: dict = {"wave": {}, "mel": {}}
+    wcfg, mcfg = cfgs["wave"], cfgs["mel"]
+    codes = rng.randint(0, wcfg.vocab_size, KNOB_CODES)
+    t0 = time.perf_counter()
+    cpu_wave = MioTTSPipeline(tmp / "codec.gguf", cpu).synthesize(codes, emb).audio
+    log(f"[knobs] wave CPU f32 decode of {KNOB_CODES} codes in {time.perf_counter() - t0:.1f}s")
+    for mode in MATMUL_MODES:
+        row, grew = knob_decodes(knob_pipeline(tmp / "codec.gguf", dev, matmul=mode), codes, emb)
+        got = row.pop("audio")
+        row["mel_l1_vs_cpu_f32"] = l1 = mel_l1(got, cpu_wave, wcfg.sample_rate)
+        row["max_abs_vs_cpu_f32"] = float(np.abs(got - cpu_wave).max())
+        out["wave"][mode] = row
+        log(f"[knobs] wave {KNOB_CODES} codes, MIOTTS_CODEC_MATMUL={mode}: mel-L1 vs CPU f32 "
+            f"{l1:.3e}, max abs {row['max_abs_vs_cpu_f32']:.3e}; {knob_text(row)}")
+        if got.shape != cpu_wave.shape or grew[k1] != K1_PER_DECODE or not l1 < MEL_L1_MAX:
+            raise AssertionError(f"wave decode at {mode}: {got.shape} vs {cpu_wave.shape}, {row}")
+
+    codes64 = rng.randint(0, mcfg.vocab_size, KNOB_MEL_CPU_CODES)
+    codes = rng.randint(0, mcfg.vocab_size, KNOB_CODES)
+    t0 = time.perf_counter()
+    cpu_mel = MioTTSPipeline(tmp / "mel_codec.gguf", cpu).synthesize(codes64, emb).audio
+    log(f"[knobs] mel CPU f32 decode of {KNOB_MEL_CPU_CODES} codes in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ref400 = None
+    for mode in MATMUL_MODES:
+        name = f"MIOTTS_CODEC_MATMUL={mode}"
+        pipe = knob_pipeline(tmp / "mel_codec.gguf", dev, matmul=mode)
+        a64 = pipe.synthesize(codes64, emb).audio
+        row, grew = knob_decodes(pipe, codes, emb)
+        got = row.pop("audio")
+        row["mel_l1_vs_cpu_f32_64"] = l1_64 = mel_l1(a64, cpu_mel, mcfg.sample_rate)
+        ref400 = got if ref400 is None else ref400
+        row["mel_l1_vs_card_f32_400"] = l1 = mel_l1(got, ref400, mcfg.sample_rate)
+        row["max_abs_vs_card_f32_400"] = diff = float(np.abs(got - ref400).max())
+        want = vocoder_launches(mcfg, pick_bucket(KNOB_CODES))
+        out["mel"][name] = row
+        log(f"[knobs] mel, {name}: {KNOB_MEL_CPU_CODES} codes mel-L1 vs CPU f32 {l1_64:.3e}; "
+            f"{KNOB_CODES} codes vs the card's default f32 decode: mel-L1 {l1:.3e}, max abs "
+            f"{diff:.3e}; {knob_text(row)}")
+        if (a64.shape != cpu_mel.shape or got.shape != ref400.shape
+                or any(grew[m] != n for m, n in want.items())
+                or (mode != "bfloat16" and not (l1_64 < MEL_L1_MAX and l1 < MEL_L1_MAX))):
+            raise AssertionError(f"mel decode, {name}: launches {row['launches']} "
+                                 f"(dispatch: {launch_text(want)}), {row}")
+    return out
+
+
 # -- the clone phase ---------------------------------------------------------------------
 
 # references: (file, seconds of 24 kHz audio written); the 25 s one is cut
 # to the default --tts-max-reference-seconds (20)
 CLONE_REFS = (("ref3.wav", 3.0), ("ref20.wav", 20.0), ("ref25.wav", 25.0), ("ref3.flac", 3.0))
+# 40 000 samples at 16 kHz: another length in the 3 s reference's bucket (64 000)
+CLONE_SAME_BUCKET = ("ref2_5.wav", 2.5)
 CLONE_MAX_SECONDS = 20.0
 CLONE_EMB_TOL = 1e-3  # max abs, card vs CPU
 CLONE_COS_MIN = 0.9999
@@ -1401,7 +1544,7 @@ def clone_assets(tmp: Path) -> None:
     phase = 2 * np.pi * np.cumsum(f0) / sr
     clip = ((0.35 * np.sin(phase) + 0.12 * np.sin(2 * phase) + 0.02 * rng.randn(t.size))
             * (0.6 + 0.4 * np.sin(2 * np.pi * 1.3 * t) ** 2)).astype(np.float32)
-    for name, secs in CLONE_REFS:
+    for name, secs in (*CLONE_REFS, CLONE_SAME_BUCKET):
         x = clip[:int(secs * sr)]
         if name.endswith(".flac"):
             pcm = np.rint(np.clip(x, -1, 1) * 32767).astype(np.int64)
@@ -1410,29 +1553,68 @@ def clone_assets(tmp: Path) -> None:
             save_wav16(tmp / name, x, sr)
 
 
+def ref_pool_mib(pool) -> float | None:
+    """MiB of the segments the caching allocator holds in the graph memory
+    pool ``pool`` (None when it holds none)."""
+    want = tuple(pool)
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == want]
+    return sum(seg["total_size"] for seg in segs) / 2 ** 20 if segs else None
+
+
+def same_embedding(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.tobytes() != want.tobytes():
+        raise AssertionError(f"{what}: not bit-equal, max abs {float(np.abs(got - want).max())}")
+
+
 def check_references(dev, tmp: Path) -> dict:
-    """Each reference through ``reference_embedding`` on the card (its
-    device chain under sync-debug "error") and on the CPU (the same port
-    module): rung ssl on both, card vs CPU within CLONE_EMB_TOL max abs and
-    CLONE_COS_MIN cosine, the card's bucket table equal to the CPU's, and
-    two card runs bit-equal. Host decode ms, device chain ms (first and
-    warm run), the profiler's busy ms and max_memory_allocated printed."""
+    """Each reference through ``reference_embedding`` four times on one
+    card pipeline (a bucket's first chain eager under sync-debug "error",
+    its second the capture of the bucket's CUDA graph, then replays; a
+    reference in a bucket already captured replays all four) and once on
+    the CPU (the same port module): rung ssl on both, card vs CPU within
+    CLONE_EMB_TOL max abs and CLONE_COS_MIN cosine, the card's bucket table
+    equal to the CPU's, every card run bit-equal to the first and to the
+    chain run eagerly by name. Then a reference of another length in the
+    3 s reference's bucket replays that graph bit-equal to its own eager
+    chain, two threads running chains at once (on one graph, and on two)
+    each get their eager results, and the reference graphs keep a pool of
+    their own. Host decode ms, device chain ms of each run, the capture's
+    ms, the profiler's busy ms of an eager chain and of a replay, the
+    max_memory_allocated and the reference pool's MiB printed."""
+    import threading
+
     from miotts_tpu_torch.models.wavlm import bucket_table
 
     card = MioTTSPipeline(tmp / "codec.gguf", dev, wavlm_path=tmp / "wavlm.gguf")
     cpu = MioTTSPipeline(tmp / "codec.gguf", torch.device("cpu"), wavlm_path=tmp / "wavlm.gguf")
     if not card.check_syncs:
         raise AssertionError("the card's reference chain must run under the sync check")
-    rows = {}
+    if card.ref_graph_pool is None or card.ref_graph_pool == card.graph_pool:
+        raise AssertionError("the reference graphs need a memory pool apart from the codec's")
+    ref0 = dataclasses.replace(codec_graph.reference)
+    rows, eager_of = {}, {}
     for name, secs in CLONE_REFS:
         path = tmp / name
+        want_n = int(min(secs, CLONE_MAX_SECONDS) * 16000)
+        new_bucket = card.wavlm.pick_wav_bucket(want_n) not in card.ref_seen
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        emb, st = card.reference_embedding(path, CLONE_MAX_SECONDS)
+        runs = [card.reference_embedding(path, CLONE_MAX_SECONDS) for _ in range(4)]
         peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        emb2, st2 = card.reference_embedding(path, CLONE_MAX_SECONDS)
+        emb, st = runs[0]
+        routes = [r.route for _, r in runs]
+        want_routes = ["eager", "capture", "replay", "replay"] if new_bucket else ["replay"] * 4
+        if routes != want_routes:
+            raise AssertionError(f"reference {name}: chains went {routes}, not {want_routes}")
+        eager_of[name] = card.reference_embedding_eager(path, CLONE_MAX_SECONDS)
+        for i, (e, _) in enumerate(runs):
+            same_embedding(f"reference {name} run {i + 1} ({routes[i]}) vs run 1", e, emb)
+        same_embedding(f"reference {name} vs its eager chain", eager_of[name], emb)
         busy = busy_ms(lambda: card.reference_embedding(path, CLONE_MAX_SECONDS))
+        busy_eager = busy_ms(lambda: card.reference_embedding_eager(path, CLONE_MAX_SECONDS))
+        graph = card.ref_graphs[st.bucket]
         ref, cst = cpu.reference_embedding(path, CLONE_MAX_SECONDS)
         host_t, dev_t = card.wavlm.bucket_table(st.frames)
         table_ok = (np.array_equal(to_host(dev_t), host_t)
@@ -1440,25 +1622,88 @@ def check_references(dev, tmp: Path) -> dict:
                     and np.array_equal(host_t, cpu.wavlm.bucket_table(cst.frames)[0]))
         err = float(np.abs(emb - ref).max())
         cos = float(np.dot(emb, ref) / (np.linalg.norm(emb) * np.linalg.norm(ref)))
-        want_n = int(min(secs, CLONE_MAX_SECONDS) * 16000)
         rows[name] = {"seconds": secs, "n_samples": st.n_samples, "bucket": st.bucket,
                       "frames": st.frames, "rung": st.rung, "max_abs_err": err, "cosine": cos,
-                      "decode_ms": [st.decode_ms, st2.decode_ms],
-                      "device_ms": [st.device_ms, st2.device_ms], "busy_ms": busy,
-                      "peak_allocated_mib": peak_mib, "cpu_device_ms": cst.device_ms,
-                      "repeat_bit_equal": bool(np.array_equal(emb, emb2))}
+                      "routes": routes, "decode_ms": [r.decode_ms for _, r in runs],
+                      "device_ms": [r.device_ms for _, r in runs],
+                      "capture_ms": graph.capture_ms if new_bucket else None,
+                      "replay_busy_ms": busy, "eager_busy_ms": busy_eager,
+                      "peak_allocated_mib": peak_mib, "cpu_device_ms": cst.device_ms}
+        fmt = lambda x: "not measured" if x is None else f"{x:.2f} ms"  # noqa: E731
         log(f"[clone] {name}: {st.n_samples} samples at 16 kHz, bucket {st.bucket}, "
             f"{st.frames} frames, rung {st.rung} (CPU {cst.rung}); host decode+resample "
-            f"{st.decode_ms:.1f}/{st2.decode_ms:.1f} ms, device chain {st.device_ms:.1f} ms "
-            f"first / {st2.device_ms:.1f} ms warm, busy {busy:.2f} ms, max_memory_allocated "
-            f"{peak_mib:.0f} MiB over the loaded weights; card vs CPU max abs {err:.3e} cosine {cos:.7f}; CPU chain "
-            f"{cst.device_ms:.0f} ms; bucket table card == CPU: {table_ok}; two card runs "
-            f"bit-equal: {rows[name]['repeat_bit_equal']}")
+            f"{', '.join(f'{r.decode_ms:.1f}' for _, r in runs)} ms; device chain "
+            + ", ".join(f"{r.route} {r.device_ms:.2f}" for _, r in runs) + " ms wall"
+            + (f" (the capture {graph.capture_ms:.1f} ms of it)" if new_bucket else "")
+            + f"; busy: eager {fmt(busy_eager)}, replay {fmt(busy)}; "
+            f"max_memory_allocated {peak_mib:.0f} MiB over the loaded weights; card vs CPU "
+            f"max abs {err:.3e} cosine {cos:.7f}; CPU chain {cst.device_ms:.0f} ms; bucket "
+            f"table card == CPU: {table_ok}; the 4 card runs and the eager chain bit-equal")
         if (st.rung != "ssl" or cst.rung != "ssl" or st.n_samples != want_n
                 or not np.isfinite(emb).all() or not err <= CLONE_EMB_TOL
                 or not cos >= CLONE_COS_MIN or not table_ok):
             raise AssertionError(f"reference {name}: {rows[name]}, table equal {table_ok}")
         rows[name]["embedding"] = emb
+
+    # another length in the 3 s reference's bucket: its graph, no capture
+    name, secs = CLONE_SAME_BUCKET
+    emb, st = card.reference_embedding(tmp / name, CLONE_MAX_SECONDS)
+    eager_of[name] = card.reference_embedding_eager(tmp / name, CLONE_MAX_SECONDS)
+    ref, _ = cpu.reference_embedding(tmp / name, CLONE_MAX_SECONDS)
+    err = float(np.abs(emb - ref).max())
+    if (st.route != "replay" or st.bucket != rows["ref3.wav"]["bucket"]
+            or st.n_samples == rows["ref3.wav"]["n_samples"] or not err <= CLONE_EMB_TOL):
+        raise AssertionError(f"{name}: route {st.route}, bucket {st.bucket}, {st.n_samples} "
+                             f"samples, card vs CPU {err}")
+    same_embedding(f"{name}'s replay vs its eager chain", emb, eager_of[name])
+    rows[name] = {"seconds": secs, "n_samples": st.n_samples, "bucket": st.bucket,
+                  "route": st.route, "device_ms": st.device_ms, "max_abs_err": err}
+    log(f"[clone] {name}: {st.n_samples} samples, bucket {st.bucket} (ref3.wav's, "
+        f"{rows['ref3.wav']['n_samples']} samples): a replay of that graph, {st.device_ms:.2f} "
+        f"ms wall, bit-equal to its own eager chain; card vs CPU max abs {err:.3e}")
+
+    # two chains at once: a lock holds copy-in, replay and read together
+    concurrent = {}
+    for pair in (("ref3.wav", CLONE_SAME_BUCKET[0]), ("ref3.wav", "ref20.wav")):
+        start, out = threading.Barrier(2, timeout=60), {n: [] for n in pair}
+
+        def worker(n):
+            start.wait()
+            for _ in range(3):
+                out[n].append(card.reference_embedding(tmp / n, CLONE_MAX_SECONDS))
+
+        threads = [threading.Thread(target=worker, args=(n,)) for n in pair]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if any(t.is_alive() for t in threads) or any(len(v) != 3 for v in out.values()):
+            raise AssertionError(f"concurrent chains {pair} did not finish")
+        for n, res in out.items():
+            for e, r in res:
+                same_embedding(f"{n} beside {pair}", e, eager_of[n])
+                if r.route != "replay":
+                    raise AssertionError(f"{n} beside {pair}: route {r.route}")
+        concurrent[" + ".join(pair)] = {n: [r.device_ms for _, r in res] for n, res in out.items()}
+        log(f"[clone] two threads at once, {' and '.join(pair)}, 3 chains each: every one a "
+            f"replay bit-equal to its eager chain; device chain ms " + "; ".join(
+                f"{n} " + ", ".join(f"{r.device_ms:.2f}" for _, r in res)
+                for n, res in out.items()))
+    rows["concurrent"] = concurrent
+
+    c = {k: getattr(codec_graph.reference, k) - getattr(ref0, k) for k in CODEC_COUNTERS}
+    torch.cuda.synchronize()
+    pool = ref_pool_mib(card.ref_graph_pool)
+    if c["captures"] != len(card.ref_graphs) or sorted(card.ref_graphs) != sorted(card.ref_seen):
+        raise AssertionError(f"reference graphs {sorted(card.ref_graphs)}, buckets run "
+                             f"{sorted(card.ref_seen)}, counters {c}")
+    rows["graphs"] = {"buckets": sorted(card.ref_graphs), "counters": c, "pool_mib": pool}
+    log(f"[clone] reference graphs: buckets {sorted(card.ref_graphs)}, counters "
+        f"eager={c['eager']} captures={c['captures']} capture={c['capture_ms']:.1f}ms "
+        f"replays={c['replays']} replay={c['replay_ms']:.1f}ms; their own pool holds "
+        + ("not measured" if pool is None else f"{pool:.0f} MiB") + " reserved")
+    del card, cpu
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1554,9 +1799,11 @@ def generate_reference(srv, tmp: Path, key: str, ref: str, multipart: bool, want
 
 def clone_server(dev, tmp: Path, refs: dict) -> dict:
     """A ``--tts-wavlm-model`` server (-np 2, --parallel-reference-generation
-    2): /mio/generate_reference as JSON and as a multipart upload, text
-    /mio/tts/stream requests with the generated key, then two generations
-    concurrent with two text /mio/tts requests, with no failure."""
+    2): /mio/generate_reference as JSON and as a multipart upload (each
+    bucket's eager chain), text /mio/tts/stream requests with the generated
+    key, then two generations concurrent with two text /mio/tts requests
+    (the buckets' captures), two generations alone and two more beside two
+    text requests (replays), with no failure, each bucket captured once."""
     import concurrent.futures
 
     out: dict = {}
@@ -1593,26 +1840,51 @@ def clone_server(dev, tmp: Path, refs: dict) -> dict:
                 raise AssertionError(f"text request {i} during generations: HTTP {status} {j}")
             return {"latency_ms": secs * 1e3, "llm_ms": j["llm_ms"], "synth_ms": j["synth_ms"]}
 
-        with concurrent.futures.ThreadPoolExecutor(4) as ex:
-            gens = [ex.submit(generate_reference, srv, tmp, f"clone_c{i}", ref, i == 1,
-                              refs[ref]["embedding"])
-                    for i, ref in enumerate(("ref20.wav", "ref3.flac"))]
-            texts = [ex.submit(text_request, i) for i in range(2)]
-            failed, res = [], {"generations": [], "texts": []}
-            for kind, futs in (("generations", gens), ("texts", texts)):
-                for f in futs:
-                    try:
-                        res[kind].append(f.result())
-                    except Exception as e:  # counted, then raised below
-                        failed.append(repr(e))
-        out["concurrent"] = {**res, "failed": len(failed)}
-        log(f"[clone server] 2 generations concurrent with 2 text requests: {len(failed)} "
-            f"failed; generations " + ", ".join(f"{g['latency_ms']:.1f} ms"
-                                                 for g in res["generations"])
-            + "; text llm_ms/synth_ms " + ", ".join(f"{t['llm_ms']:.1f}/{t['synth_ms']:.1f}"
-                                                     for t in res["texts"]))
-        if failed:
-            raise AssertionError(f"concurrent generations and text requests: {failed}")
+        def beside_text(tag: str) -> dict:
+            """Two generations (ref20.wav, ref3.flac) concurrent with two text
+            requests."""
+            with concurrent.futures.ThreadPoolExecutor(4) as ex:
+                gens = [ex.submit(generate_reference, srv, tmp, f"clone_{tag}{i}", ref, i == 1,
+                                  refs[ref]["embedding"])
+                        for i, ref in enumerate(("ref20.wav", "ref3.flac"))]
+                texts = [ex.submit(text_request, i) for i in range(2)]
+                failed, res = [], {"generations": [], "texts": []}
+                for kind, futs in (("generations", gens), ("texts", texts)):
+                    for f in futs:
+                        try:
+                            res[kind].append(f.result())
+                        except Exception as e:  # counted, then raised below
+                            failed.append(repr(e))
+            log(f"[clone server] 2 generations concurrent with 2 text requests ({tag}): "
+                f"{len(failed)} failed; generations " + ", ".join(
+                    f"{g['latency_ms']:.1f} ms" for g in res["generations"])
+                + "; text llm_ms/synth_ms " + ", ".join(
+                    f"{t['llm_ms']:.1f}/{t['synth_ms']:.1f}" for t in res["texts"]))
+            if failed:
+                raise AssertionError(f"concurrent generations and text requests: {failed}")
+            return {**res, "failed": len(failed)}
+
+        # both buckets (320 000 and 64 000) ran eagerly above: these two
+        # generations capture their graphs, every later one replays
+        pipe = srv.engine.pipeline
+        c0 = dataclasses.replace(codec_graph.reference)
+        out["concurrent"] = beside_text("c")
+        out["alone_replays"] = [
+            generate_reference(srv, tmp, f"clone_r{i}", ref, False, refs[ref]["embedding"])
+            for i, ref in enumerate(("ref20.wav", "ref3.wav"))]
+        out["concurrent_replays"] = beside_text("cr")
+        c = {k: getattr(codec_graph.reference, k) - getattr(c0, k) for k in CODEC_COUNTERS}
+        if (sorted(pipe.ref_graphs) != [64000, 320000] or c["captures"] != 2
+                or c["replays"] != 6 or c["eager"]):
+            raise AssertionError(f"the server's reference chains: graphs "
+                                 f"{sorted(pipe.ref_graphs)}, counters {c}")
+        out["reference_graphs"] = {"counters": c, "pool_mib": ref_pool_mib(pipe.ref_graph_pool)}
+        log(f"[clone server] generate_reference alone on a replay: " + ", ".join(
+            f"{g['latency_ms']:.1f} ms" for g in out["alone_replays"])
+            + f" (ref20.wav, ref3.wav); reference graphs: captures={c['captures']} "
+            f"capture={c['capture_ms']:.1f}ms replays={c['replays']} eager={c['eager']}, pool "
+            + ("not measured" if out["reference_graphs"]["pool_mib"] is None
+               else f"{out['reference_graphs']['pool_mib']:.0f} MiB"))
     finally:
         srv.shutdown()
     del srv
@@ -2407,7 +2679,7 @@ def check_server(dev, tmp: Path, emb) -> dict:
                                           for m, n in grew.items()},
                              "widths": dict(srv.engine.batcher.width_counts)}
         log(f"[server] --warmup off round of 8 (4 binary, 4 SSE stream_audio): {len(failed)} "
-            f"failed; codec eager={c['eager_decodes']} captures={c['captures']} "
+            f"failed; codec eager={c['eager']} captures={c['captures']} "
             f"replays={c['replays']}; chunk captures={d['captures']} replays={d['replays']} "
             f"eager_steps={d['eager_steps']}; chunks by width "
             f"{out['warmup_off']['widths']}; launched {launch_text(grew)}")
@@ -2635,9 +2907,11 @@ def main() -> int:
 
         # each path is driven with every count at 0 and read right after
         launches, streams, codec_rows, server_rows, clone_rows, api_rows = {}, {}, {}, {}, {}, {}
+        knob_rows = {}
         for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
-                           ("codec_graph", None), ("wave441", WAVE441_REQUESTS),
+                           ("codec_graph", None), ("codec_knobs", None),
+                           ("wave441", WAVE441_REQUESTS),
                            ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
                            ("llm_api", None)):
             for m in MODS:
@@ -2648,6 +2922,8 @@ def main() -> int:
                     mel_request(name, tmp, mcfg, extra, kernels)
             elif path == "codec_graph":
                 codec_rows = check_codec_graphs(dev, tmp, emb, cfgs)
+            elif path == "codec_knobs":
+                knob_rows = check_codec_knobs(dev, tmp, emb, cfgs)
             elif path == "wave441":
                 for name, extra, kernels in reqs:
                     wave441_request(name, tmp, wcfg, extra, kernels)
@@ -2673,8 +2949,6 @@ def main() -> int:
 
         fidelity(tmp / "codec.gguf", dev, rng.randint(0, ccfg.vocab_size, 250), emb,
                  ccfg.sample_rate, "wave")
-        fidelity(tmp / "mel_codec.gguf", dev, rng.randint(0, mcfg.vocab_size, 64), emb,
-                 mcfg.sample_rate, "mel")
         fidelity(tmp / "codec441.gguf", dev, rng.randint(0, wcfg.vocab_size, 250), emb,
                  wcfg.sample_rate, "wave441")
         t0 = time.perf_counter()
@@ -2694,7 +2968,8 @@ def main() -> int:
                         "launches_by_path": by_path, **results[mod]})
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     log(smi.stdout.strip().splitlines()[0])  # again, for readers of the output's tail
-    print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows, "streams": streams,
+    print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows,
+                      "codec_knobs": knob_rows, "streams": streams,
                       "server": server_rows, "clone": clone_rows, "llm_api": api_rows,
                       "trace": trace_row}, default=str))
     print(json.dumps({"kernels": kernels}))

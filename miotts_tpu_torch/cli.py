@@ -186,9 +186,9 @@ def _llm_breakdown(label: str = "generate"):
 
 
 def _codec_graph_counts() -> tuple:
-    from .models import codec_graph as cg
+    from .models.codec_graph import codec as c
 
-    return cg.eager_decodes, cg.captures, cg.capture_ms, cg.replays, cg.replay_ms
+    return c.eager, c.captures, c.capture_ms, c.replays, c.replay_ms
 
 
 def _codec_graph_text(before: tuple) -> str:

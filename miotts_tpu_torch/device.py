@@ -52,10 +52,16 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor's values on the host; from CUDA through pinned memory, after
-    the current stream's work (not the whole card's) has run."""
+    the current stream's work (not the whole card's) has run. The values
+    come back in a copy of their own and the pinned buffer is freed here:
+    PyTorch's pinned pool records an event on the copy's stream when a
+    buffer is freed, and a buffer freed later, on another thread, would
+    record it into any CUDA graph capture running on that stream then (a
+    codec or reference graph's, whose captures and copies share a lock),
+    which breaks the capture and every later pinned allocation."""
     if t.device.type != "cuda":
         return t.numpy()
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     torch.cuda.current_stream(t.device).synchronize()
-    return host.numpy()
+    return host.numpy().copy()

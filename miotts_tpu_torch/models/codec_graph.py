@@ -20,29 +20,38 @@ on static input buffers, then replayed, with no Python per op.
   meanwhile, runs its warm-ups plain. It fills what a
   capture cannot: the julius filters and K5/K6's permuted operands (both
   refuse to fill during capture), the kernels' attributes, cuDNN's plans
-  and the stream's cuBLAS workspace. A caller that has just run that
-  eager body on that stream with the same shapes (the pipeline's first
-  decode of a key) passes ``warm_up=False``.
-- Memory: the graphs of one pipeline share one memory pool (``pool``).
-  That is sound because their replays run one at a time on one stream and
-  the pipeline copies each output to the host before the next replay. So
-  a graph's ``out`` is valid only until the next replay of any graph of
-  its pool.
+  and the stream's cuBLAS workspace, and it gives the capturing thread
+  its own cuBLAS and cuDNN handles (one created during a capture breaks
+  it). A caller that has just run that eager body on that stream with the
+  same shapes on the same thread (the pipeline's first decode of a key)
+  passes ``warm_up=False``.
+- Memory: the codec graphs of one pipeline share one memory pool
+  (``pool``), and its reference graphs another. That is sound because the
+  replays of one pool's graphs run one at a time on one stream (a lock of
+  the pipeline's holds copy-in, replay and the host read together) and the
+  pipeline copies each output to the host before the next replay. So a
+  graph's ``out`` is valid only until the next replay of any graph of its
+  pool.
 - The capture runs in ``graphs.CAPTURE_MODE`` ("thread_local"): other
-  threads' device work goes on while one thread captures.
+  threads' device work goes on while one thread captures. The warm-up,
+  the capture and the device-wide synchronizes around them hold
+  ``graphs.capture_lock``, as a chunk graph's do: a device-wide
+  synchronize while another thread captures fails and breaks that capture.
 - A failed capture raises; nothing falls back to eager decodes.
 
-Counters (module level; a caller may reset them): ``captures``,
-``capture_ms`` (host time of the warm-ups and captures), ``replays``,
-``replay_ms`` (host time of ``run``: copy-in, replay and the host read)
-and ``eager_decodes`` (decodes that ran the body eagerly on a CUDA device:
-the pipeline's first decode of each key, and those asked for by name).
-Each kernel wrapper's ``launches`` counts the launches of replays too
-(``ops/cuda/graphs.py``).
+Counters (``Counters``, one set a kind of graph at module level: ``codec``
+for the pipeline's codec decodes, ``reference`` for its reference chains;
+a caller may reset them): ``captures``, ``capture_ms`` (host time of the
+warm-ups and captures), ``replays``, ``replay_ms`` (host time of ``run``:
+copy-in, replay and the host read) and ``eager`` (runs of the body eager
+on a CUDA device: the pipeline's first run of each key, and those asked
+for by name). Each kernel wrapper's ``launches`` counts the launches of
+replays too (``ops/cuda/graphs.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable
 
@@ -52,11 +61,19 @@ import torch
 from ..device import to_device, to_host
 from ..ops.cuda import graphs
 
-captures = 0
-replays = 0
-capture_ms = 0.0
-replay_ms = 0.0
-eager_decodes = 0
+
+@dataclasses.dataclass
+class Counters:
+    """The routes runs of one kind of graph took."""
+    captures: int = 0
+    replays: int = 0
+    capture_ms: float = 0.0
+    replay_ms: float = 0.0
+    eager: int = 0
+
+
+codec = Counters()
+reference = Counters()
 
 
 def run_checked(body: Callable, inputs: dict[str, torch.Tensor],
@@ -76,49 +93,52 @@ def run_checked(body: Callable, inputs: dict[str, torch.Tensor],
 class CodecGraph:
     """``body(inputs) -> out`` captured on ``inputs``, the graph's static
     buffers, on ``stream`` and in the memory pool ``pool`` (None: a pool of
-    its own); ``check_syncs`` as in ``run_checked``."""
+    its own); ``check_syncs`` as in ``run_checked``; its captures and
+    replays count into ``counters``."""
 
     def __init__(self, body: Callable, inputs: dict[str, torch.Tensor],
                  stream: torch.cuda.Stream, pool=None, warm_up: bool = True,
-                 check_syncs: bool = True):
-        global captures, capture_ms
+                 check_syncs: bool = True, counters: Counters = codec):
         dev = next(iter(inputs.values())).device
         if dev.type != "cuda":
             raise ValueError(f"a codec graph needs a CUDA device, not {dev}")
         t0 = time.perf_counter()
         self.inputs = inputs
-        if warm_up:
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                run_checked(body, inputs, check_syncs)
-        torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        with graphs.capture_lock, graphs.record_launches() as self.launches_per_replay, \
-                torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                 capture_error_mode=graphs.CAPTURE_MODE):
-            self.out = body(inputs)
-        torch.cuda.synchronize(dev)
+        # the device-wide synchronizes run under the capture lock, as the
+        # capture does: one while another thread captures fails and breaks
+        # that capture
+        with graphs.capture_lock:
+            if warm_up:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    run_checked(body, inputs, check_syncs)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with graphs.record_launches() as self.launches_per_replay, \
+                    torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                     capture_error_mode=graphs.CAPTURE_MODE):
+                self.out = body(inputs)
+            torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.n_replays = 0
-        captures += 1
-        capture_ms += self.capture_ms
+        self.counters = counters
+        counters.captures += 1
+        counters.capture_ms += self.capture_ms
 
     def replay(self) -> torch.Tensor:
         """One replay on the current stream; returns ``out``."""
-        global replays
         self.graph.replay()
         graphs.count_replay(self.launches_per_replay)
         self.n_replays += 1
-        replays += 1
+        self.counters.replays += 1
         return self.out
 
     def run(self, host: dict[str, np.ndarray]) -> np.ndarray:
         """Copy ``host``'s arrays into the input buffers of the same names
         (each rewritten whole), replay, and return ``out`` on the host."""
-        global replay_ms
         t0 = time.perf_counter()
         for name, value in host.items():
             self.inputs[name].copy_(to_device(value, self.inputs[name].device))
         out = to_host(self.replay())
-        replay_ms += (time.perf_counter() - t0) * 1e3
+        self.counters.replay_ms += (time.perf_counter() - t0) * 1e3
         return out

@@ -7,7 +7,10 @@ One batched, length-masked forward over [B, N] padded code batches. Every
 convolution and group norm is length-masked, so a padded bucket computes
 the unpadded math in its valid region. Codec math runs at f32 (the
 reference accumulates attention in f32 and the fidelity bar is mel-L1 <
-1e-2); ``device.select_device`` turns TF32 off on the card.
+1e-2); ``device.select_device`` turns TF32 off on the card. As in the JAX
+package, ``MIOTTS_CODEC_MATMUL`` (float32, tensorfloat32 or bfloat16)
+sets the precision of the trunk's and the synthesis head's matmuls and
+convolutions (``ops/precision.py``), not the global encoder's.
 
 Weights are a plain dict of tensors with the JAX package's tree layout:
 linear weights pre-transposed to [in, out], transformer and resnet blocks
@@ -35,6 +38,7 @@ from ..ops.convs import conv1d_depthwise_same, conv1d_same, conv_transpose1d, li
 from ..ops.istft import dft_tables, spec_to_audio
 from ..ops.masking import mask_time, time_mask
 from ..ops.norms import adaln_modulate, layer_norm, masked_group_norm
+from ..ops.precision import codec_matmul, mm, operand
 from ..ops.rope import apply_rope
 from .vocoder import load_vocoder_weights, vocoder_decode
 
@@ -363,29 +367,29 @@ def _transformer_stack(x, blocks: dict, n_heads: int, lengths, window: int, rope
     for i in range(blocks["wq"].shape[0]):
         blk = {k: (v[i] if v is not None else None) for k, v in blocks.items()}
         if cond_act is not None:
-            p = cond_act @ blk["attn_cond_w"] + blk["attn_cond_b"]  # [B, 3C]
+            p = mm(cond_act, blk["attn_cond_w"]) + blk["attn_cond_b"]  # [B, 3C]
             shift, scale, gate = p[:, :C], p[:, C:2 * C], p[:, 2 * C:]
             xn = adaln_modulate(layer_norm(x, eps=norm_eps), shift, scale)
         else:
             gate = None
             xn = layer_norm(x, blk["attn_norm_w"], blk["attn_norm_b"], eps=norm_eps)
-        q = apply_rope((xn @ blk["wq"]).reshape(B, T, n_heads, hd), positions, rope_theta)
-        k = apply_rope((xn @ blk["wk"]).reshape(B, T, n_heads, hd), positions, rope_theta)
-        v = (xn @ blk["wv"]).reshape(B, T, n_heads, hd)
+        q = apply_rope(mm(xn, blk["wq"]).reshape(B, T, n_heads, hd), positions, rope_theta)
+        k = apply_rope(mm(xn, blk["wk"]).reshape(B, T, n_heads, hd), positions, rope_theta)
+        v = mm(xn, blk["wv"]).reshape(B, T, n_heads, hd)
         att = banded_attention(q, k, v, lengths, window).reshape(B, T, C)
-        out = att @ blk["wo"]
+        out = mm(att, blk["wo"])
         if gate is not None:
             out = out * gate[:, None, :]
         h = x + out
 
         if cond_act is not None:
-            p = cond_act @ blk["ffn_cond_w"] + blk["ffn_cond_b"]
+            p = mm(cond_act, blk["ffn_cond_w"]) + blk["ffn_cond_b"]
             shift, scale, fgate = p[:, :C], p[:, C:2 * C], p[:, 2 * C:]
             fn = adaln_modulate(layer_norm(h, eps=norm_eps), shift, scale)
         else:
             fgate = None
             fn = layer_norm(h, blk["ffn_norm_w"], blk["ffn_norm_b"], eps=norm_eps)
-        ff = (F.silu(fn @ blk["w1"]) * (fn @ blk["w3"])) @ blk["w2"]
+        ff = mm(F.silu(mm(fn, blk["w1"])) * mm(fn, blk["w3"]), blk["w2"])
         if fgate is not None:
             ff = ff * fgate[:, None, :]
         x = h + ff
@@ -400,7 +404,7 @@ def _resnet_block(x, blk: dict, lengths, groups: int, gn_eps: float) -> torch.Te
     def half(y, nw, nb, cw, cb):
         y = masked_group_norm(y, lengths, g, eps=gn_eps)
         y = F.silu(y * nw + nb)
-        y = conv1d_same(mask_time(y, lengths), cw, cb)
+        y = conv1d_same(operand(mask_time(y, lengths)), operand(cw), cb)
         return mask_time(y, lengths)
 
     y = half(x, blk["norm1_w"], blk["norm1_b"], blk["conv1_w"], blk["conv1_b"])
@@ -423,25 +427,35 @@ def _wave_upsample(cfg: MioCodecConfig, w: dict, x: torch.Tensor, frame_len: tor
     for stage, f, k in zip(w["wave_upsampler"], cfg.wave_upsampler_factors,
                            cfg.wave_upsampler_kernel_sizes):
         pad = max(0, (k - f) // 2)
-        x = conv_transpose1d(mask_time(x, frame_len), stage["up_w"], stage["up_b"], stride=f)
+        x = conv_transpose1d(operand(mask_time(x, frame_len)), operand(stage["up_w"]),
+                             stage["up_b"], stride=f)
         if pad > 0:
             x = x[:, pad:x.shape[1] - pad, :]
         frame_len = (frame_len - 1) * f + k - 2 * pad
         x = _snake_beta(mask_time(x, frame_len), stage["snake_alpha"], stage["snake_beta"])
         x = _resnet_block(x, stage["resblk"], frame_len, cfg.resnet_groups, cfg.group_norm_eps)
-    x = x @ w["ups_out_proj_w"] + w["ups_out_proj_b"]
+    x = mm(x, w["ups_out_proj_w"]) + w["ups_out_proj_b"]
     x = _snake_beta(x, w["ups_out_snake_alpha"], w["ups_out_snake_beta"])
     return mask_time(x, frame_len), frame_len
 
 
 def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
                       token_lengths: torch.Tensor, cond: torch.Tensor | None,
-                      interp_anchor_tokens: int | None = None
+                      interp_anchor_tokens: int | None = None, *, matmul: str
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, N] codes (padded), token_lengths [B] int32, cond [B, Dc]
     speaker embedding or None (static models). Returns (spec [B, F, bins],
     frame_lengths [B]), bins = n_fft + 2 (wave) or n_mels (mel). ``interp_anchor_tokens`` pins the bilinear resize
-    ratio to a fixed token count (None: the ratio from the true lengths)."""
+    ratio to a fixed token count (None: the ratio from the true lengths).
+    The trunk's matmuls and convolutions run at the precision ``matmul``
+    (a ``MIOTTS_CODEC_MATMUL`` mode; ``ops/precision.py``)."""
+    with codec_matmul(matmul):
+        return _codec_decode_spec(cfg, w, tokens, token_lengths, cond, interp_anchor_tokens)
+
+
+def _codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
+                       token_lengths: torch.Tensor, cond: torch.Tensor | None,
+                       interp_anchor_tokens: int | None) -> tuple[torch.Tensor, torch.Tensor]:
     check_supported(cfg)
     B, N = tokens.shape
     dev = tokens.device
@@ -459,10 +473,10 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     x = _transformer_stack(x, w["prenet_blocks"], cfg.prenet_heads, token_lengths,
                            cfg.prenet_window, cfg.rope_theta, cfg.norm_eps, None)
     x = layer_norm(x, w["prenet_norm_w"], w["prenet_norm_b"], eps=cfg.norm_eps)
-    x = mask_time(x @ w["prenet_out_w"] + w["prenet_out_b"], token_lengths)
+    x = mask_time(mm(x, w["prenet_out_w"]) + w["prenet_out_b"], token_lengths)
 
     K_up = w["upsample_w"].shape[-1]
-    y = conv_transpose1d(x, w["upsample_w"], w["upsample_b"], stride=2)
+    y = conv_transpose1d(operand(x), operand(w["upsample_w"]), w["upsample_b"], stride=2)
     src_len = (token_lengths - 1) * 2 + K_up
     y = mask_time(y, src_len)
     scale_override = None
@@ -481,7 +495,7 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
                            cfg.decoder_window, cfg.rope_theta, cfg.norm_eps, cond_act)
     if cfg.dynamic_global:
         dim = cfg.decoder_dim
-        p = cond_act @ w["norm_cond_w"] + w["norm_cond_b"]  # [B, 2*dim]
+        p = mm(cond_act, w["norm_cond_w"]) + w["norm_cond_b"]  # [B, 2*dim]
         x = adaln_modulate(layer_norm(x, eps=cfg.norm_eps), p[:, :dim], p[:, dim:])
     else:
         x = layer_norm(x, w["decoder_norm_w"], w["decoder_norm_b"], eps=cfg.norm_eps)
@@ -494,26 +508,30 @@ def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
         if cfg.wave_upsampler_factors:
             x, frame_len = _wave_upsample(cfg, w, x, frame_len)
 
-    spec = mask_time(x @ w["istft_out_w"] + w["istft_out_b"], frame_len)
+    spec = mask_time(mm(x, w["istft_out_w"]) + w["istft_out_b"], frame_len)
     return spec, frame_len
 
 
 def codec_synthesize(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
                      token_lengths: torch.Tensor, cond: torch.Tensor | None,
                      interp_anchor_tokens: int | None = None,
-                     peak_normalize: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+                     peak_normalize: bool = True, *, matmul: str
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Codes -> waveform. Returns (audio [B, S_max], n_samples [B]); audio
     is peak-normalized per example like mio_tts_synthesize unless
     ``peak_normalize`` is False. Wave mode goes through the iSTFT head, mel
-    mode through the bundled vocoder, whose output length sets n_samples."""
+    mode through the bundled vocoder, whose output length sets n_samples.
+    The trunk and the head run at the precision ``matmul`` (a
+    ``MIOTTS_CODEC_MATMUL`` mode)."""
     spec, frame_len = codec_decode_spec(cfg, w, tokens, token_lengths, cond,
-                                        interp_anchor_tokens)
-    if cfg.model_type == 0:
-        audio = spec_to_audio(spec, frame_len, cfg.n_fft, cfg.hop_length, w["istft_tables"])
-        n_pad = (cfg.n_fft - cfg.hop_length) // 2
-        n_samples = (frame_len - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
-    else:
-        audio, n_samples = vocoder_decode(cfg, w, spec, frame_len)
+                                        interp_anchor_tokens, matmul=matmul)
+    with codec_matmul(matmul):
+        if cfg.model_type == 0:
+            audio = spec_to_audio(spec, frame_len, cfg.n_fft, cfg.hop_length, w["istft_tables"])
+            n_pad = (cfg.n_fft - cfg.hop_length) // 2
+            n_samples = (frame_len - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
+        else:
+            audio, n_samples = vocoder_decode(cfg, w, spec, frame_len)
     audio = audio * time_mask(audio.shape[1], n_samples).to(audio.dtype)
     if peak_normalize:
         finite = torch.where(torch.isfinite(audio), audio, torch.zeros((), device=audio.device))

@@ -21,10 +21,16 @@ default fast sin/cos), so both routes round alike on the card. The device
 alone decides whether a kernel runs: a CUDA tensor reaches the kernel (or
 an error), a CPU tensor its plain version. Other convolutions (conv_pre/post, the postnet, the
 depthwise FIRs) are ``F.conv1d``, as the JAX package leaves them to XLA.
+The vocoder's own matmul and convolutions (conv_pre, the postnet, the 1x1
+merge, conv_post) run at the codec's ``MIOTTS_CODEC_MATMUL`` precision
+(``ops/precision.py``); the kernels, the FIRs and the activations keep f32.
 
 Not ported: the opt-in grouped path that folds a stage's resblocks into
-the channel axis (``_resblocks_fused``, off by default in JAX) and the
-XLA-pinned dispatch of the sequence-parallel path.
+the channel axis (JAX's ``_resblocks_fused``, ``MIOTTS_VOCODER_FUSE=1``,
+off by default there), which the port does not read: it always runs the
+K6 path, whose audio the folded one equals, and the folded stage in plain
+PyTorch took 11.7x the K6 path's time on an H100. Nor the XLA-pinned
+dispatch of the sequence-parallel path.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..ops.cuda import activation1d as k5
 from ..ops.cuda import conv1d as k4
 from ..ops.cuda import resblock as k6
 from ..ops.masking import mask_time
+from ..ops.precision import mm, operand
 from ..ops.resample import (
     conv1d_zeropad, highpass, lowpass, per_time_layer_norm, zero_stuff)
 
@@ -95,7 +102,8 @@ def mel_postnet_apply(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor) ->
         blk = {k: v[i] for k, v in blocks.items()}
         k = blk["conv_w"].shape[-1]
         r = mask_time(r, lengths)
-        r = conv1d_zeropad(r, blk["conv_w"], blk["conv_b"], 1, max(0, (k - 1) // 2))
+        r = conv1d_zeropad(operand(r), operand(blk["conv_w"]), blk["conv_b"], 1,
+                           max(0, (k - 1) // 2))
         r = per_time_layer_norm(r, blk["norm_w"], blk["norm_b"], cfg.norm_eps)
         if i + 1 < n:
             r = torch.tanh(r)
@@ -109,7 +117,8 @@ def vocoder_decode(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor
     num_k = cfg.vocoder_num_kernels
     mel = mel_postnet_apply(cfg, w, mask_time(mel, lengths), lengths)
 
-    x = mask_time(conv1d_zeropad(mel, v["conv_pre_w"], v["conv_pre_b"], 1, 3), lengths)
+    x = mask_time(conv1d_zeropad(operand(mel), operand(v["conv_pre_w"]), v["conv_pre_b"], 1, 3),
+                  lengths)
     x0, x0_len, cur_len = x, lengths, lengths
     upp = 1
     for i, scale in enumerate(cfg.vocoder_upsample_rates):
@@ -123,7 +132,7 @@ def vocoder_decode(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor
         # signal branch
         y = zero_stuff(mask_time(x, cur_len), scale)
         y, cur_len = lowpass(y, cur_len * scale, 0.5 / scale, 1)
-        x = mask_time((y + y0) @ up["after_w"][:, :, 0].T + up["after_b"], cur_len)  # 1x1 conv
+        x = mask_time(mm(y + y0, up["after_w"][:, :, 0].T) + up["after_b"], cur_len)  # 1x1 conv
 
         xs = torch.zeros_like(x)
         for rb in v["resblocks"][i * num_k:(i + 1) * num_k]:
@@ -134,7 +143,7 @@ def vocoder_decode(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor
         x = xs * (1.0 / max(1, num_k))
 
     x, cur_len = activation1d(x, cur_len, v["activation_post"])
-    x = mask_time(conv1d_zeropad(x, v["conv_post_w"], None, 1, 3), cur_len)
+    x = mask_time(conv1d_zeropad(operand(x), operand(v["conv_post_w"]), None, 1, 3), cur_len)
     return torch.clamp(x[:, :, 0], -1.0, 1.0), cur_len
 
 

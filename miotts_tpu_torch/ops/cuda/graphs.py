@@ -13,8 +13,14 @@ this process while a server's threads share the card.
 Captures run in ``CAPTURE_MODE`` "thread_local": a call that is unsafe
 during a capture (a host sync, ``cudaMalloc`` outside the caching
 allocator) fails only when the capturing thread makes it, so other
-threads' device work goes on while one thread captures. ``capture_lock``
-keeps two captures from overlapping each other.
+threads' device work goes on while one thread captures. Two calls still
+reach a capture from another thread: a device-wide synchronize (it fails,
+and the capture breaks), and the free of a pinned host buffer last copied
+on the capturing stream (PyTorch records the buffer's event on that
+stream then, into the capture; ``device.to_host`` frees its buffer at
+once, under the caller's lock). ``capture_lock`` keeps two captures from
+overlapping each other, and the device-wide synchronizes around a
+capture run under it.
 
 That holds only while no other thread works on the stream being
 captured. PyTorch hands out its streams round robin from a pool of 32 a

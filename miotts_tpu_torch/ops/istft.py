@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .precision import mm
+
 
 def dft_tables(n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The iSTFT's tables: (cos, sin) [n_freq, n_fft], f32, already scaled
@@ -81,7 +83,8 @@ def spec_to_audio(spec: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, h
                   tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """spec: [B, L, n_fft+2] (logmag | phase) -> audio; ``tables`` are the
     (cos, sin) DFT matrices and the Hann window on the spec's device (see
-    ``dft_tables``)."""
+    ``dft_tables``). The DFT matmul runs at the codec's precision
+    (``ops/precision.py``)."""
     n_freq = n_fft // 2 + 1
     logmag = spec[..., :n_freq].float()
     phase = spec[..., n_freq:].float()
@@ -89,5 +92,5 @@ def spec_to_audio(spec: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, h
     re = mag * torch.cos(phase)
     im = mag * torch.sin(phase)
     cos_t, sin_t, hann = tables
-    frames_time = torch.matmul(re, cos_t) - torch.matmul(im, sin_t)
+    frames_time = mm(re, cos_t) - mm(im, sin_t)
     return istft_overlap_add(frames_time, frame_lengths, n_fft, hop, hann)

@@ -16,7 +16,9 @@ replays it; every later one replays. So a one-shot decode pays no capture,
 and a stream or a server that decodes a bucket again reuses its graph.
 ``capture`` captures a key ahead of time. All of a pipeline's graphs share
 one memory pool; a lock makes copy-in -> replay -> copy-out one step, so
-threads may share a pipeline. On the CPU every decode is eager.
+threads may share a pipeline. On the CPU every decode is eager. The
+codec's ``MIOTTS_CODEC_MATMUL`` is read once, when the pipeline is built,
+since a graph keeps what it was captured with.
 
 Voice cloning (``reference_to_embedding``, with ``wavlm_path``): a
 reference file is decoded, peak-normalized and resampled to 16 kHz on the
@@ -26,16 +28,29 @@ the valid frames, the global encoder; ``_reference_embedding_fused``)
 runs on the device with one host read at its end, as the JAX package
 makes one fetch. On CUDA it runs on a stream of its own (so a server's
 reference generations do not queue behind codec decodes and LLM chunks),
-eagerly: under ``torch.cuda.set_sync_debug_mode("error")`` where
-``check_syncs`` allows it, so a hidden host sync inside the chain fails.
-The last rung of the fallback ladder (audio statistics) is computed on the
-host and re-runs only the encoder.
+with the codec graphs' policy: where the JAX package compiles the chain
+once a WavLM bucket (miotts_tpu/pipeline.py:166-168), a bucket's first
+chain runs eagerly (under ``torch.cuda.set_sync_debug_mode("error")``
+where ``check_syncs`` allows it, so a hidden host sync inside the chain
+fails), its second captures the bucket's CUDA graph (after a warm-up run
+on the capturing thread, which in a server need not be the one that ran
+the eager chain) and every later one replays it. The graph's static inputs are the padded waveform and its
+length, which ``run`` rewrites whole (so two references of one bucket
+share its graph), and the bucket's relative-position table, which never
+changes. The reference graphs keep a memory pool of their own, apart from
+the codec graphs' (whose replays may run at the same time on the
+pipeline's stream), and one lock holds a chain's copy-in, run and host
+read together: concurrent chains serialize on the device. Buckets are not
+captured ahead of time (the JAX package warms the chain lazily too). The
+last rung of the fallback ladder (audio statistics) is computed on the
+host and re-runs only the encoder, eagerly.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 from pathlib import Path
@@ -49,6 +64,7 @@ from .gguf.writer import load_embedding_gguf, save_embedding_gguf
 from .models import codec_graph
 from .models.miocodec import codec_synthesize, encode_global_embedding, load_miocodec
 from .ops.masking import time_mask
+from .ops.precision import codec_matmul_mode
 from .runtime.tracing import maybe_start_profiler, trace_phase
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -113,13 +129,15 @@ class ReferenceStats:
     """How one reference became an embedding: host ms of decode, peak
     normalization and resampling; wall ms of the device chain (upload to
     the host read, the audio-stat rung's encoder included); the 16 kHz
-    samples, their WavLM bucket and its frames; the fallback rung taken."""
+    samples, their WavLM bucket and its frames; the fallback rung taken;
+    how the chain ran (the CPU's chains are all eager)."""
     decode_ms: float
     device_ms: float
     n_samples: int
     bucket: int
     frames: int
     rung: str  # "ssl", "ssl_pre" or "audio_stat"
+    route: str  # "eager", "capture" (and its replay) or "replay"
 
 
 def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
@@ -172,26 +190,37 @@ class MioTTSPipeline:
         # read the card meanwhile, turns it off)
         self.check_syncs = check_syncs
         self.config, self.weights = load_miocodec(self.codec_path, device)
+        # the codec's precision, read once: a captured graph keeps what it
+        # was captured with
+        self.codec_matmul = codec_matmul_mode(os.environ.get("MIOTTS_CODEC_MATMUL", "float32"))
         self.buckets = buckets
         # decodes run and their host time, for callers that count them
         self.n_decodes = 0
         self.decode_ms_total = 0.0
-        # the codec graphs (CUDA's path): by key, every key decoded so far,
-        # the stream every CUDA decode runs on and the graphs' shared pool
+        # the codec graphs (CUDA's path): by key, every key decoded so far
+        # with the thread that ran its eager decode, the stream every CUDA
+        # decode runs on and the graphs' shared pool
         self.use_graph = device.type == "cuda"
         self.graphs: dict[CodecKey, codec_graph.CodecGraph] = {}
-        self.seen: set[CodecKey] = set()
+        self.seen: dict[CodecKey, threading.Thread] = {}
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.graph_pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self._lock = threading.Lock()
+        # the reference chain (voice cloning): its graphs by WavLM bucket,
+        # the buckets run so far, its stream and its graphs' own pool
         self.wavlm = None
+        self.ref_graphs: dict[int, codec_graph.CodecGraph] = {}
+        self.ref_seen: set[int] = set()
         self._ref_stream = None
+        self.ref_graph_pool = None
+        self._ref_lock = threading.Lock()
         if wavlm_path:
             from .models.wavlm import WavLMExtractor
 
             self.wavlm = WavLMExtractor(str(wavlm_path), device)
             if device.type == "cuda":
                 self._ref_stream = torch.cuda.Stream(device)
+                self.ref_graph_pool = torch.cuda.graph_pool_handle()
 
     @property
     def sample_rate(self) -> int:
@@ -282,8 +311,9 @@ class MioTTSPipeline:
         brings back audio[starts[b]:starts[b] + window]. Returns (audio [B,
         L] f32 on the host, or the int16 PCM under ``pcm16`` and
         ``as_int16``, valid-sample counts [B], host ms). On CUDA the key's
-        first decode is eager, its second captures its graph, and the rest
-        replay it."""
+        first decode is eager, its second captures its graph (with a
+        warm-up of its own unless the same thread ran the first), and the
+        rest replay it."""
         key, host = self._prepare(tokens, lengths, cond, interp_anchor=interp_anchor,
                                   peak_normalize=peak_normalize, window=window, starts=starts,
                                   pcm16=pcm16)
@@ -292,10 +322,14 @@ class MioTTSPipeline:
             if key in self.graphs:
                 packed = self.graphs[key].run(host)
             elif self.use_graph and key in self.seen:
-                packed = self._capture(key, warm_up=False).run(host)
+                # no warm-up where this thread ran the key's eager decode;
+                # another thread's would leave this one without its own
+                # cuBLAS and cuDNN handles, made then inside the capture
+                warm_up = self.seen[key] is not threading.current_thread()
+                packed = self._capture(key, warm_up=warm_up).run(host)
             else:
                 packed = self._eager(key, host)
-                self.seen.add(key)
+                self.seen[key] = threading.current_thread()
             decode_ms = (time.perf_counter() - t0) * 1e3
             self.n_decodes += 1
             self.decode_ms_total += decode_ms
@@ -329,16 +363,19 @@ class MioTTSPipeline:
     def capture(self, bucket: int, B: int = 1, *, cond: bool | None = None,
                 interp_anchor: int | None = None, peak_normalize: bool = True,
                 window: int | None = None, pcm16: bool = False) -> codec_graph.CodecGraph:
-        """The graph of a key, captured now (with its own warm-up) unless it
-        exists; later decodes of the key replay it. ``cond`` defaults to
-        whether the codec takes an embedding."""
+        """The graph of a key, captured now unless it exists; later decodes
+        of the key replay it. ``cond`` defaults to whether the codec takes
+        an embedding. The capture runs its own warm-up even for a key
+        decoded before: that decode may have run on another thread (a
+        server's warm-up tail captures keys its codec thread decoded), and
+        a thread's cuBLAS and cuDNN handles are its own."""
         if cond is None:
             cond = self.config.dynamic_global
         key = CodecKey(B, bucket, cond, interp_anchor, peak_normalize, window, pcm16)
         with self._lock:
             if key not in self.graphs:
-                self._capture(key, warm_up=key not in self.seen)
-                self.seen.add(key)
+                self._capture(key, warm_up=True)
+                self.seen[key] = threading.current_thread()
             return self.graphs[key]
 
     def _eager(self, key: CodecKey, host: dict[str, np.ndarray]) -> np.ndarray:
@@ -349,7 +386,7 @@ class MioTTSPipeline:
             inputs = {k: to_device(v, self.device) for k, v in host.items()}
             if self.device.type != "cuda":
                 return self._body(key)(inputs).numpy()
-            codec_graph.eager_decodes += 1
+            codec_graph.codec.eager += 1
             return to_host(codec_graph.run_checked(self._body(key), inputs, self.check_syncs))
 
     def _body(self, key: CodecKey):
@@ -358,7 +395,8 @@ class MioTTSPipeline:
         def body(inputs: dict[str, torch.Tensor]) -> torch.Tensor:
             audio, n_samples = codec_synthesize(
                 cfg, w, inputs["tokens"], inputs["lengths"], inputs.get("cond"),
-                interp_anchor_tokens=key.interp_anchor, peak_normalize=key.peak_normalize)
+                interp_anchor_tokens=key.interp_anchor, peak_normalize=key.peak_normalize,
+                matmul=self.codec_matmul)
             if key.window is not None:
                 audio = _window_slice(audio, inputs["starts"], key.window)
             return _pack(audio, n_samples, key.pcm16)
@@ -400,9 +438,20 @@ class MioTTSPipeline:
         with trace_phase("reference_chain"):
             return self._reference_embedding(reference_audio, max_reference_seconds)
 
-    def _reference_embedding(self, reference_audio, max_reference_seconds: float
-                             ) -> tuple[np.ndarray, ReferenceStats]:
-        t0 = time.perf_counter()
+    def reference_embedding_eager(self, reference_audio: str | Path,
+                                  max_reference_seconds: float = 20.0) -> np.ndarray:
+        """``reference_to_embedding`` with the device chain run eagerly
+        whatever its bucket's graph, as a reference for a replay (the
+        ssl/ssl_pre rungs; on CUDA it counts as an eager run)."""
+        wav16k, bucket, host = self._reference_input(reference_audio, max_reference_seconds)
+        with self._ref_lock, self._on_stream(self._ref_stream):
+            packed = self._reference_eager(self.wavlm.config.conv_out_len(bucket), host)
+        return np.array(packed[:self.config.decoder_adanorm_dim], dtype=np.float32)
+
+    def _reference_input(self, reference_audio, max_reference_seconds: float
+                         ) -> tuple[np.ndarray, int, dict[str, np.ndarray]]:
+        """The host side: the 16 kHz waveform, its WavLM bucket and the
+        chain's host inputs (the padded waveform, its length)."""
         wav16k = self.wavlm.preprocess_reference(
             reference_audio, source_rate=self.config.sample_rate,
             max_seconds=max_reference_seconds)
@@ -410,20 +459,23 @@ class MioTTSPipeline:
         bucket = self.wavlm.pick_wav_bucket(n)
         padded = np.zeros((1, bucket), np.float32)
         padded[0, :n] = wav16k
+        return wav16k, bucket, {"wav": padded, "lengths": np.array([n], np.int32)}
+
+    def _reference_embedding(self, reference_audio, max_reference_seconds: float
+                             ) -> tuple[np.ndarray, ReferenceStats]:
+        t0 = time.perf_counter()
+        wav16k, bucket, host = self._reference_input(reference_audio, max_reference_seconds)
+        n = int(wav16k.size)
         t1 = time.perf_counter()
         frames = self.wavlm.config.conv_out_len(bucket)
-        with self._on_stream(self._ref_stream):
-            inputs = {"wav": to_device(padded, self.device),
-                      "lengths": to_device(np.array([n], np.int32), self.device),
-                      "buckets": self.wavlm.bucket_table(frames)[1]}
-
-            def chain(x: dict[str, torch.Tensor]) -> torch.Tensor:
-                return _reference_embedding_fused(self.config, self.wavlm.config, self.weights,
-                                                  self.wavlm.weights, x["wav"], x["lengths"],
-                                                  x["buckets"])
-
-            packed = to_host(codec_graph.run_checked(
-                chain, inputs, self.check_syncs and self.device.type == "cuda"))
+        with self._ref_lock, self._on_stream(self._ref_stream):
+            if bucket in self.ref_graphs:
+                route, packed = "replay", self.ref_graphs[bucket].run(host)
+            elif self.use_graph and bucket in self.ref_seen:
+                route, packed = "capture", self._capture_reference(bucket, frames).run(host)
+            else:
+                route, packed = "eager", self._reference_eager(frames, host)
+                self.ref_seen.add(bucket)
             d = self.config.decoder_adanorm_dim
             emb, ssl_ok, pre_ok = packed[:d], packed[d] > 0, packed[d + 1] > 0
             rung = "ssl" if ssl_ok else "ssl_pre" if pre_ok else "audio_stat"
@@ -438,8 +490,41 @@ class MioTTSPipeline:
                     to_device(np.array([fb.shape[0]], np.int32), self.device))[0])
         t2 = time.perf_counter()
         stats = ReferenceStats(decode_ms=(t1 - t0) * 1e3, device_ms=(t2 - t1) * 1e3,
-                               n_samples=n, bucket=bucket, frames=frames, rung=rung)
+                               n_samples=n, bucket=bucket, frames=frames, rung=rung, route=route)
         return np.array(emb, dtype=np.float32), stats
+
+    def _reference_chain(self, x: dict[str, torch.Tensor]) -> torch.Tensor:
+        return _reference_embedding_fused(self.config, self.wavlm.config, self.weights,
+                                          self.wavlm.weights, x["wav"], x["lengths"], x["buckets"])
+
+    def _reference_eager(self, frames: int, host: dict[str, np.ndarray]) -> np.ndarray:
+        """The chain run eagerly on ``host``'s padded waveform and length:
+        the CPU's path, and on CUDA a bucket's first chain. Returns the
+        packed row."""
+        inputs = {k: to_device(v, self.device) for k, v in host.items()}
+        inputs["buckets"] = self.wavlm.bucket_table(frames)[1]
+        if self.device.type != "cuda":
+            return self._reference_chain(inputs).numpy()
+        codec_graph.reference.eager += 1
+        return to_host(codec_graph.run_checked(self._reference_chain, inputs, self.check_syncs))
+
+    def _capture_reference(self, bucket: int, frames: int) -> codec_graph.CodecGraph:
+        """Capture the chain of ``bucket`` on fresh static buffers (zeros, a
+        full length) and the bucket's table, in the reference graphs' pool,
+        and keep it. The capture runs its own warm-up: a server runs each
+        generation on its request's thread, so the bucket's eager chain may
+        have run on another thread, and cuBLAS and cuDNN handles are a
+        thread's own (one created during a capture breaks it)."""
+        dev = self.device
+        inputs = {"wav": torch.zeros((1, bucket), dtype=torch.float32, device=dev),
+                  "lengths": torch.full((1,), bucket, dtype=torch.int32, device=dev),
+                  "buckets": self.wavlm.bucket_table(frames)[1]}
+        graph = codec_graph.CodecGraph(self._reference_chain, inputs, self._ref_stream,
+                                       self.ref_graph_pool, warm_up=True,
+                                       check_syncs=self.check_syncs,
+                                       counters=codec_graph.reference)
+        self.ref_graphs[bucket] = graph
+        return graph
 
     def estimate_reference_workspace_bytes(self, max_reference_seconds: float = 20.0) -> int:
         """Rough device-memory footprint of one reference chain

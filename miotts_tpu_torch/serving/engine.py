@@ -29,7 +29,10 @@ With ``--tts-wavlm-model`` the pipeline also loads WavLM, and
 embedding (``pipeline.reference_to_embedding``). Its device chain runs on
 the pipeline's reference stream, not behind the worker's chunk replays or
 the codec decodes, and its copies go through pinned memory;
-``--parallel-reference-generation`` bounds how many run at once.
+``--parallel-reference-generation`` bounds how many run at once, their
+host decodes in parallel and their device chains one at a time (on CUDA a
+WavLM bucket's chain is one CUDA graph after its second run, whose
+buffers one chain at a time may use).
 """
 
 from __future__ import annotations

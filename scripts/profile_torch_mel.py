@@ -100,7 +100,7 @@ def main() -> int:
     def decode() -> tuple[float, float, int]:
         t0 = time.perf_counter()
         with record_function("trunk"):
-            spec, frames = codec_decode_spec(cfg, w, tok, lengths, cond)
+            spec, frames = codec_decode_spec(cfg, w, tok, lengths, cond, matmul="float32")
             torch.cuda.synchronize()
         t1 = time.perf_counter()
         with record_function("vocoder"):
@@ -177,10 +177,11 @@ def profile_graph(cfg, w, tok, lengths, cond, runs: int) -> dict:
     """The trunk and the vocoder as replays of two CUDA graphs (each with
     its own warm-up and memory pool; the vocoder graph's input is the trunk
     graph's output buffer), profiled as ``profile_decode`` does."""
-    spec_ref, frames = codec_decode_spec(cfg, w, tok, lengths, cond)
+    spec_ref, frames = codec_decode_spec(cfg, w, tok, lengths, cond, matmul="float32")
     audio_ref = vocoder_decode(cfg, w, spec_ref, frames)[0]
     stream = torch.cuda.Stream()
-    trunk = CodecGraph(lambda i: codec_decode_spec(cfg, w, i["tokens"], i["lengths"], i["cond"])[0],
+    trunk = CodecGraph(lambda i: codec_decode_spec(cfg, w, i["tokens"], i["lengths"], i["cond"],
+                                                   matmul="float32")[0],
                        {"tokens": tok, "lengths": lengths, "cond": cond}, stream)
     trunk.replay()  # the vocoder graph's warm-up reads a real spec
     vocoder = CodecGraph(lambda i: vocoder_decode(cfg, w, i["spec"], i["frames"])[0],

@@ -275,6 +275,107 @@ def test_reference_workspace_estimate_matches_jax(pipes, seconds):
         24000, seconds)
 
 
+# -- the reference graphs (M8.1) --------------------------------------------------------
+
+@pytest.fixture
+def graphed(assets, monkeypatch):
+    """A port pipeline whose reference chain takes the CUDA path's graph
+    policy on the CPU: a stand-in graph (tests/test_torch_codec_graph.py)
+    runs the chain on its own static buffers where a replay would run the
+    captured kernels."""
+    from miotts_tpu_torch.models import codec_graph
+    from test_torch_codec_graph import _EagerCodecGraph
+
+    monkeypatch.setattr(codec_graph, "CodecGraph", _EagerCodecGraph)
+    pipe = MioTTSPipeline(str(assets / "codec.gguf"), CPU, wavlm_path=str(assets / "wavlm.gguf"))
+    pipe.use_graph = True
+    return pipe
+
+
+def test_reference_graph_key_is_the_bucket(assets, pipes, graphed):
+    """ref.wav (16 000 samples at 16 kHz) and ref.flac (14 400) share WavLM
+    bucket 16 000 and so its one graph: the first chain eager, the second
+    (the other length) the capture and its replay, the rest replays, each
+    bit-equal to the eager pipeline's embedding of its file, as is the
+    chain asked for eagerly by name (``reference_embedding_eager``); the graph is
+    made in the reference graphs' pool (not the codec graphs') with a
+    warm-up of its own (the capturing thread may not be the one that ran
+    the eager chain), on the bucket's table, and counts into the reference
+    counters alone."""
+    from miotts_tpu_torch.models import codec_graph
+
+    _, eager = pipes
+    codec0, ref0 = (dataclasses.replace(c) for c in (codec_graph.codec, codec_graph.reference))
+    order = ["ref.wav", "ref.flac", "ref.wav", "ref.flac", "ref.wav"]
+    routes = []
+    for name in order:
+        got, stats = graphed.reference_embedding(str(assets / name))
+        want, want_stats = eager.reference_embedding(str(assets / name))
+        assert got.tobytes() == want.tobytes() and stats.bucket == 16000
+        assert want_stats.route == "eager" and stats.rung == "ssl"
+        routes.append(stats.route)
+    assert routes == ["eager", "capture", "replay", "replay", "replay"]
+    (bucket, graph), = graphed.ref_graphs.items()
+    assert bucket == 16000 and graphed.ref_seen == {16000} and graph.n_replays == 4
+    # the chain by name, eagerly beside its graph (a replay's reference)
+    for name in ("ref.wav", "ref.flac"):
+        assert (graphed.reference_embedding_eager(str(assets / name)).tobytes()
+                == eager.reference_to_embedding(str(assets / name)).tobytes())
+    assert graph.n_replays == 4
+    assert graph.warm_up and graph.counters is codec_graph.reference
+    assert graph.pool is graphed.ref_graph_pool and not graphed.graphs
+    assert set(graph.inputs) == {"wav", "lengths", "buckets"}
+    frames = graphed.wavlm.config.conv_out_len(16000)
+    assert graph.inputs["buckets"] is graphed.wavlm.bucket_table(frames)[1]
+    assert codec_graph.codec == codec0  # a run's host time counts as a reference replay's
+    assert codec_graph.reference.replay_ms > ref0.replay_ms
+
+
+def test_reference_chain_stays_eager_on_cpu(assets):
+    """Without the CUDA path every chain runs eagerly: no graph, no count."""
+    from miotts_tpu_torch.models import codec_graph
+
+    pipe = MioTTSPipeline(str(assets / "codec.gguf"), CPU, wavlm_path=str(assets / "wavlm.gguf"))
+    ref0 = dataclasses.replace(codec_graph.reference)
+    routes = [pipe.reference_embedding(str(assets / n))[1].route
+              for n in ("ref.wav", "ref.flac", "ref.wav")]
+    assert routes == ["eager"] * 3 and not pipe.ref_graphs and pipe.ref_graph_pool is None
+    assert codec_graph.reference == ref0
+
+
+def test_parallel_reference_chains_share_a_graph(assets, pipes, graphed):
+    """Four threads run chains of two lengths in one bucket at once, over
+    and over, on one graph whose buffers each run rewrites: the lock holds
+    copy-in, run and read together, so each gets its own eager result."""
+    import threading
+
+    _, eager = pipes
+    want = {n: eager.reference_to_embedding(str(assets / n)) for n in ("ref.wav", "ref.flac")}
+    graphed.reference_to_embedding(str(assets / "ref.wav"))  # the bucket's eager chain
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    bad, start = [], threading.Barrier(4, timeout=60)
+
+    def worker(name):
+        start.wait()
+        for _ in range(3):
+            got = graphed.reference_to_embedding(str(assets / name))
+            if got.tobytes() != want[name].tobytes():
+                bad.append(name)
+
+    try:
+        threads = [threading.Thread(target=worker, args=(n,))
+                   for n in ("ref.wav", "ref.flac") * 2]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not bad
+    assert len(graphed.ref_graphs) == 1 and graphed.ref_graphs[16000].n_replays == 12
+
+
 # -- reference-audio decoding ----------------------------------------------------------
 
 WAV_CASES = {"pcm8": dict(bits=8), "pcm16": dict(bits=16), "pcm24": dict(bits=24),

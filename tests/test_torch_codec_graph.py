@@ -29,12 +29,15 @@ CPU = torch.device("cpu")
 
 class _EagerCodecGraph(codec_graph.CodecGraph):
     """A codec graph without CUDA: it keeps the buffers it is made on and
-    runs the body on them. Counts the graphs made and each one's replays."""
+    runs the body on them. Counts the graphs made and each one's replays,
+    and keeps the pool and the counters it was given."""
     made = 0
 
-    def __init__(self, body, inputs, stream, pool=None, warm_up=True, check_syncs=True):
+    def __init__(self, body, inputs, stream, pool=None, warm_up=True, check_syncs=True,
+                 counters=codec_graph.codec):
         _EagerCodecGraph.made += 1
         self.body, self.inputs, self.warm_up, self.n_replays = body, inputs, warm_up, 0
+        self.pool, self.counters = pool, counters
 
     def replay(self):
         self.n_replays += 1
@@ -81,6 +84,33 @@ def test_first_decode_eager_second_captures_then_replays(pipes):
     assert key == CodecKey(1, 64, True, None, True, None, False)
     assert not graph.warm_up and graph.n_replays == 3
     assert graphed.n_decodes == 4 and not eager.graphs
+
+
+def test_capture_on_another_thread_warms_up(pipes):
+    """A key's eager decode on one thread and its second decode on another
+    (a server's callers share one pipeline): the capture runs a warm-up of
+    its own, since the capturing thread has no cuBLAS or cuDNN handles of
+    its own yet; both decodes equal the eager pipeline's."""
+    graphed, eager = pipes
+    codes, emb = _request(0, 50)
+    got, errors = [], []
+
+    def decode():
+        try:
+            got.append(graphed.synthesize(codes, emb).audio)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    for _ in range(2):
+        th = threading.Thread(target=decode)
+        th.start()
+        th.join(timeout=120)
+    assert not errors and len(got) == 2
+    (graph,) = graphed.graphs.values()
+    assert graph.warm_up and graph.n_replays == 1
+    ref = eager.synthesize(codes, emb).audio
+    for audio in got:
+        np.testing.assert_array_equal(audio, ref)
 
 
 # (name, whether it makes a new key): a variation of the base decode

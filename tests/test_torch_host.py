@@ -249,3 +249,49 @@ def test_llm_api_copy_matches(i):
     assert run(llm_api) == run(jax_api)
     text = "a <|s_1|><|s_22|> and <|s_333|> <|s_x|>"
     assert llm_api.extract_codes_from_text(text) == jax_api.extract_codes_from_text(text)
+
+
+@pytest.mark.parametrize("helper", ["decode_fsq_indices", "weight_norm_fuse_dim0",
+                                    "weight_norm_fuse_dim2", "fuse_pos_conv_weight", "silu",
+                                    "is_matmul_weight", "conv_geometry"])
+def test_converter_copies_match(helper):
+    """The port's converters/ copies of miotts_tpu/convert/'s helpers give
+    the same values (bit for bit) and the same decisions."""
+    from miotts_tpu.convert import miocodec as jax_mc
+    from miotts_tpu.convert import quantize as jax_q
+    from miotts_tpu.convert import wavlm as jax_wl
+    from miotts_tpu_torch.converters import miocodec as mc
+    from miotts_tpu_torch.converters import quantize as q
+    from miotts_tpu_torch.converters import wavlm as wl
+
+    rng = np.random.RandomState(1)
+    v, g = rng.randn(6, 4, 5).astype(np.float32), rng.rand(6).astype(np.float32) + 0.5
+    pos_v, pos_g = rng.randn(8, 3, 16).astype(np.float32), rng.rand(1, 1, 16).astype(np.float32)
+    idx = np.arange(12800, dtype=np.int64)
+    cases = {
+        "decode_fsq_indices": lambda m: m.decode_fsq_indices(idx, [8, 5, 5, 8, 8]),
+        "weight_norm_fuse_dim0": lambda m: m.weight_norm_fuse(g, v, dim=0),
+        "weight_norm_fuse_dim2": lambda m: m.weight_norm_fuse(pos_g, pos_v, dim=2),
+        "silu": lambda m: m._silu(rng.randn(64).astype(np.float32)),
+    }
+    if helper in cases:
+        st = rng.get_state()
+        got = cases[helper](mc)
+        rng.set_state(st)
+        assert got.tobytes() == cases[helper](jax_mc).tobytes()
+    elif helper == "fuse_pos_conv_weight":
+        assert (wl.fuse_pos_conv_weight(pos_v, pos_g).tobytes()
+                == jax_wl.fuse_pos_conv_weight(pos_v, pos_g).tobytes())
+    elif helper == "conv_geometry":
+        assert (wl.CONV_KERNELS, wl.CONV_STRIDES) == (jax_wl.CONV_KERNELS, jax_wl.CONV_STRIDES)
+        assert q._TARGETS == jax_q._TARGETS
+    else:
+        class Info:
+            def __init__(self, name, shape):
+                self.name, self.shape = name, shape
+
+        for name, shape in (("blk.0.attn_q.weight", (64, 64)), ("blk.0.attn_norm.weight", (64,)),
+                            ("output_norm.weight", (8, 64)), ("token_embd.weight", (96, 64)),
+                            ("blk.0.ffn_up.weight", (64, 48)), ("blk.0.bias", (64, 64))):
+            assert q._is_matmul_weight(Info(name, shape)) == jax_q._is_matmul_weight(
+                Info(name, shape)), name

@@ -52,7 +52,8 @@ def test_synthesize_matches_jax(codec, source):
     else:
         cfg, w = miocodec_params_from_jax(jcfg, jw, CPU)
     audio, n = codec_synthesize(cfg, w, torch.from_numpy(tokens),
-                                torch.from_numpy(LENGTHS), torch.from_numpy(cond))
+                                torch.from_numpy(LENGTHS), torch.from_numpy(cond),
+                                matmul="float32")
     assert np.array_equal(n.numpy(), ref_n)
     np.testing.assert_allclose(audio.numpy(), ref_audio, atol=1e-4, rtol=0)
     for b, k in enumerate(ref_n):
@@ -71,7 +72,7 @@ def test_anchored_unnormalized_matches_jax(codec):
     cfg, w = load_miocodec(path, CPU)
     audio, n = codec_synthesize(cfg, w, torch.from_numpy(tokens), torch.from_numpy(LENGTHS),
                                 torch.from_numpy(cond), interp_anchor_tokens=40,
-                                peak_normalize=False)
+                                peak_normalize=False, matmul="float32")
     assert np.array_equal(n.numpy(), np.asarray(ref_n))
     np.testing.assert_allclose(audio.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
 
@@ -89,7 +90,7 @@ def test_padded_bucket_matches_unpadded(codec):
         toks[0, :n] = tokens[0, :n]
         audio, ns = codec_synthesize(cfg, w, torch.from_numpy(toks),
                                      torch.tensor([n], dtype=torch.int32),
-                                     torch.from_numpy(cond[:1]))
+                                     torch.from_numpy(cond[:1]), matmul="float32")
         k = int(ns[0])
         assert np.all(audio[0, k:].numpy() == 0)
         outs.append(audio[0, :k].numpy())
@@ -150,7 +151,7 @@ def test_upsampler_matches_jax(ups_codec, source, kw):
                                                                                          CPU)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     audio, n = codec_synthesize(cfg, w, torch.from_numpy(tokens), torch.from_numpy(LENGTHS),
-                                torch.from_numpy(cond), **kw)
+                                torch.from_numpy(cond), matmul="float32", **kw)
     f = cfg.wave_upsampler_total_factor
     frames = (LENGTHS * cfg.samples_per_token // cfg.hop_length // f) * f  # k = 2 f, pad f/2
     n_pad = (cfg.n_fft - cfg.hop_length) // 2
@@ -179,7 +180,7 @@ def test_upsampler_padded_bucket_matches_unpadded(ups_codec):
         toks[0, :n] = tokens[1, :n]
         audio, ns = codec_synthesize(cfg, w, torch.from_numpy(toks),
                                      torch.tensor([n], dtype=torch.int32),
-                                     torch.from_numpy(cond[1:]))
+                                     torch.from_numpy(cond[1:]), matmul="float32")
         k = int(ns[0])
         assert k == ref_n[1] and np.all(audio[0, k:].numpy() == 0)
         outs.append(audio[0, :k].numpy())

@@ -41,6 +41,9 @@ def test_no_module_imports_jax():
     assert {"miotts_tpu_torch.streaming", "miotts_tpu_torch.models.decode_graph"} <= set(names)
     assert {f"miotts_tpu_torch.serving.{m}" for m in (
         "batching", "codec_batching", "engine", "server", "state", "webui")} <= set(names)
+    assert {f"miotts_tpu_torch.converters.{m}" for m in (
+        "miocodec", "wavlm", "preset_embedding", "quantize")} | {
+        "miotts_tpu_torch.ops.precision"} <= set(names)
     assert {"miotts_tpu_torch.embed", "miotts_tpu_torch.models.wavlm"} | {
         f"miotts_tpu_torch.runtime.{m}" for m in ("flac", "mp3", "mp3_tables", "llm_api",
                                                   "tracing")} <= set(names)

@@ -450,7 +450,7 @@ def test_mel_synthesize_matches_jax(mel_model, mel_synth_ref, source):
     cfg, w = load_miocodec(path, CPU) if source == "gguf" else miocodec_params_from_jax(
         jcfg, jw, CPU)
     audio, n = codec_synthesize(cfg, w, torch.from_numpy(tokens), torch.from_numpy(lengths),
-                                torch.from_numpy(cond))
+                                torch.from_numpy(cond), matmul="float32")
     assert np.array_equal(n.numpy(), ref_n)
     assert list(n.numpy()) == [cfg.stft_frames(16) * 16, cfg.stft_frames(6) * 16]
     np.testing.assert_allclose(audio.numpy(), ref, atol=1e-4, rtol=0)
