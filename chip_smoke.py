@@ -201,6 +201,30 @@ also holds a repeat penalty of 1.1 (greedy, and sampled with seed 5)
 replayed against the eager body, and the dense requests include one at
 ``--repeat-penalty 1.1``.
 
+First among the paths, a load phase (M7, ``runtime/device_dequant.py``):
+the dense (f32) and Q8_0 0.1B LLM GGUFs (the latter with ``--llm-quant
+q8_0``), the 24 kHz codec and WavLM Base+ each loaded three ways on the
+card: per leaf (MIOTTS_DEVICE_DEQUANT=0), packed (=1; the LLMs write their
+deploy artifact) and again (the LLMs replay the artifact, the others pack
+again); every leaf torch.equal across the three, the same bytes allocated
+after each, each load on its own route and none falling back; wall
+seconds (read, pack, copy, assemble), MB copied and max_memory_allocated
+printed. Then CLI requests on those routes (-n 120, greedy): ``--llm-quant
+q8_0`` replayed from the artifact (K1, K2, K3) and the dense path on the
+raw Q8_0 payload dequantized on the card (K1, K2), each with the codes of
+the same request on per-leaf weights; a server (dense on the Q8_0 GGUF,
+-np 2 --warmup off) started twice on one artifact directory, cold and
+warm, with its time to listen, the replay's stderr line and one request
+on the replayed weights; and ``MioTTSEngine.unload_llm()`` with a reload through the packed
+route on a thread while this thread captures new codec graph keys (B = 2):
+both succeed, a capture overlaps the reload, each new key's replay equals
+its eager decode, and the reloaded engine speaks. Last of all, a
+cpu_native phase: ``--cpu-native on`` under MIOTTS_PLATFORM=cuda runs the
+card's engine (K1 and K2 launch, the native library is not loaded), and
+under MIOTTS_PLATFORM=cpu the native int8/int4 engine writes 64 tokens
+from the Q8_0 GGUF as it is and requantized to Q4_0
+(MIOTTS_CPU_QUANT=q4_0), its tokens/s printed with the host CPU's name.
+
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
 error, its time, its plain version's time, its bound (the least time the
@@ -215,6 +239,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -247,6 +272,7 @@ from miotts_tpu_torch.ops.cuda import decode_attention as k2
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.ops.cuda import resblock as k6
 from miotts_tpu_torch.pipeline import CodecKey, MioTTSPipeline, pick_bucket
+from miotts_tpu_torch.runtime import device_dequant
 from miotts_tpu_torch.streaming import StreamingSynthesizer
 from miotts_tpu_torch.testing import (
     full_codec441_config, full_codec_config, full_mel_codec_config, full_wavlm_kwargs, mel_l1,
@@ -2847,6 +2873,328 @@ def check_trace(tmp: Path) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# M7: the packed weight upload, its deploy artifact, the native CPU engine
+# ---------------------------------------------------------------------------
+
+LOAD_MODELS = (  # (name, GGUF, loader, --llm-quant)
+    ("llm dense", "llm.gguf", "llm", ""), ("llm q8_0", "llm_q8_0.gguf", "llm", "q8_0"),
+    ("codec", "codec.gguf", "codec", None), ("wavlm", "wavlm.gguf", "wavlm", None))
+LOAD_PROMPT = "The quick brown fox jumps over the lazy dog, twice."
+LOAD_REQUESTS = (  # (name, extra flags, kernels that must launch, the LLM's packed route)
+    ("q8_0-replay", ["--llm-quant", "q8_0"], (k1, k2, k3), "replay"),
+    ("dense-raw-q8_0", [], (k1, k2), "packed"),
+)
+CPU_NATIVE_TOKENS = 64
+
+
+def tree_leaves(tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def route_counts(r0: dict) -> dict:
+    return {k: v - r0[k] for k, v in device_dequant.routes.items() if v != r0[k]}
+
+
+def load_once(fn) -> tuple[list, dict]:
+    """One load on the card, started from a cache emptied of free blocks:
+    its leaves copied to the host (the tree itself is dropped, so every
+    load starts from the same allocator state), the routes it took, its
+    wall seconds split into read (GGUF reads, host casts and quantization:
+    the rest), pack, copy and assemble, the MB copied, and the bytes
+    allocated after it and at its peak."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = dict(device_dequant.routes)
+    t0 = time.perf_counter()
+    tree = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = device_dequant.last_upload
+    row = {"wall_s": wall, "read_s": wall - st.pack_s - st.copy_s - st.assemble_s,
+           "pack_s": st.pack_s, "copy_s": st.copy_s, "assemble_s": st.assemble_s,
+           "mb_copied": st.nbytes / 1e6, "allocated": torch.cuda.memory_allocated() - base,
+           "max_allocated": torch.cuda.max_memory_allocated() - base,
+           "routes": route_counts(r0)}
+    host = [t.cpu() for t in tree_leaves(tree)]
+    del tree
+    return host, row
+
+
+def check_load(dev, tmp: Path) -> dict:
+    """Each of LOAD_MODELS loaded three ways on the card: per leaf
+    (MIOTTS_DEVICE_DEQUANT=0), packed (=1, cold: the LLMs write their deploy
+    artifact) and again (the LLMs replay the artifact; the codec and WavLM,
+    which have none, pack again). Every leaf torch.equal across the three,
+    the same bytes allocated after each, each load on its own route with no
+    fallback."""
+    from miotts_tpu_torch.models.miocodec import load_miocodec
+    from miotts_tpu_torch.models.wavlm import load_wavlm
+
+    cache = tmp / "packed"
+    rows: dict = {}
+    for name, gguf, kind, quant in LOAD_MODELS:
+        path = str(tmp / gguf)
+        if kind == "llm":
+            fn = lambda: load_llm_gguf(path, dev, quantize=quant)[1]  # noqa: E731
+        else:
+            fn = lambda: (load_miocodec if kind == "codec" else load_wavlm)(path, dev)[1]  # noqa: E731
+        third = "replay" if kind == "llm" else "packed"
+        rows[name] = {}
+        ref = None
+        for label, setting, route in (("per_leaf", "0", "per_leaf"), ("packed", "1", "packed"),
+                                      (f"{third} (second)", "1", third)):
+            with environment(MIOTTS_DEVICE_DEQUANT=setting,
+                             MIOTTS_PACKED_CACHE=str(cache) if kind == "llm" else None):
+                host, row = load_once(fn)
+            if row["routes"] != {route: 1}:
+                raise AssertionError(f"[load] {name} {label}: routes {row['routes']}")
+            if ref is None:
+                ref = host
+            elif len(host) != len(ref) or any(
+                    a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b)
+                    for a, b in zip(host, ref)):
+                raise AssertionError(f"[load] {name} {label}: leaves differ from per_leaf's")
+            rows[name][label] = row
+            log(f"[load] {name} {label}: {row['wall_s']:.3f} s wall (read {row['read_s']:.3f}, "
+                f"pack {row['pack_s']:.3f}, copy {row['copy_s']:.3f}, assemble "
+                f"{row['assemble_s']:.3f}), {row['mb_copied']:.1f} MB copied, allocated "
+                f"{row['allocated'] / 2 ** 20:.2f} MiB, max_memory_allocated "
+                f"{row['max_allocated'] / 2 ** 20:.2f} MiB; {len(host)} leaves"
+                + ("" if label == "per_leaf" else ", torch.equal to per_leaf's"))
+        allocated = {label: r["allocated"] for label, r in rows[name].items()}
+        if len(set(allocated.values())) != 1:
+            raise AssertionError(f"[load] {name}: allocated bytes differ by route: {allocated}")
+    return rows
+
+
+def check_load_requests(tmp: Path) -> dict:
+    """CLI text -> WAV requests on weights the new routes built: --llm-quant
+    q8_0 replayed from the load phase's artifact (K3, K2, K1) and the dense
+    path on the raw Q8_0 payload dequantized on the card (K2, K1); each
+    request's greedy codes equal the same request's on per-leaf weights."""
+    cache = tmp / "packed"
+    rows = {}
+    for name, extra, kernels, route in LOAD_REQUESTS:
+        codes, row = {}, {}
+        for setting in ("1", "0"):
+            tag = f"load-{name}-{'packed' if setting == '1' else 'per_leaf'}"
+            r0 = dict(device_dequant.routes)
+            with environment(MIOTTS_DEVICE_DEQUANT=setting,
+                             MIOTTS_PACKED_CACHE=str(cache) if route == "replay" else None):
+                text, n_codes, _, _, grew, _ = drive_cli(
+                    tag, tmp, ["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm_q8_0.gguf"),
+                               "-p", LOAD_PROMPT, "-n", "120", "--temp", "0", *extra], kernels)
+            routes = route_counts(r0)
+            # the codec's weights take the packed route (or per leaf) too
+            want = ({"per_leaf": 2} if setting == "0" else
+                    {"packed": 2} if route == "packed" else {"packed": 1, "replay": 1})
+            if routes != want:
+                raise AssertionError(f"{tag}: routes {routes}, want {want}")
+            codes[setting] = (tmp / f"{tag}.codes").read_text().split()
+            row[tag] = {"routes": routes, "codes": n_codes, "launches": launch_text(grew)}
+            log(f"[load request] {tag}: {n_codes} codes, routes {routes}, launches "
+                f"{launch_text(grew)}")
+        if not codes["1"] or codes["1"] != codes["0"]:
+            raise AssertionError(f"load request {name}: greedy codes differ from the per-leaf "
+                                 f"weights' ({len(codes['1'])} vs {len(codes['0'])})")
+        rows[name] = row
+    return rows
+
+
+def check_restart(dev, tmp: Path) -> dict:
+    """A server (dense on the Q8_0 GGUF, --warmup off) started twice on one
+    artifact directory: cold (GGUF reads and packing; the artifact written)
+    and warm (the artifact replayed, its stderr line kept); time to listen
+    each time, and one request served on the replayed weights."""
+    rows = {}
+    with environment(MIOTTS_PACKED_CACHE=str(tmp / "server_packed")):
+        for start in ("cold", "warm"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            r0, err = dict(device_dequant.routes), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                srv = start_server(dev, tmp, "llm_q8_0.gguf",
+                                   ["-np", "2", "-n", "64", "--ctx-size", "256", "--warmup", "off"])
+            listen_s = time.perf_counter() - t0
+            try:
+                routes = route_counts(r0)
+                line = next((s for s in err.getvalue().splitlines()
+                             if "packed artifact replay" in s), None)
+                res = None
+                if start == "warm":  # the replayed weights serve
+                    k2_0 = k2.launches
+                    res = binary_tts(srv, SERVER_TEXTS[0], 500, f"restart {start}")
+                    if k2.launches == k2_0:
+                        raise AssertionError(f"restart {start}: the request launched no K2")
+            finally:
+                srv.shutdown()
+            del srv
+            want = {"packed": 2} if start == "cold" else {"packed": 1, "replay": 1}
+            if routes != want or (start == "warm") != (line is not None):
+                raise AssertionError(f"restart {start}: routes {routes}, artifact line {line!r}")
+            rows[start] = {"listen_s": listen_s, "routes": routes, "artifact_line": line,
+                           "request_s": res and res["latency_s"]}
+            log(f"[restart] {start} start: listening after {listen_s:.3f} s, routes {routes}"
+                + (f"; {line}; a request served in {res['latency_s']:.3f} s" if res else ""))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_load_beside_capture(dev, tmp: Path, emb) -> dict:
+    """MioTTSEngine.unload_llm() and a reload through the packed route on a
+    thread while this thread captures new codec graph keys (B = 2) on the
+    engine's pipeline: both succeed, a capture runs during the reload, each
+    new key's replay equals its eager decode, and the reloaded engine
+    speaks."""
+    import threading
+
+    from miotts_tpu_torch.embed import MioTTSEngine
+
+    eng = MioTTSEngine(str(tmp / "codec.gguf"), llm_model=str(tmp / "llm_q8_0.gguf"),
+                       device=dev)
+    eng.register_reference("voice", str(tmp / "voice.emb.gguf"))
+    eng._ensure_llm()
+    pipe, cfg = eng.pipeline, eng.pipeline.config
+    errors, span = [], {}
+    r0 = dict(device_dequant.routes)
+
+    def reload() -> None:
+        span["start"] = time.perf_counter()
+        try:
+            eng.unload_llm()
+            eng._ensure_llm()
+        except Exception as e:  # raised below, on the main thread
+            errors.append(repr(e))
+        span["end"] = time.perf_counter()
+
+    th = threading.Thread(target=reload, name="reload")
+    th.start()
+    captured = []
+    for bucket in (64, 128, 256, 32, 512):
+        t0 = time.perf_counter()
+        graph = pipe.capture(bucket, B=2)
+        captured.append({"bucket": bucket, "start": t0, "end": time.perf_counter(),
+                         "capture_ms": graph.capture_ms})
+        if not th.is_alive():
+            break
+    th.join()
+    if errors:
+        raise AssertionError(f"the reload beside a capture failed: {errors}")
+    routes = route_counts(r0)
+    overlapped = [c["bucket"] for c in captured if c["start"] < span["end"]]
+    if routes != {"packed": 1} or not overlapped:
+        raise AssertionError(f"reload beside capture: routes {routes}, captures {captured}, "
+                             f"reload {span}")
+    checks = {}
+    for c in captured:
+        bucket = c["bucket"]
+        tokens, lengths, cond = codec_host(cfg, emb, bucket, [bucket, -(-bucket // 3)], 7)
+        c0 = codec_counts()
+        got = pipe.decode(tokens, lengths, cond)
+        if codec_counts()["replays"] != c0["replays"] + 1:
+            raise AssertionError(f"bucket {bucket} B=2: the decode was not a replay")
+        checks[bucket] = same_decode(f"bucket {bucket} B=2 captured beside a reload", got,
+                                     pipe.decode_eager(tokens, lengths, cond), None,
+                                     cfg.sample_rate, False)
+    k2_0 = k2.launches
+    wav = eng.synthesize_text_to_wav("Hello there.", n_predict=32)
+    if wav[:4] != b"RIFF" or k2.launches == k2_0:
+        raise AssertionError("the reloaded engine did not speak on the card")
+    row = {"reload_s": span["end"] - span["start"], "captures": [
+        {"bucket": c["bucket"], "capture_ms": c["capture_ms"],
+         "during_reload": c["start"] < span["end"]} for c in captured], "vs_eager": checks}
+    capture_ms = ", ".join(f"{c['capture_ms']:.1f}" for c in captured)
+    log(f"[load beside capture] reload {row['reload_s']:.3f} s on a thread, packed; captures "
+        f"(B=2) at buckets {[c['bucket'] for c in captured]} ({capture_ms} ms), "
+        f"{len(overlapped)} during the reload; replays vs eager: {checks}")
+    del eng, pipe
+    torch.cuda.empty_cache()
+    return row
+
+
+def cpu_model_name() -> str:
+    """The host CPU's model: /proc/cpuinfo's "model name" or lscpu's "Model
+    name" where either says more than "unknown", else the vendor, family
+    and model numbers /proc/cpuinfo gives."""
+    import platform
+
+    info: dict = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        lscpu = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        lscpu = ""
+    for name in (info.get("model name", ""), lscpu):
+        if name and name.lower() != "unknown":
+            return name
+    return (f"model name not reported; {info.get('vendor_id', platform.machine())} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}")
+
+
+def check_cpu_native(tmp: Path) -> dict:
+    """``--cpu-native on`` through the CLI: under MIOTTS_PLATFORM=cuda it is
+    ignored (the card's engine runs, K2 launches, the native library is not
+    loaded); under MIOTTS_PLATFORM=cpu the native engine generates
+    CPU_NATIVE_TOKENS tokens on the host from the Q8_0 GGUF as it is and
+    requantized to Q4_0 (MIOTTS_CPU_QUANT=q4_0), its tokens/s printed with
+    the host CPU's name."""
+    from miotts_tpu_torch.runtime import native
+
+    if native._tried:
+        raise AssertionError("the native library was loaded before the CUDA check")
+    drive_cli("cpu-native-on-cuda", tmp, [
+        "-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm_q8_0.gguf"), "-p", LOAD_PROMPT,
+        "-n", "48", "--cpu-native", "on"], (k1, k2))
+    if native._tried:
+        raise AssertionError("--cpu-native on under MIOTTS_PLATFORM=cuda loaded the native "
+                             "library")
+    cpu = cpu_model_name()
+    rows = {"cpu": cpu, "cuda_request": "card engine (K1, K2), native library not loaded"}
+    for quant in ("auto", "q4_0"):
+        codes_out, err = tmp / f"cpu-native-{quant}.codes", io.StringIO()
+        l0 = {m: m.launches for m in MODS}
+        with environment(MIOTTS_PLATFORM="cpu", MIOTTS_CPU_QUANT=quant), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm_q8_0.gguf"),
+                           "-p", LOAD_PROMPT, "-n", str(CPU_NATIVE_TOKENS), "--seed", "1",
+                           "--cpu-native", "on", "--tts-mio-codes-only", "--tts-mio-codes-out",
+                           str(codes_out)])
+        text = err.getvalue()
+        m = re.search(r"llm breakdown: generate=([0-9.]+)ms n_tokens=(\d+) tok/s=([0-9.]+)", text)
+        if rc != 0 or m is None or not native.q8_available():
+            raise AssertionError(f"cpu-native {quant}: exited {rc}:\n{text[-2000:]}")
+        if any(m_.launches != l0[m_] for m_ in MODS):
+            raise AssertionError(f"cpu-native {quant}: a kernel launched on the card")
+        n_codes = len(codes_out.read_text().split())
+        rows[quant] = {"generate_ms": float(m.group(1)), "tokens": int(m.group(2)),
+                       "tok_s": float(m.group(3)), "codes": n_codes}
+        if rows[quant]["tokens"] < 1 or n_codes < 1:
+            raise AssertionError(f"cpu-native {quant}: {rows[quant]}")
+        log(f"[cpu_native] MIOTTS_PLATFORM=cpu --cpu-native on MIOTTS_CPU_QUANT={quant} "
+            f"(Q8_0 GGUF): {rows[quant]['tokens']} tokens in {rows[quant]['generate_ms']:.1f} "
+            f"ms, {rows[quant]['tok_s']:.1f} tok/s, {n_codes} codes, on {cpu} "
+            f"({os.cpu_count()} cores seen)")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2907,17 +3255,23 @@ def main() -> int:
 
         # each path is driven with every count at 0 and read right after
         launches, streams, codec_rows, server_rows, clone_rows, api_rows = {}, {}, {}, {}, {}, {}
-        knob_rows = {}
-        for path, reqs in (("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
+        knob_rows, load_rows, cpu_rows = {}, {}, {}
+        for path, reqs in (("load", None), ("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
                            ("codec_graph", None), ("codec_knobs", None),
                            ("wave441", WAVE441_REQUESTS),
                            ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
-                           ("llm_api", None)):
+                           ("llm_api", None), ("cpu_native", None)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
-            if path == "mel":
+            if path == "load":
+                load_rows = {"loads": check_load(dev, tmp), "requests": check_load_requests(tmp),
+                             "restart": check_restart(dev, tmp),
+                             "beside_capture": check_load_beside_capture(dev, tmp, emb)}
+            elif path == "cpu_native":
+                cpu_rows = check_cpu_native(tmp)
+            elif path == "mel":
                 for name, extra, kernels in reqs:
                     mel_request(name, tmp, mcfg, extra, kernels)
             elif path == "codec_graph":
@@ -2971,7 +3325,8 @@ def main() -> int:
     print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows,
                       "codec_knobs": knob_rows, "streams": streams,
                       "server": server_rows, "clone": clone_rows, "llm_api": api_rows,
-                      "trace": trace_row}, default=str))
+                      "trace": trace_row, "load": load_rows, "cpu_native": cpu_rows},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

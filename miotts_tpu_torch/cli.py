@@ -36,8 +36,12 @@ ms, the device chain's wall ms, the WavLM bucket and frames, and the rung
 of the fallback ladder taken (ssl, ssl_pre or audio_stat). The WAV's rate
 is the codec's (24 or 44.1 kHz).
 
-Flags whose path is not ported (--sequence-parallel, --cpu-native on)
-exit 1 with ``error: ... not yet ported to miotts_tpu_torch``.
+On a CPU device (MIOTTS_PLATFORM=cpu) the text and stream paths run the
+native int8/int4 CPU engine (``models/llm_cpu.py``) under ``--cpu-native
+on``, or under ``auto`` (the default; MIOTTS_CPU_NATIVE=1/0 sets it) for a
+GGUF with Q8_0/Q4_0 matmul weights, as the JAX CLI does; on CUDA the flag
+is ignored. The one flag whose path is not ported, --sequence-parallel,
+exits 1 with ``error: ... not yet ported to miotts_tpu_torch``.
 MIOTTS_PROFILE_DIR leaves a ``torch.profiler`` trace of the codec decode
 (``runtime/tracing.py``). ``-fa`` has no effect:
 on CUDA the codec attention always runs the banded-attention kernel.
@@ -145,14 +149,31 @@ def _unported_flag(args) -> str | None:
     """The first flag given whose path this port does not run yet."""
     checks = (
         (args.sequence_parallel > 1, "--sequence-parallel"),
-        (args.cpu_native == "on", "--cpu-native on"),
     )
     return next((name for given, name in checks if given), None)
 
 
-def _llm_engine(args, device):
+def _make_llm_engine(args, device):
+    """The LLM engine, chosen as the JAX CLI chooses it
+    (miotts_tpu/cli.py:115-139): on a CPU device, ``--cpu-native on`` runs
+    the native int8/int4 engine (``models/llm_cpu.py``) and raises when it
+    cannot load, ``auto`` runs it for a GGUF whose matmul weights are Q8_0
+    or Q4_0 and otherwise, or when it cannot load (one stderr line says
+    why), the torch engine; on CUDA the flag is ignored."""
     from .models.llm import LLMEngine
 
+    mode = args.cpu_native
+    if mode != "off" and device.type == "cpu":
+        from .models.llm_cpu import NativeCpuLLMEngine, gguf_llm_cpu_native_ok
+
+        if mode == "on" or gguf_llm_cpu_native_ok(args.model):
+            try:
+                return NativeCpuLLMEngine(args.model)
+            except Exception as e:
+                if mode == "on":
+                    raise
+                print(f"note: --cpu-native auto: the native CPU engine did not load ({e}); "
+                      "running the torch engine", file=sys.stderr)
     # an empty --llm-quant defers to MIOTTS_LLM_QUANT
     return LLMEngine(args.model, device, quantize=args.llm_quant or None)
 
@@ -208,7 +229,7 @@ def _stream_output(args, prompt: str, device, pipe, embedding) -> int:
     from .streaming import stream_text_to_audio
 
     try:
-        engine = _llm_engine(args, device)
+        engine = _make_llm_engine(args, device)
     except Exception as e:
         return _err(f"failed to load LLM GGUF: {e}")
     stats = {"n_samples": 0, "ttfa": None}
@@ -378,16 +399,8 @@ def main(argv: list[str] | None = None) -> int:
     elif prompt:
         if not args.model:
             return _err("-m/--model is required with --prompt (or set --llm-api-url)")
-        from .models.llm import gguf_llm_cpu_native_ok
-
-        if (device.type == "cpu" and args.cpu_native == "auto"
-                and gguf_llm_cpu_native_ok(args.model)):
-            print("note: --cpu-native auto: this GGUF holds Q8_0/Q4_0 matmul weights, on which "
-                  "the JAX CLI runs its native int8/int4 CPU engine; miotts_tpu_torch runs its "
-                  "own engine (the native CPU engine is not yet ported)", file=sys.stderr)
-
         try:
-            engine = _llm_engine(args, device)
+            engine = _make_llm_engine(args, device)
         except Exception as e:
             return _err(f"failed to load LLM GGUF: {e}")
         with _llm_breakdown() as stats:

@@ -14,9 +14,10 @@ import numpy as np
 import torch
 
 from .models.llm import LLMConfig, weights_to_device
-from .models.miocodec import MioCodecConfig, check_supported, to_device
+from .models.miocodec import MioCodecConfig, check_supported
 from .models.wavlm import WavLMConfig
 from .ops.istft import hann_periodic
+from .runtime.device_dequant import tree_to_device
 
 _CODEC_KEYS = ("token_embd", "prenet_blocks", "prenet_norm_w", "prenet_norm_b",
                "prenet_out_w", "prenet_out_b", "upsample_w", "upsample_b", "prior", "post",
@@ -46,7 +47,7 @@ def miocodec_params_from_jax(cfg, tree: dict, device: torch.device
     w = {k: tree[k] for k in _CODEC_KEYS if k in tree}
     if "istft_tables" in w:
         w["istft_tables"] = (*w["istft_tables"], hann_periodic(pcfg.n_fft))
-    return pcfg, to_device(_f32(w), device)
+    return pcfg, tree_to_device(_f32(w), device)
 
 
 def llm_params_from_jax(cfg, tree: dict, device: torch.device,
@@ -71,4 +72,4 @@ def llm_params_from_jax(cfg, tree: dict, device: torch.device,
 def wavlm_params_from_jax(cfg, tree: dict, device: torch.device) -> tuple[WavLMConfig, dict]:
     """JAX WavLM (config, weight tree) -> the port's, at f32 on ``device``:
     the same keys and layout (linear weights [in, out], a dict a layer)."""
-    return WavLMConfig(**dataclasses.asdict(cfg)), to_device(_f32(tree), device)
+    return WavLMConfig(**dataclasses.asdict(cfg)), tree_to_device(_f32(tree), device)

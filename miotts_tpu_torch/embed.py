@@ -10,9 +10,10 @@ the LLM between syntheses, as the mobile engine's
 ``llm_unload_after_generation`` does.
 
 The device is the caller's, or ``device.select_device()`` (so
-``MIOTTS_PLATFORM``). The JAX engine picks its native int8/int4 CPU LLM
-engine for a Q8_0/Q4_0 GGUF on a CPU backend; that engine is not ported,
-and this one always runs the port's ``LLMEngine``.
+``MIOTTS_PLATFORM``). On a CPU device a Q8_0/Q4_0 GGUF runs the native
+int8/int4 CPU engine (``models/llm_cpu.py``), as the JAX engine picks it
+(miotts_tpu/embed.py:71-92); anything else, or that engine failing to
+load, runs the port's ``LLMEngine``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ class MioTTSEngine:
                  llm_unload_after_generation: bool = False,
                  device: torch.device | None = None):
         self.device = device if device is not None else select_device()
-        self.pipeline = MioTTSPipeline(vocoder_model, self.device,
+        # check_syncs off, as a server's pipeline: the sync-debug mode of a
+        # key's first decode is global to the process, and other threads
+        # may use the card meanwhile (an unload_llm() and its reload)
+        self.pipeline = MioTTSPipeline(vocoder_model, self.device, check_syncs=False,
                                        wavlm_path=wavlm_model or None)
         self.llm_model_path = llm_model
         self.llm_unload_after_generation = llm_unload_after_generation
@@ -72,10 +76,23 @@ class MioTTSEngine:
             if self._llm is None:
                 if not self.llm_model_path:
                     raise ValueError("LLM model path is not configured")
-                from .models.llm import LLMEngine
-
-                self._llm = LLMEngine(self.llm_model_path, self.device)
+                self._llm = self._make_llm()
             return self._llm
+
+    def _make_llm(self):
+        """Engine selection as the CLI's ``--cpu-native auto``: on a CPU
+        device a Q8_0/Q4_0 GGUF runs the native block-quant engine."""
+        if self.device.type == "cpu":
+            try:
+                from .models.llm_cpu import NativeCpuLLMEngine, gguf_llm_cpu_native_ok
+
+                if gguf_llm_cpu_native_ok(self.llm_model_path):
+                    return NativeCpuLLMEngine(self.llm_model_path)
+            except Exception:
+                pass
+        from .models.llm import LLMEngine
+
+        return LLMEngine(self.llm_model_path, self.device)
 
     def unload_llm(self) -> None:
         with self._lock:

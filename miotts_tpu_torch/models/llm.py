@@ -9,7 +9,8 @@ captured once as a CUDA graph and replayed (``models/decode_graph.py``;
 ``LLMEngine`` keeps one graph and loads each request into it), on the CPU
 it runs eagerly. The host reads one packed result a chunk
 (``fetch_chunk_result``). Norms are f32, logits f32. Matmul weights are dense bf16 (GGUF
-Q8_0/f16/f32 tensors dequantized on the host and cast) or, by the
+Q8_0/f16/f32 tensors dequantized and cast, on the host or, by the packed
+route of ``runtime/device_dequant.py``, on the device) or, by the
 ``--llm-quant`` ladder, kept quantized on the device (``load_llm_gguf``):
 Q8_0 leaves run on kernel K3 (``ops/cuda/q8_matmul.py``), W8A8 and W4A8
 leaves on exact int8 dots (``ops/quant_matmul.py``).
@@ -35,17 +36,21 @@ import math
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import to_device
-from ..gguf import GGMLType, GGUFReader
+from ..gguf import GGUFReader
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.quant_matmul import (
     maybe_quant_matmul as _mm, quantize_int4_percol, quantize_int8_percol, quantize_q8_cols)
 from ..ops.rope import apply_rope
+from ..runtime.device_dequant import (
+    ARTIFACT_TAG, PackedLoader, _Pending, device_dequant_enabled, dtype_name,
+    load_packed_artifact, packed_artifact_path, record_per_leaf)
 from ..runtime.tokenizer import BPETokenizer
 from . import decode_graph
 from .sampling import (
@@ -147,21 +152,18 @@ def _warn_tied_quant_noop(head_quant_requested: bool, quantize) -> None:
     return None
 
 
-def gguf_llm_cpu_native_ok(path: str) -> bool:
-    """True when the GGUF's matmul weights are Q8_0 or Q4_0 blocks (judged by
-    ``blk.0.attn_q.weight``): the JAX package's signal for its native
-    int8/int4 CPU engine (miotts_tpu/models/llm_cpu.py gguf_llm_cpu_native_ok),
-    which its CLI's ``--cpu-native auto`` picks on a CPU backend. False for
-    any file that cannot be read."""
+def _replay_llm(art, device: torch.device) -> dict | None:
+    """The weight tree replayed from a deploy artifact, or None."""
+    loaded = load_packed_artifact(art, device)
+    if loaded is None or not loaded[1]:
+        return None
+    built, wspec = loaded
     try:
-        r = GGUFReader(path)
-    except Exception:
-        return False
-    try:
-        info = r.tensors.get("blk.0.attn_q.weight")
-        return info is not None and info.ggml_type in (GGMLType.Q8_0, GGMLType.Q4_0)
-    finally:
-        r.close()
+        return {k: (None if v is None else {sk: built[key] for sk, key in v[1].items()}
+                    if v[0] == "dict" else built[v[1]])
+                for k, v in wspec.items()}
+    except KeyError:
+        return None
 
 
 def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16,
@@ -171,8 +173,19 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
     ``quantize`` (``_quant_modes``) the matmul leaves and the head are then
     quantized on the host as the JAX loader does them (``quantize_kn``, the
     head from its [D, V] transpose); dense leaves are cast to ``dtype``. A
-    dense logits head stays [V, D] (None when tied to the embedding)."""
+    dense logits head stays [V, D] (None when tied to the embedding).
+
+    Where ``device_dequant_enabled`` (CUDA by default), the weights take the
+    packed route (``runtime/device_dequant.py``): the embedding, a dense
+    head and the dense matmul leaves ship their GGUF payload (Q8_0, Q4_0 or
+    F16) and are dequantized, transposed and fused on the device; every
+    other leaf is pre-cast on the host; all of it in one copy a dtype, with
+    the same bits as the per-leaf route. With MIOTTS_PACKED_CACHE set, the
+    packed buffers are kept as a deploy artifact, looked up before any
+    tensor is read."""
     mode = _quant_modes(quantize)
+    device = torch.device(device)
+    pk = PackedLoader(device) if device_dequant_enabled(device) else None
     with GGUFReader(path) as r:
         arch = r.get_str("general.architecture")
         if arch is None:
@@ -199,10 +212,26 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
             has_qk_norm=r.has_tensor("blk.0.attn_q_norm.weight"),
             tie_embeddings=not r.has_tensor("output.weight"),
         )
+        art = None
+        if pk is not None:
+            art = packed_artifact_path(
+                path, f"llm|{dtype_name(dtype)}|{mode['requested']}|{ARTIFACT_TAG}")
+            if art is not None and art.exists():
+                w = _replay_llm(art, device)
+                if w is not None:
+                    return cfg, w, tokenizer
 
         def t(name, transpose=False):
             arr = r.tensor(name, dtype=np.float32)
             return np.ascontiguousarray(arr.T) if transpose else arr
+
+        def raw(fmts, stacked=False):
+            """A dense leaf from its GGUF payload on the packed route (None
+            when that route is off or a tensor's type has no device dequant)."""
+            if pk is None:
+                return None
+            return pk.add_raw(("raw", fmts[0]), r, fmts, n_layers if stacked else None,
+                              transpose=stacked, out_dtype=dtype)
 
         def stack_layers(per_layer, quant):
             if not (quant and mode["layers"]):
@@ -213,7 +242,12 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
         def stack(fmt, transpose=False, quant=False):
             return stack_layers([t(fmt.format(i=i), transpose) for i in range(n_layers)], quant)
 
-        def stack_fused(fmts):
+        def matmul(fmts):
+            """A layer-stacked matmul leaf, [L, in, sum(out)]."""
+            if not mode["layers"]:
+                p = raw(fmts, stacked=True)
+                if p is not None:
+                    return p
             return stack_layers([np.concatenate([t(f.format(i=i), True) for f in fmts], axis=1)
                                  for i in range(n_layers)], quant=True)
 
@@ -222,24 +256,58 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
         elif mode["head"]:
             head = quantize_kn(t("output.weight", transpose=True), mode["head_kind"])
         else:
-            head = t("output.weight")
+            head = raw(["output.weight"]) or t("output.weight")
         w = {
-            "token_embd": t("token_embd.weight"),
+            "token_embd": raw(["token_embd.weight"]) or t("token_embd.weight"),
             "attn_norm": stack("blk.{i}.attn_norm.weight"),
-            "wqkv": stack_fused(["blk.{i}.attn_q.weight", "blk.{i}.attn_k.weight",
-                                 "blk.{i}.attn_v.weight"]),
+            "wqkv": matmul(["blk.{i}.attn_q.weight", "blk.{i}.attn_k.weight",
+                            "blk.{i}.attn_v.weight"]),
             "bqkv": (np.stack([np.concatenate([t(f"blk.{i}.attn_{p}.bias") for p in "qkv"])
                                for i in range(n_layers)]) if cfg.has_qkv_bias else None),
-            "wo": stack("blk.{i}.attn_output.weight", transpose=True, quant=True),
+            "wo": matmul(["blk.{i}.attn_output.weight"]),
             "ffn_norm": stack("blk.{i}.ffn_norm.weight"),
-            "w_gateup": stack_fused(["blk.{i}.ffn_gate.weight", "blk.{i}.ffn_up.weight"]),
-            "w_down": stack("blk.{i}.ffn_down.weight", transpose=True, quant=True),
+            "w_gateup": matmul(["blk.{i}.ffn_gate.weight", "blk.{i}.ffn_up.weight"]),
+            "w_down": matmul(["blk.{i}.ffn_down.weight"]),
             "q_norm": stack("blk.{i}.attn_q_norm.weight") if cfg.has_qk_norm else None,
             "k_norm": stack("blk.{i}.attn_k_norm.weight") if cfg.has_qk_norm else None,
             "output_norm": t("output_norm.weight"),
             "output": head,
         }
-    return cfg, weights_to_device(w, device, dtype), tokenizer
+    if pk is None:
+        t0 = time.perf_counter()
+        out = weights_to_device(w, device, dtype)
+        record_per_leaf(time.perf_counter() - t0, sum(
+            a.nbytes for v in out.values() if v is not None
+            for a in (v.values() if isinstance(v, dict) else (v,))))
+        return cfg, out, tokenizer
+    return cfg, _finalize_packed(pk, w, dtype, art), tokenizer
+
+
+def _finalize_packed(pk: PackedLoader, w: dict, dtype: torch.dtype, art) -> dict:
+    """Stage the host-built leaves beside the raw ones, exactly as
+    ``weights_to_device`` would place them (quantized dicts in their own
+    dtypes, dense leaves cast to ``dtype``, norms rounded to ``dtype`` and
+    widened to f32), then build them all in one upload, allocated in the
+    per-leaf route's order."""
+    for k, v in w.items():
+        if v is None or isinstance(v, _Pending):
+            continue
+        if isinstance(v, dict):
+            w[k] = {sk: pk.add_array(("arr", k, sk), np.array(a)) for sk, a in v.items()}
+        elif k in _NORM_KEYS:
+            rounded = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(dtype)
+            w[k] = pk.add_array(("arr", k), rounded.float().numpy())
+        else:
+            w[k] = pk.add_array(("arr", k), v, out_dtype=dtype)
+    wspec = {k: (None if v is None else ("dict", {sk: sv.key for sk, sv in v.items()})
+                 if isinstance(v, dict) else ("leaf", v.key))
+             for k, v in w.items()}
+    order = [p.key for v in w.values() if v is not None
+             for p in (v.values() if isinstance(v, dict) else (v,))]
+    built = pk.finalize(artifact_path=art, extra_meta=wspec, order=order)
+    return {k: (None if v is None else {sk: built[sv.key] for sk, sv in v.items()}
+                if isinstance(v, dict) else built[v.key])
+            for k, v in w.items()}
 
 
 # ---------------------------------------------------------------------------

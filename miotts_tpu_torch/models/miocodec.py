@@ -40,6 +40,7 @@ from ..ops.masking import mask_time, time_mask
 from ..ops.norms import adaln_modulate, layer_norm, masked_group_norm
 from ..ops.precision import codec_matmul, mm, operand
 from ..ops.rope import apply_rope
+from ..runtime.device_dequant import device_put_packed
 from .vocoder import load_vocoder_weights, vocoder_decode
 
 
@@ -180,17 +181,6 @@ def _stack_blocks(get, n: int, spec: dict, optional: frozenset = frozenset()) ->
     return out
 
 
-def to_device(tree: Any, device: torch.device) -> Any:
-    """numpy leaves -> tensors on ``device`` (nested dicts, tuples, None)."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(to_device(v, device) for v in tree)
-    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
-
-
 def read_miocodec_config(r: GGUFReader) -> MioCodecConfig:
     def kv_u(key, default):
         return r.get_u32(f"miocodec.{key}", default)
@@ -255,7 +245,7 @@ def read_miocodec_config(r: GGUFReader) -> MioCodecConfig:
 
 def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict]:
     """Load a miocodec-dec GGUF (wave mode, or mel mode with its vocoder)
-    onto ``device`` at f32."""
+    onto ``device`` at f32, the host tree in one ``device_put_packed``."""
     with GGUFReader(path) as r:
         cfg = read_miocodec_config(r)
         check_supported(cfg)
@@ -318,7 +308,7 @@ def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict
             w["vocoder"] = load_vocoder_weights(get, cfg)
         if r.has_tensor("global_encoder.backbone.embed.weight"):
             w["global_encoder"] = _load_global_encoder(get, cfg)
-    return cfg, to_device(w, device)
+    return cfg, device_put_packed(w, device)
 
 
 def _load_global_encoder(get, cfg: MioCodecConfig) -> dict:

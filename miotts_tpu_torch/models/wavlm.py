@@ -37,7 +37,7 @@ from ..ops.convs import conv1d_strided
 from ..ops.masking import mask_time, time_mask
 from ..ops.norms import layer_norm
 from ..runtime.audio_io import load_audio, resample_linear
-from .miocodec import to_device as tree_to_device
+from ..runtime.device_dequant import device_put_packed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +68,8 @@ class WavLMConfig:
 
 def load_wavlm(path: str, device: torch.device) -> tuple[WavLMConfig, dict]:
     """A WavLM GGUF onto ``device`` at f32, in the JAX package's layout:
-    linear weights [in, out], conv weights [out, in, k], one dict a layer."""
+    linear weights [in, out], conv weights [out, in, k], one dict a layer;
+    the host tree in one ``device_put_packed``."""
     with GGUFReader(path) as r:
         d = WavLMConfig()
         kernels = tuple(r.get_u32(f"wavlm.feat.conv{i}.kernel", d.conv_kernel[i])
@@ -127,7 +128,7 @@ def load_wavlm(path: str, device: torch.device) -> tuple[WavLMConfig, dict]:
                 "norm2_b": t(f"{p}.norm2.bias"),
             })
         w["layers"] = layers
-    return cfg, tree_to_device(w, device)
+    return cfg, device_put_packed(w, device)
 
 
 # ---------------------------------------------------------------------------

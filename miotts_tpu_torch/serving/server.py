@@ -897,6 +897,11 @@ def config_from_args(args) -> ServerConfig:
 def main(argv=None) -> int:
     from ..device import select_device
 
+    # a restart's speed is a deployment's concern: servers keep the packed
+    # weights' deploy artifact by default (runtime/device_dequant.py; one
+    # file read and one upload on a warm start); MIOTTS_PACKED_CACHE=0 opts
+    # out, =DIR picks the directory
+    os.environ.setdefault("MIOTTS_PACKED_CACHE", "1")
     cfg = config_from_args(build_arg_parser().parse_args(argv))
     option = unported_option(cfg)
     if option:

@@ -117,13 +117,16 @@ def test_text_to_wav_greedy(assets, tmp_path, capsys):
 @pytest.mark.parametrize("quant,env", [("q8_0", ""), ("int8", ""), ("", "q8_0")])
 def test_text_to_wav_quantized(assets, tmp_path, monkeypatch, capsys, quant, env):
     """--llm-quant q8_0 / int8 on the Q8_0-stored GGUF, and MIOTTS_LLM_QUANT
-    with no flag: the codes written are the quantized engine's own."""
+    with no flag: the codes written are the quantized engine's own
+    (--cpu-native off: on a CPU device ``auto`` would pick the native engine
+    for this GGUF, as the JAX CLI does)."""
     monkeypatch.setenv("MIOTTS_LLM_QUANT", env)
     out, codes_out = tmp_path / "q.wav", tmp_path / "codes.txt"
     rc = cli.main(["-mv", str(assets / "codec.gguf"), "-m", str(assets / "llm_q8_0.gguf"),
                    "-p", "Hello from the port", "-emb", str(assets / "voice.emb.gguf"),
                    "-n", "24", "--temp", "0", "--tts-mio-codes-out", str(codes_out),
-                   "-o", str(out)] + (["--llm-quant", quant] if quant else []))
+                   "--cpu-native", "off", "-o", str(out)]
+                  + (["--llm-quant", quant] if quant else []))
     assert rc == 0
     assert f"wrote {out}" in capsys.readouterr().err
     eng = LLMEngine(str(assets / "llm_q8_0.gguf"), torch.device("cpu"), quantize=quant or None)
@@ -154,11 +157,12 @@ def test_codes_only(assets, tmp_path):
     ["--cpu-native", "on"],
 ])
 def test_unported_flags_exit_1(assets, extra, capsys, monkeypatch):
-    """Each flag exits 1 on this codes request: the voice-cloning flags and
-    --llm-api-url (ported; codes win over it, and this request has no
-    embedding) with the JAX CLI's error, the others as not yet ported."""
+    """Each flag exits 1 on this codes request: the voice-cloning flags,
+    --llm-api-url and --cpu-native on (ported; codes win over the last two,
+    and this request has no embedding) with the JAX CLI's error, the others
+    as not yet ported."""
     ported = ("--tts-reference-audio", "--tts-wavlm-model", "--tts-mio-embedding-only",
-              "--llm-api-url")
+              "--llm-api-url", "--cpu-native")
     if extra[0] == "--llm-api-url":  # it gets as far as the codec, on the CPU
         monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
     argv = ["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "1 2 3"] + extra
@@ -201,32 +205,39 @@ def test_input_errors(assets, capsys):
     assert "-m/--model is required" in err and "requires embedding" in err
 
 
-NATIVE_NOTE = "the native CPU engine is not yet ported"
-
-
-@pytest.mark.parametrize("quant,mode,noted", [
+@pytest.mark.parametrize("quant,mode,native", [
     ("q8_0", "auto", True), ("q4_0", "auto", True), ("f32", "auto", False),
-    ("f16", "auto", False), ("q8_0", "off", False),
+    ("f16", "auto", False), ("q8_0", "off", False), ("f32", "on", True),
 ])
-def test_cpu_native_auto_notice(assets, tmp_path, capsys, quant, mode, noted):
-    """Under MIOTTS_PLATFORM=cpu, --cpu-native auto on a GGUF whose matmul
-    weights are Q8_0 or Q4_0 is where the JAX CLI switches to its native
-    CPU engine (miotts_tpu/cli.py _make_llm_engine); the port says on stderr
-    that it runs its own engine instead. A dense GGUF, or --cpu-native off,
-    prints nothing."""
+def test_cpu_native_auto_notice(assets, tmp_path, capsys, quant, mode, native):
+    """Under MIOTTS_PLATFORM=cpu the CLI picks its LLM engine by the JAX
+    CLI's rule (miotts_tpu/cli.py _make_llm_engine): --cpu-native auto runs
+    the native int8/int4 engine on a GGUF whose matmul weights are Q8_0 or
+    Q4_0, ``on`` runs it on any GGUF (requantized), and a dense GGUF under
+    auto, or ``off``, runs the torch engine. Sampled codes (seed 3) tell
+    the engines apart: the native engine's equal the JAX CLI's, the torch
+    engine's its own ``LLMEngine``'s."""
     from miotts_tpu.models.llm_cpu import gguf_llm_cpu_native_ok as jax_native_ok
-    from miotts_tpu_torch.models.llm import gguf_llm_cpu_native_ok
+    from miotts_tpu_torch.models.llm_cpu import gguf_llm_cpu_native_ok, gguf_llm_is_q8
 
     model = tmp_path / f"llm_{quant}.gguf"
     write_synthetic_llm_gguf(str(model), n_audio=128, seed=1, audio_logit_scale=3.0, quant=quant)
     assert gguf_llm_cpu_native_ok(str(model)) == jax_native_ok(str(model)) == (quant != "f32"
                                                                                 and quant != "f16")
-    cli.main(["-mv", str(assets / "codec.gguf"), "-m", str(model), "-p", "Hello", "-n", "4",
-              "--temp", "0", "--cpu-native", mode, "--tts-mio-codes-only",
-              "--tts-mio-codes-out", str(tmp_path / "c.txt")])
-    err = capsys.readouterr().err
-    assert (NATIVE_NOTE in err) == noted
-    assert err.count(NATIVE_NOTE) <= 1
+    assert gguf_llm_is_q8 is gguf_llm_cpu_native_ok
+    argv = ["-mv", str(assets / "codec.gguf"), "-m", str(model), "-p", "Hello", "-n", "16",
+            "--seed", "3", "--cpu-native", mode, "--tts-mio-codes-only"]
+    assert cli.main(argv + ["--tts-mio-codes-out", str(tmp_path / "c.txt")]) == 0
+    capsys.readouterr()
+    got = load_codes(tmp_path / "c.txt")
+    if native:
+        assert jax_cli.main(argv + ["--tts-mio-codes-out", str(tmp_path / "jax.txt")]) == 0
+        want = load_codes(tmp_path / "jax.txt")
+    else:
+        eng = LLMEngine(str(model), torch.device("cpu"))
+        want = eng.tokens_to_codes(eng.generate_audio_tokens(
+            "Hello", n_predict=16, n_ctx=700, sampler=SamplerParams(seed=3)))
+    assert got and got == want
 
 
 def _jax_stream_wav(codec, codes, emb):
