@@ -225,6 +225,22 @@ under MIOTTS_PLATFORM=cpu the native int8/int4 engine writes 64 tokens
 from the Q8_0 GGUF as it is and requantized to Q4_0
 (MIOTTS_CPU_QUANT=q4_0), its tokens/s printed with the host CPU's name.
 
+After the server phase, a mesh phase (``parallel/``): the server with
+``--mio-backend-devices all -tp 2 -np 8 -n 250 --warmup off`` on four
+logical ranks of the card (MIOTTS_LOGICAL_DEVICES=4, dp=2 x tp=2), dense and
+q8_0, its graphs captured through the batcher's warm calls, then
+concurrency 1/4/8 at 250 tokens (audio-s per s beside the mesh-less
+server's rounds of the server phase); required: K2 (and in q8_0 K3)
+launched by every logical rank at concurrency 8 (``graphs.rank_launches``)
+and /mio/health's backend_devices 4 and tensor_parallel 2; a dp rank's
+64-step chunk replay timed (a tp=2 decode step's device ms) with its K2
+and K3 launches a step by rank; and a -np 2 int8 server with and without
+the mesh (whose tp sums are exact int32 dots) giving equal greedy codes
+for a 64-token request (required; the dense mesh's greedy codes against
+the server phase's are reported, since a bf16 rank rounds its partial
+sums apart). These are a mesh's overheads on one card, not a multi-card
+speed-up.
+
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
 error, its time, its plain version's time, its bound (the least time the
@@ -266,7 +282,7 @@ from miotts_tpu_torch.models.llm import (
 from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key
 from miotts_tpu_torch.ops.cuda import activation1d as k5
 from miotts_tpu_torch.ops.cuda import banded_attention as k1
-from miotts_tpu_torch.ops.cuda import build
+from miotts_tpu_torch.ops.cuda import build, graphs
 from miotts_tpu_torch.ops.cuda import conv1d as k4
 from miotts_tpu_torch.ops.cuda import decode_attention as k2
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3
@@ -2314,12 +2330,13 @@ def width2_pair(b, text: str, neighbour: str) -> list[int]:
     return toks
 
 
-def k2_at_server_s(dev, gen, S: int, B: int = 8) -> dict:
-    """K2 at a server's cache rows and a chunk width B, ragged positions:
-    against its plain version, timed beside its bound and one SDPA call
-    over the whole cache and this step's k/v, masked to each lane's
-    positions (GQA)."""
-    KVH, G, HD = 2, 6, 64
+def k2_at_server_s(dev, gen, S: int, B: int = 8, KVH: int = 2, what: str = "[server]") -> dict:
+    """K2 at a server's cache rows and a chunk width B, ragged positions,
+    over KVH kv heads of 6 query heads each (2: the 0.1B LLM; 1: a tp=2
+    rank's): against its plain version, timed beside its bound and one
+    SDPA call over the whole cache and this step's k/v, masked to each
+    lane's positions (GQA)."""
+    G, HD = 6, 64
     bf = torch.bfloat16
     q = torch.randn(B, KVH, G, HD, generator=gen).to(dev, bf)
     kc, vc = (torch.randn(B, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
@@ -2343,7 +2360,7 @@ def k2_at_server_s(dev, gen, S: int, B: int = 8) -> dict:
     bound = least_time(nbytes, ops, BF16_FLOP_S)
     if not err <= K2_TOL:
         raise AssertionError(f"K2 error {err} > {K2_TOL} at the server's S={S} B={B}")
-    log(f"[server] K2 at B={B} S={S} pos={pos_l} launch={k2.launch_shape(B, S, KVH)}: "
+    log(f"{what} K2 at B={B} S={S} KVH={KVH} pos={pos_l} launch={k2.launch_shape(B, S, KVH)}: "
         f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain:.4f}ms "
         f"SDPA(masked cache, GQA)={lib:.4f}ms bound={bound['bound_ms']:.5f}ms "
         f"({bound['bound_by']})")
@@ -2608,6 +2625,7 @@ def check_server(dev, tmp: Path, emb) -> dict:
             toks = eng.llm.generate_audio_tokens(SERVER_TEXTS[0], n_predict=250, n_ctx=512,
                                                  sampler=SP(temp=0.0))
         single = eng.llm.tokens_to_codes(toks)
+        out["greedy_codes"] = greedy
         out["greedy_common_prefix"] = [common(greedy, single), len(greedy), len(single)]
         out["greedy_width1_vs_full"] = [common(greedy, greedy_full), len(greedy),
                                         len(greedy_full)]
@@ -2746,6 +2764,196 @@ def check_server(dev, tmp: Path, emb) -> dict:
         f"{out['q8_0_k3_launches']} times; chunks by width {out['q8_0_widths']}; by concurrency "
         f"{out['q8_0_by_concurrency']}")
     out["codec_graph"] = {k: v - c0[k] for k, v in codec_counts().items()}
+    return out
+
+
+# -- the mesh phase: --mio-backend-devices all -tp 2 on logical ranks ---------------------
+
+MESH_FLAGS = ["--mio-backend-devices", "all", "-tp", "2"]
+MESH_GREEDY_TOKENS = 64  # a greedy request's codes, held to the mesh-less server's
+
+
+def rank_counts(before: dict) -> dict:
+    """Launches each logical rank made since ``before`` (a copy of
+    ``graphs.rank_launches``): {kernel: {rank id: launches}}."""
+    out: dict = {}
+    for (mod, rank), n in sorted(graphs.rank_launches.items()):
+        if n > before.get((mod, rank), 0):
+            out.setdefault(mod.rsplit(".", 1)[1], {})[rank] = n - before.get((mod, rank), 0)
+    return out
+
+
+def mesh_server_run(dev, tmp: Path, llm: str, flags: list[str], mesh: bool,
+                    rounds: bool) -> dict:
+    """One server at -np 8 -n 250 --warmup off, with the mesh flags under 4
+    logical devices or without them: /mio/health, the greedy request, and
+    with ``rounds`` a round at each concurrency to capture its graphs, the
+    timed rounds (launches by rank in each) and a dp rank's chunk device
+    ms with its launches a step by rank."""
+    out: dict = {}
+    argv = [*SERVER_FLAGS, "--warmup", "off", *flags, *(MESH_FLAGS if mesh else [])]
+    t0 = time.perf_counter()
+    with environment(MIOTTS_LOGICAL_DEVICES="4" if mesh else None,
+                     MIOTTS_PACKED_CACHE=str(tmp / "mesh_packed")):
+        srv = start_server(dev, tmp, llm, argv)
+    out["startup_s"] = time.perf_counter() - t0
+    try:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/mio/health", timeout=30) as r:
+            health = json.loads(r.read())
+        out["health"] = {k: health[k] for k in ("backend_devices", "tensor_parallel")}
+        st, _, raw, _ = http_post(srv, "/mio/tts", {
+            "text": SERVER_TEXTS[0], "reference_key": "voice", "codes_only": True,
+            "temp": 0.0, "n_predict": MESH_GREEDY_TOKENS})
+        if st != 200:
+            raise AssertionError(f"mesh={mesh} greedy request: HTTP {st}: {raw[:300]!r}")
+        out["greedy"] = json.loads(raw)["codes_values"]
+        if not rounds:
+            return out
+        # capture every graph the timed rounds replay: each dp rank's fused
+        # first chunks (groups of 1, 2 and 4) at the prompts' buckets, its
+        # chunk_max rung, and the codec keys of a 250-code synthesis
+        from miotts_tpu_torch.models.llm import CHAT_TEMPLATE
+        from miotts_tpu_torch.serving.batching import _PROMPT_BUCKETS
+
+        b, eng = srv.engine.batcher, srv.engine
+        tw = time.perf_counter()
+        lens = {len(eng.llm.tokenizer.encode(CHAT_TEMPLATE.format(text=t), parse_special=True))
+                for t in SERVER_TEXTS}
+        for bucket in sorted({next(x for x in _PROMPT_BUCKETS if n <= x) for n in lens}):
+            for k in (1, 2, 4):
+                b.warm_prefill(bucket, k)
+        b.warm_chunk(b.chunk_max)  # binary requests run chunk_max chunks only
+        eng.codec_batcher.warm(pick_bucket(SERVER_TOKENS, eng.pipeline.buckets), pcm16=True)
+        out["warm_s"] = time.perf_counter() - tw
+        out["rounds"] = {}
+        for n in SERVER_ROUNDS:
+            r0 = dict(graphs.rank_launches)
+            stats = round_stats([concurrent_round(srv, n, f"mesh={mesh} conc {n}")])
+            stats["rank_launches_per_request"] = {
+                kern: {rank: c / n for rank, c in by.items()}
+                for kern, by in rank_counts(r0).items()}
+            out["rounds"][n] = stats
+        with uncounted():
+            out["chunk_device_ms"] = {occ: chunk_device_ms(srv, occ) for occ in (1, 4)}
+        g = b.graphs[(b.chunk_max, out["chunk_device_ms"][4]["width"])]
+        out["step_launches_by_rank"] = {
+            f"{k[0].rsplit('.', 1)[1]}@{k[1]}": n / g.n_steps
+            for k, n in g.launches_per_replay.items() if isinstance(k, tuple)}
+    finally:
+        srv.shutdown()
+        del srv
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_kernels(dev, gen) -> dict:
+    """K2 and K3 at a tp=2 rank's shapes at full width, each against its
+    plain version and timed: K2 over one kv head (6 query heads) at B = 1
+    and 4 lanes of the server's cache (826 rows), beside the same at the
+    single device's 2 kv heads; K3 on each rank leaf (q|k|v 512 columns,
+    attention-out 384 rows, gate|up 2048 columns, down 1024 rows, half the
+    padded head) at T = 1 and 4, each beside its bound and cuBLAS's bf16
+    GEMV on the same leaf."""
+    S = 250 + 512 + 64  # the server's -n + --ctx-size + 64 cache rows
+    out = {"k2": {f"B={B} KVH={kvh}": k2_at_server_s(dev, gen, S, B, kvh, "[mesh]")
+                  for B in (1, 4) for kvh in (1, 2)}, "k3": {}}
+    w = LLM_WIDTHS
+    hd = w["dim"] // w["n_heads"]
+    vocab = len(synthetic_vocab(w["n_audio"], w["n_filler_vocab"])[0])
+    shapes = (("wqkv", w["dim"], (w["n_heads"] // 2 + 2) * hd),
+              ("wo", w["n_heads"] // 2 * hd, w["dim"]), ("w_gateup", w["dim"], w["ffn"]),
+              ("w_down", w["ffn"] // 2, w["dim"]), ("output", w["dim"], -(-vocab // 128) * 64))
+    for leaf, K, N in shapes:
+        q, s, w_bf16, w_abs = k3_weights(dev, gen, K, N)
+        for T in (1, 4):
+            x = torch.randn(T, K, generator=gen).to(dev, torch.bfloat16)
+            err, ratio, plan = k3_case(leaf, x, q, s, w_abs)
+            row = [cuda_ms(lambda: k3.q8_matmul(x, q, s)),
+                   cuda_ms(lambda: k3.q8_matmul_plain(x, q, s)),
+                   cuda_ms(lambda: x @ w_bf16), k3_bound(T, K, N)["bound_ms"]]
+            out["k3"][f"{leaf} T={T}"] = row
+            log(f"[mesh] K3 rank leaf {leaf} K={K} N={N} T={T} launch={tuple(plan)}: "
+                f"max_abs_err={err:.3e} err/bound<={ratio:.3e} kernel={row[0]:.4f}ms "
+                f"plain={row[1]:.4f}ms dense_bf16={row[2]:.4f}ms bound={row[3]:.5f}ms")
+    return out
+
+
+def common_prefix(x: list, y: list) -> int:
+    return next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+
+
+def check_mesh(dev, tmp: Path, server_rows: dict | None = None) -> dict:
+    """The [mesh] phase: the port's server on a dp=2 x tp=2 mesh of four
+    logical ranks on the one card (MIOTTS_LOGICAL_DEVICES=4,
+    ``--mio-backend-devices all -tp 2 -np 8 -n 250 --warmup off``) at full
+    width, dense and q8_0: concurrency 1/4/8 at 250 tokens (audio-s per s
+    beside the mesh-less server's rounds of the server phase, ``server_rows``);
+    required: K2 (and in q8_0 K3) launched by every tp rank in the
+    concurrency-8 round and /mio/health's backend_devices 4 and
+    tensor_parallel 2. The greedy check: a -np 2 int8 server with and
+    without the mesh, whose tp sums are exact (int32 dots), give equal codes
+    (required); the dense mesh's greedy codes are held to the server phase's
+    (reported: a bf16 tp rank rounds its partial sums apart). A tp=2 decode
+    step's device ms (a dp rank's 64-step chunk replay) with K2 and K3
+    launches a step for each rank, and K2 and K3 at a tp=2 rank's shapes
+    (``mesh_kernels``). These are a mesh's overheads on one card, not a
+    multi-card speed-up."""
+    t0 = time.perf_counter()
+    with uncounted():
+        out: dict = {"kernels": mesh_kernels(dev, torch.Generator().manual_seed(14))}
+    plain_rounds = (server_rows or {}).get("rounds", {})
+    for mode, llm, flags in (("dense", "llm.gguf", []),
+                             ("q8_0", "llm_q8_0.gguf", ["--llm-quant", "q8_0"])):
+        meshed = mesh_server_run(dev, tmp, llm, flags, mesh=True, rounds=True)
+        if meshed["health"] != {"backend_devices": 4, "tensor_parallel": 2}:
+            raise AssertionError(f"[mesh] {mode}: health {meshed['health']}")
+        by_rank = meshed["rounds"][8]["rank_launches_per_request"]
+        for kern in ("decode_attention",) + (("q8_matmul",) if mode == "q8_0" else ()):
+            if set(by_rank.get(kern, {})) != {0, 1, 2, 3}:
+                raise AssertionError(f"[mesh] {mode}: {kern} launched by ranks "
+                                     f"{by_rank.get(kern)} at concurrency 8, not all four")
+        for n in SERVER_ROUNDS:
+            r = meshed["rounds"][n]
+            base = (f"{plain_rounds[n]['audio_s_per_s']:.2f} mesh-less (server phase)"
+                    if mode == "dense" and n in plain_rounds else "no mesh-less round")
+            log(f"[mesh] {mode} concurrency {n}: audio-s/s {r['audio_s_per_s']:.2f} on dp=2 x "
+                f"tp=2 logical ranks of one card vs {base}; latency p50 {r['p50_ms']:.1f} ms "
+                f"p90 {r['p90_ms']:.1f} ms, llm_ms {r['llm_ms']:.1f}; launches a request by "
+                f"rank {r['rank_launches_per_request']}")
+        dm = meshed["chunk_device_ms"]
+        log(f"[mesh] {mode} tp=2 decode step: device {dm[1]['ms'] / 64:.4f} ms at 1 live lane, "
+            f"{dm[4]['ms'] / 64:.4f} ms at 4 (a dp rank's 64-step chunk replay, "
+            f"{dm[1]['ms']:.3f} / {dm[4]['ms']:.3f} ms); launches a step by kernel@rank "
+            f"{meshed['step_launches_by_rank']}; listening after {meshed['startup_s']:.2f} s, "
+            f"graphs captured in {meshed['warm_s']:.2f} s")
+        row = {k: v for k, v in meshed.items() if k != "greedy"}
+        if mode == "dense" and server_rows and server_rows.get("greedy_codes"):
+            ref = server_rows["greedy_codes"][:MESH_GREEDY_TOKENS]
+            row["greedy_common_with_server_phase"] = common_prefix(meshed["greedy"], ref)
+            log(f"[mesh] dense greedy: {row['greedy_common_with_server_phase']} of "
+                f"{len(meshed['greedy'])} codes equal the mesh-less server's (reported: the "
+                "bf16 tp sums round apart from one device's)")
+        out[mode] = row
+    # the exact case: W8A8 tp sums its int32 dots exactly
+    int8 = ["--llm-quant", "int8", "-np", "2"]
+    ti = time.perf_counter()
+    plain = mesh_server_run(dev, tmp, "llm.gguf", int8, mesh=False, rounds=False)
+    meshed = mesh_server_run(dev, tmp, "llm.gguf", int8, mesh=True, rounds=False)
+    out["int8_s"] = time.perf_counter() - ti
+    same = common_prefix(plain["greedy"], meshed["greedy"])
+    out["int8_greedy"] = {"common": same, "n": len(meshed["greedy"]),
+                          "health": meshed["health"]}
+    log(f"[mesh] int8 greedy ({MESH_GREEDY_TOKENS} tokens): {same} of {len(meshed['greedy'])} "
+        f"codes equal the mesh-less server's (required); mesh health {meshed['health']}; "
+        f"two servers in {out['int8_s']:.1f} s")
+    if not plain["greedy"] or plain["greedy"] != meshed["greedy"] or meshed["health"] != {
+            "backend_devices": 4, "tensor_parallel": 2}:
+        raise AssertionError(f"[mesh] int8 greedy: {same} of {len(meshed['greedy'])} codes "
+                             f"equal the mesh-less server's {len(plain['greedy'])}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[mesh] {out['wall_s']:.1f}s")
     return out
 
 
@@ -3255,13 +3463,13 @@ def main() -> int:
 
         # each path is driven with every count at 0 and read right after
         launches, streams, codec_rows, server_rows, clone_rows, api_rows = {}, {}, {}, {}, {}, {}
-        knob_rows, load_rows, cpu_rows = {}, {}, {}
+        knob_rows, load_rows, cpu_rows, mesh_rows = {}, {}, {}, {}
         for path, reqs in (("load", None), ("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
                            ("codec_graph", None), ("codec_knobs", None),
                            ("wave441", WAVE441_REQUESTS),
                            ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
-                           ("llm_api", None), ("cpu_native", None)):
+                           ("mesh", None), ("llm_api", None), ("cpu_native", None)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
@@ -3283,6 +3491,8 @@ def main() -> int:
                     wave441_request(name, tmp, wcfg, extra, kernels)
             elif path == "server":
                 server_rows = check_server(dev, tmp, emb)
+            elif path == "mesh":
+                mesh_rows = check_mesh(dev, tmp, server_rows)
             elif path == "llm_api":
                 api_rows = check_llm_api(dev, tmp, emb)
             elif path == "clone":
@@ -3325,7 +3535,8 @@ def main() -> int:
     print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows,
                       "codec_knobs": knob_rows, "streams": streams,
                       "server": server_rows, "clone": clone_rows, "llm_api": api_rows,
-                      "trace": trace_row, "load": load_rows, "cpu_native": cpu_rows},
+                      "trace": trace_row, "load": load_rows, "cpu_native": cpu_rows,
+                      "mesh": mesh_rows},
                      default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -290,13 +291,9 @@ cudaError_t launch(const float* q, const float* k, const float* v, const int* le
                    int B, int T, int H, int Dn, int half, int ns, int warps, float scale,
                    size_t smem, cudaStream_t stream) {
   auto kern = banded_attention_kernel<D, NS>;
-  static size_t allowed = 48 * 1024;  // raised once for each larger size seen
-  if (smem > allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed = smem;
-  }
+  static size_t allowed[miotts_smem::kMaxDevices] = {};  // raised for each larger size seen
+  const cudaError_t e = miotts_smem::raise_limit(kern, smem, allowed);
+  if (e != cudaSuccess) return e;
   const dim3 grid((T + warps * kRows - 1) / (warps * kRows), H, B);
   kern<<<grid, warps * 32, smem, stream>>>(q, k, v, lengths, out, T, H, Dn, half, ns, scale);
   return cudaGetLastError();

@@ -42,6 +42,7 @@
 #include <stdint.h>
 
 #include "conv_gemm.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -125,14 +126,10 @@ int launch(const float* x, const int* lengths, const float* w, const float* bias
   using Tl = Tile<TM, TN, RM, RN>;
   const size_t smem = Tl::smem(Cin, (k - 1) / 2 * d);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static size_t allowed = 48 * 1024;  // raised once for each larger size seen
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv1d_same_kernel<TM, TN, RM, RN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    allowed = smem;
-  }
+  static size_t allowed[miotts_smem::kMaxDevices] = {};  // raised for each larger size seen
+  const cudaError_t err =
+      miotts_smem::raise_limit(conv1d_same_kernel<TM, TN, RM, RN>, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + TM - 1) / TM, B, (Cout + TN - 1) / TN);
   conv1d_same_kernel<TM, TN, RM, RN><<<grid, Tl::kThreads, smem, stream>>>(
       x, lengths, w, bias, residual, out, T, Cin, Cout, k, d);

@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -449,13 +450,9 @@ int launch(const void* q, const void* k_cur, const void* v_cur, const void* cach
            const void* cache_v, const void* pos, void* out, int B, int S, int KVH, int G, int R,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(HD);
-  static bool raised = false;  // the dynamic limit, set once
-  if (smem > 48 * 1024 && !raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    raised = true;
-  }
+  static size_t allowed[miotts_smem::kMaxDevices] = {};  // the dynamic limit, each device's
+  const cudaError_t err = miotts_smem::raise_limit(decode_attention_kernel<HD>, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
   decode_attention_kernel<HD><<<dim3(kSplit, B * KVH), kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
       (const __nv_bfloat16*)cache_k, (const __nv_bfloat16*)cache_v, (const int*)pos,

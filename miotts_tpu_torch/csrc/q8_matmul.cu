@@ -68,6 +68,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -379,12 +380,10 @@ template <int TT, bool XF32>
 cudaError_t launch(const void* x, const int8_t* q, const float* s, float* out, int T, int K, int N,
                    int z, int per, int xvec, int qvec, size_t smem, cudaStream_t stream) {
   auto kern = q8_matmul_kernel<TT, XF32>;
-  static size_t allowed = 48 * 1024;  // raised once for each larger size seen
-  if (smem > allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed[miotts_smem::kMaxDevices] = {};  // raised for each larger size seen
+  {
+    const cudaError_t e = miotts_smem::raise_limit(kern, smem, allowed);
     if (e != cudaSuccess) return e;
-    allowed = smem;
   }
   if (z > 8) {
     const cudaError_t e =

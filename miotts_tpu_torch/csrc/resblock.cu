@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "conv_gemm.cuh"
+#include "smem_limit.cuh"
 #include "vocoder_common.cuh"
 
 namespace {
@@ -215,12 +216,10 @@ cudaError_t launch(const float* x, const int* lengths, const ActOps& A, const fl
                    int B, int T, int C, int k1c, int d, int k2c, int n_out, size_t smem,
                    cudaStream_t stream) {
   auto kern = resblock_kernel<V, K1, K2>;
-  static size_t allowed = 48 * 1024;  // raised once for each larger size seen
-  if (smem > allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed[miotts_smem::kMaxDevices] = {};  // raised for each larger size seen
+  {
+    const cudaError_t e = miotts_smem::raise_limit(kern, smem, allowed);
     if (e != cudaSuccess) return e;
-    allowed = smem;
   }
   const dim3 grid((T + n_out - 1) / n_out, B);
   kern<<<grid, kThreads, smem, stream>>>(x, lengths, A, w1, b1, Bo, w2, b2, out, T, C, k1c, d, k2c,

@@ -35,7 +35,7 @@ on static input buffers, then replayed, with no Python per op.
 - The capture runs in ``graphs.CAPTURE_MODE`` ("thread_local"): other
   threads' device work goes on while one thread captures. The warm-up,
   the capture and the device-wide synchronizes around them hold
-  ``graphs.capture_lock``, as a chunk graph's do: a device-wide
+  ``graphs.capture_lock(device)``, as a chunk graph's do: a device-wide
   synchronize while another thread captures fails and breaks that capture.
 - A failed capture raises; nothing falls back to eager decodes.
 
@@ -107,7 +107,7 @@ class CodecGraph:
         # the device-wide synchronizes run under the capture lock, as the
         # capture does: one while another thread captures fails and breaks
         # that capture
-        with graphs.capture_lock:
+        with graphs.capture_lock(dev):
             if warm_up:
                 stream.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(stream):

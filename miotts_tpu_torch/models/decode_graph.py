@@ -18,7 +18,10 @@ is one replay, with no Python per token.
 - The warm-up runs first-use side effects outside capture: the kernels'
   shared-memory attributes, CUDA's lazy module loading, cuBLAS workspaces.
   The warm-up and the capture both run on ``graphs.capture_stream``, under
-  ``graphs.capture_lock``.
+  ``graphs.capture_lock``, both the device's.
+- A tensor-parallel group whose ranks share one card (``parallel/``) is
+  one graph: its state's KV cache is a tuple of the ranks' parts, each a
+  static buffer like the rest.
 - The graph keeps its body, so every tensor the body closes over lives as
   long as the graph: a replay reads them by address, and a freed one
   would be memory the allocator hands to someone else.
@@ -61,7 +64,16 @@ eager_steps = 0
 
 
 def _tensors(state) -> dict[str, torch.Tensor]:
-    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    """The state's tensors by name; a tuple field (a tensor-parallel KV
+    cache) by ``name.i``."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, tuple):
+            out.update((f"{f.name}.{i}", t) for i, t in enumerate(v))
+        else:
+            out[f.name] = v
+    return out
 
 
 class ChunkGraph:
@@ -92,7 +104,7 @@ class ChunkGraph:
 
         # the warm-up and the capture both run on the capture stream, which
         # no other thread's work reaches (graphs.capture_stream)
-        with graphs.capture_lock:
+        with graphs.capture_lock(dev):
             stream = graphs.capture_stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
@@ -100,7 +112,7 @@ class ChunkGraph:
             torch.cuda.current_stream(dev).wait_stream(stream)
             warmup_steps += n_steps
             if saved is not None:
-                self.load(dataclasses.replace(state, **saved))
+                self._copy_in(saved)
             torch.cuda.synchronize(dev)
 
             self.graph = torch.cuda.CUDAGraph()
@@ -117,8 +129,14 @@ class ChunkGraph:
         """Copy ``state``'s values into the graph's buffers (a tensor that
         already is the graph's, such as a KV cache prefilled in place, is
         left as it is). The next replay continues from ``state``."""
-        for k, src in _tensors(state).items():
-            dst = getattr(self.state, k)
+        self._copy_in(_tensors(state))
+
+    def _copy_in(self, tensors: dict[str, torch.Tensor]) -> None:
+        own = _tensors(self.state)
+        if own.keys() != tensors.keys():
+            raise ValueError(f"a state of {sorted(tensors)} does not fit the graph's {sorted(own)}")
+        for k, src in tensors.items():
+            dst = own[k]
             if dst is not src:
                 if dst.shape != src.shape or dst.dtype != src.dtype:
                     raise ValueError(f"{k}: {tuple(src.shape)} {src.dtype} does not fit the "

@@ -27,10 +27,22 @@ The dense logits head accumulates bf16 x bf16 straight into f32 logits, as
 XLA's ``preferred_element_type=f32`` does. A quantized head rounds its
 logits to the activation dtype before the f32 cast, as JAX's
 ``_mm(...).astype(x.dtype)`` does.
+
+Tensor parallelism (``parallel/``): wherever a weight dict goes, a
+``TPGroup`` may go instead. Each of its ranks then runs its part of a layer
+on its own device, in rank order: q/k/v and gate/up on its columns, K2 over
+its kv heads (its part of the KV cache, which is then a tuple of the
+ranks' parts), attention-out and down on its rows, each row-parallel
+product summed over the group (``collectives.tp_sum``: f32 partials, or
+exact int32 dots for W8A8/W4A8). The embedding and the head split over the
+vocab where it divides (a masked lookup a rank, summed; logits gathered
+for the sampler, which runs once on the lead). The single device is the
+group of one rank: the same code, no collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -44,10 +56,15 @@ import torch.nn.functional as F
 
 from ..device import to_device
 from ..gguf import GGUFReader
+from ..ops.cuda import graphs
 from ..ops.cuda.decode_attention import decode_attention
+from ..ops.cuda.q8_matmul import q8_matmul
 from ..ops.quant_matmul import (
-    maybe_quant_matmul as _mm, quantize_int4_percol, quantize_int8_percol, quantize_q8_cols)
+    act_scale, int8_dot, int_scale, maybe_quant_matmul as _mm, quantize_int4_percol,
+    quantize_int8_percol, quantize_q8_cols, row_absmax)
 from ..ops.rope import apply_rope
+from ..parallel.collectives import gather_vocab, to_rank, tp_max, tp_sum
+from ..parallel.mesh import TPGroup
 from ..runtime.device_dequant import (
     ARTIFACT_TAG, PackedLoader, _Pending, device_dequant_enabled, dtype_name,
     load_packed_artifact, packed_artifact_path, record_per_leaf)
@@ -169,7 +186,9 @@ def _replay_llm(art, device: torch.device) -> dict | None:
 def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bfloat16,
                   quantize=None) -> tuple[LLMConfig, dict, BPETokenizer]:
     """Every tensor is dequantized to f32 on the host and matmul weights are
-    transposed to [in, out] with q|k|v and gate|up fused column-wise. By
+    transposed to [in, out] with q|k|v and gate|up fused column-wise
+    (``MIOTTS_LLM_FUSE=0``: one leaf a projection, wq/wk/wv, w_gate/w_up
+    and their biases bq/bk/bv). By
     ``quantize`` (``_quant_modes``) the matmul leaves and the head are then
     quantized on the host as the JAX loader does them (``quantize_kn``, the
     head from its [D, V] transpose); dense leaves are cast to ``dtype``. A
@@ -184,6 +203,9 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
     packed buffers are kept as a deploy artifact, looked up before any
     tensor is read."""
     mode = _quant_modes(quantize)
+    # fused q|k|v and gate|up leaves by default; MIOTTS_LLM_FUSE=0 keeps one
+    # leaf a projection, as the JAX loader (miotts_tpu/models/llm.py:277-280)
+    fuse = os.environ.get("MIOTTS_LLM_FUSE", "1") not in ("0", "off")
     device = torch.device(device)
     pk = PackedLoader(device) if device_dequant_enabled(device) else None
     with GGUFReader(path) as r:
@@ -215,7 +237,8 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
         art = None
         if pk is not None:
             art = packed_artifact_path(
-                path, f"llm|{dtype_name(dtype)}|{mode['requested']}|{ARTIFACT_TAG}")
+                path, f"llm|{dtype_name(dtype)}|{mode['requested']}|{ARTIFACT_TAG}"
+                + ("" if fuse else "|unfused"))
             if art is not None and art.exists():
                 w = _replay_llm(art, device)
                 if w is not None:
@@ -257,16 +280,25 @@ def load_llm_gguf(path: str, device: torch.device, dtype: torch.dtype = torch.bf
             head = quantize_kn(t("output.weight", transpose=True), mode["head_kind"])
         else:
             head = raw(["output.weight"]) or t("output.weight")
+        qkv = [f"blk.{{i}}.attn_{p}.weight" for p in "qkv"]
+        gateup = ["blk.{i}.ffn_gate.weight", "blk.{i}.ffn_up.weight"]
+        if fuse:
+            attn = {"wqkv": matmul(qkv), "bqkv": (
+                np.stack([np.concatenate([t(f"blk.{i}.attn_{p}.bias") for p in "qkv"])
+                          for i in range(n_layers)]) if cfg.has_qkv_bias else None)}
+            ffn = {"w_gateup": matmul(gateup)}
+        else:
+            attn = {f"w{p}": matmul([fmt]) for p, fmt in zip("qkv", qkv)}
+            attn.update({f"b{p}": stack(f"blk.{{i}}.attn_{p}.bias") if cfg.has_qkv_bias
+                         else None for p in "qkv"})
+            ffn = {"w_gate": matmul(gateup[:1]), "w_up": matmul(gateup[1:])}
         w = {
             "token_embd": raw(["token_embd.weight"]) or t("token_embd.weight"),
             "attn_norm": stack("blk.{i}.attn_norm.weight"),
-            "wqkv": matmul(["blk.{i}.attn_q.weight", "blk.{i}.attn_k.weight",
-                            "blk.{i}.attn_v.weight"]),
-            "bqkv": (np.stack([np.concatenate([t(f"blk.{i}.attn_{p}.bias") for p in "qkv"])
-                               for i in range(n_layers)]) if cfg.has_qkv_bias else None),
+            **attn,
             "wo": matmul(["blk.{i}.attn_output.weight"]),
             "ffn_norm": stack("blk.{i}.ffn_norm.weight"),
-            "w_gateup": matmul(["blk.{i}.ffn_gate.weight", "blk.{i}.ffn_up.weight"]),
+            **ffn,
             "w_down": matmul(["blk.{i}.ffn_down.weight"]),
             "q_norm": stack("blk.{i}.attn_q_norm.weight") if cfg.has_qk_norm else None,
             "k_norm": stack("blk.{i}.attn_k_norm.weight") if cfg.has_qk_norm else None,
@@ -332,149 +364,327 @@ def _dense_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return x.float() @ head.float().t()
 
 
-def _logits(cfg: LLMConfig, w: dict, x: torch.Tensor) -> torch.Tensor:
-    """x [B, D] -> f32 logits [B, V]. A dense head is [V, D] (or the tied
-    embedding); a quantized head is a [D, V]-derived leaf whose padded
-    columns are sliced off."""
+def _head_logits(cfg: LLMConfig, w: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [B, D] -> f32 logits [B, V] from one weight dict. A dense head is
+    [V, D] (or the tied embedding); a quantized head is a [D, V]-derived
+    leaf whose padded columns are sliced off."""
     head = w["output"] if w["output"] is not None else w["token_embd"]
     if isinstance(head, dict):
         return _mm(x, head).float()[..., :cfg.vocab_size]
     return _dense_logits(x, head)
 
 
-_BLK_KEYS = ("attn_norm", "wqkv", "bqkv", "wo", "ffn_norm", "w_gateup", "w_down",
-             "q_norm", "k_norm")
+# ---------------------------------------------------------------------------
+# tensor parallelism: each rank of a TPGroup runs its part of a layer
+# ---------------------------------------------------------------------------
+
+def _ranks(cfg: LLMConfig, w) -> tuple[list, list, TPGroup | None]:
+    """(rank configs, rank weight dicts, group): a ``TPGroup``'s ranks, or
+    one weight dict (or None) as the single rank of no group."""
+    if isinstance(w, TPGroup):
+        return w.cfgs, w.shards, w
+    return [cfg], [w], None
+
+
+def _to(g: TPGroup | None, t: torch.Tensor, r: int) -> torch.Tensor:
+    """``t`` on rank r's device (without a group, ``t`` itself)."""
+    return t if g is None else to_rank(t, g.devices[r])
+
+
+def _rank_scope(g: TPGroup | None, r: int):
+    """Rank r's kernel launches count for its logical device."""
+    return contextlib.nullcontext() if g is None else graphs.on_rank(g.ranks[r].id)
+
+
+def kv_parts(cache) -> tuple:
+    """A KV cache's parts: a tensor-parallel cache's tuple (one part a
+    rank), or (cache,)."""
+    return cache if isinstance(cache, tuple) else (cache,)
+
+
+def _kv_join(parts: list):
+    """Rank parts of a KV cache as the cache: one tensor, or a tuple."""
+    return parts[0] if len(parts) == 1 else tuple(parts)
+
+
+def kv_map(fn, cache):
+    """``fn`` applied to every part of a KV cache, keeping its form."""
+    return _kv_join([fn(c) for c in kv_parts(cache)])
+
+
+def spans_devices(w) -> bool:
+    """Whether ``w`` is a tensor-parallel group over more than one card:
+    its chunks run eagerly, not as one CUDA graph."""
+    return isinstance(w, TPGroup) and not w.one_device
+
+
+def _mm_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., K] @ w -> [..., N] in f32, not rounded to x's dtype: a rank's
+    partial result of a row-parallel matmul (dense or Q8_0)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(w, dict):
+        return q8_matmul(x2.contiguous(), w["q"], w["s"]).reshape(*lead, -1)
+    if x.dtype == torch.float32:
+        y = x2 @ w
+    elif x.device.type == "cuda":
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(*lead, -1)
+
+
+def _row_parallel(g: TPGroup | None, acts: list, blks: list, key: str) -> torch.Tensor:
+    """The row-parallel matmul: rank r's activation ``acts[r]`` times its
+    ``key`` leaf, summed over the group (``tp_sum``) in the activation's
+    dtype. A W8A8/W4A8 leaf quantizes the activations with one scale a row
+    over the whole K (the group's max, as the single device does) and sums
+    the ranks' int32 dots exactly before it scales them: bit for bit the
+    single device's product. Without a group, the one matmul."""
+    if g is None:
+        return _mm(acts[0], blks[0][key])
+    leaves = [b[key] for b in blks]
+    if not isinstance(leaves[0], dict) or "q" in leaves[0]:
+        parts = []
+        for r, (a, leaf) in enumerate(zip(acts, leaves)):
+            with _rank_scope(g, r):
+                parts.append(_mm_f32(a, leaf))
+        return tp_sum(parts, g.lead, acts[0].dtype)
+    sx = act_scale(tp_max([row_absmax(a) for a in acts], g.lead))
+    dots = []
+    for r, (a, leaf) in enumerate(zip(acts, leaves)):
+        with _rank_scope(g, r):
+            q = next(leaf[k] for k in ("q8", "q4", "q4i8") if k in leaf)
+            dots.append(int8_dot(a, q, _to(g, sx, r))[0])
+    scale = leaves[0]["s8"] if "s8" in leaves[0] else leaves[0]["s4"]
+    dot = tp_sum(dots, g.lead, torch.int32)
+    return int_scale(dot, sx, scale, acts[0].shape[:-1]).to(acts[0].dtype)
+
+
+def _embed(cfg: LLMConfig, w, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings [..., D], on the lead device: one lookup, or, with
+    the vocab split over a group, a masked lookup a rank and their sum
+    (exact: only the rank holding a token's row gives it a nonzero one)."""
+    _, shards, g = _ranks(cfg, w)
+    if g is None or not g.embd_split:
+        return shards[0]["token_embd"][tokens.long()]
+    parts = []
+    for r, sh in enumerate(shards):
+        emb = sh["token_embd"]
+        n = emb.shape[0]
+        local = _to(g, tokens, r).long() - r * n
+        hit = (local >= 0) & (local < n)
+        parts.append(emb[local.clamp(0, n - 1)] * hit[..., None].to(emb.dtype))
+    return tp_sum(parts, g.lead, shards[0]["token_embd"].dtype)
+
+
+def _logits(cfg: LLMConfig, w, x: torch.Tensor) -> torch.Tensor:
+    """x [B, D] -> f32 logits [B, V] (``_head_logits``). With the head
+    split over a group's vocab, each rank's logits are gathered on the lead
+    device, where the sampler runs."""
+    _, shards, g = _ranks(cfg, w)
+    if g is None or not g.head_split:
+        with _rank_scope(g, 0):
+            return _head_logits(cfg, shards[0], x)
+    parts = []
+    for r, sh in enumerate(shards):
+        with _rank_scope(g, r):
+            head = sh["output"] if sh["output"] is not None else sh["token_embd"]
+            xr = _to(g, x, r)
+            parts.append(_mm(xr, head).float() if isinstance(head, dict)
+                         else _dense_logits(xr, head))
+    return gather_vocab(parts, g.lead)[..., :cfg.vocab_size]
+
+
+_BLK_KEYS = ("attn_norm", "wqkv", "bqkv", "wq", "wk", "wv", "bq", "bk", "bv", "wo", "ffn_norm",
+             "w_gateup", "w_gate", "w_up", "w_down", "q_norm", "k_norm")
 
 
 def _layer(w: dict, li: int) -> dict:
-    """Layer ``li``'s slice of the stacked per-layer leaves."""
+    """Layer ``li``'s slice of the stacked per-layer leaves (None for a
+    leaf the weights do not have: fused or per-projection ones)."""
     def pick(v):
         if v is None:
             return None
         return {k: a[li] for k, a in v.items()} if isinstance(v, dict) else v[li]
-    return {k: pick(w[k]) for k in _BLK_KEYS}
+    return {k: pick(w.get(k)) for k in _BLK_KEYS}
 
 
 def _layer_qkv(cfg: LLMConfig, blk: dict, xn: torch.Tensor):
     Hd = cfg.n_heads * cfg.head_dim
     KVd = cfg.n_kv_heads * cfg.head_dim
     # quantized leaves are padded along N: slice before the bias add
-    qkv = _mm(xn, blk["wqkv"])[..., :Hd + 2 * KVd]
-    if blk["bqkv"] is not None:
-        qkv = qkv + blk["bqkv"]
+    if blk["wqkv"] is not None:
+        qkv = _mm(xn, blk["wqkv"])[..., :Hd + 2 * KVd]
+        if blk["bqkv"] is not None:
+            qkv = qkv + blk["bqkv"]
+        q, k, v = qkv[..., :Hd], qkv[..., Hd:Hd + KVd], qkv[..., Hd + KVd:]
+    else:
+        q = _mm(xn, blk["wq"])[..., :Hd]
+        k = _mm(xn, blk["wk"])[..., :KVd]
+        v = _mm(xn, blk["wv"])[..., :KVd]
+        if blk["bq"] is not None:
+            q, k, v = q + blk["bq"], k + blk["bk"], v + blk["bv"]
     B, T = xn.shape[:2]
-    q = qkv[..., :Hd].reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = qkv[..., Hd:Hd + KVd].reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = qkv[..., Hd + KVd:].reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     if blk["q_norm"] is not None:
         q = rms_norm(q, blk["q_norm"], cfg.rms_eps)
         k = rms_norm(k, blk["k_norm"], cfg.rms_eps)
     return q, k, v
 
 
-def _layer_ffn(cfg: LLMConfig, blk: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn_act(cfg: LLMConfig, blk: dict, x: torch.Tensor) -> torch.Tensor:
     fn = rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
-    gu = _mm(fn, blk["w_gateup"])
-    act = F.silu(gu[..., :cfg.ffn_dim]) * gu[..., cfg.ffn_dim:2 * cfg.ffn_dim]
-    return _mm(act, blk["w_down"])[..., :cfg.dim]
+    if blk["w_gateup"] is not None:
+        gu = _mm(fn, blk["w_gateup"])
+        gate, up = gu[..., :cfg.ffn_dim], gu[..., cfg.ffn_dim:2 * cfg.ffn_dim]
+    else:
+        gate = _mm(fn, blk["w_gate"])[..., :cfg.ffn_dim]
+        up = _mm(fn, blk["w_up"])[..., :cfg.ffn_dim]
+    return F.silu(gate) * up
+
+
+def _ffn(cfg: LLMConfig, cfgs: list, g: TPGroup | None, blks: list,
+         x: torch.Tensor) -> torch.Tensor:
+    """The MLP block: each rank's gate/up columns, then down row-parallel."""
+    acts = []
+    for r, (rc, blk) in enumerate(zip(cfgs, blks)):
+        with _rank_scope(g, r):
+            acts.append(_ffn_act(rc, blk, _to(g, x, r)))
+    return _row_parallel(g, acts, blks, "w_down")[..., :cfg.dim]
 
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, device: torch.device,
-                  dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor]:
-    """[L, B, S, KVH, HD] zeros; bf16 whatever the weights' dtype, as JAX."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+                  dtype: torch.dtype = torch.bfloat16, w=None):
+    """[L, B, S, KVH, HD] zeros; bf16 whatever the weights' dtype, as JAX.
+    For a tensor-parallel group ``w``, a tuple of each rank's part (its kv
+    heads, on its device)."""
+    cfgs, _, g = _ranks(cfg, w)
+    parts = []
+    for r, rc in enumerate(cfgs):
+        shape = (cfg.n_layers, batch, max_len, rc.n_kv_heads, cfg.head_dim)
+        parts.append(torch.zeros(shape, dtype=dtype, device=device if g is None
+                                 else g.devices[r]))
+    return _kv_join(parts), kv_map(torch.zeros_like, _kv_join(parts))
 
 
-def llm_prefill_kv(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.Tensor):
+def llm_prefill_kv(cfg: LLMConfig, w, tokens: torch.Tensor, lengths: torch.Tensor):
     """Padded prompts [B, T] at positions 0..T-1 -> (last-valid-token logits
     [B, V] f32, prompt K [L, B, T, KVH, HD], prompt V). Rows at
     t >= lengths[b] carry garbage K/V that decode never reads (it masks keys
-    at positions >= pos)."""
+    at positions >= pos). ``w`` is a weight dict or a ``TPGroup``, whose
+    K/V come back as a tuple of each rank's kv heads."""
+    cfgs, shards, g = _ranks(cfg, w)
     B, T = tokens.shape
     dev = tokens.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)
-    x = w["token_embd"][tokens.long()]
-    group = cfg.n_heads // cfg.n_kv_heads
+    x = _embed(cfg, w, tokens)
     t_idx = torch.arange(T, device=dev)
     causal = t_idx[:, None] >= t_idx[None, :]
     valid_k = t_idx[None, :] < lengths[:, None]
     mask = (causal[None] & valid_k[:, None, :])[:, None]  # [B, 1, Tq, Tk]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    pos_rs = [_to(g, positions, r) for r in range(len(shards))]
+    mask_rs = [_to(g, mask, r) for r in range(len(shards))]
 
-    new_k, new_v = [], []
+    new_k, new_v = [[] for _ in shards], [[] for _ in shards]
     for li in range(cfg.n_layers):
-        blk = _layer(w, li)
-        q, k, v = _layer_qkv(cfg, blk, rms_norm(x, blk["attn_norm"], cfg.rms_eps))
-        q = apply_rope(q, positions, cfg.rope_base, cfg.rope_neox)
-        k = apply_rope(k, positions, cfg.rope_base, cfg.rope_neox)
-        new_k.append(k)
-        new_v.append(v)
-        kr = k.repeat_interleave(group, dim=2)
-        vr = v.repeat_interleave(group, dim=2)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
-        probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1).to(x.dtype)
-        att = torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(B, T, -1)
-        x = x + _mm(att, blk["wo"])[..., :cfg.dim]
-        x = x + _layer_ffn(cfg, blk, x)
+        blks, acts = [], []
+        for r, (rc, sh) in enumerate(zip(cfgs, shards)):
+            with _rank_scope(g, r):
+                blk = _layer(sh, li)
+                q, k, v = _layer_qkv(rc, blk, rms_norm(_to(g, x, r), blk["attn_norm"],
+                                                       cfg.rms_eps))
+                q = apply_rope(q, pos_rs[r], cfg.rope_base, cfg.rope_neox)
+                k = apply_rope(k, pos_rs[r], cfg.rope_base, cfg.rope_neox)
+                new_k[r].append(k)
+                new_v[r].append(v)
+                group = rc.n_heads // rc.n_kv_heads
+                kr = k.repeat_interleave(group, dim=2)
+                vr = v.repeat_interleave(group, dim=2)
+                scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+                probs = torch.softmax(scores.masked_fill(~mask_rs[r], float("-inf")),
+                                      dim=-1).to(x.dtype)
+                acts.append(torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(B, T, -1))
+                blks.append(blk)
+        x = x + _row_parallel(g, acts, blks, "wo")[..., :cfg.dim]
+        x = x + _ffn(cfg, cfgs, g, blks, x)
 
-    xn = rms_norm(x, w["output_norm"], cfg.rms_eps)
+    xn = rms_norm(x, shards[0]["output_norm"], cfg.rms_eps)
     last = torch.clamp(lengths.long() - 1, min=0)
     xn_last = xn[torch.arange(B, device=dev), last]  # [B, D]
-    return _logits(cfg, w, xn_last), torch.stack(new_k), torch.stack(new_v)
+    return (_logits(cfg, w, xn_last), _kv_join([torch.stack(k) for k in new_k]),
+            _kv_join([torch.stack(v) for v in new_v]))
 
 
-def llm_prefill(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.Tensor,
-                cache_k: torch.Tensor, cache_v: torch.Tensor) -> torch.Tensor:
+def llm_prefill(cfg: LLMConfig, w, tokens: torch.Tensor, lengths: torch.Tensor,
+                cache_k, cache_v) -> torch.Tensor:
     """Prefill and write K/V at [0, length) of each lane's cache IN PLACE
     (writes past the cache end are dropped). Returns the last valid
     token's logits [B, V]."""
-    S = cache_k.shape[2]
+    S = kv_parts(cache_k)[0].shape[2]
     last, new_k, new_v = llm_prefill_kv(cfg, w, tokens, lengths)
+    pairs = list(zip(kv_parts(cache_k) + kv_parts(cache_v),
+                     kv_parts(new_k) + kv_parts(new_v)))
     for b, n in enumerate(lengths.tolist()):
         n = max(0, min(int(n), S))
-        cache_k[:, b, :n] = new_k[:, b, :n].to(cache_k.dtype)
-        cache_v[:, b, :n] = new_v[:, b, :n].to(cache_v.dtype)
+        for cache, new in pairs:
+            cache[:, b, :n] = new[:, b, :n].to(cache.dtype)
     return last
 
 
-def llm_decode_step(cfg: LLMConfig, w: dict, token: torch.Tensor, pos: torch.Tensor,
-                    cache_k: torch.Tensor, cache_v: torch.Tensor) -> torch.Tensor:
+def llm_decode_step(cfg: LLMConfig, w, token: torch.Tensor, pos: torch.Tensor,
+                    cache_k, cache_v) -> torch.Tensor:
     """One decode step for lanes token/pos [B] (pos int32). Returns logits
     [B, V] f32; this step's k/v land in the cache at ``pos`` IN PLACE (a
-    pos past the cache end writes nothing)."""
+    pos past the cache end writes nothing). For a ``TPGroup`` each rank
+    runs K2 over its own kv heads (its part of the cache) and its own leaf
+    shards, with the sums of ``_row_parallel`` between."""
+    cfgs, shards, g = _ranks(cfg, w)
     B = token.shape[0]
-    S = cache_k.shape[2]
-    group = cfg.n_heads // cfg.n_kv_heads
-    x = w["token_embd"][token.long()][:, None, :]  # [B, 1, D]
-    positions = pos[:, None]
+    ck, cv = kv_parts(cache_k), kv_parts(cache_v)
+    S = ck[0].shape[2]
+    x = _embed(cfg, w, token)[:, None, :]  # [B, 1, D]
+    pos_rs = [_to(g, pos, r) for r in range(len(shards))]
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
-    new_ks, new_vs = [], []
+    new_ks, new_vs = [[] for _ in shards], [[] for _ in shards]
     for li in range(cfg.n_layers):
-        blk = _layer(w, li)
-        q, k, v = _layer_qkv(cfg, blk, rms_norm(x, blk["attn_norm"], cfg.rms_eps))
-        q = apply_rope(q, positions, cfg.rope_base, cfg.rope_neox)
-        k = apply_rope(k, positions, cfg.rope_base, cfg.rope_neox)
-        # rounded to the cache dtype first: attention sees exactly the
-        # values the scatter stores
-        k1 = k[:, 0].to(cache_k.dtype).contiguous()
-        v1 = v[:, 0].to(cache_v.dtype).contiguous()
-        new_ks.append(k1)
-        new_vs.append(v1)
-        qh = q[:, 0].reshape(B, cfg.n_kv_heads, group, cfg.head_dim).contiguous()
-        att = decode_attention(qh, k1, v1, cache_k[li], cache_v[li], scale, pos).to(x.dtype)
-        x = x + _mm(att[:, None, :], blk["wo"])[..., :cfg.dim]
-        x = x + _layer_ffn(cfg, blk, x)
+        blks, acts = [], []
+        for r, (rc, sh) in enumerate(zip(cfgs, shards)):
+            with _rank_scope(g, r):
+                blk = _layer(sh, li)
+                positions = pos_rs[r][:, None]
+                q, k, v = _layer_qkv(rc, blk, rms_norm(_to(g, x, r), blk["attn_norm"],
+                                                       cfg.rms_eps))
+                q = apply_rope(q, positions, cfg.rope_base, cfg.rope_neox)
+                k = apply_rope(k, positions, cfg.rope_base, cfg.rope_neox)
+                # rounded to the cache dtype first: attention sees exactly
+                # the values the scatter stores
+                k1 = k[:, 0].to(ck[r].dtype).contiguous()
+                v1 = v[:, 0].to(cv[r].dtype).contiguous()
+                new_ks[r].append(k1)
+                new_vs[r].append(v1)
+                qh = q[:, 0].reshape(B, rc.n_kv_heads, rc.n_heads // rc.n_kv_heads,
+                                     cfg.head_dim).contiguous()
+                att = decode_attention(qh, k1, v1, ck[r][li], cv[r][li], scale,
+                                       pos_rs[r]).to(x.dtype)
+                acts.append(att[:, None, :])
+                blks.append(blk)
+        x = x + _row_parallel(g, acts, blks, "wo")[..., :cfg.dim]
+        x = x + _ffn(cfg, cfgs, g, blks, x)
 
-    b_idx = torch.arange(B, device=token.device)
-    in_range = (pos < S)[None, :, None, None]
-    p = torch.clamp(pos.long(), max=S - 1)
-    for cache, new in ((cache_k, torch.stack(new_ks)), (cache_v, torch.stack(new_vs))):
-        cache[:, b_idx, p] = torch.where(in_range, new, cache[:, b_idx, p])
+    for r in range(len(shards)):
+        p_r = pos_rs[r]
+        b_idx = torch.arange(B, device=p_r.device)
+        in_range = (p_r < S)[None, :, None, None]
+        p = torch.clamp(p_r.long(), max=S - 1)
+        for cache, new in ((ck[r], torch.stack(new_ks[r])), (cv[r], torch.stack(new_vs[r]))):
+            cache[:, b_idx, p] = torch.where(in_range, new, cache[:, b_idx, p])
 
-    xn = rms_norm(x, w["output_norm"], cfg.rms_eps)
+    xn = rms_norm(x, shards[0]["output_norm"], cfg.rms_eps)
     return _logits(cfg, w, xn[:, 0])
 
 
@@ -492,8 +702,9 @@ class GenState:
     graph keeps the state it was captured on as its static buffers
     (``decode_graph.ChunkGraph``)."""
     logits: torch.Tensor  # [B, V] f32, the logits of the next sample
-    cache_k: torch.Tensor  # [L, B, S, KVH, HD]
-    cache_v: torch.Tensor
+    # [L, B, S, KVH, HD]; for a TPGroup a tuple, each rank's kv heads
+    cache_k: torch.Tensor | tuple
+    cache_v: torch.Tensor | tuple
     pos: torch.Tensor  # [B] int32, the next cache write position
     ring: torch.Tensor  # [B, 64] int64 sampler penalty ring
     ring_idx: torch.Tensor  # [] int32 ring cursor
@@ -561,10 +772,11 @@ def llm_generate_chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: 
     return out, n_new, state
 
 
-def empty_gen_state(cfg: LLMConfig, B: int, S: int, device: torch.device) -> GenState:
+def empty_gen_state(cfg: LLMConfig, B: int, S: int, device: torch.device, w=None) -> GenState:
     """A zeroed state of B lanes over a cache of S rows: the buffers a chunk
-    graph is captured on before any request is loaded into them."""
-    ck, cv = init_kv_cache(cfg, B, S, device)
+    graph is captured on before any request is loaded into them. ``device``
+    is the lead device of a ``TPGroup`` ``w``, whose cache is split."""
+    ck, cv = init_kv_cache(cfg, B, S, device, w=w)
     s0 = SamplerState.init(B, device)
     return GenState(torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=device),
                     ck, cv, torch.zeros((B,), dtype=torch.int32, device=device), s0.ring,
@@ -631,7 +843,7 @@ def _chunks(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, sampler: SamplerPara
     if graph is not None:
         graph.load(state)
         state = graph.state
-    elif state.logits.device.type == "cuda":
+    elif state.logits.device.type == "cuda" and not spans_devices(w):
         raise ValueError("generation on CUDA replays a chunk graph (capture_chunk)")
     while True:
         if graph is not None:
@@ -676,10 +888,11 @@ def llm_generate(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_batched_state(cfg: LLMConfig, n_lanes: int, max_ctx: int, device: torch.device,
-                       seed: int = 0) -> GenState:
+                       seed: int = 0, w=None) -> GenState:
     """A state of ``n_lanes`` lanes over a cache of ``max_ctx`` rows, every
-    lane done (miotts_tpu/models/llm.py:1145); the key is per lane, [B, 2]."""
-    st = empty_gen_state(cfg, n_lanes, max_ctx, device)
+    lane done (miotts_tpu/models/llm.py:1145); the key is per lane, [B, 2].
+    ``w``: as in ``empty_gen_state``."""
+    st = empty_gen_state(cfg, n_lanes, max_ctx, device, w=w)
     st.done.fill_(True)
     st.key = sampler_keys(np.arange(n_lanes) + seed, device)
     return st
@@ -696,7 +909,7 @@ def attach_lanes(state: GenState, lanes, logits_k: torch.Tensor, new_k: torch.Te
     Only the prompt span [0, T) of a lane's cache is written: decode never
     reads past pos, and writes each row before pos reaches it. The ring
     cursor stays shared."""
-    B, S = state.pos.shape[0], state.cache_k.shape[2]
+    B, S = state.pos.shape[0], kv_parts(state.cache_k)[0].shape[2]
     lanes = np.asarray(lanes).reshape(-1)
     rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
     if not rows:
@@ -704,16 +917,24 @@ def attach_lanes(state: GenState, lanes, logits_k: torch.Tensor, new_k: torch.Te
     dev = state.pos.device
     r = to_device(np.asarray(rows, np.int64), dev)
     ln = to_device(lanes[rows].astype(np.int64), dev)
-    T = min(new_k.shape[2], S)
+    T = min(kv_parts(new_k)[0].shape[2], S)
     state.logits.index_copy_(0, ln, logits_k.index_select(0, r).to(state.logits.dtype))
-    for cache, new in ((state.cache_k, new_k), (state.cache_v, new_v)):
-        cache.narrow(2, 0, T).index_copy_(1, ln, new[:, :, :T].index_select(1, r).to(cache.dtype))
+    _copy_rows(state, new_k, new_v, T, ln, r)
     state.pos.index_copy_(0, ln, to_device(np.asarray(lengths).reshape(-1)[rows].astype(np.int32),
                                            dev))
     state.ring.index_fill_(0, ln, -1)
     state.done.index_fill_(0, ln, False)
     state.key.index_copy_(0, ln, sampler_keys(np.asarray(seeds).reshape(-1)[rows], dev))
     return state
+
+
+def _copy_rows(state: GenState, new_k, new_v, T: int, ln: torch.Tensor, r: torch.Tensor) -> None:
+    """Rows [0, T) of the new K/V's rows ``r`` into lanes ``ln`` of the
+    state's cache, part by part (each on its own device)."""
+    for cache, new in zip(kv_parts(state.cache_k) + kv_parts(state.cache_v),
+                          kv_parts(new_k) + kv_parts(new_v)):
+        cache.narrow(2, 0, T).index_copy_(
+            1, ln.to(cache.device), new[:, :, :T].index_select(1, r.to(new.device)).to(cache.dtype))
 
 
 def set_lane_done(state: GenState, lane: int) -> GenState:
@@ -817,7 +1038,10 @@ def _chunk_body_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: 
     def take(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return t.index_select(dim, idx)
 
-    sub = GenState(take(state.logits), take(state.cache_k, 1), take(state.cache_v, 1),
+    def take_kv(cache):
+        return kv_map(lambda c: c.index_select(1, idx.to(c.device)), cache)
+
+    sub = GenState(take(state.logits), take_kv(state.cache_k), take_kv(state.cache_v),
                    take(state.pos), take(state.ring), state.ring_idx, take(state.done) | pad,
                    take(state.key))
     sub_sampler = BatchSamplerParams(take(sampler.temp), take(sampler.top_k),
@@ -828,8 +1052,9 @@ def _chunk_body_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: 
     _chunk_body_batched(cfg, w, eog_ids, n_steps, sub_sampler, take(rem), sub, out_w, n_new_w)
     for name in ("logits", "pos", "ring", "done", "key"):
         getattr(state, name).index_copy_(0, idx, getattr(sub, name))
-    state.cache_k.index_copy_(1, idx, sub.cache_k)
-    state.cache_v.index_copy_(1, idx, sub.cache_v)
+    for cache, new in zip(kv_parts(state.cache_k) + kv_parts(state.cache_v),
+                          kv_parts(sub.cache_k) + kv_parts(sub.cache_v)):
+        cache.index_copy_(1, idx.to(cache.device), new)
     out.zero_().index_copy_(0, idx, out_w)
     n_new.zero_().index_copy_(0, idx, n_new_w)
 
@@ -889,8 +1114,9 @@ def prefill_into(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.T
     T = tokens.shape[1]
     last, new_k, new_v = llm_prefill_kv(cfg, w, tokens, lengths)
     state.logits.copy_(last)
-    state.cache_k.narrow(2, 0, T).copy_(new_k)
-    state.cache_v.narrow(2, 0, T).copy_(new_v)
+    for cache, new in zip(kv_parts(state.cache_k) + kv_parts(state.cache_v),
+                          kv_parts(new_k) + kv_parts(new_v)):
+        cache.narrow(2, 0, T).copy_(new)
     state.pos.copy_(lengths)
     state.ring.fill_(-1)
     state.ring_idx.zero_()
@@ -899,10 +1125,11 @@ def prefill_into(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.T
     return state
 
 
-def fused_state(cfg: LLMConfig, k: int, S: int, device: torch.device) -> GenState:
+def fused_state(cfg: LLMConfig, k: int, S: int, device: torch.device, w=None) -> GenState:
     """A k-lane state over S cache rows with per-lane keys: the buffers of a
-    fused first chunk (``prefill_into``, then the batched chunk body)."""
-    st = empty_gen_state(cfg, k, S, device)
+    fused first chunk (``prefill_into``, then the batched chunk body);
+    ``w`` as in ``empty_gen_state``."""
+    st = empty_gen_state(cfg, k, S, device, w=w)
     st.key = sampler_keys(np.zeros(k, np.int64), device)
     return st
 
@@ -926,7 +1153,7 @@ def llm_prefill_generate(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps
     ``fused_state`` of ``max_ctx`` rows (``capture_chunk_batched``)."""
     k, T = tokens.shape
     state = prefill_into(cfg, w, tokens, lengths, seeds,
-                         fused_state(cfg, k, T + n_steps, tokens.device))
+                         fused_state(cfg, k, T + n_steps, tokens.device, w=w))
     rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=tokens.device)
     out, n_new, state = llm_generate_chunk_batched(cfg, w, eog_ids, n_steps, sampler, state, rem)
     return out, n_new, state
@@ -939,7 +1166,7 @@ def attach_lanes_gen(state: GenState, lanes, gst: GenState) -> GenState:
     the mini state's T' rows, pos, ring, done and key); ``lanes`` is a host
     array, and a row whose lane is out of range (a pad row) is dropped. The
     batched state's ring cursor stays as it is."""
-    B, S = state.pos.shape[0], state.cache_k.shape[2]
+    B, S = state.pos.shape[0], kv_parts(state.cache_k)[0].shape[2]
     lanes = np.asarray(lanes).reshape(-1)
     rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
     if not rows:
@@ -947,10 +1174,9 @@ def attach_lanes_gen(state: GenState, lanes, gst: GenState) -> GenState:
     dev = state.pos.device
     r = to_device(np.asarray(rows, np.int64), dev)
     ln = to_device(lanes[rows].astype(np.int64), dev)
-    T = min(gst.cache_k.shape[2], S)
+    T = min(kv_parts(gst.cache_k)[0].shape[2], S)
     state.logits.index_copy_(0, ln, gst.logits.index_select(0, r).to(state.logits.dtype))
-    for cache, new in ((state.cache_k, gst.cache_k), (state.cache_v, gst.cache_v)):
-        cache.narrow(2, 0, T).index_copy_(1, ln, new[:, :, :T].index_select(1, r).to(cache.dtype))
+    _copy_rows(state, gst.cache_k, gst.cache_v, T, ln, r)
     for name in ("pos", "ring", "done", "key"):
         getattr(state, name).index_copy_(0, ln, getattr(gst, name).index_select(0, r))
     return state
@@ -1018,7 +1244,7 @@ class LLMEngine:
         if graph is not None:
             cache_k, cache_v = graph.state.cache_k, graph.state.cache_v
         else:
-            cache_k, cache_v = init_kv_cache(self.config, 1, S, self.device)
+            cache_k, cache_v = init_kv_cache(self.config, 1, S, self.device, w=self.weights)
         return (torch.from_numpy(toks).to(self.device),
                 torch.tensor([T], dtype=torch.int32, device=self.device), cache_k, cache_v, graph)
 
@@ -1030,7 +1256,8 @@ class LLMEngine:
         if self._graph_key != key:
             self._graph = self._graph_key = None  # its buffers go before the next ones
             self._graph = capture_chunk(self.config, self.weights, self.eog_ids, CHUNK, sampler,
-                                        empty_gen_state(self.config, 1, S, self.device))
+                                        empty_gen_state(self.config, 1, S, self.device,
+                                                        w=self.weights))
             self._graph_key = key
         return self._graph
 

@@ -165,9 +165,9 @@ def activation1d(x, lengths, up_filter, alpha, beta, down_filter) -> torch.Tenso
     plan = launch_shape(B, T, C)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry()(x.data_ptr(), lens.data_ptr(), fu.data_ptr(), fu.shape[0], fd.data_ptr(),
-                      fd.shape[0], a.data_ptr(), inv.data_ptr(), out.data_ptr(), B, T, C,
-                      plan.run, plan.warps, stream)
+    status = build.launch(x.device, _entry(), x.data_ptr(), lens.data_ptr(), fu.data_ptr(),
+                          fu.shape[0], fd.data_ptr(), fd.shape[0], a.data_ptr(), inv.data_ptr(),
+                          out.data_ptr(), B, T, C, plan.run, plan.warps, stream)
     build.check(status, "activation1d")
     graphs.launched(__name__)
     return out

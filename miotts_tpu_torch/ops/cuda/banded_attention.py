@@ -109,9 +109,9 @@ def banded_attention(q, k, v, lengths, window: int) -> torch.Tensor:
         raise ValueError(f"banded attention: unsupported device {q.device}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), B, T, H, D, max(0, window // 2), plan.warps,
-                      1.0 / math.sqrt(D), stream)
+    status = build.launch(q.device, _entry(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          lengths.data_ptr(), out.data_ptr(), B, T, H, D, max(0, window // 2),
+                          plan.warps, 1.0 / math.sqrt(D), stream)
     build.check(status, "banded_attention")
     graphs.launched(__name__)
     return out

@@ -110,6 +110,17 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
+def launch(device, entry, *args) -> int:
+    """Call a kernel's C entry point with ``device`` (a CUDA device of the
+    kernel's tensors) current: the launch, and the shared-memory limit it
+    may raise first, concern the current device, which on a mesh need not
+    be the tensors' own. Returns its status."""
+    import torch
+
+    with torch.cuda.device(device):
+        return entry(*args)
+
+
 def check(status: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if status != 0:

@@ -111,10 +111,10 @@ def conv1d_same(x, lengths, w, b=None, dilation: int = 1, residual=None) -> torc
     out = torch.empty((B, T, Cout), dtype=torch.float32, device=x.device)
     tile = launch_shape(B, T, Cout)[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry()(x.data_ptr(), lens.data_ptr(), w_kio.data_ptr(),
-                      None if b is None else b.data_ptr(),
-                      None if residual is None else residual.data_ptr(), out.data_ptr(),
-                      B, T, Cin, Cout, k, dilation, tile, stream)
+    status = build.launch(x.device, _entry(), x.data_ptr(), lens.data_ptr(), w_kio.data_ptr(),
+                          None if b is None else b.data_ptr(),
+                          None if residual is None else residual.data_ptr(), out.data_ptr(),
+                          B, T, Cin, Cout, k, dilation, tile, stream)
     build.check(status, "conv1d_same")
     graphs.launched(__name__)
     return out

@@ -98,9 +98,9 @@ def decode_attention(q, k_cur, v_cur, cache_k, cache_v, scale: float, pos) -> to
         raise ValueError(f"decode attention: unsupported G={G}, HD={HD}, B*KVH={lanes}")
     out = torch.empty((B, KVH * G * HD), dtype=torch.bfloat16, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _entry()(q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), cache_k.data_ptr(),
-                      cache_v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                      B, S, KVH, G, HD, rows, float(scale), stream)
+    status = build.launch(q.device, _entry(), q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
+                          cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                          B, S, KVH, G, HD, rows, float(scale), stream)
     build.check(status, "decode_attention")
     graphs.launched(__name__)
     return out

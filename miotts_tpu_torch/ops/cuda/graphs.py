@@ -31,6 +31,15 @@ and capture therefore run on ``capture_stream``, one stream a device from
 the high-priority pool, from which no other stream of the port comes; a
 codec graph captures on its pipeline's own stream, which only the
 pipeline's lock holder uses.
+
+Both the lock and the capture stream are kept for each device: a capture
+and the device-wide synchronizes around it concern its own card only.
+
+Launches by rank. On a mesh (``parallel/``) a tensor-parallel forward runs
+each rank's part inside ``on_rank(rank id)``, and every launch there
+counts once more, in ``rank_launches[(module name, rank id)]`` (in a
+graph's per-replay counts while a capture records), so the launches of
+each logical rank can be told apart when several share one card.
 """
 
 from __future__ import annotations
@@ -43,18 +52,33 @@ import torch
 
 CAPTURE_MODE = "thread_local"
 
-capture_lock = threading.Lock()
 _tls = threading.local()
 _lock = threading.Lock()
 _capture_streams: dict = {}
+_capture_locks: dict = {}
+# launches a logical rank made, by (kernel module name, rank id); callers
+# may clear it
+rank_launches: dict = {}
+
+
+def _index(device: torch.device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def capture_lock(device: torch.device) -> threading.Lock:
+    """The lock that keeps two captures on ``device`` (and the device-wide
+    synchronizes around them) from overlapping."""
+    index = _index(device)
+    with _lock:
+        return _capture_locks.setdefault(index, threading.Lock())
 
 
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
     """The stream chunk graphs warm up and capture on: one a device, from
     the high-priority pool (the port's other streams are all made at the
-    default priority). Use it under ``capture_lock``."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
+    default priority). Use it under ``capture_lock(device)``."""
+    index = _index(device)
     with _lock:
         stream = _capture_streams.get(index)
         if stream is None:
@@ -69,14 +93,32 @@ def kernel_modules() -> tuple:
 
 
 def launched(module_name: str) -> None:
-    """A wrapper launched its kernel: count it in the module's ``launches``,
-    or, while this thread records a capture, in the graph's counts."""
+    """A wrapper launched its kernel: count it in the module's ``launches``
+    (and, inside ``on_rank``, in ``rank_launches``), or, while this thread
+    records a capture, in the graph's counts."""
+    rank = getattr(_tls, "rank", None)
     rec = getattr(_tls, "recording", None)
     if rec is not None:
         rec[module_name] = rec.get(module_name, 0) + 1
+        if rank is not None:
+            rec[(module_name, rank)] = rec.get((module_name, rank), 0) + 1
         return
     with _lock:
         sys.modules[module_name].launches += 1
+        if rank is not None:
+            rank_launches[(module_name, rank)] = rank_launches.get((module_name, rank), 0) + 1
+
+
+@contextlib.contextmanager
+def on_rank(rank: int | None):
+    """Launches in this thread count for logical rank ``rank`` meanwhile
+    (None: for no rank)."""
+    prev = getattr(_tls, "rank", None)
+    _tls.rank = rank
+    try:
+        yield
+    finally:
+        _tls.rank = prev
 
 
 @contextlib.contextmanager
@@ -91,13 +133,17 @@ def record_launches():
         _tls.recording = None
         for m in kernel_modules():
             per_replay[m] = rec.get(m.__name__, 0)
+        per_replay.update((k, n) for k, n in rec.items() if isinstance(k, tuple))
 
 
 def count_replay(per_replay: dict) -> None:
-    """After a replay: count the launches the graph ran."""
+    """After a replay: count the launches the graph ran (a rank's too)."""
     with _lock:
         for m, n in per_replay.items():
-            m.launches += n
+            if isinstance(m, tuple):
+                rank_launches[m] = rank_launches.get(m, 0) + n
+            else:
+                m.launches += n
 
 
 def capturing() -> bool:

@@ -152,9 +152,9 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor
     args = (x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(), s.data_ptr(),
             out.data_ptr(), T, K, N, plan.tt)
     if plan.kind == "gemv":
-        status = _gemv_entry()(*args, stream)
+        status = build.launch(x.device, _gemv_entry(), *args, stream)
     else:
-        status = _entry()(*args, plan.z, plan.per, stream)
+        status = build.launch(x.device, _entry(), *args, plan.z, plan.per, stream)
     build.check(status, "q8_matmul")
     graphs.launched(__name__)
     return out

@@ -150,10 +150,10 @@ def resblock_layer(x, lengths, actA, w1, b1, dilation: int, actB, w2, b2) -> tor
                 inv.data_ptr())
 
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry()(x.data_ptr(), lens.data_ptr(), *act_args(*opsA), w1_kio.data_ptr(),
-                      b1.data_ptr(), w1.shape[-1], dilation, *act_args(*opsB),
-                      w2_kio.data_ptr(), b2.data_ptr(), w2.shape[-1], out.data_ptr(), B, T, C,
-                      plan.variant, plan.n_out, stream)
+    status = build.launch(x.device, _entry(), x.data_ptr(), lens.data_ptr(), *act_args(*opsA),
+                          w1_kio.data_ptr(), b1.data_ptr(), w1.shape[-1], dilation,
+                          *act_args(*opsB), w2_kio.data_ptr(), b2.data_ptr(), w2.shape[-1],
+                          out.data_ptr(), B, T, C, plan.variant, plan.n_out, stream)
     build.check(status, "resblock_layer")
     graphs.launched(__name__)
     return out

@@ -72,21 +72,45 @@ def _int_dot(x8: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x8, q8)[:T]
 
 
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """The largest |x| of each row of x [..., K], as f32 [rows, 1]."""
+    return x.reshape(-1, x.shape[-1]).float().abs().amax(dim=-1, keepdim=True)
+
+
+def act_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The int8 activation scale of rows whose largest |x| is ``amax``."""
+    return torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+
+
+def int8_dot(x: torch.Tensor, q: torch.Tensor, sx: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact integer part of a W8A8/W4A8 product: x [..., K] quantized
+    a row to int8 (scales ``sx`` [rows, 1], or each row's own) times q [K,
+    N] (int8 storage) -> (int32 [rows, N], sx). A tensor-parallel rank
+    passes the whole rows' scales for its K slice, so the ranks' int32
+    parts sum to the single device's dot exactly."""
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    if sx is None:
+        sx = act_scale(x2.abs().amax(dim=-1, keepdim=True))
+    x8 = torch.round(x2 / sx).to(torch.int8)
+    return _int_dot(x8, q.to(torch.int8)), sx
+
+
+def int_scale(dot: torch.Tensor, sx: torch.Tensor, s: torch.Tensor, lead) -> torch.Tensor:
+    """An int32 dot [rows, N] scaled by the rows' and the columns' scales:
+    f32 [*lead, N]."""
+    return (dot.float() * sx * s[None, :]).reshape(*lead, -1)
+
+
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, s8: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ (q8 [K, N] * s8 [N]) with dynamic per-row activation
     quantization; returns f32 [..., N]."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).float()
-    amax = x2.abs().amax(dim=-1, keepdim=True)
-    sx = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    x8 = torch.round(x2 / sx).to(torch.int8)
-    y = _int_dot(x8, q8).float() * sx * s8[None, :]
-    return y.reshape(*lead, -1)
+    return int_scale(*int8_dot(x, q8), s8, x.shape[:-1])
 
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ (q4 [K, N] * s4 [N]): the int8 path on [-7, 7] weights."""
-    return int8_matmul(x, q4.to(torch.int8), s4)
+    return int8_matmul(x, q4, s4)
 
 
 def maybe_quant_matmul(x: torch.Tensor, w) -> torch.Tensor:

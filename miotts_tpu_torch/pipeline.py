@@ -65,6 +65,7 @@ from .models import codec_graph
 from .models.miocodec import codec_synthesize, encode_global_embedding, load_miocodec
 from .ops.masking import time_mask
 from .ops.precision import codec_matmul_mode
+from .parallel.mesh import same_device, tree_to
 from .runtime.tracing import maybe_start_profiler, trace_phase
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -184,7 +185,6 @@ class MioTTSPipeline:
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS, check_syncs: bool = True,
                  wavlm_path: str | Path | None = None):
         self.codec_path = str(codec_path)
-        self.device = device
         # run a key's eager decode and a capture's warm-up with every host
         # sync an error (a process-wide mode: a server, whose other threads
         # read the card meanwhile, turns it off)
@@ -194,18 +194,7 @@ class MioTTSPipeline:
         # was captured with
         self.codec_matmul = codec_matmul_mode(os.environ.get("MIOTTS_CODEC_MATMUL", "float32"))
         self.buckets = buckets
-        # decodes run and their host time, for callers that count them
-        self.n_decodes = 0
-        self.decode_ms_total = 0.0
-        # the codec graphs (CUDA's path): by key, every key decoded so far
-        # with the thread that ran its eager decode, the stream every CUDA
-        # decode runs on and the graphs' shared pool
-        self.use_graph = device.type == "cuda"
-        self.graphs: dict[CodecKey, codec_graph.CodecGraph] = {}
-        self.seen: dict[CodecKey, threading.Thread] = {}
-        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        self.graph_pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
-        self._lock = threading.Lock()
+        self._init_decodes(device)
         # the reference chain (voice cloning): its graphs by WavLM bucket,
         # the buckets run so far, its stream and its graphs' own pool
         self.wavlm = None
@@ -221,6 +210,44 @@ class MioTTSPipeline:
             if device.type == "cuda":
                 self._ref_stream = torch.cuda.Stream(device)
                 self.ref_graph_pool = torch.cuda.graph_pool_handle()
+
+    def _init_decodes(self, device: torch.device) -> None:
+        """The decode side's state on ``device``: counters, the codec graphs
+        (CUDA's path: by key, every key decoded so far with the thread that
+        ran its eager decode, the stream every CUDA decode runs on and the
+        graphs' shared pool) and the lock around a decode."""
+        self.device = device
+        # decodes run and their host time, for callers that count them
+        self.n_decodes = 0
+        self.decode_ms_total = 0.0
+        self.use_graph = device.type == "cuda"
+        self.graphs: dict[CodecKey, codec_graph.CodecGraph] = {}
+        self.seen: dict[CodecKey, threading.Thread] = {}
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.graph_pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self._lock = threading.Lock()
+        self._replicas: dict = {}
+
+    def replica(self, device: torch.device) -> "MioTTSPipeline":
+        """This codec's decode side on another device (a dp rank of a
+        mesh), its weights copied there: graphs, stream, pool and lock of
+        its own; the config, buckets and precision shared. The pipeline
+        itself where ``device`` is its own device; one replica a device,
+        made at first use."""
+        if same_device(device, self.device):
+            return self
+        key = (device.type, device.index)
+        rep = self._replicas.get(key)
+        if rep is None:
+            rep = object.__new__(type(self))
+            rep.__dict__.update(codec_path=self.codec_path, check_syncs=self.check_syncs,
+                                config=self.config, weights=tree_to(self.weights, device),
+                                codec_matmul=self.codec_matmul, buckets=self.buckets,
+                                wavlm=None, ref_graphs={}, ref_seen=set(), _ref_stream=None,
+                                ref_graph_pool=None, _ref_lock=threading.Lock())
+            rep._init_decodes(device)
+            rep = self._replicas.setdefault(key, rep)
+        return rep
 
     @property
     def sample_rate(self) -> int:

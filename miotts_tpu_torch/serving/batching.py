@@ -55,6 +55,20 @@ The worker runs on a CUDA stream of its own: no other thread's work (a
 codec decode, a prefill) is ordered behind a chunk in flight. A width
 graph captured while the worker replays runs its warm-up on a throwaway
 state (``_warm_state``), since a capture executes nothing.
+
+On a mesh (``mesh=``, ``parallel/``; miotts_tpu/serving/batching.py:129-152)
+the lanes split over the dp ranks in contiguous blocks, each block a state
+of its own on its rank's device (``_DPRank``: its weights, replicated or a
+tensor-parallel ``TPGroup``, its chunk and fused graphs, its worker and
+prefill streams), and a global lane maps to (dp rank, local lane) at the
+attach, ``set_lane_done`` and the reset. A dispatch replays the chunk graph
+of every dp rank with a live lane, each on its stream, and reads their
+results back into global lane order; a prefill group is one dp rank's
+lanes. Width slicing is off; the fused prefill and the attach hold keep
+their conditions. A new request takes a free lane of the dp rank with the
+fewest lanes taken. A tensor-parallel group over distinct cards runs its
+chunks eagerly (``spans_devices``); one whose ranks share a card is one
+graph.
 """
 
 from __future__ import annotations
@@ -74,12 +88,15 @@ import torch
 from ..device import to_device
 from ..models import decode_graph
 from ..models.llm import (
-    CHAT_TEMPLATE, NO_BUDGET, GenState, LLMEngine, attach_lanes, attach_lanes_gen,
+    CHAT_TEMPLATE, NO_BUDGET, GenState, LLMEngine, kv_parts, attach_lanes, attach_lanes_gen,
     capture_chunk_batched, capture_chunk_batched_sliced, finish_chunk_fetch, fused_state,
-    init_batched_state, llm_generate_chunk_batched, llm_generate_chunk_batched_sliced,
-    llm_prefill_generate, llm_prefill_kv, prefill_into, set_lane_done, start_chunk_fetch,
+    init_batched_state, kv_map, llm_generate_chunk_batched, llm_generate_chunk_batched_sliced,
+    llm_prefill_generate, llm_prefill_kv, prefill_into, set_lane_done, spans_devices,
+    start_chunk_fetch,
 )
 from ..models.sampling import BatchSamplerParams, SamplerParams
+from ..ops.cuda import graphs
+from ..parallel.mesh import replicate_tree, shard_gen_state, shard_llm_weights
 from ..runtime.tracing import trace_phase
 
 _PROMPT_BUCKETS = (32, 64, 128, 256, 512)
@@ -134,12 +151,69 @@ def _on(stream):
     return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
+def _after(event, device: torch.device, tensors) -> None:
+    """``device``'s current stream waits for a prefill's ``event``, and the
+    prefill's tensors there are marked as used on it."""
+    stream = torch.cuda.current_stream(device)
+    stream.wait_event(event)
+    for t in tensors:
+        if t.device == stream.device:
+            t.record_stream(stream)
+
+
+class _DPRank:
+    """One dp rank of the batcher: its block of ``n_lanes`` lanes as a
+    state of their own on its device (a tensor-parallel group's lead), its
+    weights (a dict, or a ``TPGroup``) and everything a chunk of its lanes
+    replays: the sampler and budget buffers, its chunk and fused graphs
+    (each under its own lock), the worker's and the prefill's streams on
+    its device. Without a mesh the batcher has one, over all lanes."""
+
+    def __init__(self, index: int, rank_id: int | None, weights, eog_ids: torch.Tensor,
+                 state: GenState, device: torch.device, slicing: bool):
+        self.index = index
+        self.rank_id = rank_id  # the lead's logical device id (None: no mesh)
+        self.w = weights
+        self.eog_ids = eog_ids
+        self.state = state
+        self.device = device
+        self.n_lanes = n = state.pos.shape[0]
+        # the chunk's per-lane inputs, static buffers of every chunk graph:
+        # a lane's sampler settings are written at its attach, ``rem``
+        # before each dispatch, a width's lane list before its replay
+        self.sampler = BatchSamplerParams.make(np.full(n, 0.8), np.full(n, 50), np.ones(n),
+                                               np.ones(n), device)
+        self.rem = torch.zeros((n,), dtype=torch.int32, device=device)
+        self.lanes_bufs = ({1 << i: torch.zeros((1 << i,), dtype=torch.int64, device=device)
+                            for i in range(max(0, n - 1).bit_length())} if slicing else {})
+        # chunk graphs by (rung, width) on CUDA, captured at first use or by
+        # warm_chunk; replaced whole under capture_lock, read lock-free. A
+        # tensor-parallel group over distinct cards runs its chunks eagerly.
+        self.use_graph = device.type == "cuda" and not spans_devices(weights)
+        self.graphs: dict[tuple[int, int], decode_graph.ChunkGraph] = {}
+        self.capture_lock = threading.Lock()
+        # fused first-chunk graphs by group size k: (graph, its sampler)
+        self.fused: dict[int, tuple] = {}
+        self.fused_lock = threading.Lock()
+        self.warm_state: GenState | None = None
+        cuda = device.type == "cuda"
+        self.prefill_stream = torch.cuda.Stream(device) if cuda else None
+        self.stream = torch.cuda.Stream(device) if cuda else None
+        if self.stream is not None:  # the worker's stream follows the state's init
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+
+    def scope(self):
+        """Launches on this rank's behalf count for its logical device (a
+        tensor-parallel group's forward names each of its ranks itself)."""
+        return graphs.on_rank(self.rank_id) if self.rank_id is not None else contextlib.nullcontext()
+
+
 class ContinuousBatcher:
     def __init__(self, engine: LLMEngine, n_lanes: int = 8, max_ctx: int = 1024,
-                 chunk: int = 16, seed: int = 0, first_chunk: int | None = None):
+                 chunk: int = 16, seed: int = 0, first_chunk: int | None = None, mesh=None):
         self.engine = engine
         self.cfg = engine.config
-        self.device = engine.device
+        self.mesh = mesh
         # the dispatch ladder (miotts_tpu/serving/batching.py:101-127): a
         # fresh lane's first chunk is small (its first tokens early), a
         # lane that has run a steady chunk graduates to chunk_max
@@ -149,12 +223,40 @@ class ContinuousBatcher:
         self.first_chunk = max(1, min(first_chunk or chunk, chunk))
         self.chunk_max = max(chunk, int(os.environ.get("MIOTTS_CHUNK_MAX", str(2 * chunk))))
         self.ladder = tuple(sorted({self.first_chunk, chunk, self.chunk_max}))
+        # dp fan-out (miotts_tpu/serving/batching.py:129-152): the lanes
+        # split over the mesh's dp ranks, a contiguous block each; the
+        # weights replicate on every rank, or split over tp
+        # (--tensor-parallel). The engine's own B = 1 path (oversized
+        # prompts) then runs on dp rank 0's weights.
+        if mesh is not None:
+            dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+            n_lanes = -(-n_lanes // dp) * dp
+            if tp > 1:
+                weights = shard_llm_weights(mesh, engine.weights, self.cfg)
+            else:
+                weights = replicate_tree(mesh, engine.weights)
+            leads = [row[0] for row in mesh.devices]
+            eogs = [engine.eog_ids.to(d.device) for d in leads]
+            engine.weights, engine.eog_ids, engine.device = weights[0], eogs[0], leads[0].device
+            engine.use_graph = engine.device.type == "cuda" and not spans_devices(weights[0])
+            state = init_batched_state(self.cfg, n_lanes, max_ctx, leads[0].device, seed)
+            states = shard_gen_state(mesh, state, weights)
+            del state
+            rank_ids = [d.id for d in leads]
+            devices = [d.device for d in leads]
+        else:
+            weights, eogs, rank_ids, devices = [engine.weights], [engine.eog_ids], [None], \
+                [engine.device]
+            states = [init_batched_state(self.cfg, n_lanes, max_ctx, engine.device, seed)]
         self.n_lanes = n_lanes
         self.max_ctx = max_ctx
         self.chunk = chunk
         self.seed = seed
         self.fused_prefill = os.environ.get("MIOTTS_FUSED_PREFILL", "1") != "0"
-        self.slice_chunks = n_lanes > 1 and os.environ.get("MIOTTS_CHUNK_SLICE", "1") != "0"
+        # width slicing gathers lanes of one state: off on a mesh, whose
+        # lanes are split over the dp ranks (miotts_tpu/serving/batching.py:193-199)
+        self.slice_chunks = (mesh is None and n_lanes > 1
+                             and os.environ.get("MIOTTS_CHUNK_SLICE", "1") != "0")
         self.attach_hold_s = float(os.environ.get("MIOTTS_ATTACH_HOLD_S", "1.0"))
         self.depth = max(1, int(os.environ.get("MIOTTS_CHUNK_DEPTH", "1")))
         self._attach_hold_t0: float | None = None
@@ -162,42 +264,26 @@ class ContinuousBatcher:
         # burst's attaches (read by chip_smoke.py and the trace script)
         self.attach_holds = 0
         self.attach_hold_ms = 0.0
-        # chunks dispatched at each width (n_lanes: full width)
+        # chunks dispatched at each width (n_lanes: full width), counted
+        # once a dispatch whatever the number of dp ranks it ran on
         self.width_counts: dict[int, int] = {}
-        dev = self.device
-        self.state = init_batched_state(self.cfg, n_lanes, max_ctx, dev, seed)
-        # the chunk's per-lane inputs, static buffers of every chunk graph:
-        # a lane's sampler settings are written at its attach, ``rem``
-        # before each dispatch, a width's lane list before its replay
-        self.sampler = BatchSamplerParams.make(np.full(n_lanes, 0.8), np.full(n_lanes, 50),
-                                               np.ones(n_lanes), np.ones(n_lanes), dev)
-        self.rem = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
-        self._lanes_bufs = {1 << i: torch.zeros((1 << i,), dtype=torch.int64, device=dev)
-                            for i in range(max(0, n_lanes - 1).bit_length())}
-        # chunk graphs by (rung, width) on CUDA, captured at first use or by
-        # warm_chunk; replaced whole under _capture_lock, read lock-free
-        self.use_graph = dev.type == "cuda"
-        self.graphs: dict[tuple[int, int], decode_graph.ChunkGraph] = {}
-        self._capture_lock = threading.Lock()
-        # fused first-chunk graphs by group size k: (graph, its sampler)
-        self._fused: dict[int, tuple] = {}
-        self._fused_lock = threading.Lock()
+        self.ranks = [_DPRank(i, rid, w, eog, st, dev, self.slice_chunks)
+                      for i, (rid, w, eog, st, dev) in enumerate(
+                          zip(rank_ids, weights, eogs, states, devices))]
+        self.per_rank = n_lanes // len(self.ranks)
+        self.device = self.ranks[0].device
         # (bucket, k) prefill groups and (rung, width) chunks known warm;
         # frozensets replaced under _warm_lock, read lock-free
         self._warm_prefills: frozenset[tuple[int, int]] = frozenset()
         self._warm_chunks: frozenset[tuple[int, int]] = frozenset()
         self._warm_lock = threading.Lock()
         self.split_cold_until_warm = False
-        self._warm_state: GenState | None = None
-        self._prefill_stream = torch.cuda.Stream(dev) if self.use_graph else None
-        self._stream = torch.cuda.Stream(dev) if self.use_graph else None
-        if self._stream is not None:  # the worker's stream follows the state's init
-            self._stream.wait_stream(torch.cuda.current_stream(dev))
         self.lanes: list[_Lane | None] = [None] * n_lanes
         # attaches are queued and applied only by the worker, between
-        # chunks: (host lane list, apply(state) -> state, finish list of
-        # (lane, needs set_lane_done) already delivered in the fused steps)
-        self._pending: list[tuple[list[int], object, list]] = []
+        # chunks: (dp rank, host lane list, apply(state) -> state, finish
+        # list of (lane, needs set_lane_done) already delivered in the
+        # fused steps); lanes are global
+        self._pending: list[tuple[int, list[int], object, list]] = []
         self._prefill_q: "queue.Queue[tuple | None]" = queue.Queue()
         self._prefill_thread = threading.Thread(target=self._prefill_loop, daemon=True,
                                                 name="batcher-prefill")
@@ -213,8 +299,35 @@ class ContinuousBatcher:
         self.longest_fetch_s = 0.0
         self._cv = threading.Condition()
         self._shutdown = False
-        self._thread = threading.Thread(target=self._run, daemon=True, name="batcher-worker")
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="batcher-worker")
         self._thread.start()
+
+    # dp rank 0's parts under the names of the one-state batcher (its only
+    # rank without a mesh)
+    state = property(lambda self: self.ranks[0].state)
+    graphs = property(lambda self: self.ranks[0].graphs)
+    sampler = property(lambda self: self.ranks[0].sampler)
+    rem = property(lambda self: self.ranks[0].rem)
+    _fused = property(lambda self: self.ranks[0].fused)
+    _fused_lock = property(lambda self: self.ranks[0].fused_lock)
+    _stream = property(lambda self: self.ranks[0].stream)
+    _prefill_stream = property(lambda self: self.ranks[0].prefill_stream)
+    _lanes_bufs = property(lambda self: self.ranks[0].lanes_bufs)
+    _warm_state = property(lambda self: self.ranks[0].warm_state)
+
+    @property
+    def use_graph(self) -> bool:
+        """Whether dp rank 0's chunks replay CUDA graphs."""
+        return self.ranks[0].use_graph
+
+    @use_graph.setter
+    def use_graph(self, value: bool) -> None:
+        for rank in self.ranks:
+            rank.use_graph = value
+
+    def _where(self, lane: int) -> tuple["_DPRank", int]:
+        """A global lane's dp rank and its lane there."""
+        return self.ranks[lane // self.per_rank], lane % self.per_rank
 
     def widths(self) -> list[int]:
         """The chunk widths: 1, 2, 4, ... below the lane count, then the
@@ -257,9 +370,9 @@ class ContinuousBatcher:
     def _prefill_loop(self) -> None:
         """Drain-style coalescing: the first queued prompt is taken
         blocking, then whatever else is already waiting joins it, one
-        prefill per prompt bucket. Every group is dispatched before any is
-        finished; a group whose dispatch or finish fails fails only its
-        own requests, and the thread keeps draining."""
+        prefill per prompt bucket and dp rank. Every group is dispatched
+        before any is finished; a group whose dispatch or finish fails
+        fails only its own requests, and the thread keeps draining."""
         while True:
             item = self._prefill_q.get()
             if item is None:
@@ -274,15 +387,15 @@ class ContinuousBatcher:
                     self._prefill_q.put(None)  # re-post shutdown
                     break
                 items.append(nxt)
-            groups: dict[int, list[tuple]] = {}
+            groups: dict[tuple[int, int], list[tuple]] = {}
             for it in items:
-                groups.setdefault(it[3], []).append(it)
+                groups.setdefault((it[3], it[0] // self.per_rank), []).append(it)
             finishes: list = []
-            for bucket in sorted(groups):
-                lane_idxs = [it[0] for it in groups[bucket]]
+            for bucket, _rank in sorted(groups):
+                group = groups[(bucket, _rank)]
+                lane_idxs = [it[0] for it in group]
                 try:
-                    finishes.extend((lane_idxs, fin)
-                                    for fin in self._prefill_group(bucket, groups[bucket]))
+                    finishes.extend((lane_idxs, fin) for fin in self._prefill_group(bucket, group))
                 except Exception as e:
                     print(f"mio: prefill group failed: {e!r}", file=sys.stderr)
                     self._fail_unstarted(lane_idxs, e)
@@ -297,12 +410,12 @@ class ContinuousBatcher:
 
     def _prefill_group(self, bucket: int, group: list[tuple]) -> list:
         """Dispatch one prompt-bucket group's prefill (fused with its first
-        steps, or not) and return its finish closures, which deliver the
-        fused tokens and queue the group's attach for the worker. The lane
-        count is padded to a power of two; pad rows carry an out-of-range
-        lane, so their attach writes drop. While the warm-up tail runs
-        (``split_cold_until_warm``), a group size not yet warm splits into
-        the largest warm one."""
+        steps, or not) on its dp rank and return its finish closures, which
+        deliver the fused tokens and queue the group's attach for the
+        worker. The lane count is padded to a power of two; pad rows carry
+        an out-of-range lane, so their attach writes drop. While the
+        warm-up tail runs (``split_cold_until_warm``), a group size not yet
+        warm splits into the largest warm one."""
         kp = _pow2(len(group))
         if kp > 1 and self.split_cold_until_warm and (bucket, kp) not in self._warm_prefills:
             warmed = [n for (b, n) in self._warm_prefills if b == bucket and n < kp]
@@ -312,14 +425,15 @@ class ContinuousBatcher:
                 for i in range(0, len(group), sub):
                     conts.extend(self._prefill_group(bucket, group[i:i + sub]))
                 return conts
+        rank = self._where(group[0][0])[0]
         toks = np.zeros((kp, bucket), np.int64)
         lens = np.ones(kp, np.int32)
-        lanes = np.full(kp, self.n_lanes, np.int64)
+        lanes = np.full(kp, rank.n_lanes, np.int64)
         seeds = np.zeros(kp, np.int64)
         for i, (lane_idx, ids, T, _b, seed) in enumerate(group):
             toks[i, :T] = ids
             lens[i] = T
-            lanes[i] = lane_idx
+            lanes[i] = self._where(lane_idx)[1]
             seeds[i] = int(seed) & 0xFFFFFFFF
         fused = self._use_fused(bucket)
         try:
@@ -328,12 +442,12 @@ class ContinuousBatcher:
             with trace_phase(f"prefill_group bucket={bucket} k={kp} fused={int(fused)}"):
                 if fused:
                     fetch, gst, event = self._prefill_fused(toks, lens, seeds,
-                                                            self._group_sampler(kp, group))
+                                                            self._group_sampler(kp, group), rank)
 
                     def apply_fn(state):
                         return self._attach_gen(state, lanes, gst, event)
                 else:
-                    prefill = self._prefill(toks, lens)
+                    prefill = self._prefill(toks, lens, rank)
 
                     def apply_fn(state):
                         return self._attach(state, lanes, lens, seeds, *prefill)
@@ -369,7 +483,7 @@ class ContinuousBatcher:
                             # finished inside the fused steps: the worker
                             # frees the lane right after the attach applies
                             finish.append((lane_idx, not bool(done_np[i])))
-                self._pending.append(([it[0] for it in group], apply_fn, finish))
+                self._pending.append((rank.index, [it[0] for it in group], apply_fn, finish))
                 self._cv.notify_all()
 
         return [finish_group]
@@ -388,70 +502,86 @@ class ContinuousBatcher:
                 params[i] = lane.sampler
         return params
 
-    def _prefill(self, toks: np.ndarray, lens: np.ndarray):
-        """``llm_prefill_kv`` of padded prompts, on the prefill stream on
-        CUDA: (logits, K, V, the event the worker waits on or None)."""
-        dev = self.device
-        if self._prefill_stream is None:
-            return (*llm_prefill_kv(self.cfg, self.engine.weights, to_device(toks, dev),
-                                    to_device(lens, dev)), None)
-        with torch.cuda.stream(self._prefill_stream):
-            out = llm_prefill_kv(self.cfg, self.engine.weights, to_device(toks, dev),
-                                 to_device(lens, dev))
-            event = torch.cuda.Event()
-            event.record(self._prefill_stream)
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray, rank: "_DPRank | None" = None):
+        """``llm_prefill_kv`` of padded prompts on dp rank ``rank`` (default
+        0), on its prefill stream on CUDA: (logits, K, V, the event the
+        worker waits on or None)."""
+        rank = rank or self.ranks[0]
+        dev = rank.device
+        with rank.scope():
+            if rank.prefill_stream is None:
+                return (*llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev),
+                                        to_device(lens, dev)), None)
+            with torch.cuda.stream(rank.prefill_stream):
+                out = llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev), to_device(lens, dev))
+                event = torch.cuda.Event()
+                event.record(rank.prefill_stream)
         return (*out, event)
 
     def _prefill_fused(self, toks: np.ndarray, lens: np.ndarray, seeds: np.ndarray,
-                       params: list[SamplerParams]):
-        """The prefill and first ``first_chunk`` steps of a group of k rows:
-        (the tokens' ``ChunkFetch``, the mini state for ``attach_lanes_gen``,
-        the event the worker waits on or None). Under ``use_graph`` the
-        steps replay the graph of k lanes on its state of ``max_ctx`` rows,
-        and the mini state handed on is a copy of its first bucket +
-        first_chunk rows (the next group may reuse the graph before the
-        worker attaches); the eager path is ``llm_prefill_generate``."""
-        dev = self.device
+                       params: list[SamplerParams], rank: "_DPRank | None" = None):
+        """The prefill and first ``first_chunk`` steps of a group of k rows
+        on dp rank ``rank`` (default 0): (the tokens' ``ChunkFetch``, the
+        mini state for ``attach_lanes_gen``, the event the worker waits on
+        or None). On CUDA the steps run on a k-lane state of ``max_ctx``
+        rows: a replay of the rank's graph of k lanes, or, for a
+        tensor-parallel group over distinct cards, the same body eagerly on
+        a fresh state, which gives the graph's bits (K2 splits the cache
+        rows by the cache's length); the mini state handed on is a copy of
+        its first bucket + first_chunk rows (the next group may reuse the
+        graph before the worker attaches). On the CPU, whose attention does
+        not depend on the cache's length, ``llm_prefill_generate`` runs
+        them on JAX's mini state of bucket + first_chunk rows."""
+        rank = rank or self.ranks[0]
+        dev = rank.device
         k = toks.shape[0]
         sampler_np = [[p.temp for p in params], [p.top_k for p in params],
                       [p.top_p for p in params], [p.repeat_penalty for p in params]]
-        if not self.use_graph:
+        if not rank.use_graph and dev.type == "cpu":
             out, n_new, gst = llm_prefill_generate(
-                self.cfg, self.engine.weights, self.engine.eog_ids, self.first_chunk,
-                to_device(toks, dev), to_device(lens, dev), seeds,
-                BatchSamplerParams.make(*sampler_np, dev))
+                self.cfg, rank.w, rank.eog_ids, self.first_chunk, to_device(toks, dev),
+                to_device(lens, dev), seeds, BatchSamplerParams.make(*sampler_np, dev))
             return start_chunk_fetch(out, n_new, gst), gst, None
-        with self._fused_lock, _on(self._prefill_stream):
-            graph, sampler = self._fused_graph(k)
-            sampler.copy_(BatchSamplerParams.make(*sampler_np, dev))
-            st = prefill_into(self.cfg, self.engine.weights, to_device(toks, dev),
-                              to_device(lens, dev), seeds, graph.state)
-            out, n_new = graph.run()
+        with rank.fused_lock, rank.scope(), _on(rank.prefill_stream):
+            tokens, lengths = to_device(toks, dev), to_device(lens, dev)
+            if rank.use_graph:
+                graph, sampler = self._fused_graph(k, rank)
+                sampler.copy_(BatchSamplerParams.make(*sampler_np, dev))
+                st = prefill_into(self.cfg, rank.w, tokens, lengths, seeds, graph.state)
+                out, n_new = graph.run()
+            else:
+                st = prefill_into(self.cfg, rank.w, tokens, lengths, seeds,
+                                  fused_state(self.cfg, k, self.max_ctx, dev, w=rank.w))
+                rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev)
+                out, n_new, _ = llm_generate_chunk_batched(
+                    self.cfg, rank.w, rank.eog_ids, self.first_chunk,
+                    BatchSamplerParams.make(*sampler_np, dev), st, rem)
             fetch = start_chunk_fetch(out, n_new, st)
             T = min(toks.shape[1] + self.first_chunk, self.max_ctx)
-            gst = GenState(st.logits.clone(), st.cache_k[:, :, :T].clone(),
-                           st.cache_v[:, :, :T].clone(), st.pos.clone(), st.ring.clone(),
-                           st.ring_idx, st.done.clone(), st.key.clone())
+            gst = GenState(st.logits.clone(), kv_map(lambda c: c[:, :, :T].clone(), st.cache_k),
+                           kv_map(lambda c: c[:, :, :T].clone(), st.cache_v), st.pos.clone(),
+                           st.ring.clone(), st.ring_idx, st.done.clone(), st.key.clone())
             event = None
-            if self._prefill_stream is not None:
+            if rank.prefill_stream is not None:
                 event = torch.cuda.Event()
-                event.record(self._prefill_stream)
+                event.record(rank.prefill_stream)
         return fetch, gst, event
 
-    def _fused_graph(self, k: int):
-        """The fused first chunk's graph for k lanes and its sampler
-        buffers, captured at first use (the caller holds _fused_lock); the
-        graph keeps its unbudgeted ``rem`` through its body."""
-        entry = self._fused.get(k)
+    def _fused_graph(self, k: int, rank: "_DPRank"):
+        """The fused first chunk's graph for k lanes of ``rank`` and its
+        sampler buffers, captured at first use (the caller holds the rank's
+        fused_lock); the graph keeps its unbudgeted ``rem`` through its
+        body."""
+        entry = rank.fused.get(k)
         if entry is None:
-            dev = self.device
+            dev = rank.device
             sampler = BatchSamplerParams.make(np.full(k, 0.8), np.full(k, 50), np.ones(k),
                                               np.ones(k), dev)
             rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev)
-            graph = capture_chunk_batched(self.cfg, self.engine.weights, self.engine.eog_ids,
-                                          self.first_chunk, sampler, rem,
-                                          fused_state(self.cfg, k, self.max_ctx, dev))
-            entry = self._fused[k] = (graph, sampler)
+            graph = capture_chunk_batched(self.cfg, rank.w, rank.eog_ids, self.first_chunk,
+                                          sampler, rem,
+                                          fused_state(self.cfg, k, self.max_ctx, dev, w=rank.w))
+            entry = rank.fused[k] = (graph, sampler)
         return entry
 
     @staticmethod
@@ -459,12 +589,10 @@ class ContinuousBatcher:
         """The worker's attach of a prefilled group: on CUDA its stream
         first waits for the prefill, and the prefill's tensors are marked as
         used there, so the prefill stream cannot reuse their memory before
-        the copies ran."""
+        the copies ran. (A tensor-parallel rank on another card prefilled
+        and attaches on that card's current stream, one stream.)"""
         if event is not None:
-            stream = torch.cuda.current_stream(logits.device)
-            stream.wait_event(event)
-            for t in (logits, new_k, new_v):
-                t.record_stream(stream)
+            _after(event, logits.device, (logits, *kv_parts(new_k), *kv_parts(new_v)))
         return attach_lanes(state, lanes, logits, new_k, new_v, lens, seeds)
 
     @staticmethod
@@ -472,10 +600,9 @@ class ContinuousBatcher:
         """The worker's attach of a fused group (``attach_lanes_gen``), after
         the prefill stream's event, as ``_attach``."""
         if event is not None:
-            stream = torch.cuda.current_stream(gst.logits.device)
-            stream.wait_event(event)
-            for t in (gst.logits, gst.cache_k, gst.cache_v, gst.pos, gst.ring, gst.done, gst.key):
-                t.record_stream(stream)
+            _after(event, gst.logits.device, (gst.logits, *kv_parts(gst.cache_k),
+                                              *kv_parts(gst.cache_v), gst.pos, gst.ring,
+                                              gst.done, gst.key))
         return attach_lanes_gen(state, lanes, gst)
 
     @property
@@ -505,22 +632,23 @@ class ContinuousBatcher:
     # -- warm-up ------------------------------------------------------------------
 
     def warm_prefill(self, bucket: int, n_lanes: int = 1) -> None:
-        """Run one prefill group of this prompt bucket at ``n_lanes`` lanes,
-        without a request: the fused prefill and first chunk when that is
-        what submits dispatch (capturing the first chunk's graph for this
-        group size at its first use), else ``llm_prefill_kv``; then
-        registers (bucket, n_lanes) as warm."""
+        """Run one prefill group of this prompt bucket at ``n_lanes`` lanes
+        on every dp rank, without a request: the fused prefill and first
+        chunk when that is what submits dispatch (capturing the first
+        chunk's graph for this group size at its first use), else
+        ``llm_prefill_kv``; then registers (bucket, n_lanes) as warm."""
         bucket = min(bucket, self.max_ctx)
         toks = np.ones((n_lanes, bucket), np.int64)
         lens = np.full(n_lanes, min(4, bucket), np.int32)
-        if self._use_fused(bucket):
-            fetch, _gst, _event = self._prefill_fused(toks, lens, np.zeros(n_lanes, np.int64),
-                                                      [SamplerParams()] * n_lanes)
-            finish_chunk_fetch(fetch)
-        else:
-            event = self._prefill(toks, lens)[3]
-            if event is not None:
-                event.synchronize()
+        for rank in self.ranks:
+            if self._use_fused(bucket):
+                fetch, _gst, _event = self._prefill_fused(
+                    toks, lens, np.zeros(n_lanes, np.int64), [SamplerParams()] * n_lanes, rank)
+                finish_chunk_fetch(fetch)
+            else:
+                event = self._prefill(toks, lens, rank)[3]
+                if event is not None:
+                    event.synchronize()
         with self._warm_lock:
             self._warm_prefills = self._warm_prefills | {(bucket, n_lanes)}
 
@@ -550,54 +678,57 @@ class ContinuousBatcher:
 
     def warm_chunk(self, size: int | None = None, width: int | None = None) -> None:
         """Make the chunk of ``size`` steps (default ``chunk_max``) at
-        ``width`` lanes (None or >= n_lanes: the full width) warm without
-        touching live generation: on CUDA its graph is captured with the
-        warm-up run on the throwaway ``_warm_state``, so this may run while
-        the worker serves (miotts_tpu/serving/batching.py:552-593). On the
-        CPU there is nothing to compile: the key is registered. Thread-safe."""
+        ``width`` lanes (None or >= n_lanes: the full width) warm on every
+        dp rank without touching live generation: on CUDA its graph is
+        captured with the warm-up run on the throwaway ``warm_state``, so
+        this may run while the worker serves
+        (miotts_tpu/serving/batching.py:552-593). Nothing to compile
+        otherwise: the key is registered. Thread-safe."""
         size = self.chunk_max if size is None else size
         width = self.n_lanes if width is None or width >= self.n_lanes else width
-        if self.use_graph:
-            self._graph(size, width)
-        else:
-            self._warm_state_now()
+        for rank in self.ranks:
+            if rank.use_graph:
+                self._graph(rank, size, width)
+            else:
+                self._warm_state_now(rank)
         with self._warm_lock:
             self._warm_chunks = self._warm_chunks | {(size, width)}
 
     def release_warm_state(self) -> None:
-        """Drop the throwaway warm state (a full KV cache) once the warm-up
-        tail no longer captures; a later capture makes a new one."""
-        with self._capture_lock:
-            self._warm_state = None
+        """Drop the throwaway warm states (a full KV cache each) once the
+        warm-up tail no longer captures; a later capture makes new ones."""
+        for rank in self.ranks:
+            with rank.capture_lock:
+                rank.warm_state = None
 
-    def _warm_state_now(self) -> GenState:
-        """The throwaway state of the live state's shapes (all lanes done)
-        that captures run their warm-up on; the caller holds
-        _capture_lock or tolerates a race that makes two."""
-        ws = self._warm_state
+    def _warm_state_now(self, rank: "_DPRank") -> GenState:
+        """The throwaway state of ``rank``'s state's shapes (all lanes done)
+        that captures run their warm-up on; the caller holds the rank's
+        capture_lock or tolerates a race that makes two."""
+        ws = rank.warm_state
         if ws is None:
-            ws = self._warm_state = init_batched_state(self.cfg, self.n_lanes, self.max_ctx,
-                                                       self.device, self.seed)
+            ws = rank.warm_state = init_batched_state(self.cfg, rank.n_lanes, self.max_ctx,
+                                                      rank.device, self.seed, w=rank.w)
         return ws
 
-    def _graph(self, size: int, width: int) -> decode_graph.ChunkGraph:
-        """The chunk graph of (size, width), captured at first use on the
-        live state, its warm-up run on ``_warm_state``."""
-        graph = self.graphs.get((size, width))
+    def _graph(self, rank: "_DPRank", size: int, width: int) -> decode_graph.ChunkGraph:
+        """``rank``'s chunk graph of (size, width) (width >= n_lanes: the
+        rank's full width), captured at first use on the rank's live state,
+        its warm-up run on the rank's ``warm_state``."""
+        graph = rank.graphs.get((size, width))
         if graph is not None:
             return graph
-        with self._capture_lock:
-            graph = self.graphs.get((size, width))
+        with rank.capture_lock, rank.scope():
+            graph = rank.graphs.get((size, width))
             if graph is None:
-                ws = self._warm_state_now()
-                args = (self.cfg, self.engine.weights, self.engine.eog_ids, size, self.sampler,
-                        self.rem)
+                ws = self._warm_state_now(rank)
+                args = (self.cfg, rank.w, rank.eog_ids, size, rank.sampler, rank.rem)
                 if width >= self.n_lanes:
-                    graph = capture_chunk_batched(*args, self.state, warm_state=ws)
+                    graph = capture_chunk_batched(*args, rank.state, warm_state=ws)
                 else:
-                    graph = capture_chunk_batched_sliced(*args, self._lanes_bufs[width],
-                                                         self.state, warm_state=ws)
-                self.graphs = {**self.graphs, (size, width): graph}
+                    graph = capture_chunk_batched_sliced(*args, rank.lanes_bufs[width],
+                                                         rank.state, warm_state=ws)
+                rank.graphs = {**rank.graphs, (size, width): graph}
         return graph
 
     def _rung(self, size: int) -> int:
@@ -605,31 +736,44 @@ class ContinuousBatcher:
         smallest rung of the ladder at or above it."""
         return next(r for r in self.ladder if r >= size)
 
-    def _chunk(self, steps: int, width: int | None, lanes_np: np.ndarray | None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One chunk of ``steps`` steps on the state at ``width`` lanes
-        (None: all): a replay on CUDA, the eager body on the CPU."""
+    def _chunk(self, rank: "_DPRank", steps: int, width: int | None,
+               lanes_np: np.ndarray | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """One chunk of ``steps`` steps on ``rank``'s state at ``width``
+        lanes (None: all): a replay where the rank replays graphs, else the
+        eager body."""
         if width is None:
-            if self.use_graph:
-                return self._graph(steps, self.n_lanes).run()
-            out, n_new, _ = llm_generate_chunk_batched(self.cfg, self.engine.weights,
-                                                       self.engine.eog_ids, steps, self.sampler,
-                                                       self.state, self.rem)
+            if rank.use_graph:
+                return self._graph(rank, steps, self.n_lanes).run()
+            with rank.scope():
+                out, n_new, _ = llm_generate_chunk_batched(self.cfg, rank.w, rank.eog_ids, steps,
+                                                           rank.sampler, rank.state, rank.rem)
             return out, n_new
-        lanes = self._lanes_bufs[width]
-        lanes.copy_(to_device(lanes_np, self.device))
-        if self.use_graph:
-            return self._graph(steps, width).run()
+        lanes = rank.lanes_bufs[width]
+        lanes.copy_(to_device(lanes_np, rank.device))
+        if rank.use_graph:
+            return self._graph(rank, steps, width).run()
         out, n_new, _ = llm_generate_chunk_batched_sliced(
-            self.cfg, self.engine.weights, self.engine.eog_ids, steps, width, self.sampler,
-            self.state, lanes, self.rem)
+            self.cfg, rank.w, rank.eog_ids, steps, width, rank.sampler, rank.state, lanes,
+            rank.rem)
         return out, n_new
 
     def _free_lane(self) -> int | None:
-        for i, lane in enumerate(self.lanes):
-            if lane is None:
-                return i
-        return None
+        """A free lane: the first, or, on a mesh, the first of the dp rank
+        with the fewest lanes taken (requests fan out over the ranks, as
+        the reference round-robins its slots over its backends)."""
+        free = [i for i, lane in enumerate(self.lanes) if lane is None]
+        if not free or len(self.ranks) == 1:
+            return free[0] if free else None
+        taken = [sum(lane is not None for lane in self.lanes[r * self.per_rank:
+                                                             (r + 1) * self.per_rank])
+                 for r in range(len(self.ranks))]
+        return min(free, key=lambda i: (taken[i // self.per_rank], i))
+
+    def _set_done(self, lane: int) -> None:
+        """Mark a global lane done on its dp rank, on its stream."""
+        rank, local = self._where(lane)
+        with _on(rank.stream):
+            set_lane_done(rank.state, local)
 
     def shutdown(self) -> None:
         self._prefill_q.put(None)
@@ -641,8 +785,8 @@ class ContinuousBatcher:
 
     def _fail_active_lanes(self, snapshot: list[int], exc: Exception) -> None:
         """Deliver a device failure to every in-flight request and reset
-        the batched state (in place: the chunk graphs own its buffers) so
-        later submits start clean."""
+        each dp rank's state (in place: the chunk graphs own its buffers)
+        so later submits start clean (miotts_tpu/serving/batching.py:628)."""
         print(f"mio: generation chunk failed, resetting lanes: {exc!r}", file=sys.stderr)
         self._work_started = None
         with self._cv:
@@ -653,29 +797,26 @@ class ContinuousBatcher:
                 lane.handle.error = exc
                 lane.handle._q.put(None)
                 self.lanes[i] = None
-            try:
-                self.state.done.fill_(True)
-                self.state.ring.fill_(-1)
-            except Exception as e:  # a card in a sticky error state
-                print(f"mio: lane reset failed: {e!r}", file=sys.stderr)
+            for rank in self.ranks:
+                try:
+                    with _on(rank.stream):
+                        rank.state.done.fill_(True)
+                        rank.state.ring.fill_(-1)
+                except Exception as e:  # a card in a sticky error state
+                    print(f"mio: lane reset failed: {e!r}", file=sys.stderr)
             self._cv.notify_all()
 
     # -- worker loop ---------------------------------------------------------------
-
-    def _run(self) -> None:
-        # every device call of the worker (attach, chunk, read, lane done)
-        # runs on its own stream
-        with _on(self._stream):
-            self._loop()
 
     def _apply_pending(self) -> None:
         """Apply the queued attaches (the caller holds _cv): a failed one
         fails its group only; lanes that finished inside their fused steps
         are freed right after their attach."""
-        for lane_list, apply_fn, finish in self._pending:
+        for rank_index, lane_list, apply_fn, finish in self._pending:
+            rank = self.ranks[rank_index]
             try:
-                with trace_phase(f"attach k={len(lane_list)}"):
-                    self.state = apply_fn(self.state)
+                with trace_phase(f"attach k={len(lane_list)}"), _on(rank.stream):
+                    rank.state = apply_fn(rank.state)
             except Exception as e:
                 print(f"mio: lane attach failed: {e!r}", file=sys.stderr)
                 for lane_idx in lane_list:
@@ -690,7 +831,7 @@ class ContinuousBatcher:
                 lane = self.lanes[lane_idx]
                 if lane is not None:
                     lane.started = True
-                    self.sampler.set_lane(lane_idx, lane.sampler)
+                    rank.sampler.set_lane(self._where(lane_idx)[1], lane.sampler)
             for lane_idx, needs_done in finish:
                 lane = self.lanes[lane_idx]
                 if lane is None:
@@ -698,12 +839,44 @@ class ContinuousBatcher:
                 lane.handle._q.put(None)
                 self.lanes[lane_idx] = None
                 if needs_done:
-                    set_lane_done(self.state, lane_idx)
+                    self._set_done(lane_idx)
                 self._cv.notify_all()
         self._pending.clear()
 
+    def _dispatch(self, steps: int, width: int | None, lanes_np: np.ndarray | None,
+                  rem_np: np.ndarray, live: set[int]) -> list:
+        """One chunk on every dp rank with a live lane, each on its stream:
+        its budgets written, its replay (or eager body) queued and its
+        result's read started. Returns [(rank, ChunkFetch)]."""
+        fetches = []
+        for rank in self.ranks:
+            lo = rank.index * self.per_rank
+            if not any(lo <= i < lo + self.per_rank for i in live):
+                continue
+            with _on(rank.stream):
+                rank.rem.copy_(to_device(rem_np[lo:lo + self.per_rank], rank.device))
+                out, n_new = self._chunk(rank, steps, width, lanes_np)
+                fetches.append((rank, start_chunk_fetch(out, n_new, rank.state)))
+        return fetches
+
+    def _finish(self, fetches: list, steps: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The dp ranks' chunk results read and joined in global lane order
+        (a rank that ran no chunk reads as done, with no tokens)."""
+        out_np = np.zeros((self.n_lanes, steps), np.int32)
+        n_np = np.zeros(self.n_lanes, np.int32)
+        done_np = np.ones(self.n_lanes, bool)
+        for rank, fetch in fetches:
+            lo = rank.index * self.per_rank
+            o, n, d = finish_chunk_fetch(fetch)
+            out_np[lo:lo + self.per_rank, :o.shape[1]] = o
+            n_np[lo:lo + self.per_rank] = n
+            done_np[lo:lo + self.per_rank] = d
+        return out_np, n_np, done_np
+
     def _loop(self) -> None:
-        inflight: deque = deque()  # (ChunkFetch, snapshot, size)
+        """The worker. Every device call it makes (attach, chunk, read, lane
+        done) runs on its dp rank's worker stream."""
+        inflight: deque = deque()  # ([(rank, ChunkFetch)], snapshot, size, steps)
         while True:
             with self._cv:
                 while (not inflight and not self._shutdown and not self._pending
@@ -718,7 +891,7 @@ class ContinuousBatcher:
                     if lane is not None and lane.started and lane.generated >= lane.n_predict:
                         lane.handle._q.put(None)
                         self.lanes[i] = None
-                        set_lane_done(self.state, i)
+                        self._set_done(i)
                         self._cv.notify_all()
                 # the snapshot carries the lane objects: delivery checks that
                 # self.lanes[i] is still the same request
@@ -727,7 +900,7 @@ class ContinuousBatcher:
                 # steps in flight per lane object (a lane index may have been
                 # attached again; the new request owes nothing for them)
                 steps_inflight: dict[int, int] = {}
-                for _fetch, snap, size_k in inflight:
+                for _fetches, snap, size_k, _steps in inflight:
                     for _i, lobj in snap:
                         steps_inflight[id(lobj)] = steps_inflight.get(id(lobj), 0) + size_k
                 worth_dispatching = any(
@@ -774,15 +947,14 @@ class ContinuousBatcher:
                         self._work_started = time.monotonic()
                     with trace_phase(f"chunk_dispatch steps={steps} "
                                      f"width={width or self.n_lanes} live={len(snapshot)}"):
-                        self.rem.copy_(to_device(rem_np, self.device))
-                        out, n_new = self._chunk(steps, width, lanes_np)
-                        fetch = start_chunk_fetch(out, n_new, self.state)
+                        fetches = self._dispatch(steps, width, lanes_np, rem_np,
+                                                 {i for i, _ in snapshot})
                     key = (steps, width or self.n_lanes)
                     if key not in self._warm_chunks:
                         with self._warm_lock:
                             self._warm_chunks = self._warm_chunks | {key}
                     self.width_counts[key[1]] = self.width_counts.get(key[1], 0) + 1
-                    inflight.append((fetch, snapshot, size))
+                    inflight.append((fetches, snapshot, size, steps))
                     dispatched = True
                 except Exception as e:  # device failure: fail the cohort, keep serving
                     self._fail_active_lanes(sorted({i for i, _ in snapshot} | {
@@ -792,11 +964,11 @@ class ContinuousBatcher:
             # read the oldest chunk once the pipeline is full, or when
             # nothing new was dispatched (nothing left to overlap it with)
             if inflight and (len(inflight) > self.depth or not dispatched):
-                fetch_k, snap_k, _size_k = inflight.popleft()
+                fetches_k, snap_k, _size_k, steps_k = inflight.popleft()
                 tf = time.monotonic()
                 try:
                     with trace_phase("chunk_fetch"):
-                        out_np, n_np, done_np = finish_chunk_fetch(fetch_k)
+                        out_np, n_np, done_np = self._finish(fetches_k, steps_k)
                 except Exception as e:  # device failure: fail the cohort, keep serving
                     self._fail_active_lanes(sorted({i for i, _ in snap_k} | {
                         i for chk in inflight for i, _ in chk[1]}), e)
@@ -860,7 +1032,7 @@ class ContinuousBatcher:
                     lane.handle._q.put(None)
                     self.lanes[i] = None
                     if not done_np[i]:
-                        set_lane_done(self.state, i)
+                        self._set_done(i)
                     freed = True
             if freed:
                 self._cv.notify_all()

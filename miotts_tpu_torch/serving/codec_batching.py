@@ -10,6 +10,17 @@ at B = the power of two at or above its size (``_pow2_lanes``), not at the
 batcher's ``max_batch``: padding a lone request to ``max_batch`` lanes
 would multiply its codec work by ``max_batch``. ``warm`` captures a key's
 graphs ahead of time.
+
+On a mesh (``mesh=``, dp ranks; miotts_tpu/serving/codec_batching.py:83-96)
+``max_batch`` is rounded up to a multiple of dp and a group's calls split
+over the dp ranks in contiguous blocks of ceil(n / dp), as JAX's ``P("dp")``
+splits its lanes; each rank decodes its block through its own device's
+pipeline (``MioTTSPipeline.replica``: the codec weights copied once to each
+dp rank's card) at B = the power of two at or above the block, all ranks at the
+group's one bucket, at once. So a group of n calls decodes
+dp x pow2(ceil(n / dp)) lanes in all: a power of two on every rank, a
+multiple of dp over the mesh. Ranks on one card share its pipeline, whose
+lock runs their decodes one after the other.
 """
 
 from __future__ import annotations
@@ -17,7 +28,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 
@@ -32,8 +43,21 @@ def _pow2_lanes(n_active: int) -> int:
 
 class CodecMicroBatcher:
     def __init__(self, pipeline: MioTTSPipeline, max_batch: int = 8,
-                 gather_window_s: float = 0.003):
+                 gather_window_s: float = 0.003, mesh=None):
         self.pipeline = pipeline
+        self.mesh = mesh
+        # one pipeline a dp rank: this one, or its replica on the rank's device
+        self.pipelines = [pipeline]
+        self._pool = None
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            max_batch = -(-max_batch // dp) * dp
+            self.pipelines = [pipeline.replica(d.device) for d in mesh.devices[:, 0]]
+            if dp > 1:
+                self._pool = ThreadPoolExecutor(dp, thread_name_prefix="codec-rank")
+        # decodes each dp rank ran (a group decodes once on each rank with a
+        # share of it)
+        self.rank_decodes = [0] * len(self.pipelines)
         self.max_batch = max_batch
         self.gather_window_s = gather_window_s
         self._q: "queue.Queue[tuple | None]" = queue.Queue()
@@ -72,17 +96,21 @@ class CodecMicroBatcher:
         """Capture the codec graphs ``_run_group`` replays for this (bucket,
         options), at every lane count a group decodes at (the powers of two
         up to ``_pow2_lanes(max_batch)``), without going through the gather
-        queue. Nothing to capture on the CPU."""
-        if not self.pipeline.use_graph:
-            return
-        for i in range(_pow2_lanes(self.max_batch).bit_length()):
-            B = 1 << i
-            self.pipeline.capture(bucket, B, interp_anchor=interp_anchor,
-                                  peak_normalize=peak_normalize, window=wlen, pcm16=pcm16)
+        queue, on each dp rank's pipeline (at the lane counts of a rank's
+        block). Nothing to capture on the CPU."""
+        per_rank = -(-self.max_batch // len(self.pipelines))
+        for pipe in dict.fromkeys(self.pipelines):
+            if not pipe.use_graph:
+                continue
+            for i in range(_pow2_lanes(per_rank).bit_length()):
+                pipe.capture(bucket, 1 << i, interp_anchor=interp_anchor,
+                             peak_normalize=peak_normalize, window=wlen, pcm16=pcm16)
 
     def shutdown(self) -> None:
         self._q.put(None)
         self._thread.join(timeout=5)
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
 
     # ------------------------------------------------------------------
 
@@ -125,10 +153,26 @@ class CodecMicroBatcher:
         return sorted(groups.items(), key=lambda kv: 0 if any(it[5] for it in kv[1]) else 1)
 
     def _run_group(self, opts: tuple, batch: list[tuple]) -> None:
-        cfg = self.pipeline.config
+        """Decode a group: at once, or, on a mesh, each dp rank its block
+        of calls (module docstring), all at the group's bucket."""
+        bucket = pick_bucket(max(len(item[0]) for item in batch), self.pipeline.buckets)
+        if self._pool is None:
+            self._decode(0, opts, batch, bucket)
+            return
+        per = -(-len(batch) // len(self.pipelines))
+        futures = [self._pool.submit(self._decode, r, opts, batch[r * per:(r + 1) * per], bucket)
+                   for r in range(len(self.pipelines)) if batch[r * per:(r + 1) * per]]
+        for fut in futures:
+            fut.result()
+
+    def _decode(self, rank: int, opts: tuple, batch: list[tuple], bucket: int) -> None:
+        """One decode of ``batch`` on dp rank ``rank``'s pipeline at B = the
+        power of two at or above its size; each call's result (or the
+        failure) goes to its future."""
+        pipe = self.pipelines[rank]
+        cfg = pipe.config
         interp_anchor, peak_normalize, pcm16, wlen = opts
         try:
-            bucket = pick_bucket(max(len(item[0]) for item in batch), self.pipeline.buckets)
             B = _pow2_lanes(len(batch))
             tokens = np.zeros((B, bucket), np.int64)
             lengths = np.ones(B, np.int32)  # pad lanes: one zero code
@@ -142,11 +186,12 @@ class CodecMicroBatcher:
                 if cond is not None:
                     cond[i] = np.asarray(item[1], np.float32).reshape(-1)
             with trace_phase(f"codec_group B={B} bucket={bucket}"):
-                audio, counts, decode_ms = self.pipeline.decode(
+                audio, counts, decode_ms = pipe.decode(
                     tokens, lengths, cond, interp_anchor=interp_anchor,
                     peak_normalize=peak_normalize, window=wlen,
                     starts=starts if wlen is not None else None, pcm16=pcm16,
                     as_int16=pcm16 and wlen is None)
+            self.rank_decodes[rank] += 1
             for i, item in enumerate(batch):
                 n_valid = int(counts[i])
                 if wlen is not None:

@@ -20,6 +20,12 @@ runs before the server listens and the rest on a background thread
 (``warmup``); a key first met while serving pays an eager decode and, at
 its second decode, a capture.
 
+``--mio-backend-devices`` and ``-tp`` build a (dp, tp) mesh
+(``parallel/``; ``_init_meshes``): the batcher's lanes and the codec
+micro-batches split over dp, the LLM over tp; ``--codec-devices`` gives the
+codec a dp mesh of its own. ``MIOTTS_LOGICAL_DEVICES=n`` presents one
+device as n ranks (the one-card check of ``chip_smoke.py``).
+
 With ``--llm-api-url`` a text request's codes come from the external LLM
 (``runtime/llm_api.py``), not the batcher. ``MIOTTS_PROFILE_DIR`` starts a
 ``torch.profiler`` trace of the process (``runtime/tracing.py``).
@@ -59,14 +65,11 @@ def now_ms() -> float:
     return time.perf_counter() * 1e3
 
 
-def unported_option(cfg: ServerConfig) -> str | None:
-    """The first configured option whose path the port does not run yet."""
-    checks = (
-        (cfg.mio_backend_devices, "--mio-backend-devices (multi-device serving)"),
-        (cfg.codec_devices, "--codec-devices (multi-device serving)"),
-        (cfg.tensor_parallel > 1, "-tp/--tensor-parallel > 1"),
-    )
-    return next((name for given, name in checks if given), None)
+def check_mesh_flags(cfg: ServerConfig) -> None:
+    """Raise JAX's error for ``-tp`` without ``--mio-backend-devices``, the
+    one check the mesh flags allow before any device is known."""
+    if max(1, cfg.tensor_parallel) > 1 and not (cfg.mio_backend_devices or "").strip():
+        raise ValueError("--tensor-parallel requires --mio-backend-devices")
 
 
 class SlotPool:
@@ -97,17 +100,16 @@ class SlotPool:
 
 class ServingEngine:
     def __init__(self, cfg: ServerConfig, device: torch.device | None = None):
-        option = unported_option(cfg)
-        if option:
-            raise ValueError(f"{option} not yet ported to miotts_tpu_torch")
         self.cfg = cfg
         self.device = device if device is not None else select_device()
         maybe_start_profiler()
         self.pipeline = MioTTSPipeline(cfg.model_vocoder, self.device, check_syncs=False,
                                        wavlm_path=cfg.wavlm_model or None)
+        self._init_meshes(cfg)
         from .codec_batching import CodecMicroBatcher
 
-        self.codec_batcher = CodecMicroBatcher(self.pipeline, max_batch=max(1, cfg.n_parallel))
+        self.codec_batcher = CodecMicroBatcher(self.pipeline, max_batch=max(1, cfg.n_parallel),
+                                               mesh=self.codec_mesh)
         self.llm = None
         self.batcher = None
         if cfg.model:
@@ -120,7 +122,7 @@ class ServingEngine:
                 max_ctx=cfg.n_ctx + cfg.n_predict + 64,
                 # SSE token granularity stays sub-second (32 tokens = 1.3 s
                 # of audio)
-                chunk=32, seed=cfg.seed)
+                chunk=32, seed=cfg.seed, mesh=self.mesh)
         # the LLM engine's own (B = 1) generation serves oversized prompts,
         # one at a time
         self._oversized_lock = threading.Lock()
@@ -147,6 +149,36 @@ class ServingEngine:
             self._preload_references(cfg.reference_file_json)
         if cfg.warmup:
             self.warmup()
+
+    def _init_meshes(self, cfg: ServerConfig) -> None:
+        """The (dp, tp) mesh over ``--mio-backend-devices`` and ``-tp``
+        (miotts_tpu/serving/engine.py:65-112): batch lanes and codec
+        micro-batches split over dp, the LLM over tp; one device at tp 1
+        is no mesh. ``--codec-devices`` gives the codec a dp-only mesh of
+        its own (else it shares the LLM's), over which the micro-batcher
+        replicates the codec weights."""
+        from ..parallel.mesh import make_mesh, parse_backend_devices
+
+        check_mesh_flags(cfg)
+        platform = self.device.type
+        self.mesh = None
+        tp = max(1, cfg.tensor_parallel)
+        devices = parse_backend_devices(cfg.mio_backend_devices, platform)
+        if devices is not None and (len(devices) > 1 or tp > 1):
+            if len(devices) % tp != 0:
+                raise ValueError(f"--tensor-parallel {tp} does not divide the "
+                                 f"{len(devices)} backend devices")
+            self.mesh = make_mesh(devices, tp=tp)
+        self.codec_mesh = self.mesh
+        if cfg.codec_devices:
+            cdevs = parse_backend_devices(cfg.codec_devices, platform)
+            if self.mesh is not None:
+                overlap = set(self.mesh.devices.reshape(-1).tolist()) & set(cdevs)
+                if overlap:
+                    print(f"warning: --codec-devices overlaps the LLM mesh on "
+                          f"{sorted(d.id for d in overlap)} — overlap synthesis will contend "
+                          "there", file=sys.stderr)
+            self.codec_mesh = make_mesh(cdevs, tp=1)
 
     def shutdown(self) -> None:
         """Stop the batchers' threads (after the warm-up tail, if one runs)."""
@@ -194,7 +226,8 @@ class ServingEngine:
         max_prompt = b.max_ctx - 8
         llm_buckets = [x for x in _PROMPT_BUCKETS if x <= max_prompt] or [max(8, max_prompt)]
         calls: list[tuple[int, dict | None]] = [(x, None) for x in llm_buckets]
-        burst = 1 << max(0, b.n_lanes - 1).bit_length()
+        # a prefill group is one dp rank's lanes at most
+        burst = 1 << max(0, b.per_rank - 1).bit_length()
         ladder, g = [], 2
         while g <= burst:
             ladder.append(g)

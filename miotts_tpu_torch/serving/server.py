@@ -43,7 +43,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..runtime.audio_io import encode_wav16
-from .engine import ServingEngine, now_ms, unported_option
+from .engine import ServingEngine, check_mesh_flags, now_ms
 from .state import RequestError, ServerConfig, is_valid_reference_key, parse_request_json
 from .webui import INDEX_HTML as _UI_HTML, UI_CSS as _UI_CSS, UI_JS as _UI_JS
 
@@ -207,8 +207,10 @@ class MioTTSServer:
                         "external_llm_enabled": cfg.llm_api_enabled,
                         "external_llm_mode": cfg.llm_api_mode,
                         "llm_shared_context": cfg.llm_shared_context,
-                        "backend_devices": 1,
-                        "tensor_parallel": 1,
+                        "backend_devices": (eng.mesh.devices.size
+                                            if eng.mesh is not None else 1),
+                        "tensor_parallel": (eng.mesh.shape.get("tp", 1)
+                                            if eng.mesh is not None else 1),
                         "llm_quant": (eng.llm.quantize if eng.llm is not None
                                       else ""),
                         "warmup_complete": eng.warmup_bg_done,
@@ -903,11 +905,8 @@ def main(argv=None) -> int:
     # out, =DIR picks the directory
     os.environ.setdefault("MIOTTS_PACKED_CACHE", "1")
     cfg = config_from_args(build_arg_parser().parse_args(argv))
-    option = unported_option(cfg)
-    if option:
-        print(f"error: {option} not yet ported to miotts_tpu_torch", file=sys.stderr)
-        return 1
     try:
+        check_mesh_flags(cfg)
         device = select_device()
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)

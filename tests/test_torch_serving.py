@@ -602,19 +602,18 @@ def test_reference_file_alias():
     (["-tp", "2"], "-tp/--tensor-parallel"),
 ])
 def test_unported_flags_exit(capsys, monkeypatch, argv, flag):
-    """Each flag not yet ported exits 1 naming it. --tts-wavlm-model and
-    --llm-api-url are ported: main goes past the flag check to the device
-    (an unknown platform here, so it stops there without loading a
-    model)."""
-    ported = flag in ("--tts-wavlm-model", "--llm-api-url")
-    if ported:
-        monkeypatch.setenv("MIOTTS_PLATFORM", "none")
+    """Every server flag is ported: main goes past the flag checks to the
+    device (an unknown platform here, so it stops there without loading a
+    model), but for ``-tp 2`` without ``--mio-backend-devices``, which
+    exits 1 with the JAX engine's error."""
+    monkeypatch.setenv("MIOTTS_PLATFORM", "none")
     assert server_mod.main(["-mv", "c.gguf", *argv]) == 1
     err = capsys.readouterr().err
-    if ported:
-        assert err.startswith("error: MIOTTS_PLATFORM must be one of") and "not yet" not in err
+    assert "not yet" not in err
+    if flag == "-tp/--tensor-parallel":
+        assert err.startswith("error: --tensor-parallel requires --mio-backend-devices")
     else:
-        assert err.startswith(f"error: {flag}") and "not yet ported to miotts_tpu_torch" in err
+        assert err.startswith("error: MIOTTS_PLATFORM must be one of")
 
 
 def test_module_entry_point_serves(engine_dir):
