@@ -241,6 +241,23 @@ the server phase's are reported, since a bf16 rank rounds its partial
 sums apart). These are a mesh's overheads on one card, not a multi-card
 speed-up.
 
+After the mesh phase, an sp phase (``--sequence-parallel``,
+``parallel/sequence.py``) on MIOTTS_LOGICAL_DEVICES=4 ranks of the card at
+full width: K1 at a rank's halo-extended shapes (timed beside its bound and
+SDPA with the band mask); the CLI with ``--sequence-parallel 2`` and ``4``
+on 400 codes and on 390, whose end falls inside a rank's halo, each WAV
+within 2 int16 steps of the mesh-less CLI's and K1 14 launches on every
+rank; and for the 24 kHz, 44.1 kHz and mel codecs four
+``pipeline.synthesize`` decodes of 400 codes at sp = 2 and 4 (eager,
+capture, two replays), each within 1e-4 of the mesh-less decode (or, where
+the codec's mesh-less decode itself moves further with its GroupNorm
+statistics summed in f64, four times that move) with mel-L1 < 1e-2, every
+replay bit-equal to the eager decode, K1 14 launches a decode on every rank
+and K4, K5 and K6 on every rank in mel mode (``graphs.rank_launches``);
+eager, capture and replay wall ms beside the mesh-less pipeline's; a
+stream's window fetch at sp = 4; and the mel sp decode's mel-L1 against
+the CPU's f32 decode.
+
 Before the last line it prints one JSON object with each kernel's launch
 count in the request paths (each path driven with every count at 0), its
 error, its time, its plain version's time, its bound (the least time the
@@ -287,6 +304,7 @@ from miotts_tpu_torch.ops.cuda import conv1d as k4
 from miotts_tpu_torch.ops.cuda import decode_attention as k2
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.ops.cuda import resblock as k6
+from miotts_tpu_torch.parallel.mesh import logical_devices
 from miotts_tpu_torch.pipeline import CodecKey, MioTTSPipeline, pick_bucket
 from miotts_tpu_torch.runtime import device_dequant
 from miotts_tpu_torch.streaming import StreamingSynthesizer
@@ -437,31 +455,40 @@ def k1_case(dev, gen, B: int, T: int, H: int, D: int, lens: list[int], window: i
     return err, q, k, v, lengths
 
 
+def k1_timing(dev, gen, what: str, B: int, H: int, T: int, lens: list[int]
+              ) -> tuple[list, float, dict]:
+    """K1 at [B, T, H, 64] against its plain version, timed beside its bound
+    and one SDPA call with the band mask (on [B, H, T, D] copies): ([kernel,
+    plain, SDPA, bound] ms, max abs error, the kernel line's fields)."""
+    err, q, k, v, lengths = k1_case(dev, gen, B, T, H, 64, lens)
+    mask = band_mask(T, lengths)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = cuda_ms(lambda: k1.banded_attention(q, k, v, lengths, K1_WINDOW))
+    plain = cuda_ms(lambda: k1.banded_attention_plain(q, k, v, lengths, K1_WINDOW))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    diff = (F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask).transpose(1, 2)
+            - k1.banded_attention(q, k, v, lengths, K1_WINDOW)).abs().max().item()
+    nbytes = 4 * 4 * B * T * H * 64 + 4 * B  # q, k, v in, out; lengths
+    # two FMAs (score and value) a pair and a column
+    lb = least_time(nbytes, 4 * 64 * H * int(mask.sum()), F32_FLOP_S)
+    log(f"{what} B={B} H={H} T={T} lengths={lens} "
+        f"launch={tuple(k1.launch_shape(B, T, H, 64, K1_WINDOW))}: kernel={ms:.4f}ms "
+        f"plain={plain:.4f}ms SDPA(band mask)={lib:.4f}ms (max diff {diff:.3e}) "
+        f"bound={lb['bound_ms']:.5f}ms ({lb['bound_by']})")
+    return ([round(ms, 5), round(plain, 5), round(lib, 5), round(lb["bound_ms"], 5)], err,
+            {"ms": ms, "plain_ms": plain, **lb, "library_ms": lib})
+
+
 def check_k1(dev, gen) -> dict:
     worst, by_shape, at = 0.0, {}, {}
     # the codec's request shapes (B=1), each timed beside its bound and one
     # SDPA call with the band mask (on [B, H, T, D] copies)
     for name, B, H, T, lens in K1_SHAPES:
-        err, q, k, v, lengths = k1_case(dev, gen, B, T, H, 64, lens)
+        by_shape[name], err, row = k1_timing(dev, gen, f"[k1] {name}", B, H, T, lens)
         worst = max(worst, err)
-        mask = band_mask(T, lengths)
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = cuda_ms(lambda: k1.banded_attention(q, k, v, lengths, K1_WINDOW))
-        plain = cuda_ms(lambda: k1.banded_attention_plain(q, k, v, lengths, K1_WINDOW))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
-        diff = (F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask).transpose(1, 2)
-                - k1.banded_attention(q, k, v, lengths, K1_WINDOW)).abs().max().item()
-        nbytes = 4 * 4 * B * T * H * 64 + 4 * B  # q, k, v in, out; lengths
-        # two FMAs (score and value) a pair and a column
-        lb = least_time(nbytes, 4 * 64 * H * int(mask.sum()), F32_FLOP_S)
-        by_shape[name] = [round(ms, 5), round(plain, 5), round(lib, 5), round(lb["bound_ms"], 5)]
-        log(f"[k1] {name} B={B} H={H} T={T} lengths={lens} "
-            f"launch={tuple(k1.launch_shape(B, T, H, 64, K1_WINDOW))}: kernel={ms:.4f}ms "
-            f"plain={plain:.4f}ms SDPA(band mask)={lib:.4f}ms (max diff {diff:.3e}) "
-            f"bound={lb['bound_ms']:.5f}ms ({lb['bound_by']})")
         if (B, H, T, lens) == (1, 8, 1024, [954]):
-            at = {"ms": ms, "plain_ms": plain, **lb, "library_ms": lib,
-                  "at": "B=1 H=8 T=1024 D=64, length 954; library = SDPA with the band mask"}
+            at = {**row, "at": "B=1 H=8 T=1024 D=64, length 954; library = SDPA with the "
+                               "band mask"}
     # ragged batches, the trunk's other stack widths, the run-time width
     # instance (D not 64, D not a multiple of 4) and a narrow window
     for B, T, H, D, window in ((4, 512, 12, 64, 65), (4, 1024, 8, 64, 65), (4, 256, 12, 64, 65),
@@ -1530,6 +1557,7 @@ def check_codec_knobs(dev, tmp: Path, emb, cfgs: dict) -> dict:
     codes = rng.randint(0, mcfg.vocab_size, KNOB_CODES)
     t0 = time.perf_counter()
     cpu_mel = MioTTSPipeline(tmp / "mel_codec.gguf", cpu).synthesize(codes64, emb).audio
+    CPU_REFS["mel"] = (codes64, cpu_mel)
     log(f"[knobs] mel CPU f32 decode of {KNOB_MEL_CPU_CODES} codes in "
         f"{time.perf_counter() - t0:.1f}s")
     ref400 = None
@@ -2793,19 +2821,23 @@ def mesh_server_run(dev, tmp: Path, llm: str, flags: list[str], mesh: bool,
     out: dict = {}
     argv = [*SERVER_FLAGS, "--warmup", "off", *flags, *(MESH_FLAGS if mesh else [])]
     t0 = time.perf_counter()
+    r0 = dict(device_dequant.routes)
     with environment(MIOTTS_LOGICAL_DEVICES="4" if mesh else None,
                      MIOTTS_PACKED_CACHE=str(tmp / "mesh_packed")):
         srv = start_server(dev, tmp, llm, argv)
     out["startup_s"] = time.perf_counter() - t0
+    out["load_routes"] = route_counts(r0)
     try:
         import urllib.request
 
         with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/mio/health", timeout=30) as r:
             health = json.loads(r.read())
         out["health"] = {k: health[k] for k in ("backend_devices", "tensor_parallel")}
+        tg = time.perf_counter()
         st, _, raw, _ = http_post(srv, "/mio/tts", {
             "text": SERVER_TEXTS[0], "reference_key": "voice", "codes_only": True,
             "temp": 0.0, "n_predict": MESH_GREEDY_TOKENS})
+        out["greedy_s"] = time.perf_counter() - tg
         if st != 200:
             raise AssertionError(f"mesh={mesh} greedy request: HTTP {st}: {raw[:300]!r}")
         out["greedy"] = json.loads(raw)["codes_values"]
@@ -2936,7 +2968,9 @@ def check_mesh(dev, tmp: Path, server_rows: dict | None = None) -> dict:
                 f"{len(meshed['greedy'])} codes equal the mesh-less server's (reported: the "
                 "bf16 tp sums round apart from one device's)")
         out[mode] = row
-    # the exact case: W8A8 tp sums its int32 dots exactly
+    # the exact case: W8A8 tp sums its int32 dots exactly. Both servers keep
+    # their LLM's deploy artifact in one directory: the first writes it (its
+    # host int8 quantization), the second must replay it
     int8 = ["--llm-quant", "int8", "-np", "2"]
     ti = time.perf_counter()
     plain = mesh_server_run(dev, tmp, "llm.gguf", int8, mesh=False, rounds=False)
@@ -2947,13 +2981,261 @@ def check_mesh(dev, tmp: Path, server_rows: dict | None = None) -> dict:
                           "health": meshed["health"]}
     log(f"[mesh] int8 greedy ({MESH_GREEDY_TOKENS} tokens): {same} of {len(meshed['greedy'])} "
         f"codes equal the mesh-less server's (required); mesh health {meshed['health']}; "
-        f"two servers in {out['int8_s']:.1f} s")
+        f"two servers in {out['int8_s']:.1f} s (listening after {plain['startup_s']:.2f} / "
+        f"{meshed['startup_s']:.2f} s, load routes {plain['load_routes']} / "
+        f"{meshed['load_routes']}; the greedy request {plain['greedy_s']:.2f} / "
+        f"{meshed['greedy_s']:.2f} s)")
+    out["int8_pair"] = {k: [plain[k], meshed[k]] for k in ("startup_s", "greedy_s", "load_routes")}
+    if not meshed["load_routes"].get("replay"):
+        raise AssertionError(f"[mesh] the int8 mesh server did not replay the artifact its "
+                             f"mesh-less twin kept: routes {meshed['load_routes']}")
     if not plain["greedy"] or plain["greedy"] != meshed["greedy"] or meshed["health"] != {
             "backend_devices": 4, "tensor_parallel": 2}:
         raise AssertionError(f"[mesh] int8 greedy: {same} of {len(meshed['greedy'])} codes "
                              f"equal the mesh-less server's {len(plain['greedy'])}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"[mesh] {out['wall_s']:.1f}s")
+    return out
+
+
+# -- sequence parallelism ---------------------------------------------------------------
+
+SP_RANKS = (2, 4)  # --sequence-parallel on MIOTTS_LOGICAL_DEVICES=4 ranks of the card
+# codes of the sp requests: a whole 400-code one, and 390 codes, whose ends
+# fall inside a rank's halo at sp = 4 (bucket 512: the tokens end 6 rows
+# past the token shard edge at 384, the decoder's 780 frames 12 past the
+# frame shard edge at 768, within K1's 32-row halo of rank 2)
+SP_CODES = (400, 390)
+SP_TOL = 1e-4  # f32 audio against the mesh-less decode (the JAX package's bar)
+# A full-width synthetic codec can turn f32 rounding into audio differences
+# above SP_TOL: the 44.1 kHz codec's mesh-less decode moves by more than
+# that when only its GroupNorm statistics are summed in f64 (``sp_floor``,
+# printed by this phase). So each codec's bar is the larger of SP_TOL and
+# SP_FLOOR_FACTOR times that floor, since an sp decode re-orders every
+# GroupNorm, matmul, conv and attention sum, not one; and its mel-L1
+# against the mesh-less decode must stay under MEL_L1_MAX.
+SP_FLOOR_FACTOR = 4
+SP_PCM_STEPS = 2  # through the CLI: int16 steps
+# K1 at a rank's halo-extended part of a 400-code decode (bucket 512):
+# (name, H, rows); an edge rank of sp = 2 holds 256 tokens / 512 frames
+# and one 32-row halo, an inner rank of sp = 4 128 / 256 and two
+K1_SP_SHAPES = (("sp=2 prenet", 12, 256 + 32), ("sp=2 decoder", 8, 512 + 32),
+                ("sp=4 prenet", 12, 128 + 64), ("sp=4 decoder", 8, 256 + 64))
+CPU_REFS: dict = {}  # the knob phase's CPU f32 mel decode, reused by the sp phase
+
+
+def f64_group_norm(x, lengths, num_groups: int, eps: float = 1e-6):
+    """``masked_group_norm`` with its statistics summed in f64."""
+    from miotts_tpu_torch.ops import norms
+
+    xf, m = norms.group_view(x, lengths, num_groups)
+    count = norms.group_count(lengths, xf.shape[-1]).double()
+    x64, m64 = xf.double(), m.double()
+    mean = (x64 * m64).sum(dim=(1, 3), keepdim=True) / count
+    var = (torch.square(x64 - mean) * m64).sum(dim=(1, 3), keepdim=True) / count
+    return norms.group_normalize(x, xf, m, mean.float(), var.float(), eps)
+
+
+def sp_floor(pipe, codes, emb, ref: np.ndarray, **opts) -> float:
+    """Max abs between ``ref`` (the mesh-less decode of ``codes``) and the
+    same eager decode with its GroupNorm statistics summed in f64: the
+    rounding the codec's output carries from one reduction (0 for a codec
+    without GroupNorm)."""
+    from miotts_tpu_torch.models import miocodec
+
+    n = len(codes)
+    tokens = np.zeros((1, pick_bucket(n, pipe.buckets)), np.int64)
+    tokens[0, :n] = codes
+    window = opts.pop("window", None)
+    kw = dict(opts, window=None if window is None else window[1],
+              starts=None if window is None else np.array([window[0]], np.int32))
+    saved = miocodec.masked_group_norm
+    miocodec.masked_group_norm = f64_group_norm
+    try:
+        audio, counts = pipe.decode_eager(tokens, np.array([n], np.int32), emb[None], **kw)
+    finally:
+        miocodec.masked_group_norm = saved
+    got = audio[0, :len(ref)]
+    return float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+
+
+def sp_decodes(pipe, codes, emb, n: int = 4) -> tuple[list, list, list]:
+    """``n`` decodes of one request on ``pipe`` (the key's eager decode, its
+    capture and replay, then replays): (results, codec routes, launches by
+    kernel and rank of each)."""
+    results, routes, ranks = [], [], []
+    for _ in range(n):
+        c0, r0 = codec_counts(), dict(graphs.rank_launches)
+        results.append(pipe.synthesize(codes, emb))
+        c = {k: v - c0[k] for k, v in codec_counts().items()}
+        routes.append("eager" if c["eager"] else "capture" if c["captures"] else
+                      "replay" if c["replays"] else "?")
+        ranks.append(rank_counts(r0))
+    return results, routes, ranks
+
+
+def sp_codec(dev, tmp: Path, emb, codec: str, gguf: str, codes) -> dict:
+    """One codec's sp decodes: at sp = 2 and 4 on logical ranks of the card,
+    each of four decodes (eager, capture + replay, two replays) within
+    SP_TOL of the mesh-less decode, the replays bit-equal to the eager
+    decode, K1 14 launches a decode on every rank (and in mel mode K4, K5
+    and K6 on every rank); eager and replay wall ms beside the mesh-less
+    pipeline's."""
+    row: dict = {}
+    plain = MioTTSPipeline(tmp / gguf, dev)
+    res, routes, _ = sp_decodes(plain, codes, emb)
+    ref = res[0].audio
+    floor = sp_floor(plain, codes, emb, ref)
+    tol = max(SP_TOL, SP_FLOOR_FACTOR * floor)
+    row["mesh-less"] = {"eager_ms": res[0].decode_ms, "capture_ms": res[1].decode_ms,
+                        "replay_ms": [r.decode_ms for r in res[2:]], "floor": floor, "tol": tol}
+    log(f"[sp] {codec}: the mesh-less decode moves by {floor:.3e} with its GroupNorm "
+        f"statistics in f64, so sp is held to {tol:.3e}")
+    del plain
+    for sp in SP_RANKS:
+        pipe = MioTTSPipeline(tmp / gguf, dev, sp_devices=logical_devices("cuda")[:sp])
+        res, routes, ranks = sp_decodes(pipe, codes, emb)
+        if routes != ["eager", "capture", "replay", "replay"]:
+            raise AssertionError(f"[sp] {codec} sp={sp}: decodes went {routes}")
+        diffs = []
+        for i, r in enumerate(res):
+            if r.audio.shape != ref.shape:
+                raise AssertionError(f"[sp] {codec} sp={sp} decode {i + 1}: {r.audio.shape} "
+                                     f"samples, mesh-less {ref.shape}")
+            diffs.append(float(np.abs(r.audio - ref).max()))
+        l1 = mel_l1(res[0].audio, ref, pipe.sample_rate)
+        if not (max(diffs) <= tol and l1 < MEL_L1_MAX):
+            raise AssertionError(f"[sp] {codec} sp={sp}: max abs vs mesh-less {diffs} (held to "
+                                 f"{tol}), mel-L1 {l1}")
+        if any(r.audio.tobytes() != res[0].audio.tobytes() for r in res[1:]):
+            raise AssertionError(f"[sp] {codec} sp={sp}: a replay is not bit-equal to the eager "
+                                 f"decode")
+        want = ("banded_attention",) + (("conv1d", "activation1d", "resblock")
+                                        if codec == "mel" else ())
+        for i, by in enumerate(ranks):
+            if by.get("banded_attention") != {r: K1_PER_DECODE for r in range(sp)} or any(
+                    set(by.get(k, {})) != set(range(sp)) for k in want):
+                raise AssertionError(f"[sp] {codec} sp={sp} decode {i + 1} ({routes[i]}): "
+                                     f"launches by rank {by}")
+        row[f"sp={sp}"] = {"eager_ms": res[0].decode_ms, "capture_ms": res[1].decode_ms,
+                           "replay_ms": [r.decode_ms for r in res[2:]],
+                           "max_abs_vs_mesh_less": max(diffs), "mel_l1_vs_mesh_less": l1,
+                           "replays_bit_equal": True,
+                           "launches_by_rank": ranks[2]}
+        log(f"[sp] {codec} {len(codes)} codes sp={sp}: eager {res[0].decode_ms:.2f} ms, "
+            f"capture {res[1].decode_ms:.1f} ms, replays "
+            f"{', '.join(f'{r.decode_ms:.2f}' for r in res[2:])} ms wall (mesh-less: eager "
+            f"{row['mesh-less']['eager_ms']:.2f}, replays "
+            f"{', '.join(f'{x:.2f}' for x in row['mesh-less']['replay_ms'])}); max abs vs "
+            f"mesh-less {max(diffs):.3e} (held to {tol:.3e}), mel-L1 {l1:.3e}, replays "
+            f"bit-equal to the eager decode; a replay's "
+            f"launches by rank {ranks[2]}")
+        if codec == "mel":
+            row[f"sp={sp}"]["mel_l1_vs_cpu_f32"] = sp_mel_fidelity(pipe, tmp, emb)
+        elif codec == "wave" and sp == max(SP_RANKS):
+            row["stream window"] = sp_window(pipe, tmp, dev, emb, codes)
+        del pipe
+        torch.cuda.empty_cache()
+    return row
+
+
+def sp_mel_fidelity(pipe, tmp: Path, emb) -> float:
+    """The sp mel decode of the knob phase's 64 codes against the CPU's f32
+    decode of them (computed here when the knob phase did not run):
+    mel-L1 < MEL_L1_MAX."""
+    if not CPU_REFS:
+        codes64 = np.random.RandomState(12).randint(0, 12800, KNOB_MEL_CPU_CODES)
+        CPU_REFS["mel"] = (codes64, MioTTSPipeline(tmp / "mel_codec.gguf", torch.device(
+            "cpu")).synthesize(codes64, emb).audio)
+    codes64, cpu_mel = CPU_REFS["mel"]
+    got = pipe.synthesize(codes64, emb).audio
+    l1 = mel_l1(got, cpu_mel, pipe.sample_rate)
+    log(f"[sp] mel sp={pipe.sp}: {len(codes64)} codes, mel-L1 vs the CPU's f32 decode {l1:.3e}")
+    if got.shape != cpu_mel.shape or not l1 < MEL_L1_MAX:
+        raise AssertionError(f"[sp] mel sp={pipe.sp}: mel-L1 {l1} vs CPU f32")
+    return l1
+
+
+def sp_window(pipe, tmp: Path, dev, emb, codes) -> dict:
+    """A stream's emission on the sp pipeline: the window fetch (anchor, no
+    peak normalization, pcm16) read from the split audio, against the
+    mesh-less pipeline's, within one 16-bit step."""
+    opts = dict(interp_anchor=StreamingSynthesizer.INTERP_ANCHOR, peak_normalize=False,
+                pcm16=True)
+    start = wav_samples(full_codec_config(), len(codes)) // 3
+    win = (start, StreamingSynthesizer.WINDOW_SAMPLES)
+    got = pipe.synthesize(codes, emb, window=win, **opts)
+    plain = MioTTSPipeline(tmp / "codec.gguf", dev)
+    ref = plain.synthesize(codes, emb, window=win, **opts)
+    floor = sp_floor(plain, codes, emb, ref.audio, window=win, **opts)
+    tol = max(SP_TOL, SP_FLOOR_FACTOR * floor) + 1.0 / 32767
+    diff = float(np.abs(got.audio - ref.audio).max())
+    log(f"[sp] wave sp={pipe.sp} stream window [{start}, +{win[1]}): {len(got.audio)} samples "
+        f"of {got.n_total}, max abs vs mesh-less {diff:.3e} (held to {tol:.3e}: its floor "
+        f"{floor:.3e} and one 16-bit step)")
+    if (got.n_total, len(got.audio)) != (ref.n_total, len(ref.audio)) or not diff <= tol:
+        raise AssertionError(f"[sp] window: {got.n_total} / {len(got.audio)} samples vs "
+                             f"{ref.n_total} / {len(ref.audio)}, max abs {diff}")
+    return {"max_abs_vs_mesh_less": diff, "samples": len(got.audio)}
+
+
+def sp_cli(tmp: Path) -> dict:
+    """``--sequence-parallel 2`` and ``4`` through ``cli.main`` (wave codec,
+    codes in, SP_CODES): each WAV within SP_PCM_STEPS int16 steps of the
+    mesh-less CLI's, K1 14 launches on every rank, one eager decode."""
+    out = {}
+    codes = (tmp / "codes400.txt").read_text().split()
+    for n in SP_CODES:
+        path = tmp / f"sp_codes{n}.txt"
+        path.write_text("\n".join(codes[:n]))
+        argv = ["-mv", str(tmp / "codec.gguf"), "--tts-mio-codes-in", str(path)]
+        _, _, sr, ref, _, _ = drive_cli(f"sp-{n}-plain", tmp, argv, (k1,))
+        for sp in SP_RANKS:
+            r0 = dict(graphs.rank_launches)
+            _, _, sr2, pcm, _, routes = drive_cli(
+                f"sp-{n}-sp{sp}", tmp, argv + ["--sequence-parallel", str(sp)], (k1,))
+            by = rank_counts(r0)
+            steps = int(np.abs(pcm.astype(np.int32) - ref.astype(np.int32)).max())
+            log(f"[sp] cli {n} codes --sequence-parallel {sp}: {pcm.size} samples @ {sr2} Hz, "
+                f"max {steps} int16 steps from the mesh-less CLI's; launches by rank {by}; "
+                f"codec decodes {routes}")
+            if (sr2, pcm.shape) != (sr, ref.shape) or steps > SP_PCM_STEPS or by.get(
+                    "banded_attention") != {r: K1_PER_DECODE for r in range(sp)}:
+                raise AssertionError(f"[sp] cli {n} codes sp={sp}: {pcm.shape} vs {ref.shape}, "
+                                     f"{steps} steps, launches by rank {by}")
+            out[f"{n} codes sp={sp}"] = {"int16_steps": steps, "routes": routes}
+    return out
+
+
+def sp_k1(dev, gen) -> dict:
+    """K1 at a rank's halo-extended shapes (K1_SP_SHAPES), each against its
+    plain version, timed beside its bound and SDPA with the band mask."""
+    return {name: k1_timing(dev, gen, f"[sp] {name}", 1, H, T, [T])[0]
+            for name, H, T in K1_SP_SHAPES}
+
+
+def check_sp(dev, tmp: Path, emb) -> dict:
+    """The [sp] phase: ``--sequence-parallel`` on MIOTTS_LOGICAL_DEVICES=4
+    ranks of the card at full width: the CLI (``sp_cli``), and
+    ``pipeline.synthesize`` of 400 codes in wave 24 kHz, wave 44.1 kHz and
+    mel mode (``sp_codec``) with a stream's window fetch and the mel
+    fidelity; K1 at a rank's shapes. On one card sp only adds work: each
+    rank runs its own copy of the trunk's kernels, plus the exchanges."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(15)
+    codes = rng.randint(0, 12800, max(SP_CODES))
+    out: dict = {}
+    with environment(MIOTTS_LOGICAL_DEVICES=str(max(SP_RANKS))):
+        if len(logical_devices("cuda")) != max(SP_RANKS):
+            raise AssertionError("[sp] MIOTTS_LOGICAL_DEVICES was not read")
+        with uncounted():
+            out["k1"] = sp_k1(dev, torch.Generator().manual_seed(15))
+        out["cli"] = sp_cli(tmp)
+        for codec, gguf in (("wave", "codec.gguf"), ("wave441", "codec441.gguf"),
+                            ("mel", "mel_codec.gguf")):
+            out[codec] = sp_codec(dev, tmp, emb, codec, gguf, codes)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[sp] {out['wall_s']:.1f}s")
     return out
 
 
@@ -3463,13 +3745,14 @@ def main() -> int:
 
         # each path is driven with every count at 0 and read right after
         launches, streams, codec_rows, server_rows, clone_rows, api_rows = {}, {}, {}, {}, {}, {}
-        knob_rows, load_rows, cpu_rows, mesh_rows = {}, {}, {}, {}
+        knob_rows, load_rows, cpu_rows, mesh_rows, sp_rows = {}, {}, {}, {}, {}
         for path, reqs in (("load", None), ("bf16", [(*r, (k1, k2)) for r in REQUESTS]),
                            ("quant", QUANT_REQUESTS), ("mel", MEL_REQUESTS),
                            ("codec_graph", None), ("codec_knobs", None),
                            ("wave441", WAVE441_REQUESTS),
                            ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
-                           ("mesh", None), ("llm_api", None), ("cpu_native", None)):
+                           ("mesh", None), ("sp", None), ("llm_api", None),
+                           ("cpu_native", None)):
             for m in MODS:
                 m.launches = 0
             t0 = time.perf_counter()
@@ -3493,6 +3776,8 @@ def main() -> int:
                 server_rows = check_server(dev, tmp, emb)
             elif path == "mesh":
                 mesh_rows = check_mesh(dev, tmp, server_rows)
+            elif path == "sp":
+                sp_rows = check_sp(dev, tmp, emb)
             elif path == "llm_api":
                 api_rows = check_llm_api(dev, tmp, emb)
             elif path == "clone":
@@ -3536,7 +3821,7 @@ def main() -> int:
                       "codec_knobs": knob_rows, "streams": streams,
                       "server": server_rows, "clone": clone_rows, "llm_api": api_rows,
                       "trace": trace_row, "load": load_rows, "cpu_native": cpu_rows,
-                      "mesh": mesh_rows},
+                      "mesh": mesh_rows, "sp": sp_rows},
                      default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

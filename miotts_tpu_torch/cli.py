@@ -40,8 +40,10 @@ On a CPU device (MIOTTS_PLATFORM=cpu) the text and stream paths run the
 native int8/int4 CPU engine (``models/llm_cpu.py``) under ``--cpu-native
 on``, or under ``auto`` (the default; MIOTTS_CPU_NATIVE=1/0 sets it) for a
 GGUF with Q8_0/Q4_0 matmul weights, as the JAX CLI does; on CUDA the flag
-is ignored. The one flag whose path is not ported, --sequence-parallel,
-exits 1 with ``error: ... not yet ported to miotts_tpu_torch``.
+is ignored. ``--sequence-parallel N`` splits the codec decode's time axis
+over the first N of ``parallel/mesh.py logical_devices()`` (one a card, or
+``MIOTTS_LOGICAL_DEVICES`` ranks of one), codec only, as in the JAX CLI;
+more than there are exits 1 with the JAX CLI's error.
 MIOTTS_PROFILE_DIR leaves a ``torch.profiler`` trace of the codec decode
 (``runtime/tracing.py``). ``-fa`` has no effect:
 on CUDA the codec attention always runs the banded-attention kernel.
@@ -143,14 +145,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _err(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 1
-
-
-def _unported_flag(args) -> str | None:
-    """The first flag given whose path this port does not run yet."""
-    checks = (
-        (args.sequence_parallel > 1, "--sequence-parallel"),
-    )
-    return next((name for given, name in checks if given), None)
 
 
 def _make_llm_engine(args, device):
@@ -308,9 +302,6 @@ def main(argv: list[str] | None = None) -> int:
     args.llm_api_headers = args.llm_api_headers or os.environ.get("MIO_TTS_LLM_API_HEADERS", "")
     if not args.model_vocoder:
         return _err("-mv/--model-vocoder is required")
-    flag = _unported_flag(args)
-    if flag:
-        return _err(f"{flag} not yet ported to miotts_tpu_torch")
 
     prompt = args.prompt
     if args.prompt_file:
@@ -326,9 +317,18 @@ def main(argv: list[str] | None = None) -> int:
         device = select_device()
     except (RuntimeError, ValueError) as e:
         return _err(str(e))
+    sp_devices = None
+    if args.sequence_parallel and args.sequence_parallel > 1:
+        from .parallel.mesh import logical_devices
+
+        devs = logical_devices(device.type)
+        if args.sequence_parallel > len(devs):
+            return _err(f"--sequence-parallel {args.sequence_parallel} > "
+                        f"{len(devs)} visible devices")
+        sp_devices = devs[:args.sequence_parallel]
     try:
         pipe = MioTTSPipeline(args.model_vocoder, device,
-                              wavlm_path=args.tts_wavlm_model or None)
+                              wavlm_path=args.tts_wavlm_model or None, sp_devices=sp_devices)
     except NotImplementedError as e:
         return _err(str(e))
     except Exception as e:

@@ -40,8 +40,9 @@ from ..ops.masking import mask_time, time_mask
 from ..ops.norms import adaln_modulate, layer_norm, masked_group_norm
 from ..ops.precision import codec_matmul, mm, operand
 from ..ops.rope import apply_rope
+from ..parallel import sequence as seq
 from ..runtime.device_dequant import device_put_packed
-from .vocoder import load_vocoder_weights, vocoder_decode
+from .vocoder import load_vocoder_weights, vocoder_decode, vocoder_decode_sp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,9 +244,12 @@ def read_miocodec_config(r: GGUFReader) -> MioCodecConfig:
     )
 
 
-def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict]:
+def load_miocodec(path: str, device: torch.device, sharding=None
+                  ) -> tuple[MioCodecConfig, dict | list[dict]]:
     """Load a miocodec-dec GGUF (wave mode, or mel mode with its vocoder)
-    onto ``device`` at f32, the host tree in one ``device_put_packed``."""
+    onto ``device`` at f32, the host tree in one ``device_put_packed``; with
+    ``sharding`` (an sp mesh's devices) replicated over them instead, one
+    tree a rank, uploaded once a physical device."""
     with GGUFReader(path) as r:
         cfg = read_miocodec_config(r)
         check_supported(cfg)
@@ -308,7 +312,7 @@ def load_miocodec(path: str, device: torch.device) -> tuple[MioCodecConfig, dict
             w["vocoder"] = load_vocoder_weights(get, cfg)
         if r.has_tensor("global_encoder.backbone.embed.weight"):
             w["global_encoder"] = _load_global_encoder(get, cfg)
-    return cfg, device_put_packed(w, device)
+    return cfg, device_put_packed(w, device, sharding=sharding)
 
 
 def _load_global_encoder(get, cfg: MioCodecConfig) -> dict:
@@ -347,42 +351,61 @@ def _load_global_encoder(get, cfg: MioCodecConfig) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _layer(blocks: dict, i: int) -> dict:
+    return {k: (v[i] if v is not None else None) for k, v in blocks.items()}
+
+
+def _attn_inputs(x, blk: dict, n_heads: int, positions, rope_theta: float, norm_eps: float,
+                 cond_act) -> tuple:
+    """One block's q, k, v [B, T, H, D] (RoPE at ``positions``) and its
+    attention gate (None unconditioned) from x [B, T, C]."""
+    B, T, C = x.shape
+    hd = C // n_heads
+    if cond_act is not None:
+        p = mm(cond_act, blk["attn_cond_w"]) + blk["attn_cond_b"]  # [B, 3C]
+        shift, scale, gate = p[:, :C], p[:, C:2 * C], p[:, 2 * C:]
+        xn = adaln_modulate(layer_norm(x, eps=norm_eps), shift, scale)
+    else:
+        gate = None
+        xn = layer_norm(x, blk["attn_norm_w"], blk["attn_norm_b"], eps=norm_eps)
+    q = apply_rope(mm(xn, blk["wq"]).reshape(B, T, n_heads, hd), positions, rope_theta)
+    k = apply_rope(mm(xn, blk["wk"]).reshape(B, T, n_heads, hd), positions, rope_theta)
+    v = mm(xn, blk["wv"]).reshape(B, T, n_heads, hd)
+    return q, k, v, gate
+
+
+def _block_out(x, att, blk: dict, gate, norm_eps: float, cond_act) -> torch.Tensor:
+    """The rest of one block after attention: output projection (gated),
+    residual, the (modulated) SwiGLU FFN and its residual."""
+    B, T, C = x.shape
+    out = mm(att.reshape(B, T, C), blk["wo"])
+    if gate is not None:
+        out = out * gate[:, None, :]
+    h = x + out
+
+    if cond_act is not None:
+        p = mm(cond_act, blk["ffn_cond_w"]) + blk["ffn_cond_b"]
+        shift, scale, fgate = p[:, :C], p[:, C:2 * C], p[:, 2 * C:]
+        fn = adaln_modulate(layer_norm(h, eps=norm_eps), shift, scale)
+    else:
+        fgate = None
+        fn = layer_norm(h, blk["ffn_norm_w"], blk["ffn_norm_b"], eps=norm_eps)
+    ff = mm(F.silu(mm(fn, blk["w1"])) * mm(fn, blk["w3"]), blk["w2"])
+    if fgate is not None:
+        ff = ff * fgate[:, None, :]
+    return h + ff
+
+
 def _transformer_stack(x, blocks: dict, n_heads: int, lengths, window: int, rope_theta: float,
                        norm_eps: float, cond_act) -> torch.Tensor:
     """Stacked transformer blocks over x [B, T, C]; ``cond_act`` [B, Dc]
     (SiLU-activated speaker embedding) turns on AdaLN-Zero conditioning."""
-    B, T, C = x.shape
-    positions = torch.arange(T, dtype=torch.int32, device=x.device)
-    hd = C // n_heads
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(blocks["wq"].shape[0]):
-        blk = {k: (v[i] if v is not None else None) for k, v in blocks.items()}
-        if cond_act is not None:
-            p = mm(cond_act, blk["attn_cond_w"]) + blk["attn_cond_b"]  # [B, 3C]
-            shift, scale, gate = p[:, :C], p[:, C:2 * C], p[:, 2 * C:]
-            xn = adaln_modulate(layer_norm(x, eps=norm_eps), shift, scale)
-        else:
-            gate = None
-            xn = layer_norm(x, blk["attn_norm_w"], blk["attn_norm_b"], eps=norm_eps)
-        q = apply_rope(mm(xn, blk["wq"]).reshape(B, T, n_heads, hd), positions, rope_theta)
-        k = apply_rope(mm(xn, blk["wk"]).reshape(B, T, n_heads, hd), positions, rope_theta)
-        v = mm(xn, blk["wv"]).reshape(B, T, n_heads, hd)
-        att = banded_attention(q, k, v, lengths, window).reshape(B, T, C)
-        out = mm(att, blk["wo"])
-        if gate is not None:
-            out = out * gate[:, None, :]
-        h = x + out
-
-        if cond_act is not None:
-            p = mm(cond_act, blk["ffn_cond_w"]) + blk["ffn_cond_b"]
-            shift, scale, fgate = p[:, :C], p[:, C:2 * C], p[:, 2 * C:]
-            fn = adaln_modulate(layer_norm(h, eps=norm_eps), shift, scale)
-        else:
-            fgate = None
-            fn = layer_norm(h, blk["ffn_norm_w"], blk["ffn_norm_b"], eps=norm_eps)
-        ff = mm(F.silu(mm(fn, blk["w1"])) * mm(fn, blk["w3"]), blk["w2"])
-        if fgate is not None:
-            ff = ff * fgate[:, None, :]
-        x = h + ff
+        blk = _layer(blocks, i)
+        q, k, v, gate = _attn_inputs(x, blk, n_heads, positions, rope_theta, norm_eps, cond_act)
+        x = _block_out(x, banded_attention(q, k, v, lengths, window), blk, gate, norm_eps,
+                       cond_act)
     return x
 
 
@@ -429,18 +452,25 @@ def _wave_upsample(cfg: MioCodecConfig, w: dict, x: torch.Tensor, frame_len: tor
     return mask_time(x, frame_len), frame_len
 
 
-def codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
+def codec_decode_spec(cfg: MioCodecConfig, w, tokens: torch.Tensor,
                       token_lengths: torch.Tensor, cond: torch.Tensor | None,
-                      interp_anchor_tokens: int | None = None, *, matmul: str
+                      interp_anchor_tokens: int | None = None, sp_mesh=None, *, matmul: str
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, N] codes (padded), token_lengths [B] int32, cond [B, Dc]
     speaker embedding or None (static models). Returns (spec [B, F, bins],
     frame_lengths [B]), bins = n_fft + 2 (wave) or n_mels (mel). ``interp_anchor_tokens`` pins the bilinear resize
     ratio to a fixed token count (None: the ratio from the true lengths).
     The trunk's matmuls and convolutions run at the precision ``matmul``
-    (a ``MIOTTS_CODEC_MATMUL`` mode; ``ops/precision.py``)."""
+    (a ``MIOTTS_CODEC_MATMUL`` mode; ``ops/precision.py``). ``sp_mesh`` (an
+    ("sp",) mesh, ``parallel/mesh.make_sp_mesh``) splits the decode's time
+    axis over its ranks (``w`` then the weights, or one tree a rank); the
+    spec comes back whole on the mesh's lead device."""
     with codec_matmul(matmul):
-        return _codec_decode_spec(cfg, w, tokens, token_lengths, cond, interp_anchor_tokens)
+        if sp_mesh is None:
+            return _codec_decode_spec(cfg, w, tokens, token_lengths, cond, interp_anchor_tokens)
+        spec, frame_len = _sp_decode_spec(cfg, _rank_trees(w, sp_mesh), tokens, token_lengths,
+                                          cond, interp_anchor_tokens, sp_mesh)
+        return seq.join(spec), frame_len
 
 
 def _codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
@@ -502,24 +532,30 @@ def _codec_decode_spec(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
     return spec, frame_len
 
 
-def codec_synthesize(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
+def codec_synthesize(cfg: MioCodecConfig, w, tokens: torch.Tensor,
                      token_lengths: torch.Tensor, cond: torch.Tensor | None,
                      interp_anchor_tokens: int | None = None,
-                     peak_normalize: bool = True, *, matmul: str
+                     peak_normalize: bool = True, sp_mesh=None, *, matmul: str
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Codes -> waveform. Returns (audio [B, S_max], n_samples [B]); audio
     is peak-normalized per example like mio_tts_synthesize unless
     ``peak_normalize`` is False. Wave mode goes through the iSTFT head, mel
     mode through the bundled vocoder, whose output length sets n_samples.
     The trunk and the head run at the precision ``matmul`` (a
-    ``MIOTTS_CODEC_MATMUL`` mode)."""
+    ``MIOTTS_CODEC_MATMUL`` mode). ``sp_mesh`` splits the time axis over its
+    ranks (``codec_synthesize_sharded``); the audio comes back whole on the
+    mesh's lead device."""
+    if sp_mesh is not None:
+        audio, n_samples = codec_synthesize_sharded(
+            cfg, w, tokens, token_lengths, cond, interp_anchor_tokens, peak_normalize, sp_mesh,
+            matmul=matmul)
+        return seq.join(audio), n_samples
     spec, frame_len = codec_decode_spec(cfg, w, tokens, token_lengths, cond,
                                         interp_anchor_tokens, matmul=matmul)
     with codec_matmul(matmul):
         if cfg.model_type == 0:
             audio = spec_to_audio(spec, frame_len, cfg.n_fft, cfg.hop_length, w["istft_tables"])
-            n_pad = (cfg.n_fft - cfg.hop_length) // 2
-            n_samples = (frame_len - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
+            n_samples = istft_samples(cfg, frame_len)
         else:
             audio, n_samples = vocoder_decode(cfg, w, spec, frame_len)
     audio = audio * time_mask(audio.shape[1], n_samples).to(audio.dtype)
@@ -529,6 +565,241 @@ def codec_synthesize(cfg: MioCodecConfig, w: dict, tokens: torch.Tensor,
         gain = torch.where(peak > 0.98, 0.95 / torch.clamp(peak, min=1e-9),
                            torch.ones((), device=audio.device))
         audio = audio * gain[:, None]
+    return audio, n_samples
+
+
+def istft_samples(cfg: MioCodecConfig, frame_len: torch.Tensor) -> torch.Tensor:
+    """The iSTFT head's valid samples of ``frame_len`` frames."""
+    n_pad = (cfg.n_fft - cfg.hop_length) // 2
+    return (frame_len - 1) * cfg.hop_length + cfg.n_fft - 2 * n_pad
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: the forward with its time axis split over an ("sp",)
+# mesh (parallel/sequence.py). The JAX package re-pins the time axis after
+# each resampling seam and lets GSPMD derive the halos, reductions and
+# gathers, with attention pinned to its XLA path and the vocoder to
+# impl="xla" because a pallas_call is opaque to the partitioner
+# (miotts_tpu/models/miocodec.py:476-489, 598-603). Here every op is written
+# for a rank's rows, and the kernels stay on the path: K1 runs on each
+# rank's halo-extended q/k/v, K4-K6 on each rank's halo-extended vocoder
+# stage. Per op, what a rank reads beyond its own rows:
+#
+# - the token embedding, mask_time, LayerNorm, AdaLN, every matmul, the
+#   SwiGLU FFN, the snake, the DFT: nothing (per frame);
+# - banded attention (window w): RoPE at global positions; k and v get w//2
+#   rows of halo a side (trimmed at the global edges, so no key before row
+#   0 or past the axis exists), q is zero-padded to match, K1 runs with the
+#   rank's local lengths and the halo rows of its output are dropped. Every
+#   key a rank's own query admits, (|k - q| <= w//2 and k < length) or
+#   k == q, lies in the extended part, so a rank's rows equal the mesh-less
+#   rows;
+# - conv transposes (stride 2, and the wave upsampler's stride f with its
+#   (k - f)//2 crop): the input rows that reach a rank's output rows, the
+#   output re-split at its new resolution (``seq.conv_transpose``);
+# - the bilinear resize: its source rows by global index (``seq.interpolate``);
+# - masked GroupNorm: two ``seq.sp_sum`` (mean, then centered variance);
+# - resnet "same" convs of k taps: k//2 rows a side;
+# - the iSTFT overlap-add: the frames that reach a rank's samples
+#   (``seq.overlap_add``), the peak: ``seq.sp_max``;
+# - mel mode: ``models/vocoder.py vocoder_decode_sp``.
+# ---------------------------------------------------------------------------
+
+def _rank_trees(w, mesh) -> list:
+    """One weight tree a rank: ``w`` as given (a list, ``load_miocodec``'s
+    sharded form) or the one tree for every rank."""
+    n = mesh.devices.size
+    trees = list(w) if isinstance(w, (list, tuple)) else [w] * n
+    if len(trees) != n:
+        raise ValueError(f"{len(trees)} weight trees for an sp mesh of {n} ranks")
+    return trees
+
+
+def _sp_transformer_stack(x: "seq.Sharded", blocks: list, n_heads: int, lengths: list,
+                          window: int, rope_theta: float, norm_eps: float,
+                          cond_act: list) -> "seq.Sharded":
+    """``_transformer_stack`` over split rows: a layer's q/k/v on each
+    rank's own rows (RoPE at their global positions), k and v halo-extended
+    by window//2 rows, K1 (``banded_attention``) on the extended part with
+    its local lengths, the halo query rows dropped."""
+    mesh = x.mesh
+    half = max(0, window // 2)
+    ranges = x.ranges
+    positions = seq.per_rank(mesh, lambda r: torch.arange(
+        ranges[r][0], ranges[r][1], dtype=torch.int32, device=x.parts[r].device))
+    parts = list(x.parts)
+    for i in range(blocks[0]["wq"].shape[0]):
+        blks = [_layer(b, i) for b in blocks]
+        qkv = seq.per_rank(mesh, lambda r: _attn_inputs(parts[r], blks[r], n_heads, positions[r],
+                                                        rope_theta, norm_eps, cond_act[r]))
+        k_ext, v_ext = (seq.halo(seq.Sharded([t[j] for t in qkv], x.starts, x.total, mesh),
+                                 half, half, edge="trim") for j in (1, 2))
+
+        def attend(r):
+            (a, b), e0 = ranges[r], k_ext.starts[r]
+            rows = k_ext.parts[r].shape[1]
+            q = F.pad(qkv[r][0], (0, 0, 0, 0, a - e0, e0 + rows - b))
+            att = banded_attention(q, k_ext.parts[r], v_ext.parts[r],
+                                   seq.local_lengths(lengths[r], e0, rows), window)
+            return _block_out(parts[r], att[:, a - e0:b - e0], blks[r], qkv[r][3], norm_eps,
+                              cond_act[r])
+        parts = seq.per_rank(mesh, attend)
+    return seq.Sharded(parts, list(x.starts), x.total, mesh)
+
+
+def _sp_resnet_block(x: "seq.Sharded", blks: list, lengths: list, groups: int,
+                     gn_eps: float) -> "seq.Sharded":
+    """``_resnet_block`` over split rows: the GroupNorm's statistics summed
+    over every rank, each conv on a halo of k//2 rows."""
+    g = choose_num_groups(groups, x.parts[0].shape[-1])
+
+    def half(y, nw, nb, cw, cb):
+        y = seq.group_norm(y, lengths, g, gn_eps)
+        reach = blks[0][cw].shape[-1] // 2
+
+        def conv(r, p, start):
+            ll = seq.local_lengths(lengths[r], start, p.shape[1])
+            p = F.silu(p * blks[r][nw] + blks[r][nb])
+            return mask_time(conv1d_same(operand(mask_time(p, ll)), operand(blks[r][cw]),
+                                         blks[r][cb]), ll)
+        return seq.on_halo(y, reach, reach, conv)
+
+    y = half(x, "norm1_w", "norm1_b", "conv1_w", "conv1_b")
+    y = half(y, "norm2_w", "norm2_b", "conv2_w", "conv2_b")
+    return seq.map_rows(x, lambda r, p, start: p + y.parts[r])
+
+
+def _sp_wave_upsample(cfg: MioCodecConfig, ws: list, x: "seq.Sharded", frame_len: torch.Tensor
+                      ) -> tuple["seq.Sharded", torch.Tensor]:
+    """``_wave_upsample`` over split rows: each stage's conv transpose
+    re-split at its new rate (its crop included), the snake per frame, the
+    resnet block with its halo and reductions."""
+    mesh = x.mesh
+    for i, (f, k) in enumerate(zip(cfg.wave_upsampler_factors, cfg.wave_upsampler_kernel_sizes)):
+        pad = max(0, (k - f) // 2)
+        x = seq.mask_rows(x, seq.replicate(frame_len, mesh))
+        x = seq.conv_transpose(x, lambda r, p: conv_transpose1d(
+            operand(p), operand(ws[r]["wave_upsampler"][i]["up_w"]),
+            ws[r]["wave_upsampler"][i]["up_b"], stride=f), k, f, pad)
+        frame_len = (frame_len - 1) * f + k - 2 * pad
+        fl = seq.replicate(frame_len, mesh)
+        x = seq.map_rows(x, lambda r, p, start: _snake_beta(
+            mask_time(p, seq.local_lengths(fl[r], start, p.shape[1])),
+            ws[r]["wave_upsampler"][i]["snake_alpha"], ws[r]["wave_upsampler"][i]["snake_beta"]))
+        x = _sp_resnet_block(x, [w["wave_upsampler"][i]["resblk"] for w in ws], fl,
+                             cfg.resnet_groups, cfg.group_norm_eps)
+    fl = seq.replicate(frame_len, mesh)
+    x = seq.map_rows(x, lambda r, p, start: mask_time(_snake_beta(
+        mm(p, ws[r]["ups_out_proj_w"]) + ws[r]["ups_out_proj_b"], ws[r]["ups_out_snake_alpha"],
+        ws[r]["ups_out_snake_beta"]), seq.local_lengths(fl[r], start, p.shape[1])))
+    return x, frame_len
+
+
+def _sp_decode_spec(cfg: MioCodecConfig, ws: list, tokens: torch.Tensor,
+                    token_lengths: torch.Tensor, cond: torch.Tensor | None,
+                    interp_anchor_tokens: int | None, mesh
+                    ) -> tuple["seq.Sharded", torch.Tensor]:
+    """``_codec_decode_spec`` with every time axis split over ``mesh``:
+    (the spec split over its frames, frame_lengths [B] on the lead).
+    ``tokens`` and the lengths may be on any device; the lengths are
+    computed on the lead and copied to every rank."""
+    check_supported(cfg)
+    lead = mesh.lead
+    tokens, token_lengths = tokens.to(lead), token_lengths.to(lead)
+    B, N = tokens.shape
+    stft_len = torch.clamp((token_lengths * cfg.samples_per_token) // cfg.hop_length, min=1)
+    tf = cfg.wave_upsampler_total_factor
+    dec_len = torch.clamp(stft_len // tf, min=1) if tf > 1 else stft_len
+    F_dec = cfg.decoder_frames(N)
+    tok_l = seq.replicate(token_lengths, mesh)
+    dec_l = seq.replicate(dec_len, mesh)
+
+    cond_act = [None] * mesh.devices.size
+    if cfg.dynamic_global:
+        c = cond.to(lead) if cond is not None else torch.zeros(
+            (B, cfg.decoder_adanorm_dim), device=lead)
+        cond_act = seq.replicate(F.silu(c.float()), mesh)
+
+    def masked(lens, fn):
+        return lambda r, p, start: mask_time(fn(r, p), seq.local_lengths(lens[r], start,
+                                                                         p.shape[1]))
+
+    x = seq.map_rows(seq.split(tokens, mesh),
+                     masked(tok_l, lambda r, p: ws[r]["token_embd"][p.long()]))
+    x = _sp_transformer_stack(x, [w["prenet_blocks"] for w in ws], cfg.prenet_heads, tok_l,
+                              cfg.prenet_window, cfg.rope_theta, cfg.norm_eps, [None] * len(ws))
+    x = seq.map_rows(x, masked(tok_l, lambda r, p: mm(
+        layer_norm(p, ws[r]["prenet_norm_w"], ws[r]["prenet_norm_b"], eps=cfg.norm_eps),
+        ws[r]["prenet_out_w"]) + ws[r]["prenet_out_b"]))
+
+    K_up = ws[0]["upsample_w"].shape[-1]
+    y = seq.conv_transpose(x, lambda r, p: conv_transpose1d(
+        operand(p), operand(ws[r]["upsample_w"]), ws[r]["upsample_b"], stride=2), K_up, 2)
+    src_l = seq.replicate((token_lengths - 1) * 2 + K_up, mesh)
+    y = seq.mask_rows(y, src_l)
+    scale_override = None
+    if interp_anchor_tokens is not None:
+        a = interp_anchor_tokens
+        scale_override = ((a - 1) * 2 + K_up, cfg.decoder_frames(a))
+    y = seq.mask_rows(seq.interpolate(y, src_l, dec_l, F_dec, scale_override), dec_l)
+
+    if cfg.model_type == 0:
+        for i in range(cfg.resnet_blocks):
+            y = _sp_resnet_block(y, [{k: v[i] for k, v in w["prior"].items()} for w in ws], dec_l,
+                                 cfg.resnet_groups, cfg.group_norm_eps)
+
+    x = _sp_transformer_stack(y, [w["decoder_blocks"] for w in ws], cfg.decoder_heads, dec_l,
+                              cfg.decoder_window, cfg.rope_theta, cfg.norm_eps, cond_act)
+    if cfg.dynamic_global:
+        dim = cfg.decoder_dim
+
+        def final_norm(r, p, start):
+            q = mm(cond_act[r], ws[r]["norm_cond_w"]) + ws[r]["norm_cond_b"]  # [B, 2*dim]
+            return adaln_modulate(layer_norm(p, eps=cfg.norm_eps), q[:, :dim], q[:, dim:])
+    else:
+        def final_norm(r, p, start):
+            return layer_norm(p, ws[r]["decoder_norm_w"], ws[r]["decoder_norm_b"],
+                              eps=cfg.norm_eps)
+    x = seq.map_rows(x, final_norm)
+
+    frame_len = dec_len
+    if cfg.model_type == 0:
+        for i in range(cfg.resnet_blocks):
+            x = _sp_resnet_block(seq.mask_rows(x, dec_l),
+                                 [{k: v[i] for k, v in w["post"].items()} for w in ws], dec_l,
+                                 cfg.resnet_groups, cfg.group_norm_eps)
+        if cfg.wave_upsampler_factors:
+            x, frame_len = _sp_wave_upsample(cfg, ws, x, frame_len)
+
+    fl = seq.replicate(frame_len, mesh)
+    spec = seq.map_rows(x, masked(fl, lambda r, p: mm(p, ws[r]["istft_out_w"])
+                                  + ws[r]["istft_out_b"]))
+    return spec, frame_len
+
+
+def codec_synthesize_sharded(cfg: MioCodecConfig, w, tokens: torch.Tensor,
+                             token_lengths: torch.Tensor, cond: torch.Tensor | None,
+                             interp_anchor_tokens: int | None, peak_normalize: bool, sp_mesh, *,
+                             matmul: str) -> tuple["seq.Sharded", torch.Tensor]:
+    """``codec_synthesize`` over an ("sp",) mesh, the audio left split over
+    its ranks (``seq.join`` makes it whole; a window of it is read by
+    ``seq.gather_rows``): (audio, n_samples [B] on the lead). ``w`` is the
+    weights, or one tree a rank. The kernels run on every rank: K1 in each
+    attention layer, K4-K6 in the mel vocoder's stages."""
+    ws = _rank_trees(w, sp_mesh)
+    with codec_matmul(matmul):
+        spec, frame_len = _sp_decode_spec(cfg, ws, tokens, token_lengths, cond,
+                                          interp_anchor_tokens, sp_mesh)
+        fl = seq.replicate(frame_len, sp_mesh)
+        if cfg.model_type == 0:
+            audio = seq.overlap_add(spec, fl, cfg.n_fft, cfg.hop_length,
+                                    [t["istft_tables"] for t in ws])
+            n_samples = istft_samples(cfg, frame_len)
+        else:
+            audio, n_samples = vocoder_decode_sp(cfg, ws, spec, fl)
+    audio = seq.mask_rows(audio, seq.replicate(n_samples, sp_mesh))
+    if peak_normalize:
+        audio = seq.peak_normalize(audio)
     return audio, n_samples
 
 

@@ -25,12 +25,16 @@ The vocoder's own matmul and convolutions (conv_pre, the postnet, the 1x1
 merge, conv_post) run at the codec's ``MIOTTS_CODEC_MATMUL`` precision
 (``ops/precision.py``); the kernels, the FIRs and the activations keep f32.
 
+Sequence parallelism (``vocoder_decode_sp``): each rank runs the same
+dispatchers, so K4, K5 and K6 stay on the path, on its rows of each
+upsample stage grown by one halo that covers the stage's reach, where the
+JAX package pins its sp vocoder to XLA (a pallas_call is opaque to GSPMD).
+
 Not ported: the opt-in grouped path that folds a stage's resblocks into
 the channel axis (JAX's ``_resblocks_fused``, ``MIOTTS_VOCODER_FUSE=1``,
 off by default there), which the port does not read: it always runs the
 K6 path, whose audio the folded one equals, and the folded stage in plain
-PyTorch took 11.7x the K6 path's time on an H100. Nor the XLA-pinned
-dispatch of the sequence-parallel path.
+PyTorch took 11.7x the K6 path's time on an H100.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ from ..ops.cuda import resblock as k6
 from ..ops.masking import mask_time
 from ..ops.precision import mm, operand
 from ..ops.resample import (
-    conv1d_zeropad, highpass, lowpass, per_time_layer_norm, zero_stuff)
+    conv1d_zeropad, highpass, julius_lowpass_kernel, lowpass, per_time_layer_norm, zero_stuff)
+from ..parallel import sequence as seq
 
 RESBLOCK_DILATIONS = (1, 3, 5)
 _FUSE_MIN_ROWS = 1024  # the JAX package's threshold for the fused layer
@@ -110,41 +115,147 @@ def mel_postnet_apply(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor) ->
     return mel + mask_time(r, lengths)
 
 
+def _pre(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The mel postnet and conv_pre (k=7)."""
+    v = w["vocoder"]
+    mel = mel_postnet_apply(cfg, w, mask_time(mel, lengths), lengths)
+    return mask_time(conv1d_zeropad(operand(mel), operand(v["conv_pre_w"]), v["conv_pre_b"], 1, 3),
+                     lengths)
+
+
+def _stage(v: dict, i: int, scale: int, num_k: int, y0: torch.Tensor, y: torch.Tensor,
+           lengths: torch.Tensor) -> torch.Tensor:
+    """Upsample stage i after its zero-stuffing: the source branch ``y0``
+    (the pre-net features at the new rate) through the noise conv and the
+    high-pass, the signal ``y`` through the low-pass, the 1x1 merge, then the
+    mean of the stage's resblocks; ``lengths`` at the new rate."""
+    up = v["ups"][i]
+    y0 = conv1d_same(y0, lengths, up["noise_w"], up["noise_b"], 1)
+    y0 = highpass(y0, lengths, 0.5 / scale)
+    y, _ = lowpass(y, lengths, 0.5 / scale, 1)
+    x = mask_time(mm(y + y0, up["after_w"][:, :, 0].T) + up["after_b"], lengths)  # 1x1 conv
+    xs = torch.zeros_like(x)
+    for rb in v["resblocks"][i * num_k:(i + 1) * num_k]:
+        r = x
+        for kk, dil in enumerate(RESBLOCK_DILATIONS):
+            r = _resblock_layer(r, lengths, rb, kk, dil)
+        xs = xs + r
+    return xs * (1.0 / max(1, num_k))
+
+
+def _post(v: dict, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """activation_post, conv_post (k=7, no bias) and the clamp to [-1, 1]."""
+    x, _ = activation1d(x, lengths, v["activation_post"])
+    x = mask_time(conv1d_zeropad(operand(x), operand(v["conv_post_w"]), None, 1, 3), lengths)
+    return torch.clamp(x[:, :, 0], -1.0, 1.0)
+
+
 def vocoder_decode(cfg, w: dict, mel: torch.Tensor, lengths: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """mel [B, T, n_mels] -> (audio [B, S], n_samples [B]), S = T * prod(rates)."""
     v = w["vocoder"]
-    num_k = cfg.vocoder_num_kernels
-    mel = mel_postnet_apply(cfg, w, mask_time(mel, lengths), lengths)
-
-    x = mask_time(conv1d_zeropad(operand(mel), operand(v["conv_pre_w"]), v["conv_pre_b"], 1, 3),
-                  lengths)
-    x0, x0_len, cur_len = x, lengths, lengths
+    x0 = x = _pre(cfg, w, mel, lengths)
     upp = 1
     for i, scale in enumerate(cfg.vocoder_upsample_rates):
         upp *= scale
-        up = v["ups"][i]
-        # source branch: the stage input's pre-net features at the new rate
-        y0 = zero_stuff(mask_time(x0, x0_len), upp)
-        y0_len = x0_len * upp
-        y0 = conv1d_same(y0, y0_len, up["noise_w"], up["noise_b"], 1)
-        y0 = highpass(y0, y0_len, 0.5 / scale)
-        # signal branch
-        y = zero_stuff(mask_time(x, cur_len), scale)
-        y, cur_len = lowpass(y, cur_len * scale, 0.5 / scale, 1)
-        x = mask_time(mm(y + y0, up["after_w"][:, :, 0].T) + up["after_b"], cur_len)  # 1x1 conv
+        x = _stage(v, i, scale, cfg.vocoder_num_kernels, zero_stuff(mask_time(x0, lengths), upp),
+                   zero_stuff(mask_time(x, lengths * (upp // scale)), scale), lengths * upp)
+    return _post(v, x, lengths * upp), lengths * upp
 
-        xs = torch.zeros_like(x)
-        for rb in v["resblocks"][i * num_k:(i + 1) * num_k]:
-            r = x
-            for kk, dil in enumerate(RESBLOCK_DILATIONS):
-                r = _resblock_layer(r, cur_len, rb, kk, dil)
-            xs = xs + r
-        x = xs * (1.0 / max(1, num_k))
 
-    x, cur_len = activation1d(x, cur_len, v["activation_post"])
-    x = mask_time(conv1d_zeropad(operand(x), operand(v["conv_post_w"]), None, 1, 3), cur_len)
-    return torch.clamp(x[:, :, 0], -1.0, 1.0), cur_len
+# ---------------------------------------------------------------------------
+# Sequence parallelism: the vocoder on an ("sp",) mesh's split rows
+# ---------------------------------------------------------------------------
+
+def _act_reach(act: dict) -> int:
+    """Rows an Activation1d output reads before or after its own
+    (``ops/cuda/activation1d.py act_geom``, the snake's previous sample
+    included), plus one."""
+    g = k5.act_geom(act["up_filter"].shape[0], act["down_filter"].shape[0])
+    return max(g.hlo, g.hhi) + 1
+
+
+def resblock_reach(rb: dict) -> int:
+    """The reach of one AMP resblock's three layers in a row: per layer two
+    activations, conv1's d (k1 - 1)/2 and conv2's (k2 - 1)/2 rows."""
+    total = 0
+    for kk, dil in enumerate(RESBLOCK_DILATIONS):
+        k1, k2 = rb["convs1"][kk]["w"].shape[-1], rb["convs2"][kk]["w"].shape[-1]
+        total += (_act_reach(rb["acts"][2 * kk]) + dil * (k1 - 1) // 2
+                  + _act_reach(rb["acts"][2 * kk + 1]) + (k2 - 1) // 2)
+    return total
+
+
+def stage_reach(v: dict, i: int, num_k: int, scale: int) -> int:
+    """The reach of upsample stage i at its output rate: the noise conv and
+    the high-pass of the source branch (the signal's low-pass, of the same
+    cutoff, reaches no further), then the deepest of its resblocks."""
+    half = julius_lowpass_kernel(round(0.5 / scale, 9)).shape[0] // 2
+    noise = (v["ups"][i]["noise_w"].shape[-1] - 1) // 2
+    rbs = v["resblocks"][i * num_k:(i + 1) * num_k]
+    return noise + half + max((resblock_reach(rb) for rb in rbs), default=0)
+
+
+def vocoder_decode_sp(cfg, ws: list, mel: "seq.Sharded", lengths: list
+                      ) -> tuple["seq.Sharded", torch.Tensor]:
+    """``vocoder_decode`` over split rows: (audio split over its samples,
+    n_samples [B] on the lead). ``ws`` holds each rank's weights and
+    ``lengths`` each rank's copy of the mel frame lengths. Three halos:
+
+    - the postnet and conv_pre on one, of their kernels' widths;
+    - each upsample stage on one at its output rate, ``stage_reach`` rows
+      (and a few more) a side: a rank fetches the stage input (and the
+      conv_pre features of the source branch) that its extended rows need,
+      zero-stuffs, filters, merges and runs the stage's resblocks (K6, or
+      K5 + K4 where the extended part has under 1 024 rows; K4 for the
+      noise conv) with the lengths its part sees, then keeps its own rows;
+    - activation_post (K5) and conv_post on the last, the act's reach plus
+      the conv's width.
+
+    Halos are trimmed at the global edges, so the replicate pads and the
+    snake's first sample read the sequence's own edge on the edge ranks;
+    at an inner edge the rows a filter reads wrong lie within the reach and
+    are dropped. The length's own edge, where it falls inside a part
+    (halo or not), is the true edge there."""
+    mesh = mel.mesh
+    num_k = cfg.vocoder_num_kernels
+    v0 = ws[0]["vocoder"]
+    reach = v0["conv_pre_w"].shape[-1]
+    if "mel_postnet" in ws[0]:
+        pn = ws[0]["mel_postnet"]["conv_w"]
+        reach += pn.shape[0] * pn.shape[-1]
+    x0 = x = seq.on_halo(mel, reach, reach, lambda r, p, start: _pre(
+        cfg, ws[r], p, seq.local_lengths(lengths[r], start, p.shape[1])))
+
+    upp = 1
+    for i, scale in enumerate(cfg.vocoder_upsample_rates):
+        upp *= scale
+        T = x.total * scale
+        out_rows = seq.split_rows(T, mesh.devices.size)
+        ext = seq.halo_ranges(out_rows, T, *(2 * [stage_reach(v0, i, num_k, scale) + 8]),
+                              edge="trim")
+        src = seq.fetch(x, [(a // scale, -(-b // scale)) for a, b in ext])
+        src0 = seq.fetch(x0, [(a // upp, -(-b // upp)) for a, b in ext])
+
+        def stage(r, i=i, scale=scale, upp=upp, src=src, src0=src0, ext=ext):
+            e0, e1 = ext[r]
+
+            def stuffed(s, factor, lens):
+                """A fetched part zero-stuffed by ``factor``, cut to the rows [e0, e1)."""
+                part, start = s.parts[r], s.starts[r]
+                y = zero_stuff(mask_time(part, seq.local_lengths(lens, start, part.shape[1])),
+                               factor)
+                return y[:, e0 - factor * start:e1 - factor * start].contiguous()
+            return _stage(ws[r]["vocoder"], i, scale, num_k, stuffed(src0, upp, lengths[r]),
+                          stuffed(src, scale, lengths[r] * (upp // scale)),
+                          seq.local_lengths(lengths[r] * upp, e0, e1 - e0))
+        parts = seq.per_rank(mesh, stage)
+        x = seq.crop(seq.Sharded(parts, [a for a, _ in ext], T, mesh), out_rows)
+
+    reach = _act_reach(v0["activation_post"]) + v0["conv_post_w"].shape[-1]
+    return seq.on_halo(x, reach, reach, lambda r, p, start: _post(
+        ws[r]["vocoder"], p, seq.local_lengths(lengths[r] * upp, start, p.shape[1]))), \
+        lengths[0] * upp
 
 
 def load_vocoder_weights(reader_get, cfg) -> dict[str, Any]:

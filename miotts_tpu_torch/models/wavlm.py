@@ -281,7 +281,12 @@ class WavLMExtractor:
     """WavLM weights on one device, the host's reference preprocessing, and
     the bucket tables uploaded so far (one a frame count)."""
 
-    def __init__(self, path: str, device: torch.device):
+    def __init__(self, path: str, device: torch.device, sharding=None):
+        # ``sharding`` (an sp mesh's devices; the JAX package's replicated
+        # placement): the chain is not split over the mesh, so the weights
+        # land once, on its lead device, where the chain runs
+        if sharding is not None:
+            device = list(sharding)[0].device
         self.device = device
         self.config, self.weights = load_wavlm(path, device)
         self._tables: dict[int, tuple[np.ndarray, torch.Tensor]] = {}

@@ -60,6 +60,30 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1) 
     return y
 
 
+def interp_taps(dst_idx: torch.Tensor, src_lengths: torch.Tensor, dst_lengths: torch.Tensor,
+                scale_override: tuple[int, int] | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bilinear resize's taps for output rows ``dst_idx`` [1, n] (f32
+    row numbers): (x0, x1) [B, n] int64 source rows and their weight dx
+    [B, n]. dx comes from the unclamped floor, then indices clamp to [0,
+    src_len - 1], as in GGML. ``scale_override = (src_anchor, dst_anchor)``
+    pins the ratio."""
+    B = src_lengths.shape[0]
+    if scale_override is not None:
+        sf = torch.full((B,), scale_override[1] / scale_override[0],
+                        dtype=torch.float32, device=dst_idx.device)
+    else:
+        sf = dst_lengths.float() / torch.clamp(src_lengths.float(), min=1.0)
+    pos = (dst_idx + 0.5) / sf[:, None] - 0.5
+    x0f = torch.floor(pos)
+    dx = pos - x0f
+    max_idx = torch.clamp(src_lengths - 1, min=0)[:, None].to(torch.int64)
+    base = x0f.to(torch.int64)
+    x0 = torch.minimum(torch.clamp(base, min=0), max_idx)
+    x1 = torch.minimum(torch.clamp(base + 1, min=0), max_idx)
+    return x0, x1, dx
+
+
 def linear_interpolate(
     x: torch.Tensor,
     src_lengths: torch.Tensor,
@@ -70,23 +94,10 @@ def linear_interpolate(
     """Per-example bilinear resize along time with half-pixel centers.
 
     x: [B, T_src, C]; output [B, dst_size, C], valid for t < dst_lengths[b]
-    (the rest is clamped garbage that callers mask). dx comes from the
-    unclamped floor, then indices clamp to [0, src_len - 1], as in GGML.
-    ``scale_override = (src_anchor, dst_anchor)`` pins the ratio."""
+    (the rest is clamped garbage that callers mask); taps by ``interp_taps``."""
     B, T_src, C = x.shape
     dst_idx = torch.arange(dst_size, dtype=torch.float32, device=x.device)[None, :]
-    if scale_override is not None:
-        sf = torch.full((B,), scale_override[1] / scale_override[0],
-                        dtype=torch.float32, device=x.device)
-    else:
-        sf = dst_lengths.float() / torch.clamp(src_lengths.float(), min=1.0)
-    pos = (dst_idx + 0.5) / sf[:, None] - 0.5
-    x0f = torch.floor(pos)
-    dx = pos - x0f
-    max_idx = torch.clamp(src_lengths - 1, min=0)[:, None].to(torch.int64)
-    base = x0f.to(torch.int64)
-    x0 = torch.minimum(torch.clamp(base, min=0), max_idx)
-    x1 = torch.minimum(torch.clamp(base + 1, min=0), max_idx)
+    x0, x1, dx = interp_taps(dst_idx, src_lengths, dst_lengths, scale_override)
     g0 = torch.gather(x, 1, x0[:, :, None].expand(B, dst_size, C))
     g1 = torch.gather(x, 1, x1[:, :, None].expand(B, dst_size, C))
     return g0 + (g1 - g0) * dx[:, :, None].to(x.dtype)

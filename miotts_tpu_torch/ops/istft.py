@@ -41,18 +41,18 @@ def hann_periodic(n: int) -> np.ndarray:
     return (0.5 * (1.0 - np.cos(2.0 * np.pi * i / n))).astype(np.float32)
 
 
-def istft_overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor,
-                      n_fft: int, hop: int, hann: torch.Tensor) -> torch.Tensor:
-    """frames_time: [B, L, n_fft] real frames, ``hann`` the periodic Hann
-    window [n_fft] on their device -> audio [B, (L-1)*hop + n_fft - 2*n_pad].
+def overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, hop: int,
+                hann: torch.Tensor) -> torch.Tensor:
+    """The uncropped, envelope-normalized overlap-add of frames_time [B, L,
+    n_fft] (frames at t >= frame_lengths[b] left out): [B, (L + r - 1) *
+    hop], r = ceil(n_fft / hop).
 
-    Each windowed frame splits into r = ceil(n_fft/hop) hop-chunks and the
-    r diagonally shifted streams are summed: no scatter."""
+    Each windowed frame splits into r hop-chunks and the r diagonally
+    shifted streams are summed: no scatter."""
     B, L, nf = frames_time.shape
     if nf != n_fft:
         raise ValueError(f"frames have {nf} samples, expected n_fft={n_fft}")
     r = -(-n_fft // hop)
-    n_pad = (n_fft - hop) // 2
     dev = frames_time.device
 
     maskf = (torch.arange(L, dtype=torch.int32, device=dev)[None, :]
@@ -74,16 +74,25 @@ def istft_overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor,
 
     audio_ola = ola(windowed)
     env_ola = ola(env_frames)
-    audio = torch.where(env_ola > 1e-12, audio_ola / torch.clamp(env_ola, min=1e-12), audio_ola)
+    return torch.where(env_ola > 1e-12, audio_ola / torch.clamp(env_ola, min=1e-12), audio_ola)
+
+
+def istft_overlap_add(frames_time: torch.Tensor, frame_lengths: torch.Tensor,
+                      n_fft: int, hop: int, hann: torch.Tensor) -> torch.Tensor:
+    """frames_time: [B, L, n_fft] real frames, ``hann`` the periodic Hann
+    window [n_fft] on their device -> audio [B, (L-1)*hop + n_fft - 2*n_pad]:
+    ``overlap_add`` cropped by n_pad = (n_fft - hop) / 2 a side."""
+    L = frames_time.shape[1]
+    n_pad = (n_fft - hop) // 2
+    audio = overlap_add(frames_time, frame_lengths, n_fft, hop, hann)
     out_size = (L - 1) * hop + n_fft - 2 * n_pad
     return audio[:, n_pad:n_pad + out_size]
 
 
-def spec_to_audio(spec: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, hop: int,
-                  tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """spec: [B, L, n_fft+2] (logmag | phase) -> audio; ``tables`` are the
-    (cos, sin) DFT matrices and the Hann window on the spec's device (see
-    ``dft_tables``). The DFT matmul runs at the codec's precision
+def dft_frames(spec: torch.Tensor, n_fft: int,
+               tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """spec [B, L, n_fft+2] (logmag | phase) -> real frames [B, L, n_fft]: the
+    reference's inverse DFT as a matmul at the codec's precision
     (``ops/precision.py``)."""
     n_freq = n_fft // 2 + 1
     logmag = spec[..., :n_freq].float()
@@ -91,6 +100,14 @@ def spec_to_audio(spec: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, h
     mag = torch.clamp(torch.exp(logmag), max=1e2)
     re = mag * torch.cos(phase)
     im = mag * torch.sin(phase)
-    cos_t, sin_t, hann = tables
-    frames_time = mm(re, cos_t) - mm(im, sin_t)
-    return istft_overlap_add(frames_time, frame_lengths, n_fft, hop, hann)
+    cos_t, sin_t, _ = tables
+    return mm(re, cos_t) - mm(im, sin_t)
+
+
+def spec_to_audio(spec: torch.Tensor, frame_lengths: torch.Tensor, n_fft: int, hop: int,
+                  tables: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """spec: [B, L, n_fft+2] (logmag | phase) -> audio; ``tables`` are the
+    (cos, sin) DFT matrices and the Hann window on the spec's device (see
+    ``dft_tables``)."""
+    return istft_overlap_add(dft_frames(spec, n_fft, tables), frame_lengths, n_fft, hop,
+                             tables[2])

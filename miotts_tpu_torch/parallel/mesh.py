@@ -1,5 +1,5 @@
-"""Device mesh and sharding rules for multi-device serving
-(miotts_tpu/parallel/mesh.py, all but ``make_sp_mesh``).
+"""Device meshes and sharding rules for multi-device serving and
+sequence-parallel decodes (miotts_tpu/parallel/mesh.py).
 
 Axes, as in the JAX package:
 
@@ -9,6 +9,9 @@ Axes, as in the JAX package:
   gate/up column-parallel, attention-out and down row-parallel (each
   followed by a sum over the group), the embedding and the logits head
   split over the vocab where it divides.
+- ``sp`` (``make_sp_mesh``, a 1-D mesh of its own): one codec decode's
+  time axis split over the ranks (``parallel/sequence.py``), the codec's
+  weights replicated on each.
 
 The JAX package leaves the placement of every leaf to GSPMD. Here a
 sharding is explicit: ``shard_llm_weights`` returns one ``TPGroup`` a dp
@@ -114,6 +117,44 @@ class Mesh:
     def __repr__(self) -> str:
         names = [[str(d) for d in row] for row in self.devices]
         return f"Mesh({self.shape}, {names})"
+
+
+class SpMesh(Mesh):
+    """A 1-D ("sp",) mesh: ``devices`` an object array of its ranks, the
+    first of them its lead."""
+
+    axis_names = ("sp",)
+
+    def __repr__(self) -> str:
+        return f"SpMesh({self.shape}, {[str(d) for d in self.devices]})"
+
+    @property
+    def lead(self) -> torch.device:
+        return self.devices[0].device
+
+    @property
+    def one_device(self) -> bool:
+        """Every rank on the lead's physical device (so a decode over the
+        mesh can be captured as one CUDA graph)."""
+        return all(same_device(d.device, self.lead) for d in self.devices)
+
+
+def make_sp_mesh(devices=None, sp: int | None = None) -> SpMesh:
+    """The 1-D ("sp",) mesh of a sequence-parallel codec decode over the
+    first ``sp`` of ``devices`` (default: all of ``logical_devices()``).
+    Asking for more ranks than devices raises, as in the JAX package."""
+    if devices is None:
+        devices = logical_devices()
+    devices = list(devices)
+    if sp is not None:
+        if sp > len(devices):
+            raise ValueError(f"sp={sp} > {len(devices)} devices")
+        devices = devices[:sp]
+    if len(set(devices)) != len(devices):
+        raise ValueError(f"a device appears twice in {[str(d) for d in devices]}")
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return SpMesh(arr)
 
 
 def make_mesh(devices=None, dp: int | None = None, tp: int | None = None) -> Mesh:

@@ -20,6 +20,18 @@ threads may share a pipeline. On the CPU every decode is eager. The
 codec's ``MIOTTS_CODEC_MATMUL`` is read once, when the pipeline is built,
 since a graph keeps what it was captured with.
 
+Sequence parallelism (``sp_devices``, the CLI's ``--sequence-parallel``;
+miotts_tpu/pipeline.py:133-157, 236-250): each decode's time axis splits
+over an ("sp",) mesh of those devices (``parallel/sequence.py``), the
+codec weights replicated on them (one upload a physical device), the
+token bucket rounded up to a multiple of sp. An sp key is its own
+``CodecKey``. Where every rank of the mesh is on one card (logical ranks,
+``MIOTTS_LOGICAL_DEVICES``) its decodes keep the policy above, each a
+graph of every rank's work; where the ranks span cards, every decode runs
+eagerly, as a tp group over cards does (``models/llm.py spans_devices``):
+a graph of several devices' work is not built here. The reference chain
+runs on the mesh's lead device, unsplit, as in the JAX package.
+
 Voice cloning (``reference_to_embedding``, with ``wavlm_path``): a
 reference file is decoded, peak-normalized and resampled to 16 kHz on the
 host, padded to its WavLM bucket, and the whole chain to the packed
@@ -62,10 +74,12 @@ from . import MIO_CODE_MAX, MIO_CODE_MIN
 from .device import to_device, to_host
 from .gguf.writer import load_embedding_gguf, save_embedding_gguf
 from .models import codec_graph
-from .models.miocodec import codec_synthesize, encode_global_embedding, load_miocodec
+from .models.miocodec import (
+    codec_synthesize, codec_synthesize_sharded, encode_global_embedding, load_miocodec)
 from .ops.masking import time_mask
 from .ops.precision import codec_matmul_mode
-from .parallel.mesh import same_device, tree_to
+from .parallel import sequence as seq
+from .parallel.mesh import make_sp_mesh, same_device, tree_to
 from .runtime.tracing import maybe_start_profiler, trace_phase
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -153,8 +167,8 @@ class CodecKey:
     """What one codec graph is captured for: the batch and its bucket, and
     every decode option the JAX ``jit`` treats as static (whether a cond is
     given, the resample anchor, peak normalization, the window length or
-    None, a pcm16 transfer). Lengths, codes, cond values and the window
-    start are inputs."""
+    None, a pcm16 transfer, the sp ranks the time axis splits over).
+    Lengths, codes, cond values and the window start are inputs."""
     B: int
     bucket: int
     cond: bool
@@ -162,6 +176,7 @@ class CodecKey:
     peak_normalize: bool
     window: int | None
     pcm16: bool
+    sp: int = 1
 
 
 @dataclasses.dataclass
@@ -179,22 +194,38 @@ class SynthesisResult:
 
 
 class MioTTSPipeline:
-    """Codec weights on one device, shared by every synthesis call."""
+    """Codec weights on one device (or replicated over an sp mesh), shared
+    by every synthesis call."""
 
     def __init__(self, codec_path: str | Path, device: torch.device,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS, check_syncs: bool = True,
-                 wavlm_path: str | Path | None = None):
+                 wavlm_path: str | Path | None = None, sp_devices: list | None = None):
         self.codec_path = str(codec_path)
         # run a key's eager decode and a capture's warm-up with every host
         # sync an error (a process-wide mode: a server, whose other threads
         # read the card meanwhile, turns it off)
         self.check_syncs = check_syncs
-        self.config, self.weights = load_miocodec(self.codec_path, device)
+        # sequence parallelism: the mesh, its lead the pipeline's device, one
+        # weight tree a rank (``sp_weights``; ``weights`` the lead's)
+        self.sp_mesh = None
+        self.sp_weights = None
+        sharding = None
+        if sp_devices is not None and len(sp_devices) > 1:
+            self.sp_mesh = make_sp_mesh(sp_devices)
+            device = self.sp_mesh.lead
+            sharding = list(self.sp_mesh.devices)
+        self.config, placed = load_miocodec(self.codec_path, device, sharding=sharding)
+        if sharding is None:
+            self.weights = placed
+        else:
+            self.sp_weights, self.weights = placed, placed[0]
         # the codec's precision, read once: a captured graph keeps what it
         # was captured with
         self.codec_matmul = codec_matmul_mode(os.environ.get("MIOTTS_CODEC_MATMUL", "float32"))
         self.buckets = buckets
         self._init_decodes(device)
+        if self.sp_mesh is not None and not self.sp_mesh.one_device:
+            self.use_graph = False  # a mesh over cards: every decode eager
         # the reference chain (voice cloning): its graphs by WavLM bucket,
         # the buckets run so far, its stream and its graphs' own pool
         self.wavlm = None
@@ -206,7 +237,7 @@ class MioTTSPipeline:
         if wavlm_path:
             from .models.wavlm import WavLMExtractor
 
-            self.wavlm = WavLMExtractor(str(wavlm_path), device)
+            self.wavlm = WavLMExtractor(str(wavlm_path), device, sharding=sharding)
             if device.type == "cuda":
                 self._ref_stream = torch.cuda.Stream(device)
                 self.ref_graph_pool = torch.cuda.graph_pool_handle()
@@ -243,8 +274,9 @@ class MioTTSPipeline:
             rep.__dict__.update(codec_path=self.codec_path, check_syncs=self.check_syncs,
                                 config=self.config, weights=tree_to(self.weights, device),
                                 codec_matmul=self.codec_matmul, buckets=self.buckets,
-                                wavlm=None, ref_graphs={}, ref_seen=set(), _ref_stream=None,
-                                ref_graph_pool=None, _ref_lock=threading.Lock())
+                                sp_mesh=None, sp_weights=None, wavlm=None, ref_graphs={},
+                                ref_seen=set(), _ref_stream=None, ref_graph_pool=None,
+                                _ref_lock=threading.Lock())
             rep._init_decodes(device)
             rep = self._replicas.setdefault(key, rep)
         return rep
@@ -308,7 +340,8 @@ class MioTTSPipeline:
         result's audio is those values scaled back to f32."""
         codes, embedding = self.validate_request(codes, embedding)
         n = int(codes.size)
-        tokens = np.zeros((1, pick_bucket(n, self.buckets)), np.int64)
+        bucket = -(-pick_bucket(n, self.buckets) // self.sp) * self.sp  # even token shards
+        tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :n] = codes
         start = 0 if window is None else int(window[0])
         maybe_start_profiler()
@@ -378,7 +411,8 @@ class MioTTSPipeline:
                  pcm16: bool = False) -> tuple[CodecKey, dict[str, np.ndarray]]:
         """A decode's key and its host arrays, named as the graph's inputs."""
         B, bucket = tokens.shape
-        key = CodecKey(B, bucket, cond is not None, interp_anchor, peak_normalize, window, pcm16)
+        key = CodecKey(B, bucket, cond is not None, interp_anchor, peak_normalize, window, pcm16,
+                       self.sp)
         host = {"tokens": np.ascontiguousarray(tokens, np.int64),
                 "lengths": np.ascontiguousarray(lengths, np.int32)}
         if cond is not None:
@@ -398,7 +432,7 @@ class MioTTSPipeline:
         a thread's cuBLAS and cuDNN handles are its own."""
         if cond is None:
             cond = self.config.dynamic_global
-        key = CodecKey(B, bucket, cond, interp_anchor, peak_normalize, window, pcm16)
+        key = CodecKey(B, bucket, cond, interp_anchor, peak_normalize, window, pcm16, self.sp)
         with self._lock:
             if key not in self.graphs:
                 self._capture(key, warm_up=True)
@@ -416,8 +450,15 @@ class MioTTSPipeline:
             codec_graph.codec.eager += 1
             return to_host(codec_graph.run_checked(self._body(key), inputs, self.check_syncs))
 
+    @property
+    def sp(self) -> int:
+        """The ranks a decode's time axis splits over (1: no mesh)."""
+        return 1 if self.sp_mesh is None else self.sp_mesh.shape["sp"]
+
     def _body(self, key: CodecKey):
         cfg, w = self.config, self.weights
+        if key.sp > 1:
+            return self._sp_body(key)
 
         def body(inputs: dict[str, torch.Tensor]) -> torch.Tensor:
             audio, n_samples = codec_synthesize(
@@ -427,6 +468,25 @@ class MioTTSPipeline:
             if key.window is not None:
                 audio = _window_slice(audio, inputs["starts"], key.window)
             return _pack(audio, n_samples, key.pcm16)
+        return body
+
+    def _sp_body(self, key: CodecKey):
+        """``_body`` over the sp mesh: the window read from the split audio
+        by global index (``seq.gather_rows``), else the audio joined on the
+        lead."""
+        def body(inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+            audio, n_samples = codec_synthesize_sharded(
+                self.config, self.sp_weights, inputs["tokens"], inputs["lengths"],
+                inputs.get("cond"), key.interp_anchor, key.peak_normalize, self.sp_mesh,
+                matmul=self.codec_matmul)
+            if key.window is None:
+                return _pack(seq.join(audio), n_samples, key.pcm16)
+            idx = inputs["starts"][:, None].long() + torch.arange(
+                key.window, device=self.device)[None, :]
+            win = seq.gather_rows(audio, [idx.clamp(0, audio.total - 1)])[0]
+            win = torch.where(idx < audio.total, win,
+                              torch.zeros((), dtype=win.dtype, device=win.device))
+            return _pack(win, n_samples, key.pcm16)
         return body
 
     def _capture(self, key: CodecKey, warm_up: bool) -> codec_graph.CodecGraph:

@@ -543,9 +543,27 @@ def build_leaf(reader, fmts: list[str], device, n_layers: int | None = None,
     return pk.finalize()["leaf"]
 
 
-def device_put_packed(tree: Any, device) -> Any:
+def device_put_packed(tree: Any, device, sharding=None) -> Any:
     """``tree_to_device`` with one copy a dtype (native dtypes kept) where
-    ``device_dequant_enabled``; tensors already placed pass through."""
+    ``device_dequant_enabled``; tensors already placed pass through.
+
+    ``sharding`` (the JAX package's argument, there a mesh-replicated
+    placement): a sequence of logical devices (``parallel/mesh.py``
+    ``Device``, e.g. an sp mesh's), on each of which the tree is wanted;
+    returns one tree for each, placed once for each physical device and
+    shared by the logical devices on it. ``device`` is then unused."""
+    if sharding is not None:
+        from ..parallel.mesh import same_device
+
+        placed: list = []
+        out = []
+        for d in sharding:
+            tree_d = next((t for dev, t in placed if same_device(dev, d.device)), None)
+            if tree_d is None:
+                tree_d = device_put_packed(tree, d.device)
+                placed.append((d.device, tree_d))
+            out.append(tree_d)
+        return out
     device = torch.device(device)
     if not device_dequant_enabled(device):
         return tree_to_device(tree, device)

@@ -23,8 +23,8 @@ Stdlib-only (ThreadingHTTPServer); the card's work runs in the batchers'
 threads (``engine.py``). Reference generation needs ``--tts-wavlm-model``
 (without it the route answers as the JAX server does); it takes a JSON
 body naming a file or a multipart upload (field ``audio``), at most
-``--parallel-reference-generation`` at once. Flags whose paths are not
-ported exit with ``error: ... not yet ported to miotts_tpu_torch``.
+``--parallel-reference-generation`` at once. Every flag of the JAX
+server is ported.
 
 Run: ``python -m miotts_tpu_torch.serving.server -mv CODEC.gguf -m LLM.gguf
 -np 8 ...`` (``MIOTTS_PLATFORM=cpu`` for the CPU).

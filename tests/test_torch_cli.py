@@ -157,24 +157,33 @@ def test_codes_only(assets, tmp_path):
     ["--cpu-native", "on"],
 ])
 def test_unported_flags_exit_1(assets, extra, capsys, monkeypatch):
-    """Each flag exits 1 on this codes request: the voice-cloning flags,
-    --llm-api-url and --cpu-native on (ported; codes win over the last two,
-    and this request has no embedding) with the JAX CLI's error, the others
-    as not yet ported."""
-    ported = ("--tts-reference-audio", "--tts-wavlm-model", "--tts-mio-embedding-only",
-              "--llm-api-url", "--cpu-native")
-    if extra[0] == "--llm-api-url":  # it gets as far as the codec, on the CPU
+    """Each flag, ported, exits 1 on this codes request with the JAX CLI's
+    error: the voice-cloning flags as they stand alone, --llm-api-url,
+    --cpu-native on and --sequence-parallel 2 (codes win over the first
+    two; this request has no embedding). --sequence-parallel runs under
+    MIOTTS_PLATFORM=cpu and MIOTTS_LOGICAL_DEVICES=8, so the port has the 8
+    ranks that JAX has forced CPU devices (tests/conftest.py)."""
+    if extra[0] in ("--llm-api-url", "--sequence-parallel"):  # as far as the codec, on the CPU
         monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
+        monkeypatch.setenv("MIOTTS_LOGICAL_DEVICES", "8")
     argv = ["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "1 2 3"] + extra
     rc = cli.main(argv)
     err = capsys.readouterr().err
     assert rc == 1
-    if extra[0] in ported:
-        monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
-        assert jax_cli.main(argv) == 1
-        assert err == capsys.readouterr().err and "not yet ported" not in err
-    else:
-        assert "not yet ported to miotts_tpu_torch" in err
+    monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
+    assert jax_cli.main(argv) == 1
+    assert err == capsys.readouterr().err and "not yet ported" not in err
+
+
+def test_sequence_parallel_beyond_the_devices(assets, capsys, monkeypatch):
+    """--sequence-parallel 2 on one CPU device exits 1 with the JAX CLI's
+    error (miotts_tpu/cli.py:180-182)."""
+    monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
+    monkeypatch.delenv("MIOTTS_LOGICAL_DEVICES", raising=False)
+    rc = cli.main(["-mv", str(assets / "codec.gguf"), "--tts-mio-codes", "1 2 3",
+                   "-emb", str(assets / "voice.emb.gguf"), "--sequence-parallel", "2"])
+    assert rc == 1
+    assert capsys.readouterr().err == "error: --sequence-parallel 2 > 1 visible devices\n"
 
 
 def test_llm_quant_flag_is_ported(assets, tmp_path, capsys):

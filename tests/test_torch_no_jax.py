@@ -44,7 +44,8 @@ def test_no_module_imports_jax():
     assert {f"miotts_tpu_torch.converters.{m}" for m in (
         "miocodec", "wavlm", "preset_embedding", "quantize")} | {
         "miotts_tpu_torch.ops.precision"} <= set(names)
-    assert {f"miotts_tpu_torch.parallel{m}" for m in ("", ".mesh", ".collectives")} <= set(names)
+    assert {f"miotts_tpu_torch.parallel{m}"
+            for m in ("", ".mesh", ".collectives", ".sequence")} <= set(names)
     assert {"miotts_tpu_torch.embed", "miotts_tpu_torch.models.wavlm",
             "miotts_tpu_torch.models.llm_cpu"} | {
         f"miotts_tpu_torch.runtime.{m}" for m in ("flac", "mp3", "mp3_tables", "llm_api",
