@@ -8,7 +8,9 @@ Phases, in order; any failure exits nonzero and prints no result:
 
 1. device: the card's name and power limit; the port's device is set to
    CUDA (TF32 off).
-2. build: the CUDA kernels are compiled from ``miotts_tpu_torch/csrc``.
+2. build: the CUDA kernels are compiled from ``miotts_tpu_torch/csrc``, and
+   the native host runtime (``runtime/native/miotts_runtime.cpp``, g++) on
+   a thread beside them.
 3. K1 (banded attention, [B, T, H, D]) against its plain PyTorch version on
    the card, max abs error <= 1e-5 (f32, TF32 off): at the four attention
    shapes of a 400- and a 40-code request (each timed beside its bound and
@@ -122,7 +124,8 @@ published widths (2 layers, 12 heads of 64, ffn 3072, the 7-conv stack at
 512 channels, 320 buckets) and the 24 kHz codec written with its global
 encoder (input 768, dim 384, 4 ConvNeXt blocks, output 128): 24 kHz
 references of 3, 20 and 25 s (WAV; the 25 s one cut to 20 s by the default
---tts-max-reference-seconds) and the 3 s one as a FLAC, each four times on
+--tts-max-reference-seconds) and the 3 s one as a FLAC (each of its four
+host decodes by the native library, required), each four times on
 one card pipeline (a WavLM bucket's first chain eager under sync-debug
 "error", its second the capture of the bucket's CUDA graph, then replays;
 a reference whose bucket has its graph replays all four), every run
@@ -201,6 +204,16 @@ also holds a repeat penalty of 1.1 (greedy, and sampled with seed 5)
 replayed against the eager body, and the dense requests include one at
 ``--repeat-penalty 1.1``.
 
+Before the paths, a native phase (``runtime/native.py``, host C++ on the
+card machine's CPU): the library must be loaded (the card machine has g++,
+which nvcc needs); its path, ABI and the host CPU's model are printed;
+``ref3.flac`` and a 20 s 44.1 kHz stereo FLAC (LPC, mid/side) are decoded
+natively and by the numpy decoder, and the Q8_0 LLM's head (151 759 x 768)
+and a BF16 tensor of that shape are dequantized natively and by numpy, each
+pair bit-equal, with both times. After the paths, ``[native]`` lines read
+back the per-leaf LLM loads (their tensors dequantized natively) and the
+clone phase's host decode of ``ref3.flac``, which must have been native.
+
 First among the paths, a load phase (M7, ``runtime/device_dequant.py``):
 the dense (f32) and Q8_0 0.1B LLM GGUFs (the latter with ``--llm-quant
 q8_0``), the 24 kHz codec and WavLM Base+ each loaded three ways on the
@@ -208,8 +221,8 @@ card: per leaf (MIOTTS_DEVICE_DEQUANT=0), packed (=1; the LLMs write their
 deploy artifact) and again (the LLMs replay the artifact, the others pack
 again); every leaf torch.equal across the three, the same bytes allocated
 after each, each load on its own route and none falling back; wall
-seconds (read, pack, copy, assemble), MB copied and max_memory_allocated
-printed. Then CLI requests on those routes (-n 120, greedy): ``--llm-quant
+seconds (read, pack, copy, assemble), MB copied, max_memory_allocated and
+the tensors the native host runtime dequantized printed. Then CLI requests on those routes (-n 120, greedy): ``--llm-quant
 q8_0`` replayed from the artifact (K1, K2, K3) and the dense path on the
 raw Q8_0 payload dequantized on the card (K1, K2), each with the codes of
 the same request on per-leaf weights; a server (dense on the Q8_0 GGUF,
@@ -220,7 +233,7 @@ route on a thread while this thread captures new codec graph keys (B = 2):
 both succeed, a capture overlaps the reload, each new key's replay equals
 its eager decode, and the reloaded engine speaks. Last of all, a
 cpu_native phase: ``--cpu-native on`` under MIOTTS_PLATFORM=cuda runs the
-card's engine (K1 and K2 launch, the native library is not loaded), and
+card's engine (K1 and K2 launch, the CLI builds no native engine), and
 under MIOTTS_PLATFORM=cpu the native int8/int4 engine writes 64 tokens
 from the Q8_0 GGUF as it is and requantized to Q4_0
 (MIOTTS_CPU_QUANT=q4_0), its tokens/s printed with the host CPU's name.
@@ -282,6 +295,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -306,7 +320,7 @@ from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.ops.cuda import resblock as k6
 from miotts_tpu_torch.parallel.mesh import logical_devices
 from miotts_tpu_torch.pipeline import CodecKey, MioTTSPipeline, pick_bucket
-from miotts_tpu_torch.runtime import device_dequant
+from miotts_tpu_torch.runtime import device_dequant, native
 from miotts_tpu_torch.streaming import StreamingSynthesizer
 from miotts_tpu_torch.testing import (
     full_codec441_config, full_codec_config, full_mel_codec_config, full_wavlm_kwargs, mel_l1,
@@ -1671,8 +1685,14 @@ def check_references(dev, tmp: Path) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        flac0 = native.calls["mio_flac_decode"]
         runs = [card.reference_embedding(path, CLONE_MAX_SECONDS) for _ in range(4)]
         peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        host_route = "native" if native.calls["mio_flac_decode"] == flac0 + 4 else "numpy"
+        if name.endswith(".flac") and host_route != "native":
+            raise AssertionError(f"reference {name} was not decoded natively: "
+                                 f"{native.calls['mio_flac_decode'] - flac0} native decodes "
+                                 f"of 4 ({native.unavailable_reason()})")
         emb, st = runs[0]
         routes = [r.route for _, r in runs]
         want_routes = ["eager", "capture", "replay", "replay"] if new_bucket else ["replay"] * 4
@@ -1695,13 +1715,15 @@ def check_references(dev, tmp: Path) -> dict:
         rows[name] = {"seconds": secs, "n_samples": st.n_samples, "bucket": st.bucket,
                       "frames": st.frames, "rung": st.rung, "max_abs_err": err, "cosine": cos,
                       "routes": routes, "decode_ms": [r.decode_ms for _, r in runs],
+                      "decoded": host_route if name.endswith(".flac") else "wav",
                       "device_ms": [r.device_ms for _, r in runs],
                       "capture_ms": graph.capture_ms if new_bucket else None,
                       "replay_busy_ms": busy, "eager_busy_ms": busy_eager,
                       "peak_allocated_mib": peak_mib, "cpu_device_ms": cst.device_ms}
         fmt = lambda x: "not measured" if x is None else f"{x:.2f} ms"  # noqa: E731
         log(f"[clone] {name}: {st.n_samples} samples at 16 kHz, bucket {st.bucket}, "
-            f"{st.frames} frames, rung {st.rung} (CPU {cst.rung}); host decode+resample "
+            f"{st.frames} frames, rung {st.rung} (CPU {cst.rung}); host decode+resample"
+            + (f" ({host_route} FLAC decode)" if name.endswith(".flac") else "") + " "
             f"{', '.join(f'{r.decode_ms:.1f}' for _, r in runs)} ms; device chain "
             + ", ".join(f"{r.route} {r.device_ms:.2f}" for _, r in runs) + " ms wall"
             + (f" (the capture {graph.capture_ms:.1f} ms of it)" if new_bucket else "")
@@ -3013,7 +3035,11 @@ SP_TOL = 1e-4  # f32 audio against the mesh-less decode (the JAX package's bar)
 # printed by this phase). So each codec's bar is the larger of SP_TOL and
 # SP_FLOOR_FACTOR times that floor, since an sp decode re-orders every
 # GroupNorm, matmul, conv and attention sum, not one; and its mel-L1
-# against the mesh-less decode must stay under MEL_L1_MAX.
+# against the mesh-less decode must stay under MEL_L1_MAX. The JAX package
+# misses SP_TOL on this codec too: decoding these 400 codes on the CPU
+# (scripts/check_sp441_drift.py), its own sp = 2 / 4 decodes are 2.28e-04 /
+# 2.04e-04 from its mesh-less decode (the port's 3.64e-04 / 3.66e-04, its
+# f64 floor 1.79e-04), so the widened bar is the codec's, not the port's.
 SP_FLOOR_FACTOR = 4
 SP_PCM_STEPS = 2  # through the CLI: int16 steps
 # K1 at a rank's halo-extended part of a 400-code decode (bucket 512):
@@ -3364,6 +3390,105 @@ def check_trace(tmp: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the native host runtime (runtime/native.py): FLAC decode and GGUF dequant
+# ---------------------------------------------------------------------------
+
+NATIVE_FLAC20 = ("ref20_441_stereo.flac", 20.0, 44100)  # (file, seconds, rate)
+
+
+def native_flac20(tmp: Path) -> Path:
+    """A 20 s 44.1 kHz stereo FLAC (tests/flac_encoder.py, LPC subframes,
+    mid/side, partition order 4): the voice-like tone of ``clone_assets``,
+    its right channel a delayed half of the left plus noise."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from flac_encoder import encode_flac
+
+    name, secs, sr = NATIVE_FLAC20
+    rng = np.random.RandomState(16)
+    t = np.arange(int(secs * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(180 + 20 * np.sin(2 * np.pi * 0.7 * t)) / sr
+    clip = ((0.35 * np.sin(phase) + 0.12 * np.sin(2 * phase) + 0.002 * rng.randn(t.size))
+            * (0.6 + 0.4 * np.sin(2 * np.pi * 1.3 * t) ** 2))
+    left = np.rint(np.clip(clip, -1, 1) * 32767).astype(np.int64)
+    right = np.roll(left, 11) // 2 + np.rint(0.002 * 32767 * rng.randn(t.size)).astype(np.int64)
+    (tmp / name).write_bytes(encode_flac(np.stack([left, right], 1), sr, subframe_kind="lpc2",
+                                         channel_mode="mid_side", partition_order=4))
+    return tmp / name
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_bits(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    want = np.asarray(want, np.float32)
+    if got.dtype != np.float32 or got.shape != want.shape or not np.array_equal(
+            got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"[native] {what}: the native result is not bit-equal to numpy's")
+
+
+def check_native(tmp: Path) -> dict:
+    """The native host runtime on the card machine's CPU: the library
+    loaded (never built around), its path, ABI and the host CPU; ref3.flac
+    and a 20 s 44.1 kHz stereo FLAC decoded natively and by the numpy
+    decoder, bit-equal; the Q8_0 LLM's head (Q8_0, 151 759 x 768) and a
+    BF16 tensor of the same shape (the f32 LLM's token embedding cut to
+    bf16) dequantized natively and by numpy, bit-equal; each time printed."""
+    from miotts_tpu_torch.gguf.quants import GGMLType, dequantize_numpy
+    from miotts_tpu_torch.gguf.reader import GGUFReader
+    from miotts_tpu_torch.runtime.flac import decode_flac
+
+    if not native.available():
+        raise AssertionError(f"[native] the library is unavailable: "
+                             f"{native.unavailable_reason()}")
+    lib = native._load()
+    cpu = cpu_model_name()
+    row: dict = {"library": lib._name, "abi": lib.mio_runtime_abi_version(), "cpu": cpu,
+                 "cores": os.cpu_count(), "flac": {}, "dequant": {}}
+    if row["abi"] != native.ABI:
+        raise AssertionError(f"[native] ABI {row['abi']}, want {native.ABI}")
+    log(f"[native] library {lib._name}, ABI {row['abi']}; host CPU {cpu} "
+        f"({os.cpu_count()} cores seen)")
+    path20, encode_ms = timed(lambda: native_flac20(tmp))
+    row["flac20_encode_ms"] = encode_ms
+    log(f"[native] {path20.name} written in {encode_ms:.0f} ms (tests/flac_encoder.py)")
+    for path in (tmp / "ref3.flac", path20):
+        data = path.read_bytes()
+        (x, rate), nat_ms = timed(lambda: native.flac_decode_native(data))
+        (y, ref_rate), np_ms = timed(lambda: decode_flac(data))
+        same_bits(path.name, x, y)
+        if rate != ref_rate:
+            raise AssertionError(f"[native] {path.name}: rate {rate} vs numpy's {ref_rate}")
+        row["flac"][path.name] = {"samples": int(x.size), "rate": rate, "bytes": len(data),
+                                  "native_ms": nat_ms, "numpy_ms": np_ms}
+        log(f"[native] {path.name} ({len(data)} bytes, {x.size} samples at {rate} Hz): native "
+            f"decode {nat_ms:.2f} ms, numpy {np_ms:.1f} ms ({np_ms / nat_ms:.1f}x), bit-equal")
+    with GGUFReader(tmp / "llm_q8_0.gguf") as r:
+        info = r.tensors["output.weight"]
+        head = np.array(r.tensor_raw("output.weight"))
+        shape = tuple(info.shape)
+    with GGUFReader(tmp / "llm.gguf") as r:
+        emb = np.array(r.tensor_raw("token_embd.weight")).view(np.uint32)
+    bf16 = (emb >> 16).astype(np.uint16).view(np.uint8)
+    del emb
+    n = int(np.prod(shape))
+    for what, raw, kind in (("Q8_0 head output.weight", head, GGMLType.Q8_0),
+                            ("BF16 token_embd", bf16, GGMLType.BF16)):
+        got, nat_ms = timed(lambda: native.dequantize_native(raw, int(kind), n))
+        want, np_ms = timed(lambda: dequantize_numpy(raw, kind, n))
+        same_bits(what, got, want)
+        row["dequant"][what] = {"shape": shape, "native_ms": nat_ms, "numpy_ms": np_ms,
+                                "threads": min(8, os.cpu_count() or 1)}
+        log(f"[native] dequant {what} {shape}: native {nat_ms:.1f} ms "
+            f"({row['dequant'][what]['threads']} threads), numpy {np_ms:.1f} ms "
+            f"({np_ms / nat_ms:.1f}x), bit-equal")
+        del got, want
+    return row
+
+
+# ---------------------------------------------------------------------------
 # M7: the packed weight upload, its deploy artifact, the native CPU engine
 # ---------------------------------------------------------------------------
 
@@ -3397,14 +3522,16 @@ def load_once(fn) -> tuple[list, dict]:
     its leaves copied to the host (the tree itself is dropped, so every
     load starts from the same allocator state), the routes it took, its
     wall seconds split into read (GGUF reads, host casts and quantization:
-    the rest), pack, copy and assemble, the MB copied, and the bytes
-    allocated after it and at its peak."""
+    the rest), pack, copy and assemble, the MB copied, the bytes
+    allocated after it and at its peak, and how many tensors the native
+    host runtime dequantized."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     r0 = dict(device_dequant.routes)
+    d0 = native.calls["mio_dequant"]
     t0 = time.perf_counter()
     tree = fn()
     torch.cuda.synchronize()
@@ -3414,7 +3541,7 @@ def load_once(fn) -> tuple[list, dict]:
            "pack_s": st.pack_s, "copy_s": st.copy_s, "assemble_s": st.assemble_s,
            "mb_copied": st.nbytes / 1e6, "allocated": torch.cuda.memory_allocated() - base,
            "max_allocated": torch.cuda.max_memory_allocated() - base,
-           "routes": route_counts(r0)}
+           "routes": route_counts(r0), "native_dequants": native.calls["mio_dequant"] - d0}
     host = [t.cpu() for t in tree_leaves(tree)]
     del tree
     return host, row
@@ -3459,7 +3586,8 @@ def check_load(dev, tmp: Path) -> dict:
                 f"pack {row['pack_s']:.3f}, copy {row['copy_s']:.3f}, assemble "
                 f"{row['assemble_s']:.3f}), {row['mb_copied']:.1f} MB copied, allocated "
                 f"{row['allocated'] / 2 ** 20:.2f} MiB, max_memory_allocated "
-                f"{row['max_allocated'] / 2 ** 20:.2f} MiB; {len(host)} leaves"
+                f"{row['max_allocated'] / 2 ** 20:.2f} MiB; {len(host)} leaves, "
+                f"{row['native_dequants']} tensors dequantized natively"
                 + ("" if label == "per_leaf" else ", torch.equal to per_leaf's"))
         allocated = {label: r["allocated"] for label, r in rows[name].items()}
         if len(set(allocated.values())) != 1:
@@ -3639,43 +3767,76 @@ def cpu_model_name() -> str:
             f"{info.get('cpu family', '?')} model {info.get('model', '?')}")
 
 
+def native_reread(load_rows: dict, clone_rows: dict) -> dict:
+    """The [native] lines' second half, read back from the load and clone
+    phases: the per-leaf LLM loads (their tensor reads go through the
+    native dequant) and ref3.flac's host decode in the clone phase."""
+    loads = {name: {"wall_s": load_rows["loads"][name]["per_leaf"]["wall_s"],
+                    "read_s": load_rows["loads"][name]["per_leaf"]["read_s"],
+                    "native_dequants": load_rows["loads"][name]["per_leaf"]["native_dequants"]}
+             for name in ("llm dense", "llm q8_0")}
+    flac = clone_rows["references"]["ref3.flac"]
+    row = {"per_leaf_loads": loads, "ref3.flac": {"decoded": flac["decoded"],
+                                                  "decode_ms": flac["decode_ms"]}}
+    for name, r in loads.items():
+        log(f"[native] {name} per-leaf load {r['wall_s']:.3f} s (read {r['read_s']:.3f} s), "
+            f"{r['native_dequants']} tensors dequantized natively")
+    log(f"[native] clone phase ref3.flac: host decode+resample "
+        f"{', '.join(f'{x:.1f}' for x in flac['decode_ms'])} ms, {flac['decoded']} FLAC decode")
+    return row
+
+
+@contextlib.contextmanager
+def engines_made():
+    """The class names of the LLM engines ``cli._make_llm_engine`` builds
+    inside the block, in order."""
+    made, make = [], cli._make_llm_engine
+
+    def recording(*args, **kwargs):
+        engine = make(*args, **kwargs)
+        made.append(type(engine).__name__)
+        return engine
+
+    cli._make_llm_engine = recording
+    try:
+        yield made
+    finally:
+        cli._make_llm_engine = make
+
+
 def check_cpu_native(tmp: Path) -> dict:
     """``--cpu-native on`` through the CLI: under MIOTTS_PLATFORM=cuda it is
-    ignored (the card's engine runs, K2 launches, the native library is not
-    loaded); under MIOTTS_PLATFORM=cpu the native engine generates
+    ignored (the CLI builds the card's engine, K2 launches); under
+    MIOTTS_PLATFORM=cpu the CLI builds the native engine, which generates
     CPU_NATIVE_TOKENS tokens on the host from the Q8_0 GGUF as it is and
     requantized to Q4_0 (MIOTTS_CPU_QUANT=q4_0), its tokens/s printed with
     the host CPU's name."""
-    from miotts_tpu_torch.runtime import native
-
-    if native._tried:
-        raise AssertionError("the native library was loaded before the CUDA check")
-    drive_cli("cpu-native-on-cuda", tmp, [
-        "-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm_q8_0.gguf"), "-p", LOAD_PROMPT,
-        "-n", "48", "--cpu-native", "on"], (k1, k2))
-    if native._tried:
-        raise AssertionError("--cpu-native on under MIOTTS_PLATFORM=cuda loaded the native "
-                             "library")
+    with engines_made() as made:
+        drive_cli("cpu-native-on-cuda", tmp, [
+            "-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm_q8_0.gguf"), "-p", LOAD_PROMPT,
+            "-n", "48", "--cpu-native", "on"], (k1, k2))
+    if made != ["LLMEngine"]:
+        raise AssertionError(f"--cpu-native on under MIOTTS_PLATFORM=cuda built {made}")
     cpu = cpu_model_name()
-    rows = {"cpu": cpu, "cuda_request": "card engine (K1, K2), native library not loaded"}
+    rows = {"cpu": cpu, "cuda_request": "card engine (K1, K2), LLMEngine built"}
     for quant in ("auto", "q4_0"):
         codes_out, err = tmp / f"cpu-native-{quant}.codes", io.StringIO()
         l0 = {m: m.launches for m in MODS}
         with environment(MIOTTS_PLATFORM="cpu", MIOTTS_CPU_QUANT=quant), \
-                contextlib.redirect_stderr(err):
+                contextlib.redirect_stderr(err), engines_made() as made:
             rc = cli.main(["-mv", str(tmp / "codec.gguf"), "-m", str(tmp / "llm_q8_0.gguf"),
                            "-p", LOAD_PROMPT, "-n", str(CPU_NATIVE_TOKENS), "--seed", "1",
                            "--cpu-native", "on", "--tts-mio-codes-only", "--tts-mio-codes-out",
                            str(codes_out)])
         text = err.getvalue()
         m = re.search(r"llm breakdown: generate=([0-9.]+)ms n_tokens=(\d+) tok/s=([0-9.]+)", text)
-        if rc != 0 or m is None or not native.q8_available():
-            raise AssertionError(f"cpu-native {quant}: exited {rc}:\n{text[-2000:]}")
+        if rc != 0 or m is None or made != ["NativeCpuLLMEngine"]:
+            raise AssertionError(f"cpu-native {quant}: exited {rc}, built {made}:\n{text[-2000:]}")
         if any(m_.launches != l0[m_] for m_ in MODS):
             raise AssertionError(f"cpu-native {quant}: a kernel launched on the card")
         n_codes = len(codes_out.read_text().split())
         rows[quant] = {"generate_ms": float(m.group(1)), "tokens": int(m.group(2)),
-                       "tok_s": float(m.group(3)), "codes": n_codes}
+                       "tok_s": float(m.group(3)), "codes": n_codes, "engine": made[0]}
         if rows[quant]["tokens"] < 1 or n_codes < 1:
             raise AssertionError(f"cpu-native {quant}: {rows[quant]}")
         log(f"[cpu_native] MIOTTS_PLATFORM=cpu --cpu-native on MIOTTS_CPU_QUANT={quant} "
@@ -3699,9 +3860,14 @@ def main() -> int:
     dev = select_device("cuda")
 
     t0 = time.perf_counter()
+    # the native host runtime (g++) builds on a thread beside the kernels (nvcc)
+    host_lib = threading.Thread(target=native.available, name="native-build")
+    host_lib.start()
     lib = build.build(verbose=True)
     build.load_library()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f}s")
+    host_lib.join()
+    log(f"[build] {lib.name} and the native host runtime "
+        f"({native.unavailable_reason() or 'loaded'}) in {time.perf_counter() - t0:.2f}s")
 
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
@@ -3738,6 +3904,10 @@ def main() -> int:
             f"embedding + WavLM Base+ and references written in "
             f"{time.perf_counter() - t0:.1f}s")
         cfgs = {"wave": ccfg, "wave441": wcfg, "mel": mcfg}
+
+        t0 = time.perf_counter()
+        native_rows = check_native(tmp)
+        log(f"[native] {time.perf_counter() - t0:.1f}s")
 
         t0 = time.perf_counter()
         graph_rows = check_graph(dev, tmp)
@@ -3796,6 +3966,8 @@ def main() -> int:
             log(f"[{path} path] {time.perf_counter() - t0:.1f}s, launches: "
                 f"{launch_text(launches[path])}")
 
+        native_rows["reread"] = native_reread(load_rows, clone_rows)
+
         fidelity(tmp / "codec.gguf", dev, rng.randint(0, ccfg.vocab_size, 250), emb,
                  ccfg.sample_rate, "wave")
         fidelity(tmp / "codec441.gguf", dev, rng.randint(0, wcfg.vocab_size, 250), emb,
@@ -3821,7 +3993,7 @@ def main() -> int:
                       "codec_knobs": knob_rows, "streams": streams,
                       "server": server_rows, "clone": clone_rows, "llm_api": api_rows,
                       "trace": trace_row, "load": load_rows, "cpu_native": cpu_rows,
-                      "mesh": mesh_rows, "sp": sp_rows},
+                      "mesh": mesh_rows, "sp": sp_rows, "native": native_rows},
                      default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

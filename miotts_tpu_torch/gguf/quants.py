@@ -7,8 +7,11 @@ codec/WavLM GGUFs (converters emit f32: ``convert_miocodec_to_gguf.py:390``),
 Q8_0 / Q4_0 / Q4_1 / Q5_0 / Q5_1 / Q6_K / Q4_K for the quantized LLM GGUF
 (MioTTS-0.1B-Q8_0), and I8/I16/I32/I64/F64 for metadata tensors such as
 ``miocodec.wave_upsampler.factors`` (i32, ``miocodec-decoder.cpp:577-600``).
-Dequantization is numpy only: the reference's threaded native path gives
-the same values.
+``dequantize`` takes the threaded native dequant of ``runtime/native.py``
+first for every non-F32 tensor of at least 2^16 elements, as the JAX
+package does, and numpy otherwise or when the library is unavailable. Both
+give the same values; the native route returns F16/BF16 as float32, where
+numpy returns an F16 tensor as a float16 view.
 """
 
 from __future__ import annotations
@@ -244,7 +247,21 @@ def dequantize(raw: np.ndarray, ggml_type: int, n_elements: int) -> np.ndarray:
     """Dequantize raw bytes of a GGML tensor into a flat numpy array.
 
     Simple float/int types are returned as views in their native dtype
-    (caller reshapes); quantized types are expanded to float32."""
+    (caller reshapes); quantized types are expanded to float32. Large
+    tensors use the threaded native kernel when the runtime library is
+    available (runtime/native.py), which expands F16/BF16 to float32 too."""
+    ggml_type = GGMLType(ggml_type)
+    if n_elements >= 1 << 16 and ggml_type != GGMLType.F32:
+        from ..runtime.native import dequantize_native
+
+        out = dequantize_native(raw, int(ggml_type), n_elements)
+        if out is not None:
+            return out
+    return dequantize_numpy(raw, ggml_type, n_elements)
+
+
+def dequantize_numpy(raw: np.ndarray, ggml_type: int, n_elements: int) -> np.ndarray:
+    """``dequantize``'s numpy route, whatever the size."""
     ggml_type = GGMLType(ggml_type)
     if ggml_type in _SIMPLE_DTYPES:
         return raw.view(_SIMPLE_DTYPES[ggml_type])[:n_elements]

@@ -3,7 +3,7 @@ text -> codec tokens on a CPU-only host.
 
 The matmul weights stay GGUF Q8_0/Q4_0 blocks and run on the port's copy of
 the JAX package's block-quant GEMVs (``runtime/native.py``,
-``runtime/native/miotts_gemv.cpp``: activations quantized per 32-block to
+``runtime/native/miotts_runtime.cpp``: activations quantized per 32-block to
 int8, one int32 dot a block, rows over a persistent thread pool); RMSNorm,
 RoPE, attention and the sampler are numpy. Weight traffic is ~1.06 bytes a
 parameter a token at Q8_0 and ~0.56 at Q4_0, so the bandwidth-bound decode

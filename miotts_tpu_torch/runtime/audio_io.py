@@ -3,18 +3,20 @@
 Output: the canonical 44-byte mono header, the streaming header whose
 sizes are patched when the stream ends, the f32 -> int16 encoding (clamp
 to [-1, 1], round half to even at 32767 scale), a whole WAV in memory
-(the server's response body; the JAX package's native C++ encoder gives
-the same bytes) and a file writer.
+(the server's response body: the native C++ encoder of ``native.py``
+first for f32 audio, numpy when the library is unavailable, the same
+bytes either way) and a file writer through it.
 
 Input (voice cloning): ``load_audio`` decodes a reference file to f32
 mono, then resamples it linearly and cuts it to a length. WAV (PCM 8/16/24/
 32, float 32/64, mixed to mono by channel average) is parsed here, FLAC
-by the numpy decoder of ``flac.py`` and mp3 by the numpy decoder of
-``mp3.py``; any other container goes to torchaudio where it is installed,
-then to an ffmpeg subprocess where ffmpeg is on PATH. Left out of the JAX
-package's chain on purpose: its native C++ FLAC and mp3 decoders
-(``miotts_tpu/runtime/native.py``; the mp3 one is suspected of a
-heap-layout-sensitive crash) and pygame's SDL_mixer.
+by the native C++ decoder of ``native.py`` (``flac_decode_native``) and by
+the numpy decoder of ``flac.py`` when that returns None, and mp3 by the
+numpy decoder of ``mp3.py``; any other container goes to torchaudio where
+it is installed, then to an ffmpeg subprocess where ffmpeg is on PATH.
+Left out of the JAX package's chain on purpose: its native C++ mp3 decoder
+(opt-in there, suspected of a heap-layout-sensitive crash) and pygame's
+SDL_mixer.
 """
 
 from __future__ import annotations
@@ -65,14 +67,21 @@ def encode_pcm16(audio: np.ndarray) -> bytes:
 
 def encode_wav16(audio: np.ndarray, sample_rate: int) -> bytes:
     """A whole mono 16-bit WAV: header + ``encode_pcm16`` of ``audio``
-    (device-quantized int16 passes through)."""
+    (device-quantized int16 passes through), native first for any other
+    dtype."""
+    audio = np.asarray(audio)
+    if audio.dtype != np.int16:
+        from .native import encode_wav16_native
+
+        native = encode_wav16_native(audio.astype(np.float32), sample_rate)
+        if native is not None:
+            return native
     pcm = encode_pcm16(audio)
     return wav16_header(len(pcm) // 2, sample_rate) + pcm
 
 
 def save_wav16(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:
-    pcm = encode_pcm16(audio)
-    Path(path).write_bytes(wav16_header(len(pcm) // 2, sample_rate) + pcm)
+    Path(path).write_bytes(encode_wav16(audio, sample_rate))
 
 
 def _parse_wav(data: bytes) -> tuple[np.ndarray, int]:
@@ -203,15 +212,20 @@ def load_audio(path: str | Path, target_rate: int | None = None,
                max_seconds: float | None = None) -> tuple[np.ndarray, int]:
     """Decode an audio file to f32 mono, optionally resample and truncate
     (the reference's miniaudio surface, wavlm-extractor.cpp:153-203). WAV,
-    FLAC and mp3 decode here; other containers go to torchaudio, then an
-    ffmpeg subprocess."""
+    FLAC (native C++ first, numpy when it returns None) and mp3 decode
+    here; other containers go to torchaudio, then an ffmpeg subprocess."""
     data = Path(path).read_bytes()
     if data[:4] == b"RIFF":
         x, rate = _parse_wav(data)
     elif data[:4] == b"fLaC":
-        from .flac import decode_flac
+        from .native import flac_decode_native
 
-        x, rate = decode_flac(data)
+        res = flac_decode_native(data)
+        if res is None:
+            from .flac import decode_flac
+
+            res = decode_flac(data)
+        x, rate = res
     else:
         mp3 = _mp3_info(data)
         rate_hint = mp3[0] if mp3 else None

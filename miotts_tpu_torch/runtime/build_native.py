@@ -1,8 +1,8 @@
-"""Build the native CPU LLM engine's library (miotts_tpu/runtime/build_native.py).
+"""Build the native host runtime's library (miotts_tpu/runtime/build_native.py).
 
     python -m miotts_tpu_torch.runtime.build_native
 
-``runtime/native/miotts_gemv.cpp`` is compiled with the JAX package's flags
+``runtime/native/miotts_runtime.cpp`` is compiled with the JAX package's flags
 (``g++ -O3 -fPIC -shared -std=c++17 -pthread -march=native``) into
 ``build/miotts_tpu_torch/`` beside the CUDA kernels, never next to the
 sources, under a name that hashes the source, the flags and the host's
@@ -24,7 +24,7 @@ from pathlib import Path
 
 from ..ops.cuda.build import BUILD_DIR
 
-SRC = Path(__file__).resolve().parent / "native" / "miotts_gemv.cpp"
+SRC = Path(__file__).resolve().parent / "native" / "miotts_runtime.cpp"
 FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-march=native")
 
 _lock = threading.Lock()
@@ -50,7 +50,7 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update(_host_isa().encode())
     h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libmiotts_gemv_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libmiotts_runtime_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:

@@ -12,8 +12,10 @@ best-effort, matching miniaudio's default).
 
 Speed: the rice hot loop walks a precomputed set-bit index (quotients)
 and defers every remainder read into one vectorized gather per
-partition. The JAX package's native C++ FLAC decoder is not ported: the
-port decodes FLAC with this module only.
+partition. ``load_audio`` decodes FLAC with the native C++ decoder of
+``native.py`` (``flac_decode_native``, the port's copy of the JAX
+package's) first and with this module when that returns None; the two give
+the same samples (tests/test_torch_native.py).
 """
 
 from __future__ import annotations

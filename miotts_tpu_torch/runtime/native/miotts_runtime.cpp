@@ -1,11 +1,20 @@
-// miotts_gemv — the native CPU LLM engine's block-quant kernels
-// (models/llm_cpu.py), a copy of the GEMV half of the JAX package's
-// miotts_tpu/runtime/native/miotts_runtime.cpp (:24-146 and :330-1093):
-// the persistent worker pool, fp16 conversion, per-32-block activation
-// quantization, the Q8_0/Q4_0 row dots (AVX2, AVX-512 VNNI on request,
-// scalar), and the GEMV, batched-prefill GEMM and row-dequant entry points.
-// The FLAC, mp3, WAV-encode, resample and whole-tensor dequant parts are
-// left out. Plain C ABI, consumed from Python via ctypes.
+// miotts_runtime — the port's native host runtime, a copy of the JAX
+// package's miotts_tpu/runtime/native/miotts_runtime.cpp (:11-1407) without
+// its mp3 decoder: the persistent worker pool, fp16/bf16 conversion, the
+// threaded whole-tensor GGUF dequant (mio_dequant), the WAV encoder
+// (mio_encode_wav16), the linear resampler (mio_resample_linear[_len]),
+// mio_peak_normalize, the native CPU LLM engine's block-quant kernels
+// (per-32-block activation quantization, the Q8_0/Q4_0 row dots with AVX2,
+// AVX-512 VNNI on request or scalar, the GEMV, batched-prefill GEMM and
+// row-dequant entry points) and the FLAC decoder (mio_flac_probe,
+// mio_flac_decode). The code is copied, not rewritten, so every value is
+// bit-equal to the JAX library's. One check is added: flac_subframe refuses
+// a predictor order above the frame's block size before it writes the
+// warm-up samples, where JAX's copy writes past the frame's buffer first and
+// refuses the frame after; no valid stream meets it. The mp3 decoder (namespace mp3impl,
+// mio_mp3_*, mp3_tables.h) is left out: JAX keeps it opt-in over a
+// suspected SIGSEGV, and the port decodes mp3 with runtime/mp3.py.
+// Plain C ABI, consumed from Python via ctypes (runtime/native.py).
 //
 // Build: miotts_tpu_torch/runtime/build_native.py (g++ -O3 -march=native),
 // at first use, into build/miotts_tpu_torch/.
@@ -145,6 +154,188 @@ static inline float fp16_to_fp32(uint16_t h) {
 }
 #endif
 
+// ---------------------------------------------------------------------------
+// dequantization (GGML block formats)
+// ---------------------------------------------------------------------------
+
+static void dequant_f16(const uint8_t* raw, float* out, int64_t n) {
+    const uint16_t* src = (const uint16_t*)raw;
+    for (int64_t i = 0; i < n; ++i) out[i] = fp16_to_fp32(src[i]);
+}
+
+static void dequant_bf16(const uint8_t* raw, float* out, int64_t n) {
+    const uint16_t* src = (const uint16_t*)raw;
+    for (int64_t i = 0; i < n; ++i) {
+        uint32_t bits = (uint32_t)src[i] << 16;
+        std::memcpy(&out[i], &bits, 4);
+    }
+}
+
+static void dequant_q8_0(const uint8_t* raw, float* out, int64_t n) {
+    const int64_t nb = n / 32;
+    for (int64_t b = 0; b < nb; ++b) {
+        const uint8_t* blk = raw + b * 34;
+        uint16_t dh;
+        std::memcpy(&dh, blk, 2);
+        const float d = fp16_to_fp32(dh);
+        const int8_t* q = (const int8_t*)(blk + 2);
+        float* o = out + b * 32;
+        for (int i = 0; i < 32; ++i) o[i] = d * (float)q[i];
+    }
+}
+
+static void dequant_q4_0(const uint8_t* raw, float* out, int64_t n) {
+    const int64_t nb = n / 32;
+    for (int64_t b = 0; b < nb; ++b) {
+        const uint8_t* blk = raw + b * 18;
+        uint16_t dh;
+        std::memcpy(&dh, blk, 2);
+        const float d = fp16_to_fp32(dh);
+        const uint8_t* qs = blk + 2;
+        float* o = out + b * 32;
+        for (int i = 0; i < 16; ++i) {
+            o[i] = d * (float)((int)(qs[i] & 0x0F) - 8);
+            o[i + 16] = d * (float)((int)(qs[i] >> 4) - 8);
+        }
+    }
+}
+
+static void dequant_q6_k(const uint8_t* raw, float* out, int64_t n) {
+    const int64_t nb = n / 256;
+    for (int64_t b = 0; b < nb; ++b) {
+        const uint8_t* blk = raw + b * 210;
+        const uint8_t* ql = blk;
+        const uint8_t* qh = blk + 128;
+        const int8_t* sc = (const int8_t*)(blk + 192);
+        uint16_t dh;
+        std::memcpy(&dh, blk + 208, 2);
+        const float d = fp16_to_fp32(dh);
+        float* y = out + b * 256;
+        for (int half = 0; half < 2; ++half) {
+            const uint8_t* qlh = ql + half * 64;
+            const uint8_t* qhh = qh + half * 32;
+            const int8_t* sch = sc + half * 8;
+            float* yh = y + half * 128;
+            for (int l = 0; l < 32; ++l) {
+                const int is = l / 16;
+                const int q1 = (int)((qlh[l] & 0xF) | (((qhh[l] >> 0) & 3) << 4)) - 32;
+                const int q2 = (int)((qlh[l + 32] & 0xF) | (((qhh[l] >> 2) & 3) << 4)) - 32;
+                const int q3 = (int)((qlh[l] >> 4) | (((qhh[l] >> 4) & 3) << 4)) - 32;
+                const int q4 = (int)((qlh[l + 32] >> 4) | (((qhh[l] >> 6) & 3) << 4)) - 32;
+                yh[l] = d * sch[is] * q1;
+                yh[l + 32] = d * sch[is + 2] * q2;
+                yh[l + 64] = d * sch[is + 4] * q3;
+                yh[l + 96] = d * sch[is + 6] * q4;
+            }
+        }
+    }
+}
+
+// type ids match miotts_tpu.gguf.quants.GGMLType
+// returns 0 on success, -1 unsupported type, -2 bad size
+int mio_dequant(int ggml_type, const uint8_t* raw, float* out, int64_t n,
+                int n_threads) {
+    int64_t block = 1;
+    void (*fn)(const uint8_t*, float*, int64_t) = nullptr;
+    int64_t bytes_per_block = 0;
+    switch (ggml_type) {
+        case 1: fn = dequant_f16; block = 1; bytes_per_block = 2; break;
+        case 30: fn = dequant_bf16; block = 1; bytes_per_block = 2; break;
+        case 8: fn = dequant_q8_0; block = 32; bytes_per_block = 34; break;
+        case 2: fn = dequant_q4_0; block = 32; bytes_per_block = 18; break;
+        case 14: fn = dequant_q6_k; block = 256; bytes_per_block = 210; break;
+        case 0:  // f32 passthrough
+            std::memcpy(out, raw, (size_t)n * 4);
+            return 0;
+        default: return -1;
+    }
+    if (n % block != 0) return -2;
+
+    const int64_t n_blocks = n / block;
+    n_threads = (int)std::max<int64_t>(1, std::min<int64_t>(n_threads, n_blocks));
+    if (n_threads == 1 || n_blocks < 1024) {
+        fn(raw, out, n);
+        return 0;
+    }
+    std::vector<std::thread> workers;
+    const int64_t per = (n_blocks + n_threads - 1) / n_threads;
+    for (int t = 0; t < n_threads; ++t) {
+        const int64_t b0 = t * per;
+        const int64_t b1 = std::min(n_blocks, b0 + per);
+        if (b0 >= b1) break;
+        workers.emplace_back([=]() {
+            fn(raw + b0 * bytes_per_block, out + b0 * block, (b1 - b0) * block);
+        });
+    }
+    for (auto& w : workers) w.join();
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// audio: wav16 encode + linear resample
+// ---------------------------------------------------------------------------
+
+// out must have 44 + 2*n bytes; matches mio-tts-lib.cpp:758-791
+int mio_encode_wav16(const float* audio, int64_t n, int sample_rate,
+                     uint8_t* out) {
+    const uint32_t data_size = (uint32_t)(n * 2);
+    const uint32_t byte_rate = (uint32_t)sample_rate * 2;
+    uint8_t* p = out;
+    auto w32 = [&](uint32_t v) { std::memcpy(p, &v, 4); p += 4; };
+    auto w16 = [&](uint16_t v) { std::memcpy(p, &v, 2); p += 2; };
+    std::memcpy(p, "RIFF", 4); p += 4;
+    w32(36 + data_size);
+    std::memcpy(p, "WAVE", 4); p += 4;
+    std::memcpy(p, "fmt ", 4); p += 4;
+    w32(16); w16(1); w16(1); w32((uint32_t)sample_rate); w32(byte_rate);
+    w16(2); w16(16);
+    std::memcpy(p, "data", 4); p += 4;
+    w32(data_size);
+    int16_t* pcm = (int16_t*)p;
+    for (int64_t i = 0; i < n; ++i) {
+        float x = audio[i];
+        x = std::max(-1.0f, std::min(1.0f, x));
+        pcm[i] = (int16_t)std::lrintf(x * 32767.0f);
+    }
+    return 0;
+}
+
+// linear resampler, same mapping as wavlm-extractor.cpp:218-240
+int64_t mio_resample_linear_len(int64_t n_in, int sr_in, int sr_out) {
+    if (sr_in == sr_out) return n_in;
+    const double ratio = (double)sr_out / (double)sr_in;
+    int64_t n = (int64_t)std::llround((double)n_in * ratio);
+    return n < 1 ? 1 : n;
+}
+
+int mio_resample_linear(const float* in, int64_t n_in, int sr_in, int sr_out,
+                        float* out, int64_t n_out) {
+    if (n_in <= 0 || n_out <= 0) return -1;
+    if (sr_in == sr_out) {
+        std::memcpy(out, in, (size_t)std::min(n_in, n_out) * 4);
+        return 0;
+    }
+    const double ratio = (double)sr_out / (double)sr_in;
+    for (int64_t i = 0; i < n_out; ++i) {
+        const double pos = (double)i / ratio;
+        int64_t i0 = (int64_t)std::floor(pos);
+        const double t = pos - (double)i0;
+        if (i0 < 0) i0 = 0;
+        const int64_t i1 = std::min(n_in - 1, i0 + 1);
+        i0 = std::min(n_in - 1, i0);
+        out[i] = (float)((1.0 - t) * (double)in[i0] + t * (double)in[i1]);
+    }
+    return 0;
+}
+
+// peak normalization used before WavLM (wavlm-extractor.cpp:205-216)
+void mio_peak_normalize(float* audio, int64_t n) {
+    float max_abs = 0.0f;
+    for (int64_t i = 0; i < n; ++i) max_abs = std::max(max_abs, std::fabs(audio[i]));
+    max_abs += 1e-8f;
+    const float inv = 1.0f / max_abs;
+    for (int64_t i = 0; i < n; ++i) audio[i] *= inv;
+}
 
 // ---------------------------------------------------------------------------
 // int8 CPU decode kernels (the local real-time text->speech path)
@@ -910,8 +1101,327 @@ void mio_q4_row_dequant(const uint8_t* w, int64_t row, int64_t k, float* out) {
     }
 }
 
-// 4: the GEMV, GEMM and row-dequant entry points of the JAX library's
-// version 4 (its 5 and 6 add the FLAC and mp3 decoders, not copied)
-int mio_runtime_abi_version(void) { return 4; }
+// ---------------------------------------------------------------------------
+// FLAC stream decoder (RFC 9639) — self-contained reference-audio decode
+// (the reference uses miniaudio for wav/mp3/flac uploads,
+// wavlm-extractor.cpp:153-203). Cross-checked against the independent
+// pure-Python decoder in runtime/flac.py (tests/test_audio_decode.py).
+// CRC-8/16 are parsed but not enforced (best-effort upload decode).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct FlacBits {
+    const uint8_t* data;
+    int64_t nbits;
+    int64_t pos = 0;
+    bool err = false;
+
+    inline int peek_bit() const {
+        return (data[pos >> 3] >> (7 - (pos & 7))) & 1;
+    }
+    inline uint64_t read(int n) {
+        if (pos + n > nbits) { err = true; return 0; }
+        uint64_t v = 0;
+        int64_t p = pos;
+        pos += n;
+        while (n > 0) {
+            int off = (int)(p & 7);
+            int take = 8 - off;
+            if (take > n) take = n;
+            uint32_t byte = data[p >> 3];
+            v = (v << take) | ((byte >> (8 - off - take)) & ((1u << take) - 1));
+            p += take;
+            n -= take;
+        }
+        return v;
+    }
+    inline int64_t read_signed(int n) {
+        uint64_t v = read(n);
+        if (n && (v >> (n - 1)))
+            return (int64_t)v - ((int64_t)1 << n);
+        return (int64_t)v;
+    }
+    inline uint32_t unary() {
+        uint32_t q = 0;
+        while (true) {
+            if (pos >= nbits) { err = true; return 0; }
+            if (peek_bit()) { pos++; return q; }
+            pos++;
+            q++;
+        }
+    }
+    inline void align() { pos = (pos + 7) & ~(int64_t)7; }
+};
+
+struct FlacInfo {
+    int sample_rate = 0, channels = 0, bps = 0;
+    int64_t total_samples = 0;
+    int64_t data_offset = 0;
+};
+
+static bool flac_parse_streaminfo(const uint8_t* d, int64_t n, FlacInfo* fi) {
+    if (n < 8 || memcmp(d, "fLaC", 4) != 0) return false;
+    int64_t pos = 4;
+    bool have = false;
+    while (pos + 4 <= n) {
+        int hdr = d[pos];
+        bool last = (hdr & 0x80) != 0;
+        int btype = hdr & 0x7F;
+        int64_t blen = ((int64_t)d[pos + 1] << 16) | ((int64_t)d[pos + 2] << 8)
+                       | d[pos + 3];
+        if (btype == 0 && pos + 4 + 18 <= n) {
+            const uint8_t* b = d + pos + 4;
+            uint64_t raw = 0;
+            for (int i = 10; i < 18; ++i) raw = (raw << 8) | b[i];
+            fi->sample_rate = (int)(raw >> 44);
+            fi->channels = (int)((raw >> 41) & 0x7) + 1;
+            fi->bps = (int)((raw >> 36) & 0x1F) + 1;
+            fi->total_samples = (int64_t)(raw & (((uint64_t)1 << 36) - 1));
+            have = true;
+        }
+        pos += 4 + blen;
+        if (last) break;
+    }
+    fi->data_offset = pos;
+    return have && pos <= n;
+}
+
+static bool flac_read_utf8(FlacBits* br, uint64_t* out) {
+    uint32_t b0 = (uint32_t)br->read(8);
+    if (br->err) return false;
+    if (b0 < 0x80) { *out = b0; return true; }
+    int n_cont = 0;
+    uint32_t mask = 0x40;
+    while (b0 & mask) { n_cont++; mask >>= 1; }
+    if (n_cont < 1 || n_cont > 6) return false;
+    uint64_t v = b0 & (mask - 1);
+    for (int i = 0; i < n_cont; ++i) {
+        uint32_t c = (uint32_t)br->read(8);
+        if (br->err || (c & 0xC0) != 0x80) return false;
+        v = (v << 6) | (c & 0x3F);
+    }
+    *out = v;
+    return true;
+}
+
+static bool flac_residual(FlacBits* br, int blocksize, int order,
+                          int64_t* out /* blocksize-order */) {
+    int method = (int)br->read(2);
+    if (method > 1) return false;
+    int plen = method == 0 ? 4 : 5;
+    uint32_t escape = (1u << plen) - 1;
+    int po = (int)br->read(4);
+    int n_part = 1 << po;
+    if (blocksize % n_part) return false;
+    int part_n = blocksize >> po;
+    int64_t w = 0;
+    for (int pi = 0; pi < n_part; ++pi) {
+        int cnt = part_n - (pi == 0 ? order : 0);
+        if (cnt < 0) return false;
+        uint32_t param = (uint32_t)br->read(plen);
+        if (param == escape) {
+            int nb = (int)br->read(5);
+            for (int i = 0; i < cnt; ++i) out[w++] = br->read_signed(nb);
+        } else {
+            for (int i = 0; i < cnt; ++i) {
+                uint64_t q = br->unary();
+                uint64_t v = (q << param) | br->read((int)param);
+                out[w++] = (int64_t)(v >> 1) ^ -(int64_t)(v & 1);
+            }
+        }
+        if (br->err) return false;
+    }
+    return true;
+}
+
+static bool flac_subframe(FlacBits* br, int blocksize, int bps, int64_t* x,
+                          std::vector<int64_t>* scratch) {
+    if (br->read(1)) return false;
+    int ftype = (int)br->read(6);
+    int wasted = 0;
+    if (br->read(1)) wasted = (int)br->unary() + 1;
+    if (br->err) return false;
+    int eff = bps - wasted;
+    if (eff <= 0) return false;
+    if (ftype == 0) {
+        int64_t v = br->read_signed(eff);
+        for (int i = 0; i < blocksize; ++i) x[i] = v;
+    } else if (ftype == 1) {
+        for (int i = 0; i < blocksize; ++i) x[i] = br->read_signed(eff);
+    } else if (ftype >= 8 && ftype <= 12) {
+        int order = ftype - 8;
+        // x holds blocksize samples: a frame shorter than its predictor's
+        // warm-up is refused before the warm-up is written (JAX's copy writes
+        // it first, then refuses the frame in flac_residual)
+        if (order > blocksize) return false;
+        for (int i = 0; i < order; ++i) x[i] = br->read_signed(eff);
+        scratch->resize((size_t)blocksize);
+        int64_t* res = scratch->data();
+        if (!flac_residual(br, blocksize, order, res)) return false;
+        static const int fc[5][4] = {{0, 0, 0, 0}, {1, 0, 0, 0}, {2, -1, 0, 0},
+                                     {3, -3, 1, 0}, {4, -6, 4, -1}};
+        for (int i = order; i < blocksize; ++i) {
+            int64_t acc = res[i - order];
+            for (int j = 0; j < order; ++j) acc += fc[order][j] * x[i - 1 - j];
+            x[i] = acc;
+        }
+    } else if (ftype >= 32) {
+        int order = (ftype & 31) + 1;
+        if (order > blocksize) return false;  // as for FIXED above
+        for (int i = 0; i < order; ++i) x[i] = br->read_signed(eff);
+        int prec = (int)br->read(4) + 1;
+        if (prec == 16) return false;
+        int shift = (int)br->read_signed(5);
+        if (shift < 0) return false;
+        int64_t coefs[32];
+        for (int i = 0; i < order; ++i) coefs[i] = br->read_signed(prec);
+        scratch->resize((size_t)blocksize);
+        int64_t* res = scratch->data();
+        if (!flac_residual(br, blocksize, order, res)) return false;
+        for (int i = order; i < blocksize; ++i) {
+            int64_t acc = 0;
+            for (int j = 0; j < order; ++j) acc += coefs[j] * x[i - 1 - j];
+            x[i] = res[i - order] + (acc >> shift);
+        }
+    } else {
+        return false;
+    }
+    if (br->err) return false;
+    if (wasted)
+        for (int i = 0; i < blocksize; ++i) x[i] <<= wasted;
+    return true;
+}
+
+}  // namespace
+
+// info_out: [0]=sample_rate [1]=channels [2]=bps [3]=total_samples(lo32)
+// [4]=total_samples(hi32). Returns 0, or -1 on a non-FLAC/corrupt stream.
+int mio_flac_probe(const uint8_t* data, int64_t n, int64_t* info_out) {
+    FlacInfo fi;
+    if (!flac_parse_streaminfo(data, n, &fi)) return -1;
+    info_out[0] = fi.sample_rate;
+    info_out[1] = fi.channels;
+    info_out[2] = fi.bps;
+    info_out[3] = fi.total_samples;
+    return 0;
+}
+
+// Decode to interleaved int32. cap = max frames (per-channel samples) out
+// can hold. info_out as mio_flac_probe with [3] = frames actually written.
+// Returns 0 ok, -1 parse error before any frame, -2 capacity exhausted
+// (out holds the first cap frames; caller retries with a larger buffer).
+int mio_flac_decode(const uint8_t* data, int64_t n, int32_t* out,
+                    int64_t cap, int64_t* info_out) {
+    FlacInfo fi;
+    if (!flac_parse_streaminfo(data, n, &fi)) return -1;
+    FlacBits br{data, n * 8};
+    br.pos = fi.data_offset * 8;
+    static const int kBlock[16] = {0, 192, 576, 1152, 2304, 4608, -1, -2,
+                                   256, 512, 1024, 2048, 4096, 8192, 16384,
+                                   32768};
+    static const int kRate[16] = {0, 88200, 176400, 192000, 8000, 16000,
+                                  22050, 24000, 32000, 44100, 48000, 96000,
+                                  -1, -2, -3, -4};
+    static const int kBits[8] = {0, 8, 12, -1, 16, 20, 24, 32};
+    std::vector<std::vector<int64_t>> ch(fi.channels);
+    std::vector<int64_t> scratch;
+    int64_t written = 0;
+    int rate = fi.sample_rate;
+    while (br.pos + 32 <= br.nbits
+           && (!fi.total_samples || written < fi.total_samples)) {
+        if (br.read(14) != 0x3FFE) break;
+        if (br.read(1)) break;
+        br.read(1);
+        int bs_code = (int)br.read(4);
+        int sr_code = (int)br.read(4);
+        int ch_code = (int)br.read(4);
+        int ss_code = (int)br.read(3);
+        if (br.read(1)) break;
+        uint64_t coded;
+        if (!flac_read_utf8(&br, &coded)) break;
+        int blocksize;
+        if (bs_code == 0) break;
+        else if (bs_code == 6) blocksize = (int)br.read(8) + 1;
+        else if (bs_code == 7) blocksize = (int)br.read(16) + 1;
+        else blocksize = kBlock[bs_code];
+        if (sr_code == 12) rate = (int)br.read(8) * 1000;
+        else if (sr_code == 13) rate = (int)br.read(16);
+        else if (sr_code == 14) rate = (int)br.read(16) * 10;
+        else if (sr_code == 15) break;
+        else if (sr_code != 0) rate = kRate[sr_code];
+        int bps = ss_code == 0 ? fi.bps : kBits[ss_code];
+        if (bps <= 0) break;
+        br.read(8);  // header CRC-8
+        if (br.err || blocksize <= 0) break;
+
+        int n_ch = ch_code <= 7 ? ch_code + 1 : 2;
+        if (n_ch != fi.channels) break;
+        for (int c = 0; c < n_ch; ++c)
+            ch[c].resize((size_t)blocksize);
+        bool ok = true;
+        if (ch_code <= 7) {
+            for (int c = 0; c < n_ch && ok; ++c)
+                ok = flac_subframe(&br, blocksize, bps, ch[c].data(),
+                                   &scratch);
+        } else if (ch_code <= 10) {
+            int side_idx = (ch_code == 9) ? 0 : 1;
+            for (int c = 0; c < 2 && ok; ++c)
+                ok = flac_subframe(&br, blocksize,
+                                   bps + (c == side_idx ? 1 : 0),
+                                   ch[c].data(), &scratch);
+            if (ok) {
+                int64_t* a = ch[0].data();
+                int64_t* b = ch[1].data();
+                if (ch_code == 8) {  // left/side
+                    for (int i = 0; i < blocksize; ++i) b[i] = a[i] - b[i];
+                } else if (ch_code == 9) {  // right/side
+                    for (int i = 0; i < blocksize; ++i) a[i] = a[i] + b[i];
+                } else {  // mid/side
+                    for (int i = 0; i < blocksize; ++i) {
+                        int64_t mid2 = (a[i] << 1) | (b[i] & 1);
+                        int64_t s = b[i];
+                        a[i] = (mid2 + s) >> 1;
+                        b[i] = (mid2 - s) >> 1;
+                    }
+                }
+            }
+        } else {
+            break;
+        }
+        if (!ok || br.err) break;
+        br.align();
+        br.read(16);  // frame CRC-16
+        int take = blocksize;
+        if (fi.total_samples && written + take > fi.total_samples)
+            take = (int)(fi.total_samples - written);
+        if (written + take > cap) {
+            take = (int)(cap - written);
+            for (int i = 0; i < take; ++i)
+                for (int c = 0; c < fi.channels; ++c)
+                    out[(written + i) * fi.channels + c] = (int32_t)ch[c][i];
+            written += take;
+            info_out[0] = rate;
+            info_out[1] = fi.channels;
+            info_out[2] = fi.bps;
+            info_out[3] = written;
+            return -2;
+        }
+        for (int i = 0; i < take; ++i)
+            for (int c = 0; c < fi.channels; ++c)
+                out[(written + i) * fi.channels + c] = (int32_t)ch[c][i];
+        written += take;
+    }
+    info_out[0] = rate;
+    info_out[1] = fi.channels;
+    info_out[2] = fi.bps;
+    info_out[3] = written;
+    return written > 0 || fi.total_samples == 0 ? 0 : -1;
+}
+
+
+// 5: the JAX library's version 5 (dequant, WAV encode, resample, the
+// GEMVs and GEMMs, FLAC); its 6 adds the mp3 decoder, which is not copied
+int mio_runtime_abi_version(void) { return 5; }
 
 }  // extern "C"

@@ -316,8 +316,9 @@ def test_server_main_sets_packed_cache_default(monkeypatch, preset, want):
 
     monkeypatch.setattr(server_mod, "MioTTSServer", FakeServer)
     monkeypatch.setenv("MIOTTS_PLATFORM", "cpu")
-    if preset is None:
-        monkeypatch.delenv("MIOTTS_PACKED_CACHE", raising=False)
+    if preset is None:  # set first, so that main()'s default is undone after the test
+        monkeypatch.setenv("MIOTTS_PACKED_CACHE", "")
+        monkeypatch.delenv("MIOTTS_PACKED_CACHE")
     else:
         monkeypatch.setenv("MIOTTS_PACKED_CACHE", preset)
     assert server_mod.main(["-mv", "codec.gguf"]) == 0

@@ -607,6 +607,10 @@ def test_unported_flags_exit(capsys, monkeypatch, argv, flag):
     model), but for ``-tp 2`` without ``--mio-backend-devices``, which
     exits 1 with the JAX engine's error."""
     monkeypatch.setenv("MIOTTS_PLATFORM", "none")
+    # main() defaults MIOTTS_PACKED_CACHE for the whole process; a value the
+    # test owns keeps that from leaking into later tests of this worker
+    # (their loads would replay deploy artifacts)
+    monkeypatch.setenv("MIOTTS_PACKED_CACHE", "0")
     assert server_mod.main(["-mv", "c.gguf", *argv]) == 1
     err = capsys.readouterr().err
     assert "not yet" not in err
