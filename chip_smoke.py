@@ -124,8 +124,9 @@ published widths (2 layers, 12 heads of 64, ffn 3072, the 7-conv stack at
 512 channels, 320 buckets) and the 24 kHz codec written with its global
 encoder (input 768, dim 384, 4 ConvNeXt blocks, output 128): 24 kHz
 references of 3, 20 and 25 s (WAV; the 25 s one cut to 20 s by the default
---tts-max-reference-seconds) and the 3 s one as a FLAC (each of its four
-host decodes by the native library, required), each four times on
+--tts-max-reference-seconds), the 3 s one as a FLAC and as an mp3
+(``tests/torch_assets/ref3.mp3``, LAME's Info frame in front; each of their
+four host decodes by the native library, required), each four times on
 one card pipeline (a WavLM bucket's first chain eager under sync-debug
 "error", its second the capture of the bucket's CUDA graph, then replays;
 a reference whose bucket has its graph replays all four), every run
@@ -149,7 +150,13 @@ as JSON and as a multipart upload (each embedding within 1e-3 of the
 in-process one; each bucket's eager chain), /mio/tts/stream with both
 keys, two generations concurrent with two text /mio/tts requests (the
 buckets' captures), two alone and two more beside two text requests
-(replays), none failing, each bucket captured once.
+(replays), none failing, each bucket captured once. Then the port's C
+client bridge (``miotts_tpu_torch/bindings``, built with g++ beside the
+kernels) uploads ``ref3.mp3`` to that server
+(``mio_tpu_client_create_reference_from_audio``: decoded natively, its
+embedding within 1e-3 of the in-process one) and synthesizes one text
+request in that voice (``mio_tpu_client_synthesize_to_wav``: a WAV back,
+K1 and K2 launched for it).
 
 Last, a server phase (``miotts_tpu_torch/serving/``): the port's
 MioTTSServer in this process (port 0, so the launch counters are readable)
@@ -207,12 +214,15 @@ replayed against the eager body, and the dense requests include one at
 Before the paths, a native phase (``runtime/native.py``, host C++ on the
 card machine's CPU): the library must be loaded (the card machine has g++,
 which nvcc needs); its path, ABI and the host CPU's model are printed;
-``ref3.flac`` and a 20 s 44.1 kHz stereo FLAC (LPC, mid/side) are decoded
-natively and by the numpy decoder, and the Q8_0 LLM's head (151 759 x 768)
+``ref3.flac`` and a 20 s 44.1 kHz stereo FLAC (LPC, mid/side), and the
+committed mp3 fixtures ``ref3.mp3`` (24 kHz mono, LAME's Info frame) and a
+20 s 44.1 kHz joint-stereo mp3, are decoded natively and by the numpy
+decoders, and the Q8_0 LLM's head (151 759 x 768)
 and a BF16 tensor of that shape are dequantized natively and by numpy, each
 pair bit-equal, with both times. After the paths, ``[native]`` lines read
 back the per-leaf LLM loads (their tensors dequantized natively) and the
-clone phase's host decode of ``ref3.flac``, which must have been native.
+clone phase's host decodes of ``ref3.flac`` and ``ref3.mp3``, which must
+have been native.
 
 First among the paths, a load phase (M7, ``runtime/device_dequant.py``):
 the dense (f32) and Q8_0 0.1B LLM GGUFs (the latter with ``--llm-quant
@@ -1602,7 +1612,14 @@ def check_codec_knobs(dev, tmp: Path, emb, cfgs: dict) -> dict:
 
 # references: (file, seconds of 24 kHz audio written); the 25 s one is cut
 # to the default --tts-max-reference-seconds (20)
-CLONE_REFS = (("ref3.wav", 3.0), ("ref20.wav", 20.0), ("ref25.wav", 25.0), ("ref3.flac", 3.0))
+# ref3.mp3 (tests/torch_assets, scripts/gen_torch_mp3_fixtures.py) is the
+# 3 s clip through LAME: 73 152 samples decoded, LAME's encoder delay and
+# padding included (its Info frame skipped)
+CLONE_REFS = (("ref3.wav", 3.0), ("ref20.wav", 20.0), ("ref25.wav", 25.0), ("ref3.flac", 3.0),
+              ("ref3.mp3", 73152 / 24000))
+MP3_ASSETS = Path(__file__).resolve().parent / "tests" / "torch_assets"
+# the native decoder each compressed reference must go through
+NATIVE_DECODE = {".flac": "mio_flac_decode", ".mp3": "mio_mp3_decode"}
 # 40 000 samples at 16 kHz: another length in the 3 s reference's bucket (64 000)
 CLONE_SAME_BUCKET = ("ref2_5.wav", 2.5)
 CLONE_MAX_SECONDS = 20.0
@@ -1611,10 +1628,24 @@ CLONE_COS_MIN = 0.9999
 CLONE_PROMPT = "A cloned voice reads this sentence aloud."
 
 
+def clone_clip(sr: int, secs: float) -> np.ndarray:
+    """The clone phase's reference clip, ``secs`` seconds at ``sr`` Hz (f32
+    mono, seed 21): a voice-like tone with vibrato, a harmonic and noise.
+    ``ref3.mp3`` (tests/torch_assets, scripts/gen_torch_mp3_fixtures.py) is
+    its first 3 s at 24 kHz."""
+    rng = np.random.RandomState(21)
+    t = np.arange(int(secs * sr)) / sr
+    f0 = 180 + 20 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    return ((0.35 * np.sin(phase) + 0.12 * np.sin(2 * phase) + 0.02 * rng.randn(t.size))
+            * (0.6 + 0.4 * np.sin(2 * np.pi * 1.3 * t) ** 2)).astype(np.float32)
+
+
 def clone_assets(tmp: Path) -> None:
     """The full-width WavLM Base+ GGUF and the reference clips: a voice-like
     tone with vibrato, a harmonic and noise (24 kHz mono), 3, 20 and 25 s as
-    16-bit WAVs and the 3 s clip as a FLAC (tests/flac_encoder.py)."""
+    16-bit WAVs, the 3 s clip as a FLAC (tests/flac_encoder.py) and as the
+    committed mp3 (copied: the card machine may have no libmp3lame)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from flac_encoder import encode_flac
 
@@ -1622,15 +1653,12 @@ def clone_assets(tmp: Path) -> None:
 
     write_synthetic_wavlm_gguf(str(tmp / "wavlm.gguf"), seed=5, **full_wavlm_kwargs())
     sr = 24000
-    rng = np.random.RandomState(21)
-    t = np.arange(int(25 * sr)) / sr
-    f0 = 180 + 20 * np.sin(2 * np.pi * 0.7 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / sr
-    clip = ((0.35 * np.sin(phase) + 0.12 * np.sin(2 * phase) + 0.02 * rng.randn(t.size))
-            * (0.6 + 0.4 * np.sin(2 * np.pi * 1.3 * t) ** 2)).astype(np.float32)
+    clip = clone_clip(sr, 25.0)
     for name, secs in (*CLONE_REFS, CLONE_SAME_BUCKET):
         x = clip[:int(secs * sr)]
-        if name.endswith(".flac"):
+        if name.endswith(".mp3"):
+            (tmp / name).write_bytes((MP3_ASSETS / name).read_bytes())
+        elif name.endswith(".flac"):
             pcm = np.rint(np.clip(x, -1, 1) * 32767).astype(np.int64)
             (tmp / name).write_bytes(encode_flac(pcm, sr, subframe_kind="lpc2"))
         else:
@@ -1685,13 +1713,15 @@ def check_references(dev, tmp: Path) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        flac0 = native.calls["mio_flac_decode"]
+        entry = NATIVE_DECODE.get(path.suffix)
+        n0 = native.calls[entry] if entry else 0
         runs = [card.reference_embedding(path, CLONE_MAX_SECONDS) for _ in range(4)]
         peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        host_route = "native" if native.calls["mio_flac_decode"] == flac0 + 4 else "numpy"
-        if name.endswith(".flac") and host_route != "native":
+        host_route = ("wav" if entry is None
+                      else "native" if native.calls[entry] == n0 + 4 else "numpy")
+        if host_route == "numpy":
             raise AssertionError(f"reference {name} was not decoded natively: "
-                                 f"{native.calls['mio_flac_decode'] - flac0} native decodes "
+                                 f"{native.calls[entry] - n0} native decodes "
                                  f"of 4 ({native.unavailable_reason()})")
         emb, st = runs[0]
         routes = [r.route for _, r in runs]
@@ -1715,7 +1745,7 @@ def check_references(dev, tmp: Path) -> dict:
         rows[name] = {"seconds": secs, "n_samples": st.n_samples, "bucket": st.bucket,
                       "frames": st.frames, "rung": st.rung, "max_abs_err": err, "cosine": cos,
                       "routes": routes, "decode_ms": [r.decode_ms for _, r in runs],
-                      "decoded": host_route if name.endswith(".flac") else "wav",
+                      "decoded": host_route,
                       "device_ms": [r.device_ms for _, r in runs],
                       "capture_ms": graph.capture_ms if new_bucket else None,
                       "replay_busy_ms": busy, "eager_busy_ms": busy_eager,
@@ -1723,7 +1753,7 @@ def check_references(dev, tmp: Path) -> dict:
         fmt = lambda x: "not measured" if x is None else f"{x:.2f} ms"  # noqa: E731
         log(f"[clone] {name}: {st.n_samples} samples at 16 kHz, bucket {st.bucket}, "
             f"{st.frames} frames, rung {st.rung} (CPU {cst.rung}); host decode+resample"
-            + (f" ({host_route} FLAC decode)" if name.endswith(".flac") else "") + " "
+            + (f" ({host_route} {path.suffix[1:].upper()} decode)" if entry else "") + " "
             f"{', '.join(f'{r.decode_ms:.1f}' for _, r in runs)} ms; device chain "
             + ", ".join(f"{r.route} {r.device_ms:.2f}" for _, r in runs) + " ms wall"
             + (f" (the capture {graph.capture_ms:.1f} ms of it)" if new_bucket else "")
@@ -1977,11 +2007,56 @@ def clone_server(dev, tmp: Path, refs: dict) -> dict:
             f"capture={c['capture_ms']:.1f}ms replays={c['replays']} eager={c['eager']}, pool "
             + ("not measured" if out["reference_graphs"]["pool_mib"] is None
                else f"{out['reference_graphs']['pool_mib']:.0f} MiB"))
+        out["bridge"] = bridge_clone(srv, tmp, refs["ref3.mp3"]["embedding"])
     finally:
         srv.shutdown()
     del srv
     torch.cuda.empty_cache()
     return out
+
+
+def bridge_clone(srv, tmp: Path, want: np.ndarray) -> dict:
+    """The port's C client bridge (``miotts_tpu_torch.bindings``, a ctypes
+    wrapper over the g++-built ``mio_tpu_client`` library) against the
+    running server: ``ref3.mp3`` uploaded through
+    ``mio_tpu_client_create_reference_from_audio`` (the server decodes it
+    natively; the returned embedding within CLONE_EMB_TOL of ``want``, the
+    in-process card one), then one text request in that voice through
+    ``mio_tpu_client_synthesize_to_wav``: a WAV back, K1 and K2 launched."""
+    from miotts_tpu_torch.bindings import MioTPUClient
+    from miotts_tpu_torch.bindings.client import library_path
+    from miotts_tpu_torch.gguf.writer import load_embedding_gguf
+
+    row: dict = {"library": library_path().name}
+    with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
+        m0 = native.calls["mio_mp3_decode"]
+        t0 = time.perf_counter()
+        c.create_reference_from_audio("bridge_mp3", str(tmp / "ref3.mp3"),
+                                      embedding_out_path=str(tmp / "bridge_mp3.emb.gguf"))
+        row["upload_ms"] = (time.perf_counter() - t0) * 1e3
+        emb = load_embedding_gguf(tmp / "bridge_mp3.emb.gguf")
+        row["max_abs_err"] = float(np.abs(emb - want).max())
+        row["native_mp3_decodes"] = native.calls["mio_mp3_decode"] - m0
+        if row["native_mp3_decodes"] != 1 or not row["max_abs_err"] <= CLONE_EMB_TOL:
+            raise AssertionError(f"[clone server] the bridge's mp3 upload: {row}")
+        c.set_generation_params(seed=60)
+        l0 = {m: m.launches for m in MODS}
+        t0 = time.perf_counter()
+        c.synthesize_to_wav(CLONE_PROMPT, "bridge_mp3", str(tmp / "bridge_mp3.wav"))
+        row["synthesize_ms"] = (time.perf_counter() - t0) * 1e3
+    sr, pcm = parse_wav_bytes((tmp / "bridge_mp3.wav").read_bytes(), "the bridge's WAV")
+    row["launches"] = {m.__name__.rsplit(".", 1)[-1]: m.launches - l0[m] for m in MODS}
+    row["audio_s"] = pcm.size / sr
+    if (not np.any(pcm != 0) or not row["launches"]["banded_attention"]
+            or not row["launches"]["decode_attention"]):
+        raise AssertionError(f"[clone server] the bridge's text request: {row}")
+    log(f"[clone server] port's C client bridge ({row['library']}): ref3.mp3 uploaded through "
+        f"mio_tpu_client_create_reference_from_audio in {row['upload_ms']:.1f} ms (decoded "
+        f"natively, max abs vs in-process {row['max_abs_err']:.2e}); "
+        f"mio_tpu_client_synthesize_to_wav in that voice {row['synthesize_ms']:.1f} ms for "
+        f"{row['audio_s']:.2f} s of audio; launches: K1 {row['launches']['banded_attention']}, "
+        f"K2 {row['launches']['decode_attention']}")
+    return row
 
 
 def check_clone(dev, tmp: Path, ccfg) -> dict:
@@ -3394,6 +3469,7 @@ def check_trace(tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 NATIVE_FLAC20 = ("ref20_441_stereo.flac", 20.0, 44100)  # (file, seconds, rate)
+NATIVE_MP3_20 = "ref20_441_joint.mp3"  # tests/torch_assets: 20 s, 44.1 kHz, mid/side
 
 
 def native_flac20(tmp: Path) -> Path:
@@ -3432,13 +3508,15 @@ def same_bits(what: str, got: np.ndarray, want: np.ndarray) -> None:
 def check_native(tmp: Path) -> dict:
     """The native host runtime on the card machine's CPU: the library
     loaded (never built around), its path, ABI and the host CPU; ref3.flac
-    and a 20 s 44.1 kHz stereo FLAC decoded natively and by the numpy
-    decoder, bit-equal; the Q8_0 LLM's head (Q8_0, 151 759 x 768) and a
+    and a 20 s 44.1 kHz stereo FLAC, and the committed ref3.mp3 and 20 s
+    44.1 kHz joint-stereo mp3, decoded natively and by the numpy decoders,
+    bit-equal; the Q8_0 LLM's head (Q8_0, 151 759 x 768) and a
     BF16 tensor of the same shape (the f32 LLM's token embedding cut to
     bf16) dequantized natively and by numpy, bit-equal; each time printed."""
     from miotts_tpu_torch.gguf.quants import GGMLType, dequantize_numpy
     from miotts_tpu_torch.gguf.reader import GGUFReader
     from miotts_tpu_torch.runtime.flac import decode_flac
+    from miotts_tpu_torch.runtime.mp3 import decode_mp3
 
     if not native.available():
         raise AssertionError(f"[native] the library is unavailable: "
@@ -3446,7 +3524,7 @@ def check_native(tmp: Path) -> dict:
     lib = native._load()
     cpu = cpu_model_name()
     row: dict = {"library": lib._name, "abi": lib.mio_runtime_abi_version(), "cpu": cpu,
-                 "cores": os.cpu_count(), "flac": {}, "dequant": {}}
+                 "cores": os.cpu_count(), "flac": {}, "mp3": {}, "dequant": {}}
     if row["abi"] != native.ABI:
         raise AssertionError(f"[native] ABI {row['abi']}, want {native.ABI}")
     log(f"[native] library {lib._name}, ABI {row['abi']}; host CPU {cpu} "
@@ -3454,15 +3532,19 @@ def check_native(tmp: Path) -> dict:
     path20, encode_ms = timed(lambda: native_flac20(tmp))
     row["flac20_encode_ms"] = encode_ms
     log(f"[native] {path20.name} written in {encode_ms:.0f} ms (tests/flac_encoder.py)")
-    for path in (tmp / "ref3.flac", path20):
+    for kind, path, decode, numpy_decode in (
+            ("flac", tmp / "ref3.flac", native.flac_decode_native, decode_flac),
+            ("flac", path20, native.flac_decode_native, decode_flac),
+            ("mp3", MP3_ASSETS / "ref3.mp3", native.mp3_decode_native, decode_mp3),
+            ("mp3", MP3_ASSETS / NATIVE_MP3_20, native.mp3_decode_native, decode_mp3)):
         data = path.read_bytes()
-        (x, rate), nat_ms = timed(lambda: native.flac_decode_native(data))
-        (y, ref_rate), np_ms = timed(lambda: decode_flac(data))
+        (x, rate), nat_ms = timed(lambda: decode(data))
+        (y, ref_rate), np_ms = timed(lambda: numpy_decode(data))
         same_bits(path.name, x, y)
         if rate != ref_rate:
             raise AssertionError(f"[native] {path.name}: rate {rate} vs numpy's {ref_rate}")
-        row["flac"][path.name] = {"samples": int(x.size), "rate": rate, "bytes": len(data),
-                                  "native_ms": nat_ms, "numpy_ms": np_ms}
+        row[kind][path.name] = {"samples": int(x.size), "rate": rate, "bytes": len(data),
+                                "native_ms": nat_ms, "numpy_ms": np_ms}
         log(f"[native] {path.name} ({len(data)} bytes, {x.size} samples at {rate} Hz): native "
             f"decode {nat_ms:.2f} ms, numpy {np_ms:.1f} ms ({np_ms / nat_ms:.1f}x), bit-equal")
     with GGUFReader(tmp / "llm_q8_0.gguf") as r:
@@ -3770,19 +3852,22 @@ def cpu_model_name() -> str:
 def native_reread(load_rows: dict, clone_rows: dict) -> dict:
     """The [native] lines' second half, read back from the load and clone
     phases: the per-leaf LLM loads (their tensor reads go through the
-    native dequant) and ref3.flac's host decode in the clone phase."""
+    native dequant) and the host decodes of ref3.flac and ref3.mp3 in the
+    clone phase."""
     loads = {name: {"wall_s": load_rows["loads"][name]["per_leaf"]["wall_s"],
                     "read_s": load_rows["loads"][name]["per_leaf"]["read_s"],
                     "native_dequants": load_rows["loads"][name]["per_leaf"]["native_dequants"]}
              for name in ("llm dense", "llm q8_0")}
-    flac = clone_rows["references"]["ref3.flac"]
-    row = {"per_leaf_loads": loads, "ref3.flac": {"decoded": flac["decoded"],
-                                                  "decode_ms": flac["decode_ms"]}}
+    row = {"per_leaf_loads": loads}
     for name, r in loads.items():
         log(f"[native] {name} per-leaf load {r['wall_s']:.3f} s (read {r['read_s']:.3f} s), "
             f"{r['native_dequants']} tensors dequantized natively")
-    log(f"[native] clone phase ref3.flac: host decode+resample "
-        f"{', '.join(f'{x:.1f}' for x in flac['decode_ms'])} ms, {flac['decoded']} FLAC decode")
+    for name in ("ref3.flac", "ref3.mp3"):
+        ref = clone_rows["references"][name]
+        row[name] = {"decoded": ref["decoded"], "decode_ms": ref["decode_ms"]}
+        log(f"[native] clone phase {name}: host decode+resample "
+            f"{', '.join(f'{x:.1f}' for x in ref['decode_ms'])} ms, {ref['decoded']} "
+            f"{name.rsplit('.', 1)[1].upper()} decode")
     return row
 
 
@@ -3860,14 +3945,25 @@ def main() -> int:
     dev = select_device("cuda")
 
     t0 = time.perf_counter()
-    # the native host runtime (g++) builds on a thread beside the kernels (nvcc)
-    host_lib = threading.Thread(target=native.available, name="native-build")
-    host_lib.start()
+    # the native host runtime and the C client bridge (g++) build on threads
+    # beside the kernels (nvcc)
+    from miotts_tpu_torch.bindings import build_client_lib
+
+    bridge: list = []
+    host_libs = [threading.Thread(target=native.available, name="native-build"),
+                 threading.Thread(target=lambda: bridge.append(build_client_lib(verbose=True)),
+                                  name="bridge-build")]
+    for t in host_libs:
+        t.start()
     lib = build.build(verbose=True)
     build.load_library()
-    host_lib.join()
-    log(f"[build] {lib.name} and the native host runtime "
-        f"({native.unavailable_reason() or 'loaded'}) in {time.perf_counter() - t0:.2f}s")
+    for t in host_libs:
+        t.join()
+    if not bridge or bridge[0] is None:
+        raise AssertionError("[build] the C client bridge did not build")
+    log(f"[build] {lib.name}, the native host runtime "
+        f"({native.unavailable_reason() or 'loaded'}) and the C client bridge "
+        f"({bridge[0].name}) in {time.perf_counter() - t0:.2f}s")
 
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()

@@ -9,14 +9,14 @@ bytes either way) and a file writer through it.
 
 Input (voice cloning): ``load_audio`` decodes a reference file to f32
 mono, then resamples it linearly and cuts it to a length. WAV (PCM 8/16/24/
-32, float 32/64, mixed to mono by channel average) is parsed here, FLAC
-by the native C++ decoder of ``native.py`` (``flac_decode_native``) and by
-the numpy decoder of ``flac.py`` when that returns None, and mp3 by the
-numpy decoder of ``mp3.py``; any other container goes to torchaudio where
-it is installed, then to an ffmpeg subprocess where ffmpeg is on PATH.
-Left out of the JAX package's chain on purpose: its native C++ mp3 decoder
-(opt-in there, suspected of a heap-layout-sensitive crash) and pygame's
-SDL_mixer.
+32, float 32/64, mixed to mono by channel average) is parsed here; FLAC
+and mp3 go to the native C++ decoders of ``native.py``
+(``flac_decode_native``, ``mp3_decode_native``; native mp3 is on unless
+MIOTTS_NATIVE_MP3=0, where JAX's is opt-in) and to the numpy decoders of
+``flac.py`` and ``mp3.py`` when those return None, with the same samples;
+any other container, or an mp3 neither decoder takes, goes to torchaudio
+where it is installed, then to an ffmpeg subprocess where ffmpeg is on
+PATH. Left out of the JAX package's chain on purpose: pygame's SDL_mixer.
 """
 
 from __future__ import annotations
@@ -212,7 +212,7 @@ def load_audio(path: str | Path, target_rate: int | None = None,
                max_seconds: float | None = None) -> tuple[np.ndarray, int]:
     """Decode an audio file to f32 mono, optionally resample and truncate
     (the reference's miniaudio surface, wavlm-extractor.cpp:153-203). WAV,
-    FLAC (native C++ first, numpy when it returns None) and mp3 decode
+    FLAC and mp3 (native C++ first, numpy when it returns None) decode
     here; other containers go to torchaudio, then an ffmpeg subprocess."""
     data = Path(path).read_bytes()
     if data[:4] == b"RIFF":
@@ -231,12 +231,16 @@ def load_audio(path: str | Path, target_rate: int | None = None,
         rate_hint = mp3[0] if mp3 else None
         res = None
         if mp3 is not None:
-            from .mp3 import decode_mp3
+            from .native import mp3_decode_native
 
-            try:
-                res = decode_mp3(data)
-            except Exception:  # a corrupt stream: try the containers below
-                res = None
+            res = mp3_decode_native(data)
+            if res is None:
+                from .mp3 import decode_mp3
+
+                try:
+                    res = decode_mp3(data)
+                except Exception:  # a corrupt stream: try the containers below
+                    res = None
         if res is None:
             res = _decode_via_torchaudio(str(path))
         if res is None:

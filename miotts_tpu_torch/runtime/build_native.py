@@ -5,7 +5,8 @@
 ``runtime/native/miotts_runtime.cpp`` is compiled with the JAX package's flags
 (``g++ -O3 -fPIC -shared -std=c++17 -pthread -march=native``) into
 ``build/miotts_tpu_torch/`` beside the CUDA kernels, never next to the
-sources, under a name that hashes the source, the flags and the host's
+sources, under a name that hashes the sources (the .cpp and the mp3
+decoder's ``mp3_tables.h``, which it includes), the flags and the host's
 instruction set: an unchanged tree on the same CPU reuses its library, a
 changed one builds anew (as ``ops/cuda/build.py`` does). ``runtime/native.py`` builds it at first use.
 """
@@ -25,6 +26,7 @@ from pathlib import Path
 from ..ops.cuda.build import BUILD_DIR
 
 SRC = Path(__file__).resolve().parent / "native" / "miotts_runtime.cpp"
+HEADERS = (SRC.parent / "mp3_tables.h",)  # included by SRC: part of the hash
 FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-march=native")
 
 _lock = threading.Lock()
@@ -49,7 +51,8 @@ def _host_isa() -> str:
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update(_host_isa().encode())
-    h.update(SRC.read_bytes())
+    for src in (SRC, *HEADERS):
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libmiotts_runtime_{h.hexdigest()[:16]}.so"
 
 

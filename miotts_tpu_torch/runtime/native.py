@@ -2,9 +2,9 @@
 (miotts_tpu/runtime/native.py), with numpy in its callers when it is absent.
 
 The library is the port's copy of the JAX package's
-``runtime/native/miotts_runtime.cpp`` without its mp3 decoder, built at
-first use by ``runtime/build_native.py``. Its entry points, each bound with
-JAX's signature and return convention:
+``runtime/native/miotts_runtime.cpp`` (ABI 6), built at first use by
+``runtime/build_native.py``. Its entry points, each bound with JAX's
+signature and return convention:
 
 - ``dequantize_native`` (``mio_dequant``): the threaded whole-tensor GGUF
   dequant of F32/F16/BF16/Q8_0/Q4_0/Q6_K to f32, which
@@ -16,6 +16,12 @@ JAX's signature and return convention:
   resampler (no caller in either package; held to ``resample_linear``);
 - ``flac_decode_native`` (``mio_flac_probe``, ``mio_flac_decode``): a FLAC
   stream to f32 mono, ``load_audio``'s first choice for a FLAC file;
+- ``mp3_decode_native`` (``mio_mp3_probe``, ``mio_mp3_decode``): an
+  MPEG-1/2/2.5 Layer III stream to f32 mono, ``load_audio``'s first choice
+  for an mp3 file, bit-equal to ``runtime/mp3.py`` (a leading Xing/Info/
+  VBRI frame skipped by both); on by default, ``MIOTTS_NATIVE_MP3=0``
+  turns it off (JAX's default is off, over a crash that its later notes
+  traced to XLA's compile cache, which the port's process does not have);
 - ``Q8Gemv`` / ``Q4Gemv`` / ``q8_row_dequant`` / ``q4_row_dequant``: the
   native int8/int4 CPU LLM engine's block-quant GEMVs and GEMMs
   (``models/llm_cpu.py``).
@@ -23,11 +29,10 @@ JAX's signature and return convention:
 The public functions return None when the library is unavailable, the
 type is unsupported or the stream fails to parse; their callers then take
 numpy, which gives the same values. ``calls`` counts, by C entry point,
-the dequants, WAV encodes, resamples and FLAC decodes the library answered
-(not the engine's GEMVs, hundreds a token), and ``unavailable_reason`` says
-why it is not loaded, so a caller can tell which route a value took. Left out: JAX's
-``mp3_decode_native`` (``mio_mp3_*``), opt-in there over a suspected
-heap-layout-sensitive SIGSEGV; the port decodes mp3 with ``runtime/mp3.py``.
+the dequants, WAV encodes, resamples, FLAC and mp3 probes and decodes the
+library answered (not the engine's GEMVs, hundreds a token), and
+``unavailable_reason`` says why it is not loaded, so a caller can tell
+which route a value took.
 
 The library is loaded with ctypes' default ``RTLD_LOCAL``, so it and the
 JAX package's ``libmiotts_runtime.so`` (whose ``mio_*`` symbols have the
@@ -52,7 +57,7 @@ from .build_native import build
 
 # GGML types the native dequant supports (ids match gguf.quants.GGMLType)
 NATIVE_DEQUANT_TYPES = {0, 1, 2, 8, 14, 30}
-ABI = 5  # the lowest library version these bindings take
+ABI = 6  # the lowest library version these bindings take
 
 calls: Counter = Counter()  # C entry point -> calls the library answered
 _calls_lock = threading.Lock()
@@ -77,6 +82,10 @@ def _bind(lib) -> None:
     lib.mio_flac_probe.argtypes = [_P, _I64, _P]
     lib.mio_flac_decode.restype = _INT
     lib.mio_flac_decode.argtypes = [_P, _I64, _P, _I64, _P]
+    lib.mio_mp3_probe.restype = _INT
+    lib.mio_mp3_probe.argtypes = [_P, _I64, _P]
+    lib.mio_mp3_decode.restype = _INT
+    lib.mio_mp3_decode.argtypes = [_P, _I64, _P, _I64, _P]
     lib.mio_q8_quantize_act.argtypes = [_P, _I64, _P, _P]
     for f in (lib.mio_q8_gemv, lib.mio_q4_gemv):
         f.argtypes = [_P, _P, _P, _I64, _I64, _P, _INT]
@@ -207,6 +216,37 @@ def flac_decode_native(data: bytes) -> tuple[np.ndarray, int] | None:
             x = out[: n * channels].reshape(n, channels).mean(axis=1)
             _count("mio_flac_decode")
             return (x / float(1 << (bps - 1))).astype(np.float32), rate
+        if rc != -2:
+            return None
+        cap *= 4
+    return None
+
+
+def mp3_decode_native(data: bytes) -> tuple[np.ndarray, int] | None:
+    """An MPEG-1/2/2.5 Layer III stream -> (f32 mono in [-1, 1], rate),
+    bit-equal to ``runtime/mp3.py decode_mp3``; None under
+    MIOTTS_NATIVE_MP3=0, if the library is unavailable or if no frame
+    decodes (callers fall back to ``runtime/mp3.py``). The probe's sample
+    estimate sizes the buffer; a decode that fills it grows it 4x and
+    retries, up to 8 times."""
+    if os.environ.get("MIOTTS_NATIVE_MP3", "1") == "0":
+        return None
+    lib = _load()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int64)
+    if lib.mio_mp3_probe(buf.ctypes.data, buf.size, info.ctypes.data) != 0:
+        return None
+    _count("mio_mp3_probe")
+    cap = int(info[2]) or max(4096, buf.size * 16)
+    for _ in range(8):
+        out = np.empty(cap, np.float32)
+        rc = lib.mio_mp3_decode(buf.ctypes.data, buf.size, out.ctypes.data, cap,
+                                info.ctypes.data)
+        if rc == 0:
+            _count("mio_mp3_decode")
+            return out[: int(info[1])].copy(), int(info[0])
         if rc != -2:
             return None
         cap *= 4

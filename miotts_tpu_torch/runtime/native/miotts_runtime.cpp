@@ -1,19 +1,23 @@
 // miotts_runtime — the port's native host runtime, a copy of the JAX
-// package's miotts_tpu/runtime/native/miotts_runtime.cpp (:11-1407) without
-// its mp3 decoder: the persistent worker pool, fp16/bf16 conversion, the
-// threaded whole-tensor GGUF dequant (mio_dequant), the WAV encoder
-// (mio_encode_wav16), the linear resampler (mio_resample_linear[_len]),
-// mio_peak_normalize, the native CPU LLM engine's block-quant kernels
-// (per-32-block activation quantization, the Q8_0/Q4_0 row dots with AVX2,
-// AVX-512 VNNI on request or scalar, the GEMV, batched-prefill GEMM and
-// row-dequant entry points) and the FLAC decoder (mio_flac_probe,
-// mio_flac_decode). The code is copied, not rewritten, so every value is
-// bit-equal to the JAX library's. One check is added: flac_subframe refuses
-// a predictor order above the frame's block size before it writes the
-// warm-up samples, where JAX's copy writes past the frame's buffer first and
-// refuses the frame after; no valid stream meets it. The mp3 decoder (namespace mp3impl,
-// mio_mp3_*, mp3_tables.h) is left out: JAX keeps it opt-in over a
-// suspected SIGSEGV, and the port decodes mp3 with runtime/mp3.py.
+// package's miotts_tpu/runtime/native/miotts_runtime.cpp (ABI 6): the
+// persistent worker pool, fp16/bf16 conversion, the threaded whole-tensor
+// GGUF dequant (mio_dequant), the WAV encoder (mio_encode_wav16), the linear
+// resampler (mio_resample_linear[_len]), mio_peak_normalize, the native CPU
+// LLM engine's block-quant kernels (per-32-block activation quantization,
+// the Q8_0/Q4_0 row dots with AVX2, AVX-512 VNNI on request or scalar, the
+// GEMV, batched-prefill GEMM and row-dequant entry points), the FLAC decoder
+// (mio_flac_probe, mio_flac_decode) and the mp3 decoder (namespace mp3impl,
+// mio_mp3_probe, mio_mp3_decode, its constants in mp3_tables.h, generated by
+// scripts/gen_torch_mp3_tables_h.py). The code is copied, not rewritten, so
+// every value is bit-equal to the JAX library's on valid streams without a
+// VBR tag frame. Three changes, each where a stream from outside reaches the
+// code: flac_subframe refuses a predictor order above the frame's block
+// size before it writes the warm-up samples (JAX's copy writes past the
+// frame's buffer first and refuses the frame after); the mp3 decoder skips a
+// stream's leading Xing/Info/VBRI frame (JAX's decodes it as silence); and
+// its frame scan is runtime/mp3.py's (bytes that are no frame are skipped
+// between frames too, and a frame that runs past the end ends the scan), so
+// a corrupt stream decodes as the numpy decoder decodes it.
 // Plain C ABI, consumed from Python via ctypes (runtime/native.py).
 //
 // Build: miotts_tpu_torch/runtime/build_native.py (g++ -O3 -march=native),
@@ -29,6 +33,8 @@
 #include <mutex>
 #include <thread>
 #include <vector>
+
+#include "mp3_tables.h"
 
 // ---------------------------------------------------------------------------
 // persistent gemv worker pool
@@ -1419,9 +1425,786 @@ int mio_flac_decode(const uint8_t* data, int64_t n, int32_t* out,
     return written > 0 || fi.total_samples == 0 ? 0 : -1;
 }
 
+// ---------------------------------------------------------------------------
+// mp3: self-contained MPEG-1/2/2.5 Layer III decoder (port of the
+// oracle-verified numpy implementation in runtime/mp3.py; constants from
+// the generated mp3_tables.h — one source of truth for both decoders).
+// Cross-checked near-identically against runtime/mp3.py and libmpg123 in
+// tests/test_mp3.py. Output: mono float32 in [-1, 1].
+// ---------------------------------------------------------------------------
 
-// 5: the JAX library's version 5 (dequant, WAV encode, resample, the
-// GEMVs and GEMMs, FLAC); its 6 adds the mp3 decoder, which is not copied
-int mio_runtime_abi_version(void) { return 5; }
+}  // extern "C"
+
+namespace mp3impl {
+
+struct Bits {
+    const uint8_t* data;
+    int64_t nbits;
+    int64_t pos = 0;
+    inline uint32_t get(int n) {
+        uint32_t v = 0;
+        for (int i = 0; i < n; ++i) {
+            int bit = 0;
+            if (pos < nbits)
+                bit = (data[pos >> 3] >> (7 - (pos & 7))) & 1;
+            v = (v << 1) | bit;
+            pos++;
+        }
+        return v;
+    }
+    inline uint32_t peek(int n) {
+        int64_t p = pos;
+        uint32_t v = get(n);
+        pos = p;
+        return v;
+    }
+};
+
+struct Gr {
+    int part23 = 0, big_values = 0, global_gain = 0, sfc = 0;
+    bool ws = false, mixed = false;
+    int block_type = 0;
+    int tsel[3] = {0, 0, 0};
+    int sbg[3] = {0, 0, 0};
+    int region0 = 0, region1 = 0;
+    int preflag = 0, sf_scale = 0, count1table = 0;
+    int sfl[23] = {0};
+    int sfs[13][3] = {{0}};
+};
+
+struct Frame {
+    int version = 0, rate = 0, nch = 1, mode = 3, mode_ext = 0, mdb = 0;
+    int ngr = 1;
+    int scfsi[2][4] = {{0}};
+    Gr gr[2][2];
+    const uint8_t* main = nullptr;
+    int main_len = 0;
+};
+
+// Huffman LUTs: index next maxlen bits -> (x<<9 | y<<5 | hlen), 0 invalid
+struct Lut {
+    std::vector<uint16_t> t;
+    int maxlen = 0;
+};
+static Lut g_big[16];
+static Lut g_c1[2];
+static double g_nmat[64][32];
+static double g_im36[36][18];
+static double g_im12[12][6];
+static double g_win[4][36];
+static double g_win12[12];
+static double g_dwin[512];
+static std::once_flag g_init_once;
+
+static void init_tables() {
+    int nbooks = (int)(sizeof(kHuffXlen) / sizeof(kHuffXlen[0]));
+    for (int b = 0; b < nbooks; ++b) {
+        int n = kHuffOff[b + 1] - kHuffOff[b];
+        int ylen = kHuffYlen[b];
+        int maxlen = 0;
+        for (int i = 0; i < n; ++i)
+            maxlen = std::max(maxlen, (int)kHuffLens[kHuffOff[b] + i]);
+        Lut& L = g_big[b];
+        L.maxlen = maxlen;
+        L.t.assign((size_t)1 << maxlen, 0);
+        for (int i = 0; i < n; ++i) {
+            int l = kHuffLens[kHuffOff[b] + i];
+            uint32_t c = kHuffCodes[kHuffOff[b] + i];
+            int x = i / ylen, y = i % ylen;
+            uint32_t base = c << (maxlen - l);
+            for (uint32_t j = 0; j < (1u << (maxlen - l)); ++j)
+                L.t[base + j] = (uint16_t)((x << 9) | (y << 5) | l);
+        }
+    }
+    for (int tb = 0; tb < 2; ++tb) {
+        Lut& L = g_c1[tb];
+        int maxlen = 0;
+        for (int i = 0; i < 16; ++i) {
+            int l = tb ? 4 : kCount1ALen[i];
+            maxlen = std::max(maxlen, l);
+        }
+        L.maxlen = maxlen;
+        L.t.assign((size_t)1 << maxlen, 0);
+        for (int i = 0; i < 16; ++i) {
+            int l = tb ? 4 : kCount1ALen[i];
+            uint32_t c = tb ? (uint32_t)(15 - i) : kCount1ACod[i];
+            uint32_t base = c << (maxlen - l);
+            for (uint32_t j = 0; j < (1u << (maxlen - l)); ++j)
+                L.t[base + j] = (uint16_t)((i << 5) | l);
+        }
+    }
+    const double PI = 3.14159265358979323846;
+    for (int i = 0; i < 64; ++i)
+        for (int k = 0; k < 32; ++k)
+            g_nmat[i][k] = std::cos((16 + i) * (2 * k + 1) * PI / 64.0);
+    for (int i = 0; i < 36; ++i)
+        for (int k = 0; k < 18; ++k)
+            g_im36[i][k] = std::cos(PI / 72.0 * (2 * i + 1 + 18) * (2 * k + 1));
+    for (int i = 0; i < 12; ++i)
+        for (int k = 0; k < 6; ++k)
+            g_im12[i][k] = std::cos(PI / 24.0 * (2 * i + 7) * (2 * k + 1));
+    for (int t = 0; t < 4; ++t)
+        for (int i = 0; i < 36; ++i) g_win[t][i] = 0.0;
+    for (int i = 0; i < 36; ++i)
+        g_win[0][i] = std::sin(PI / 36.0 * (i + 0.5));
+    for (int i = 0; i < 18; ++i)
+        g_win[1][i] = std::sin(PI / 36.0 * (i + 0.5));
+    for (int i = 18; i < 24; ++i) g_win[1][i] = 1.0;
+    for (int i = 24; i < 30; ++i)
+        g_win[1][i] = std::sin(PI / 12.0 * (i - 18 + 0.5));
+    for (int i = 6; i < 12; ++i)
+        g_win[3][i] = std::sin(PI / 12.0 * (i - 6 + 0.5));
+    for (int i = 12; i < 18; ++i) g_win[3][i] = 1.0;
+    for (int i = 18; i < 36; ++i)
+        g_win[3][i] = std::sin(PI / 36.0 * (i + 0.5));
+    for (int i = 0; i < 12; ++i)
+        g_win12[i] = std::sin(PI / 12.0 * (i + 0.5));
+    for (int i = 0; i < 512; ++i) {
+        int base = i <= 256 ? kSynthWinBase[i] : kSynthWinBase[512 - i];
+        double sgn = ((i / 64) % 2 == 1) ? -1.0 : 1.0;
+        g_dwin[i] = sgn * base / 65536.0;
+    }
+}
+
+static const int kRatesV[4][3] = {{11025, 12000, 8000}, {0, 0, 0},
+                                  {22050, 24000, 16000},
+                                  {44100, 48000, 32000}};
+static const int kBrV1[15] = {0, 32, 40, 48, 56, 64, 80, 96, 112, 128,
+                              160, 192, 224, 256, 320};
+static const int kBrV2[15] = {0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96,
+                              112, 128, 144, 160};
+
+static int sfb_rate_idx(int rate) {
+    for (int i = 0; i < 9; ++i)
+        if (kSfbRates[i] == rate) return i;
+    return -1;
+}
+
+// returns frame length in bytes, fills fr; -1 if not a valid frame here,
+// -2 if a frame header here gives a frame that runs past the stream's end
+// (runtime/mp3.py stops there: its callers end the scan)
+static int parse_frame(const uint8_t* d, int64_t n, int64_t pos, Frame* fr) {
+    if (pos + 4 > n) return -1;
+    if (!(d[pos] == 0xFF && (d[pos + 1] & 0xE0) == 0xE0)) return -1;
+    int h1 = d[pos + 1], h2 = d[pos + 2], h3 = d[pos + 3];
+    int version = (h1 >> 3) & 3;
+    int layer = (h1 >> 1) & 3;
+    bool crc = !(h1 & 1);
+    int br_idx = (h2 >> 4) & 15;
+    int sr_idx = (h2 >> 2) & 3;
+    int padding = (h2 >> 1) & 1;
+    int mode = (h3 >> 6) & 3;
+    if (version == 1 || layer != 1 || br_idx == 0 || br_idx == 15 ||
+        sr_idx == 3)
+        return -1;
+    int rate = kRatesV[version][sr_idx];
+    bool v1 = version == 3;
+    int bitrate = (v1 ? kBrV1[br_idx] : kBrV2[br_idx]) * 1000;
+    int flen = (v1 ? 144 : 72) * bitrate / rate + padding;
+    if (pos + flen > n) return -2;
+    if (flen < 24) return -1;
+    int nch = mode == 3 ? 1 : 2;
+    int64_t off = pos + 4 + (crc ? 2 : 0);
+    int si_len = v1 ? (nch == 1 ? 17 : 32) : (nch == 1 ? 9 : 17);
+    if (off + si_len > pos + flen) return -1;
+    Bits br{d + off, (int64_t)si_len * 8};
+    fr->version = version;
+    fr->rate = rate;
+    fr->nch = nch;
+    fr->mode = mode;
+    fr->mode_ext = (h3 >> 4) & 3;
+    fr->ngr = v1 ? 2 : 1;
+    fr->mdb = br.get(v1 ? 9 : 8);
+    br.get(v1 ? (nch == 1 ? 5 : 3) : (nch == 1 ? 1 : 2));
+    if (v1)
+        for (int c = 0; c < nch; ++c)
+            for (int b = 0; b < 4; ++b) fr->scfsi[c][b] = br.get(1);
+    for (int g = 0; g < fr->ngr; ++g)
+        for (int c = 0; c < nch; ++c) {
+            Gr& gr = fr->gr[g][c];
+            gr = Gr();
+            gr.part23 = br.get(12);
+            gr.big_values = br.get(9);
+            gr.global_gain = br.get(8);
+            gr.sfc = br.get(v1 ? 4 : 9);
+            gr.ws = br.get(1) != 0;
+            if (gr.ws) {
+                gr.block_type = br.get(2);
+                gr.mixed = br.get(1) != 0;
+                gr.tsel[0] = br.get(5);
+                gr.tsel[1] = br.get(5);
+                gr.tsel[2] = 0;
+                for (int w = 0; w < 3; ++w) gr.sbg[w] = br.get(3);
+                gr.region0 = (gr.block_type == 2 && !gr.mixed) ? 8 : 7;
+                gr.region1 = 36;
+            } else {
+                for (int t = 0; t < 3; ++t) gr.tsel[t] = br.get(5);
+                gr.region0 = br.get(4);
+                gr.region1 = br.get(3);
+                gr.block_type = 0;
+            }
+            if (v1) gr.preflag = br.get(1);
+            gr.sf_scale = br.get(1);
+            gr.count1table = br.get(1);
+        }
+    fr->main = d + off + si_len;
+    fr->main_len = (int)(pos + flen - (off + si_len));
+    return flen;
+}
+
+// A stream's VBR/LAME header frame: main data starting with a Xing or Info
+// tag, or VBRI 32 bytes after the 4-byte header (runtime/mp3.py
+// _parse_frames). It is metadata: the port skips it when it is a stream's
+// first frame, where JAX's copy decodes it as a frame of silence.
+static bool vbr_tag_frame(const uint8_t* d, int64_t n, int64_t pos,
+                          const Frame& fr) {
+    if (fr.main_len >= 4 && (std::memcmp(fr.main, "Xing", 4) == 0 ||
+                             std::memcmp(fr.main, "Info", 4) == 0))
+        return true;
+    return pos + 40 <= n && std::memcmp(d + pos + 36, "VBRI", 4) == 0;
+}
+
+static void read_scf_v1(Bits& br, Gr& g, int grn, const int* scfsi,
+                        const Gr* prev) {
+    int s1 = kSlen1[g.sfc], s2 = kSlen2[g.sfc];
+    bool short_b = g.ws && g.block_type == 2;
+    if (short_b && !g.mixed) {
+        for (int sfb = 0; sfb < 6; ++sfb)
+            for (int w = 0; w < 3; ++w) g.sfs[sfb][w] = br.get(s1);
+        for (int sfb = 6; sfb < 12; ++sfb)
+            for (int w = 0; w < 3; ++w) g.sfs[sfb][w] = br.get(s2);
+    } else if (short_b) {
+        for (int sfb = 0; sfb < 8; ++sfb) g.sfl[sfb] = br.get(s1);
+        for (int sfb = 3; sfb < 6; ++sfb)
+            for (int w = 0; w < 3; ++w) g.sfs[sfb][w] = br.get(s1);
+        for (int sfb = 6; sfb < 12; ++sfb)
+            for (int w = 0; w < 3; ++w) g.sfs[sfb][w] = br.get(s2);
+    } else {
+        static const int grp[4][3] = {{0, 6, 0}, {6, 11, 0},
+                                      {11, 16, 1}, {16, 21, 1}};
+        for (int gi = 0; gi < 4; ++gi) {
+            int a = grp[gi][0], b = grp[gi][1];
+            int sl = grp[gi][2] ? s2 : s1;
+            if (grn == 1 && scfsi[gi] && prev != nullptr) {
+                for (int sfb = a; sfb < b; ++sfb) g.sfl[sfb] = prev->sfl[sfb];
+            } else {
+                for (int sfb = a; sfb < b; ++sfb) g.sfl[sfb] = br.get(sl);
+            }
+        }
+    }
+}
+
+static void read_scf_lsf(Bits& br, Gr& g, bool ist) {
+    int sfc = g.sfc;
+    int slen[4] = {0, 0, 0, 0};
+    int bn;
+    g.preflag = 0;
+    if (!ist) {
+        if (sfc < 400) {
+            slen[0] = (sfc >> 4) / 5;
+            slen[1] = (sfc >> 4) % 5;
+            slen[2] = (sfc % 16) >> 2;
+            slen[3] = sfc % 4;
+            bn = 0;
+        } else if (sfc < 500) {
+            int s = sfc - 400;
+            slen[0] = (s >> 2) / 5;
+            slen[1] = (s >> 2) % 5;
+            slen[2] = s % 4;
+            bn = 1;
+        } else {
+            int s = sfc - 500;
+            slen[0] = s / 3;
+            slen[1] = s % 3;
+            bn = 2;
+            g.preflag = 1;
+        }
+    } else {
+        int s = sfc >> 1;
+        if (s < 180) {
+            slen[0] = s / 36;
+            slen[1] = (s % 36) / 6;
+            slen[2] = s % 6;
+            bn = 3;
+        } else if (s < 244) {
+            s -= 180;
+            slen[0] = (s % 64) >> 4;
+            slen[1] = (s % 16) >> 2;
+            slen[2] = s % 4;
+            bn = 4;
+        } else {
+            s -= 244;
+            slen[0] = s / 3;
+            slen[1] = s % 3;
+            bn = 5;
+        }
+    }
+    bool short_b = g.ws && g.block_type == 2;
+    int cls = !short_b ? 0 : (g.mixed ? 2 : 1);
+    const uint8_t* counts = &kNrOfSfb[(bn * 3 + cls) * 4];
+    int vals[54], nv = 0;
+    for (int part = 0; part < 4; ++part)
+        for (int i = 0; i < counts[part]; ++i)
+            vals[nv++] = slen[part] ? (int)br.get(slen[part]) : 0;
+    if (short_b && !g.mixed) {
+        for (int i = 0; i < nv && i < 39; ++i) g.sfs[i / 3][i % 3] = vals[i];
+    } else if (short_b) {
+        for (int i = 0; i < 6; ++i) g.sfl[i] = vals[i];
+        for (int i = 6; i < nv && i < 6 + 27; ++i)
+            g.sfs[3 + (i - 6) / 3][(i - 6) % 3] = vals[i];
+    } else {
+        for (int i = 0; i < nv && i < 22; ++i) g.sfl[i] = vals[i];
+    }
+}
+
+static inline double pow43(int v) {
+    static double tab[64] = {0};
+    static std::once_flag once;
+    std::call_once(once, [] {
+        for (int i = 0; i < 64; ++i) tab[i] = std::pow((double)i, 4.0 / 3.0);
+    });
+    if (v < 64) return tab[v];
+    return std::pow((double)v, 4.0 / 3.0);
+}
+
+static void huffman(Bits& br, const Gr& g, int ridx, int64_t bits_end,
+                    double* x) {
+    std::memset(x, 0, 576 * sizeof(double));
+    const int16_t* lb = &kSfbLong[ridx * 23];
+    const int16_t* sb = &kSfbShort[ridx * 14];
+    int region1, region2;
+    if (g.ws) {
+        region1 = (g.block_type == 2 && !g.mixed) ? 3 * sb[3] : lb[8];
+        region2 = 576;
+    } else {
+        region1 = lb[std::min(g.region0 + 1, 22)];
+        region2 = lb[std::min(g.region0 + g.region1 + 2, 22)];
+    }
+    int nbig = std::min(2 * g.big_values, 576);
+    int line = 0;
+    while (line < nbig) {
+        int tab = line < region1 ? g.tsel[0]
+                                 : (line < region2 ? g.tsel[1] : g.tsel[2]);
+        int book = kBookOf[tab];
+        if (book < 0) {
+            line += 2;
+            continue;
+        }
+        const Lut& L = g_big[book];
+        uint16_t packed = L.t[br.peek(L.maxlen)];
+        int hlen = packed & 31;
+        if (hlen == 0) break;
+        br.pos += hlen;
+        int vx = (packed >> 9) & 15, vy = (packed >> 5) & 15;
+        int linbits = kLinbits[tab];
+        if (vx == 15 && linbits) vx += br.get(linbits);
+        double fx = pow43(vx);
+        if (vx && br.get(1)) fx = -fx;
+        if (vy == 15 && linbits) vy += br.get(linbits);
+        double fy = pow43(vy);
+        if (vy && br.get(1)) fy = -fy;
+        x[line] = fx;
+        x[line + 1] = fy;
+        line += 2;
+        if (br.pos > bits_end) break;
+    }
+    const Lut& L = g_c1[g.count1table ? 1 : 0];
+    while (line + 4 <= 576 && br.pos < bits_end) {
+        uint16_t packed = L.t[br.peek(L.maxlen)];
+        int hlen = packed & 31;
+        if (hlen == 0) break;
+        br.pos += hlen;
+        int quad = (packed >> 5) & 15;
+        for (int i = 0; i < 4; ++i) {
+            int v = (quad >> (3 - i)) & 1;
+            if (v) x[line + i] = br.get(1) ? -1.0 : 1.0;
+        }
+        line += 4;
+    }
+    if (br.pos > bits_end)
+        for (int i = std::max(0, line - 4); i < line; ++i) x[i] = 0.0;
+}
+
+static void requantize(double* x, const Gr& g, int ridx) {
+    const int16_t* lb = &kSfbLong[ridx * 23];
+    const int16_t* sb = &kSfbShort[ridx * 14];
+    double mult = g.sf_scale ? 1.0 : 0.5;
+    double gain = 0.25 * (g.global_gain - 210);
+    bool short_b = g.ws && g.block_type == 2;
+    double e[576];
+    for (int i = 0; i < 576; ++i) e[i] = 0.0;
+    if (!short_b || g.mixed) {
+        int nlong = short_b ? 36 : 576;
+        for (int sfb = 0; sfb < 22; ++sfb) {
+            int a = lb[sfb], b = std::min((int)lb[sfb + 1], nlong);
+            if (a >= nlong) break;
+            double sf = g.sfl[sfb] + (g.preflag ? kPretab[sfb] : 0);
+            double ex = gain - mult * sf;
+            for (int i = a; i < b; ++i) e[i] = ex;
+        }
+    }
+    if (short_b) {
+        int first = g.mixed ? 3 : 0;
+        for (int sfb = first; sfb < 13; ++sfb) {
+            int a = sb[sfb], w = sb[sfb + 1] - sb[sfb];
+            for (int win = 0; win < 3; ++win) {
+                double ex = gain - 2.0 * g.sbg[win]
+                            - mult * (sfb < 13 ? g.sfs[sfb][win] : 0);
+                int s = 3 * a + win * w;
+                for (int i = 0; i < w; ++i) e[s + i] = ex;
+            }
+        }
+    }
+    for (int i = 0; i < 576; ++i)
+        if (x[i] != 0.0) x[i] *= std::exp2(e[i]);
+}
+
+static int intensity_bound(const double* right, const Gr& g, int ridx) {
+    const int16_t* lb = &kSfbLong[ridx * 23];
+    const int16_t* sb = &kSfbShort[ridx * 14];
+    bool short_b = g.ws && g.block_type == 2;
+    const int16_t* bands = short_b ? sb : lb;
+    int nb = short_b ? 13 : 22;
+    int scale = short_b ? 3 : 1;
+    int bound = bands[nb] * scale;
+    for (int sfb = nb - 1; sfb >= 0; --sfb) {
+        int a = bands[sfb] * scale, b = bands[sfb + 1] * scale;
+        bool nz = false;
+        for (int i = a; i < b; ++i)
+            if (right[i] != 0.0) { nz = true; break; }
+        if (nz) break;
+        bound = a;
+    }
+    return bound;
+}
+
+static void stereo_process(double* L, double* R, const Frame& fr,
+                           const Gr& gR, int ridx) {
+    bool ms = fr.mode == 1 && (fr.mode_ext & 2);
+    bool ist = fr.mode == 1 && (fr.mode_ext & 1);
+    int bound = ist ? intensity_bound(R, gR, ridx) : 576;
+    if (ist) {
+        const int16_t* lb = &kSfbLong[ridx * 23];
+        const int16_t* sb = &kSfbShort[ridx * 14];
+        bool short_b = gR.ws && gR.block_type == 2;
+        const int16_t* bands = short_b ? sb : lb;
+        int nb = short_b ? 13 : 22;
+        int scale = short_b ? 3 : 1;
+        bool v1 = fr.version == 3;
+        double lsf_io = std::exp2(-0.25 * ((gR.sfc & 1) + 1));
+        for (int sfb = 0; sfb < nb; ++sfb) {
+            int a = bands[sfb] * scale;
+            if (a < bound) continue;
+            int nwin = short_b ? 3 : 1;
+            int w = bands[sfb + 1] - bands[sfb];
+            for (int win = 0; win < nwin; ++win) {
+                int s0, len;
+                int is_pos;
+                if (short_b) {
+                    s0 = bands[sfb] * 3 + win * w;
+                    len = w;
+                    is_pos = gR.sfs[sfb][win];
+                } else {
+                    s0 = bands[sfb] * scale;
+                    len = bands[sfb + 1] - bands[sfb];
+                    is_pos = gR.sfl[sfb];
+                }
+                double k0, k1;
+                if (v1) {
+                    if (is_pos == 7) {
+                        if (ms) {
+                            const double inv = 0.7071067811865476;
+                            for (int i = s0; i < s0 + len; ++i) {
+                                double m = L[i], s = R[i];
+                                L[i] = (m + s) * inv;
+                                R[i] = (m - s) * inv;
+                            }
+                        }
+                        continue;
+                    }
+                    double ratio = std::tan(is_pos * 3.14159265358979323846
+                                            / 12.0);
+                    k0 = ratio / (1.0 + ratio);
+                    k1 = 1.0 / (1.0 + ratio);
+                } else {
+                    if (is_pos == 0) {
+                        k0 = k1 = 1.0;
+                    } else if (is_pos & 1) {
+                        k0 = std::pow(lsf_io, (is_pos + 1) >> 1);
+                        k1 = 1.0;
+                    } else {
+                        k0 = 1.0;
+                        k1 = std::pow(lsf_io, is_pos >> 1);
+                    }
+                }
+                for (int i = s0; i < s0 + len; ++i) {
+                    double v = L[i];
+                    L[i] = v * k0;
+                    R[i] = v * k1;
+                }
+            }
+        }
+    }
+    if (ms) {
+        const double inv = 0.7071067811865476;
+        int upto = ist ? bound : 576;
+        for (int i = 0; i < upto; ++i) {
+            double m = L[i], s = R[i];
+            L[i] = (m + s) * inv;
+            R[i] = (m - s) * inv;
+        }
+    }
+}
+
+static void reorder_short(double* x, const Gr& g, int ridx) {
+    if (!(g.ws && g.block_type == 2)) return;
+    const int16_t* sb = &kSfbShort[ridx * 14];
+    double tmp[576];
+    std::memcpy(tmp, x, sizeof(tmp));
+    int first = g.mixed ? 3 : 0;
+    for (int sfb = first; sfb < 13; ++sfb) {
+        int a = sb[sfb], w = sb[sfb + 1] - sb[sfb];
+        int base = 3 * a;
+        for (int win = 0; win < 3; ++win)
+            for (int i = 0; i < w; ++i)
+                x[base + i * 3 + win] = tmp[base + win * w + i];
+    }
+}
+
+static const double kCi[8] = {-0.6, -0.535, -0.33, -0.185,
+                              -0.095, -0.041, -0.0142, -0.0037};
+
+static void alias_reduce(double* x, const Gr& g) {
+    if (g.ws && g.block_type == 2 && !g.mixed) return;
+    int nb = (g.ws && g.block_type == 2) ? 2 : 32;
+    for (int sbnd = 1; sbnd < nb; ++sbnd) {
+        int b = 18 * sbnd;
+        for (int i = 0; i < 8; ++i) {
+            double cs = 1.0 / std::sqrt(1.0 + kCi[i] * kCi[i]);
+            double ca = kCi[i] * cs;
+            double lo = x[b - 1 - i], hi = x[b + i];
+            x[b - 1 - i] = lo * cs - hi * ca;
+            x[b + i] = hi * cs + lo * ca;
+        }
+    }
+}
+
+struct ChState {
+    double overlap[32][18] = {{0}};
+    double v[1024] = {0};
+};
+
+static void imdct_granule(const double* x, const Gr& g, ChState& st,
+                          double out[32][18]) {
+    bool short_b = g.ws && g.block_type == 2;
+    for (int sbnd = 0; sbnd < 32; ++sbnd) {
+        const double* X = x + sbnd * 18;
+        double z[36];
+        bool long_here = !short_b || (g.mixed && sbnd < 2);
+        if (long_here) {
+            int bt = (g.mixed && sbnd < 2) ? 0 : g.block_type;
+            for (int i = 0; i < 36; ++i) {
+                double s = 0.0;
+                for (int k = 0; k < 18; ++k) s += g_im36[i][k] * X[k];
+                z[i] = s * g_win[bt][i];
+            }
+        } else {
+            for (int i = 0; i < 36; ++i) z[i] = 0.0;
+            for (int w = 0; w < 3; ++w)
+                for (int i = 0; i < 12; ++i) {
+                    double s = 0.0;
+                    for (int k = 0; k < 6; ++k)
+                        s += g_im12[i][k] * X[k * 3 + w];
+                    z[6 + 6 * w + i] += s * g_win12[i];
+                }
+        }
+        for (int i = 0; i < 18; ++i) {
+            out[sbnd][i] = z[i] + st.overlap[sbnd][i];
+            st.overlap[sbnd][i] = z[i + 18];
+        }
+    }
+    // frequency inversion: odd subbands, odd samples
+    for (int sbnd = 1; sbnd < 32; sbnd += 2)
+        for (int i = 1; i < 18; i += 2) out[sbnd][i] = -out[sbnd][i];
+}
+
+static void synth_granule(ChState& st, const double sb[32][18],
+                          double* pcm576) {
+    double* v = st.v;
+    for (int t = 0; t < 18; ++t) {
+        std::memmove(v + 64, v, (1024 - 64) * sizeof(double));
+        for (int i = 0; i < 64; ++i) {
+            double s = 0.0;
+            for (int k = 0; k < 32; ++k) s += g_nmat[i][k] * sb[k][t];
+            v[i] = s;
+        }
+        double u[512];
+        for (int i = 0; i < 8; ++i) {
+            std::memcpy(u + 64 * i, v + 128 * i, 32 * sizeof(double));
+            std::memcpy(u + 64 * i + 32, v + 128 * i + 96,
+                        32 * sizeof(double));
+        }
+        for (int j = 0; j < 32; ++j) {
+            double s = 0.0;
+            for (int i = 0; i < 16; ++i)
+                s += u[j + 32 * i] * g_dwin[j + 32 * i];
+            pcm576[t * 32 + j] = s;
+        }
+    }
+}
+
+}  // namespace mp3impl
+
+extern "C" {
+
+// probe: info_out[0]=sample_rate, [1]=source channels, [2]=decoded mono
+// sample estimate (frame count * samples-per-frame). Returns 0, or -1 if
+// no Layer III frame is found.
+int mio_mp3_probe(const uint8_t* data, int64_t n, int64_t* info_out) {
+    using namespace mp3impl;
+    int64_t pos = 0;
+    if (n >= 10 && data[0] == 'I' && data[1] == 'D' && data[2] == '3') {
+        int64_t sz = ((int64_t)(data[6] & 0x7F) << 21) |
+                     ((int64_t)(data[7] & 0x7F) << 14) |
+                     ((int64_t)(data[8] & 0x7F) << 7) | (data[9] & 0x7F);
+        pos = 10 + sz;
+    }
+    Frame fr;
+    int64_t total = 0, frames = 0;
+    int rate = 0, nch = 0;
+    while (pos + 4 <= n) {
+        int flen = parse_frame(data, n, pos, &fr);
+        if (flen == -2) break;  // a truncated last frame
+        if (flen < 0) {  // no frame here: scan on, as runtime/mp3.py does
+            pos++;
+            continue;
+        }
+        if (frames++ == 0 && vbr_tag_frame(data, n, pos, fr)) {
+            pos += flen;  // the tag frame holds no samples
+            continue;
+        }
+        if (rate == 0) {
+            rate = fr.rate;
+            nch = fr.nch;
+        } else if (fr.rate != rate) {
+            break;
+        }
+        total += fr.ngr * 576;
+        pos += flen;
+    }
+    if (rate == 0) return -1;
+    info_out[0] = rate;
+    info_out[1] = nch;
+    info_out[2] = total;
+    return 0;
+}
+
+// Decode to mono float32 in [-1, 1]. cap = max samples `out` holds.
+// info_out[0]=rate, [1]=samples written. Returns 0 ok, -1 no frames,
+// -2 capacity exhausted (out holds the first cap samples).
+int mio_mp3_decode(const uint8_t* data, int64_t n, float* out, int64_t cap,
+                   int64_t* info_out) {
+    using namespace mp3impl;
+    std::call_once(g_init_once, init_tables);
+    int64_t pos = 0;
+    if (n >= 10 && data[0] == 'I' && data[1] == 'D' && data[2] == '3') {
+        int64_t sz = ((int64_t)(data[6] & 0x7F) << 21) |
+                     ((int64_t)(data[7] & 0x7F) << 14) |
+                     ((int64_t)(data[8] & 0x7F) << 7) | (data[9] & 0x7F);
+        pos = 10 + sz;
+    }
+    std::vector<uint8_t> reservoir;
+    reservoir.reserve(4096);
+    ChState st[2];
+    int rate = 0;
+    int64_t written = 0, frames = 0;
+    Frame fr;
+    while (pos + 4 <= n) {
+        int flen = parse_frame(data, n, pos, &fr);
+        if (flen == -2) break;  // a truncated last frame
+        if (flen < 0) {  // no frame here: scan on, as runtime/mp3.py does
+            pos++;
+            continue;
+        }
+        if (frames++ == 0 && vbr_tag_frame(data, n, pos, fr)) {
+            pos += flen;  // metadata: no samples, no reservoir bytes
+            continue;
+        }
+        pos += flen;
+        if (rate == 0)
+            rate = fr.rate;
+        else if (fr.rate != rate)
+            break;
+        bool v1 = fr.version == 3;
+        int64_t start_byte = (int64_t)reservoir.size() - fr.mdb;
+        reservoir.insert(reservoir.end(), fr.main, fr.main + fr.main_len);
+        if (start_byte < 0) continue;  // reservoir not yet primed
+        Bits br{reservoir.data(), (int64_t)reservoir.size() * 8};
+        br.pos = start_byte * 8;
+        int ridx = sfb_rate_idx(rate);
+        if (ridx < 0) break;
+        for (int grn = 0; grn < fr.ngr; ++grn) {
+            double xs[2][576];
+            for (int c = 0; c < fr.nch; ++c) {
+                Gr& g = fr.gr[grn][c];
+                int64_t bits_end = br.pos + g.part23;
+                if (g.part23 == 0) {
+                    std::memset(xs[c], 0, sizeof(xs[c]));
+                    continue;
+                }
+                if (v1) {
+                    const Gr* prev = grn == 1 ? &fr.gr[0][c] : nullptr;
+                    read_scf_v1(br, g, grn, fr.scfsi[c], prev);
+                } else {
+                    bool ist = fr.mode == 1 && (fr.mode_ext & 1) && c == 1;
+                    read_scf_lsf(br, g, ist);
+                }
+                if (br.pos > bits_end) {
+                    std::memset(xs[c], 0, sizeof(xs[c]));
+                    br.pos = bits_end;
+                    continue;
+                }
+                huffman(br, g, ridx, bits_end, xs[c]);
+                br.pos = bits_end;
+                requantize(xs[c], g, ridx);
+            }
+            if (fr.nch == 2)
+                stereo_process(xs[0], xs[1], fr, fr.gr[grn][1], ridx);
+            double mix[576] = {0};
+            for (int c = 0; c < fr.nch; ++c) {
+                Gr& g = fr.gr[grn][c];
+                reorder_short(xs[c], g, ridx);
+                alias_reduce(xs[c], g);
+                double sbs[32][18];
+                imdct_granule(xs[c], g, st[c], sbs);
+                double pcm[576];
+                synth_granule(st[c], sbs, pcm);
+                for (int i = 0; i < 576; ++i) mix[i] += pcm[i];
+            }
+            double sc = 1.0 / fr.nch;
+            for (int i = 0; i < 576; ++i) {
+                if (written >= cap) {
+                    info_out[0] = rate;
+                    info_out[1] = written;
+                    return -2;
+                }
+                double vv = mix[i] * sc;
+                if (vv > 1.0) vv = 1.0;
+                if (vv < -1.0) vv = -1.0;
+                out[written++] = (float)vv;
+            }
+        }
+        if (reservoir.size() > 4096)
+            reservoir.erase(reservoir.begin(),
+                            reservoir.end() - 2048);
+    }
+    if (written == 0 || rate == 0) return -1;
+    info_out[0] = rate;
+    info_out[1] = written;
+    return 0;
+}
+
+// 6: the JAX library's version 6 (version 5 and the mp3 decoder)
+int mio_runtime_abi_version(void) { return 6; }
 
 }  // extern "C"

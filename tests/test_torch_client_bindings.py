@@ -1,14 +1,22 @@
-"""The native C client bridge (miotts_tpu/bindings) end to end against the
-port's server, the flow of tests/test_client_bindings.py: a server with
-``--tts-wavlm-model`` turns an uploaded recording into a reference that
-text requests then use; a server without it answers the JAX server's own
-400 ("server requires --tts-wavlm-model ...") and takes a reference from a
-GGUF instead."""
+"""The native C client bridges end to end against the port's server, the
+flow of tests/test_client_bindings.py, each test once with the JAX
+package's bridge (miotts_tpu/bindings) and once with the port's own copy
+(miotts_tpu_torch/bindings): a server with ``--tts-wavlm-model`` turns an
+uploaded recording into a reference that text requests then use; a server
+without it answers the JAX server's own 400 ("server requires
+--tts-wavlm-model ...") and takes a reference from a GGUF instead. The two
+bridges then upload the committed mp3 fixture and synthesize the same
+request with the same seed: the same embedding and WAV bytes.
+
+JAX's bridge is built here into the test's temporary directory, not into
+the JAX package's tree (its ``_OUT`` is pointed there before its first
+load); the port's builds into build/miotts_tpu_torch/."""
 
 import json
 import math
 import shutil
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +34,26 @@ pytestmark = pytest.mark.skipif(
     reason="no C++ compiler")
 
 torch.set_num_threads(1)
+
+MP3_REF = Path(__file__).parent / "torch_assets" / "ref3.mp3"
+
+
+@pytest.fixture(scope="module", params=["jax", "port"])
+def client_cls(request, tmp_path_factory):
+    """``MioTPUClient`` of the JAX package's bridge or of the port's."""
+    if request.param == "port":
+        from miotts_tpu_torch.bindings import MioTPUClient
+
+        yield MioTPUClient
+        return
+    from miotts_tpu.bindings import client as jax_client
+
+    with pytest.MonkeyPatch.context() as mp:
+        if jax_client._lib is None:  # built outside the JAX package's tree
+            mp.setattr(jax_client, "_OUT",
+                       tmp_path_factory.mktemp("jax_bridge") / "libmio_tpu_client.so")
+            jax_client._load()
+        yield jax_client.MioTPUClient
 
 
 def _server(d, wavlm: bool):
@@ -74,9 +102,8 @@ def _make_wav(path, seconds=1.0, sr=16000):
                      + b"data" + struct.pack("<I", len(pcm)) + pcm)
 
 
-def test_bridge_end_to_end(bridge_server, tmp_path):
-    from miotts_tpu.bindings import MioTPUClient
-
+def test_bridge_end_to_end(client_cls, bridge_server, tmp_path):
+    MioTPUClient = client_cls
     srv, d = bridge_server
     with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
         assert json.loads(c.health_json())["status"] == "ok"
@@ -109,11 +136,10 @@ def test_bridge_end_to_end(bridge_server, tmp_path):
         assert "bridge_voice" not in keys and "bridge_copy" not in keys
 
 
-def test_bridge_reference_needs_wavlm(bridge_server_no_wavlm, tmp_path):
+def test_bridge_reference_needs_wavlm(client_cls, bridge_server_no_wavlm, tmp_path):
     """Without --tts-wavlm-model the clone call gets the server's 400; a
     reference added from a GGUF serves a text request."""
-    from miotts_tpu.bindings import MioTPUClient
-
+    MioTPUClient = client_cls
     srv, d = bridge_server_no_wavlm
     with MioTPUClient(f"http://127.0.0.1:{srv.port}") as c:
         _make_wav(tmp_path / "voice.wav")
@@ -128,9 +154,8 @@ def test_bridge_reference_needs_wavlm(bridge_server_no_wavlm, tmp_path):
         assert out.read_bytes()[:4] == b"RIFF"
 
 
-def test_bridge_error_paths(bridge_server, tmp_path):
-    from miotts_tpu.bindings import MioTPUClient
-
+def test_bridge_error_paths(client_cls, bridge_server, tmp_path):
+    MioTPUClient = client_cls
     srv, _ = bridge_server
     with pytest.raises(ConnectionError):
         MioTPUClient("http://127.0.0.1:9")  # nothing listens on port 9
@@ -143,3 +168,30 @@ def test_bridge_error_paths(bridge_server, tmp_path):
             c.remove_reference("never_existed")
         with pytest.raises(RuntimeError, match="cannot open file"):
             c.add_reference_from_gguf("k", str(tmp_path / "missing.gguf"))
+
+
+def test_bridges_same_bytes(bridge_server, tmp_path, monkeypatch):
+    """The JAX package's bridge and the port's upload the committed mp3
+    fixture (which the server decodes natively, its LAME Info frame
+    skipped) and synthesize one text request with one seed: the same
+    embedding GGUF and the same WAV bytes from both."""
+    from miotts_tpu.bindings import client as jax_client
+    from miotts_tpu_torch.bindings import MioTPUClient
+    from miotts_tpu_torch.runtime import native
+
+    srv, _ = bridge_server
+    if jax_client._lib is None:  # built outside the JAX package's tree
+        monkeypatch.setattr(jax_client, "_OUT", tmp_path / "libmio_tpu_client.so")
+    out = {}
+    for name, cls in (("jax", jax_client.MioTPUClient), ("port", MioTPUClient)):
+        with cls(f"http://127.0.0.1:{srv.port}") as c:
+            m0 = native.calls["mio_mp3_decode"]
+            c.create_reference_from_audio(f"mp3_{name}", str(MP3_REF),
+                                          embedding_out_path=str(tmp_path / f"{name}.emb.gguf"))
+            assert native.calls["mio_mp3_decode"] == m0 + 1  # the server decoded it natively
+            c.set_generation_params(n_predict=12, top_k=40, top_p=0.95, temp=0.7, seed=11)
+            c.synthesize_to_wav("the same request", f"mp3_{name}", str(tmp_path / f"{name}.wav"))
+        out[name] = ((tmp_path / f"{name}.emb.gguf").read_bytes(),
+                     (tmp_path / f"{name}.wav").read_bytes())
+    assert out["jax"][1][:4] == b"RIFF" and len(out["jax"][1]) > 44
+    assert out["jax"] == out["port"]

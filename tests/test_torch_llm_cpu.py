@@ -105,7 +105,7 @@ def test_two_libraries_in_one_process():
     """The port's library is its own file, loaded RTLD_LOCAL beside JAX's."""
     assert native.q8_available() and jax_native.q8_available()
     assert native._load()._name != jax_native._load()._name
-    assert native._load().mio_runtime_abi_version() == 5
+    assert native._load().mio_runtime_abi_version() == 6  # JAX's library version (mp3 too)
 
 
 @pytest.fixture(scope="module", params=["q8_0", "q4_0"])

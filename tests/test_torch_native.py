@@ -13,8 +13,14 @@ decoder over tests/flac_encoder.py's subframe kinds, channel modes, wasted
 bits, partition orders, escaped partitions and short last frames, and over
 streams whose STREAMINFO gives no sample count (the grow-and-retry loop);
 ``load_audio`` on a FLAC, answered by the library; the linear resampler
-(bit-equal to JAX's native, within 1e-6 of numpy's ``resample_linear``).
-Skipped only where no C++ compiler can build the library."""
+(bit-equal to JAX's native, within 1e-6 of numpy's ``resample_linear``);
+the mp3 decoder (ABI 6) against the port's numpy ``decode_mp3`` and JAX's
+native and numpy decoders over MPEG-1/2/2.5, mono, stereo, joint stereo,
+CRC frames, LAME's Info frame, Xing and VBRI frames and the committed
+fixtures (tests/torch_assets), over mutated streams (numpy's answer or
+None, never a write past the buffer), its routing in ``load_audio``
+(MIOTTS_NATIVE_MP3) and its generated tables (mp3_tables.h, equal to
+JAX's). Skipped only where no C++ compiler can build the library."""
 
 import sys
 from pathlib import Path
@@ -25,16 +31,22 @@ import pytest
 sys.path.insert(0, str(Path(__file__).parent))
 
 from flac_encoder import encode_flac  # noqa: E402
+from mp3_oracles import have_oracles, lame_encode  # noqa: E402
+from torch_lame import lame_stream  # noqa: E402
 
 from miotts_tpu.gguf import quants as jax_quants  # noqa: E402
 from miotts_tpu.runtime import audio_io as jax_audio  # noqa: E402
+from miotts_tpu.runtime import mp3 as jax_mp3  # noqa: E402
 from miotts_tpu.runtime import native as jax_native  # noqa: E402
 from miotts_tpu_torch.gguf import quants  # noqa: E402
 from miotts_tpu_torch.gguf.quants import GGMLType  # noqa: E402
-from miotts_tpu_torch.runtime import audio_io, build_native, flac, native  # noqa: E402
+from miotts_tpu_torch.runtime import audio_io, build_native, flac, mp3, native  # noqa: E402
 
 pytestmark = pytest.mark.skipif(build_native.compiler() is None,
                                 reason="no C++ compiler (g++ or clang++) to build the native library")
+
+ASSETS = Path(__file__).parent / "torch_assets"  # scripts/gen_torch_mp3_fixtures.py
+needs_oracles = pytest.mark.skipif(not have_oracles(), reason="lame/mpg123 not in image")
 
 # (GGML type, elements a block, bytes a block, byte offsets of f16 scales)
 TYPES = {
@@ -98,13 +110,15 @@ def no_native(monkeypatch):
 
 
 def test_library_abi_and_entry_points():
-    """ABI 5, the port's own file beside JAX's, no mp3 entry point."""
+    """ABI 6, JAX's library version, the port's own file beside JAX's, the
+    mp3 entry points bound."""
     lib = native._load()
     assert native.available() and lib is not None and native.unavailable_reason() == ""
-    assert lib.mio_runtime_abi_version() == 5
+    assert lib.mio_runtime_abi_version() == native.ABI == 6
+    assert lib.mio_runtime_abi_version() == jax_native._load().mio_runtime_abi_version()
     assert lib._name != jax_native._load()._name
     assert native.NATIVE_DEQUANT_TYPES == jax_native.NATIVE_DEQUANT_TYPES
-    assert not hasattr(lib, "mio_mp3_decode") and not hasattr(native, "mp3_decode_native")
+    assert lib.mio_mp3_probe.argtypes and lib.mio_mp3_decode.argtypes
     assert Path(lib._name).name.startswith("libmiotts_runtime_")
 
 
@@ -408,13 +422,14 @@ def test_calls_count_only_library_answers(no_native):
     assert native.encode_wav16_native(x, 24000) is None
     assert native.resample_linear_native(x, 24000, 16000) is None
     assert native.flac_decode_native(FLAC_CASES["constant"]()) is None
+    assert native.mp3_decode_native((ASSETS / "ref3.mp3").read_bytes()) is None
     assert dict(native.calls) == before
 
 
 def test_native_routes_import_no_jax(tmp_path):
-    """In a fresh interpreter the library loads, and a FLAC decode, a large
-    dequant and a WAV encode go native, with no ``jax`` or ``miotts_tpu``
-    module imported."""
+    """In a fresh interpreter the library loads, and a FLAC decode, an mp3
+    decode, a large dequant and a WAV encode go native, with no ``jax`` or
+    ``miotts_tpu`` module imported."""
     import subprocess
 
     p = tmp_path / "a.flac"
@@ -425,11 +440,12 @@ import numpy as np
 from miotts_tpu_torch.gguf.quants import dequantize
 from miotts_tpu_torch.runtime import audio_io, native
 x, rate = audio_io.load_audio({str(p)!r})
+y, _ = audio_io.load_audio({str(ASSETS / "ref3.mp3")!r}, 16000)
 w = dequantize(np.zeros(1 << 17, np.uint16).view(np.uint8), 1, 1 << 17)
 wav = audio_io.encode_wav16(x, rate)
 assert native.available() and w.dtype == np.float32, native.unavailable_reason()
-assert {{k: native.calls[k] for k in ("mio_flac_decode", "mio_dequant", "mio_encode_wav16")}} \\
-    == {{"mio_flac_decode": 1, "mio_dequant": 1, "mio_encode_wav16": 1}}, native.calls
+entries = ("mio_flac_decode", "mio_mp3_decode", "mio_dequant", "mio_encode_wav16")
+assert {{k: native.calls[k] for k in entries}} == dict.fromkeys(entries, 1), native.calls
 bad = sorted(m for m in sys.modules if m in ("jax", "miotts_tpu")
              or m.startswith(("jax.", "jaxlib", "miotts_tpu.")))
 assert not bad, bad
@@ -483,3 +499,296 @@ def test_calls_count_every_thread():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert native.calls["mio_encode_wav16"] == c0 + 24 * 300
+
+
+# -- mp3 (ABI 6) --------------------------------------------------------------------------
+
+def _voice(rate: int, secs: float = 0.5, nch: int = 1, seed: int = 0) -> np.ndarray:
+    """A tone, noise and sharp bursts (long, short and start/stop blocks, a
+    wide range of Huffman tables); ``nch`` 2 adds a right channel close to
+    the left, which LAME codes mid/side in joint stereo."""
+    rng = np.random.RandomState(seed)
+    n = int(rate * secs)
+    t = np.arange(n) / rate
+    x = 0.2 * np.sin(2 * np.pi * 220 * t) + 0.08 * rng.randn(n)
+    for k in range(3):
+        p = n // 4 + k * n // 5
+        m = min(200, n - p)
+        x[p:p + m] += 0.6 * np.sin(2 * np.pi * min(3000, rate / 3) * np.arange(m) / rate)
+    x = np.clip(x, -1, 1).astype(np.float32)
+    if nch == 1:
+        return x
+    return np.stack([x, (0.9 * np.roll(x, 2) + 0.01 * rng.randn(n)).astype(np.float32)], 1)
+
+
+def _first_frame(data: bytes) -> tuple[int, int]:
+    """(bytes, samples) of the stream's first frame (a LAME stream starts
+    with one)."""
+    h1, h2 = data[1], data[2]
+    v1 = (h1 >> 3) & 3 == 3
+    rate = mp3.SAMPLE_RATES[(h1 >> 3) & 3][(h2 >> 2) & 3]
+    bitrate = (mp3.BITRATES_V1 if v1 else mp3.BITRATES_V2)[(h2 >> 4) & 15] * 1000
+    return (144 if v1 else 72) * bitrate // rate + ((h2 >> 1) & 1), 1152 if v1 else 576
+
+
+def _tag_frame(data: bytes, tag: bytes) -> bytes:
+    """``data`` led by a frame with its first frame's header, zero side
+    info and ``tag`` at the main data (Xing) or 32 bytes after the header
+    (VBRI), as a VBR encoder writes one."""
+    n, _ = _first_frame(data)
+    frame = bytearray(n)
+    frame[:4] = data[:4]
+    v1, mono = (data[1] >> 3) & 3 == 3, (data[3] >> 6) & 3 == 3
+    at = 36 if tag == b"VBRI" else 4 + (17 if mono else 32) if v1 else 4 + (9 if mono else 17)
+    frame[at:at + 4] = tag
+    return bytes(frame) + data
+
+
+# name -> (stream maker, a leading VBR header frame to skip, needs libmp3lame)
+MP3_CASES = {
+    "mpeg1_mono_44100": (lambda: lame_encode(_voice(44100), 44100, bitrate=128), False, True),
+    "mpeg1_stereo_32000": (lambda: lame_encode(_voice(32000, nch=2), 32000, nch=2, bitrate=96,
+                                               mode=0), False, True),
+    "mpeg1_joint_48000": (lambda: lame_encode(_voice(48000, nch=2), 48000, nch=2, bitrate=160,
+                                              mode=1), False, True),
+    "mpeg2_mono_24000": (lambda: lame_encode(_voice(24000), 24000, bitrate=64), False, True),
+    "mpeg2_joint_22050": (lambda: lame_encode(_voice(22050, nch=2), 22050, nch=2, bitrate=64,
+                                              mode=1), False, True),
+    "mpeg2_stereo_16000": (lambda: lame_encode(_voice(16000, nch=2), 16000, nch=2, bitrate=48,
+                                               mode=0), False, True),
+    "mpeg25_mono_11025": (lambda: lame_encode(_voice(11025), 11025, bitrate=32), False, True),
+    "mpeg25_joint_12000": (lambda: lame_encode(_voice(12000, nch=2), 12000, nch=2, bitrate=32,
+                                               mode=1), False, True),
+    "mpeg25_mono_8000": (lambda: lame_encode(_voice(8000), 8000, bitrate=8), False, True),
+    "crc_mpeg1": (lambda: lame_stream(_voice(44100), 44100, 128, crc=True), False, True),
+    "crc_mpeg2": (lambda: lame_stream(_voice(22050), 22050, 64, crc=True), False, True),
+    "lame_info_tag": (lambda: lame_stream(_voice(24000), 24000, 64, info_tag=True), True, True),
+    "xing_tag": (lambda: _tag_frame(lame_encode(_voice(44100), 44100, bitrate=128), b"Xing"),
+                 True, True),
+    "vbri_tag": (lambda: _tag_frame(lame_encode(_voice(22050), 22050, bitrate=64), b"VBRI"),
+                 True, True),
+    # the committed fixtures: ref3.mp3 whole (LAME's Info frame in front); the
+    # 20 s 44.1 kHz mid/side one cut to its first ~2 s (numpy takes ~8 s for all)
+    "fixture_ref3": (lambda: (ASSETS / "ref3.mp3").read_bytes(), True, False),
+    "fixture_ref20_441_joint_2s": (lambda: (ASSETS / "ref20_441_joint.mp3").read_bytes()[:32000],
+                                   False, False),
+}
+
+
+def _mp3_params():
+    return [pytest.param(name, marks=needs_oracles) if lame else name
+            for name, (_, _, lame) in MP3_CASES.items()]
+
+
+def _same_bits(got, want) -> None:
+    assert got[1] == want[1]
+    assert got[0].dtype == want[0].dtype == np.float32 and got[0].shape == want[0].shape
+    np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+
+
+@pytest.mark.parametrize("case", _mp3_params())
+def test_mp3_decode_native_matches_numpy(case):
+    """Bit-equal samples and the same rate from the library and the port's
+    numpy ``decode_mp3``, a leading Xing/Info/VBRI frame skipped by both;
+    one probe and one decode counted."""
+    data = MP3_CASES[case][0]()
+    c0 = dict(native.calls)
+    got = native.mp3_decode_native(data)
+    assert got is not None and got[0].size > 0
+    assert (native.calls["mio_mp3_probe"], native.calls["mio_mp3_decode"]) == (
+        c0.get("mio_mp3_probe", 0) + 1, c0.get("mio_mp3_decode", 0) + 1)
+    _same_bits(got, mp3.decode_mp3(data))
+
+
+@pytest.mark.parametrize("case", _mp3_params())
+def test_mp3_decode_native_matches_jax(case, monkeypatch):
+    """Against JAX's native decoder (opt-in there: MIOTTS_NATIVE_MP3=1) and
+    JAX's numpy decoder: bit-equal on an untagged stream; on a tagged one
+    JAX decodes the tag frame as one frame of silence (ADVICE.md:5), which
+    the port leaves out."""
+    monkeypatch.setenv("MIOTTS_NATIVE_MP3", "1")
+    data, tagged, _ = MP3_CASES[case]
+    data = data()
+    got = native.mp3_decode_native(data)
+    for want in (jax_native.mp3_decode_native(data), jax_mp3.decode_mp3(data)):
+        assert want is not None
+        if tagged:
+            skip = _first_frame(data)[1]
+            assert not want[0][:skip].any()
+            want = (want[0][skip:], want[1])
+        _same_bits(got, want)
+
+
+def test_mp3_fixture_whole_matches_jax_native(monkeypatch):
+    """The whole 20 s 44.1 kHz mid/side fixture: bit-equal to JAX's native
+    decode (the card's run holds it to numpy as well, chip_smoke.py
+    [native])."""
+    monkeypatch.setenv("MIOTTS_NATIVE_MP3", "1")
+    data = (ASSETS / "ref20_441_joint.mp3").read_bytes()
+    got = native.mp3_decode_native(data)
+    assert got[1] == 44100 and got[0].size % 1152 == 0 and got[0].size >= 20 * 44100
+    _same_bits(got, jax_native.mp3_decode_native(data))
+
+
+def _seed_streams() -> list[bytes]:
+    """~0.4 s of each committed fixture, cut at a frame boundary: MPEG-2 mono
+    led by LAME's Info frame, and MPEG-1 joint stereo (mid/side)."""
+    out = []
+    for name, frames in (("ref3.mp3", 20), ("ref20_441_joint.mp3", 16)):
+        data = (ASSETS / name).read_bytes()
+        out.append(data[:frames * _first_frame(data)[0]])
+    return out
+
+
+def _mutated(kind: str, rng) -> bytes:
+    seeds = _seed_streams()
+    d = bytearray(seeds[rng.randint(len(seeds))])
+    n = len(d)
+    if kind == "truncated":
+        return bytes(d[:rng.randint(1, n)])
+    if kind == "bit_flipped":
+        for _ in range(rng.randint(1, 40)):
+            d[rng.randint(n)] ^= 1 << rng.randint(8)
+    elif kind == "zero_filled":
+        i, m = rng.randint(n), rng.randint(1, 600)
+        d[i:i + m] = bytes(len(d[i:i + m]))
+    elif kind == "spliced":
+        other = seeds[rng.randint(len(seeds))]
+        return bytes(d[:rng.randint(n)]) + other[rng.randint(len(other)):]
+    elif kind == "garbage_filled":
+        i, m = rng.randint(n), rng.randint(1, 400)
+        d[i:i + m] = rng.randint(0, 256, len(d[i:i + m])).astype(np.uint8).tobytes()
+    else:  # random bytes, some with a sync word at the front
+        g = rng.randint(0, 256, rng.randint(0, 3000)).astype(np.uint8)
+        if g.size > 4 and rng.randint(2):
+            g[:4] = np.frombuffer(seeds[0][:4], np.uint8)
+        return g.tobytes()
+    return bytes(d)
+
+
+MUTATIONS = ("truncated", "bit_flipped", "zero_filled", "spliced", "garbage_filled", "random")
+
+
+@pytest.mark.parametrize("kind", MUTATIONS)
+def test_mp3_mutated_streams_as_numpy(kind):
+    """Eight seeded streams of each kind: the library answers None or
+    numpy's answer (its rate and length, and its samples; a sample may sit
+    one f32 step away, because the two decoders round their double sums in
+    different orders: numpy's BLAS products and the C loops. Over 2 000
+    such streams one sample in one stream did, ROADMAP §3)."""
+    rng = np.random.RandomState(MUTATIONS.index(kind))
+    for _ in range(8):
+        data = _mutated(kind, rng)
+        got = native.mp3_decode_native(data)
+        try:
+            want = mp3.decode_mp3(data)
+        except ValueError:  # no decodable frame
+            want = None
+        if want is None or got is None:
+            assert got is None
+            continue
+        assert got[1] == want[1] and got[0].shape == want[0].shape
+        steps = np.abs(got[0].view(np.int32).astype(np.int64) - want[0].view(np.int32))
+        assert steps.max(initial=0) <= 1
+
+
+def test_mp3_decode_never_writes_past_cap():
+    """A buffer of ``cap`` samples, valid and mutated streams: a decode that
+    fills it returns -2 with exactly ``cap`` samples written, the guard
+    words past it untouched; a decode into a big enough buffer returns 0
+    and writes only what it reports."""
+    lib = native._load()
+    rng = np.random.RandomState(7)
+    streams = _seed_streams() + [_mutated(k, rng) for k in MUTATIONS for _ in range(3)]
+    guard = 64
+    for data in streams:
+        buf = np.frombuffer(data, np.uint8)
+        info = np.zeros(4, np.int64)
+        if lib.mio_mp3_probe(buf.ctypes.data, buf.size, info.ctypes.data) != 0:
+            continue
+        for cap in (1, 577, int(info[2]) // 3 + 1, int(info[2])):
+            out = np.full(cap + guard, np.nan, np.float32)
+            rc = lib.mio_mp3_decode(buf.ctypes.data, buf.size, out.ctypes.data, cap,
+                                    info.ctypes.data)
+            written = int(info[1])
+            assert rc in (0, -1, -2)
+            if rc == -2:
+                assert written == cap
+            if rc == 0:
+                assert 0 < written <= cap and not np.isnan(out[:written]).any()
+            assert np.isnan(out[cap:]).all() and np.isnan(out[max(written, 0):]).all()
+
+
+@pytest.mark.parametrize("fault", ["garbage_between_frames", "frame_past_the_end"])
+def test_mp3_scan_as_numpy(fault, monkeypatch):
+    """The frame scan follows runtime/mp3.py: bytes that are no frame
+    between two frames are skipped and the decode goes on (JAX's native
+    decoder stops there, with a shorter answer than numpy's); a frame header
+    whose frame runs past the stream's end ends the scan, so a stream that
+    starts with one has no frame (JAX's scans on past it)."""
+    monkeypatch.setenv("MIOTTS_NATIVE_MP3", "1")
+    data = (ASSETS / "ref20_441_joint.mp3").read_bytes()[:40 * 418]
+    n = _first_frame(data)[0]
+    if fault == "garbage_between_frames":
+        k = 10 * n + data[10 * n:].index(b"\xff\xfb", 1)  # the start of a later frame
+        bad = data[:k] + bytes(range(1, 200)) + data[k:]
+        got, want = native.mp3_decode_native(bad), mp3.decode_mp3(bad)
+        _same_bits(got, want)
+        _same_bits(got, native.mp3_decode_native(data))
+        assert jax_native.mp3_decode_native(bad)[0].size < got[0].size
+    else:
+        bad = b"\xff\xfb\x90\x00" + bytes(40) + data  # 417 bytes claimed, 44 before data
+        bad = bad[:300]
+        assert native.mp3_decode_native(bad) is None
+        with pytest.raises(ValueError):
+            mp3.decode_mp3(bad)
+
+
+@pytest.mark.parametrize("route", ["native", "numpy_env", "no_native"])
+def test_load_audio_mp3(tmp_path, route, monkeypatch, request):
+    """``load_audio`` on an mp3 goes native by default, to numpy under
+    MIOTTS_NATIVE_MP3=0 or without the library; the same samples each way,
+    resampled and cut alike; ``native.calls`` tells the route."""
+    if route == "numpy_env":
+        monkeypatch.setenv("MIOTTS_NATIVE_MP3", "0")
+    elif route == "no_native":
+        request.getfixturevalue("no_native")
+    p = tmp_path / "ref.mp3"
+    p.write_bytes((ASSETS / "ref3.mp3").read_bytes())
+    want = mp3.decode_mp3(p.read_bytes())
+    c0 = native.calls["mio_mp3_decode"]
+    x, rate = audio_io.load_audio(p)
+    _same_bits((x, rate), want)
+    y, rate16 = audio_io.load_audio(p, target_rate=16000, max_seconds=1.5)
+    assert rate16 == 16000
+    np.testing.assert_array_equal(y, audio_io.resample_linear(want[0], 24000, 16000)[:24000])
+    assert native.calls["mio_mp3_decode"] == c0 + (2 if route == "native" else 0)
+
+
+def _header_arrays(path: Path) -> dict:
+    import re
+
+    text = path.read_text()
+    return {m.group(2): (m.group(1), int(m.group(3)),
+                         [int(v) for v in m.group(4).replace(",", " ").split()])
+            for m in re.finditer(r"static const (\w+) (\w+)\[(\d+)\] = \{([^}]*)\};", text)}
+
+
+def test_mp3_tables_header_matches_jax():
+    """The port's generated mp3_tables.h holds JAX's arrays, value for
+    value (type, name, length, values, order), and is what
+    scripts/gen_torch_mp3_tables_h.py writes from the port's tables."""
+    import importlib.util
+
+    port = Path(native.__file__).parent / "native" / "mp3_tables.h"
+    jax = Path(jax_native.__file__).parent / "native" / "mp3_tables.h"
+    got, want = _header_arrays(port), _header_arrays(jax)
+    assert len(got) == 17 and list(got) == list(want) and got == want
+    assert all(length == len(vals) for _, length, vals in got.values())
+    spec = importlib.util.spec_from_file_location(
+        "gen_torch_mp3_tables_h",
+        Path(__file__).resolve().parents[1] / "scripts" / "gen_torch_mp3_tables_h.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert gen.header() == port.read_text()
+    assert port in build_native.HEADERS  # a changed table rebuilds the library

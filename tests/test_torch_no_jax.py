@@ -1,7 +1,8 @@
 """The port never imports JAX nor the JAX package: every miotts_tpu_torch
-module, and what chip_smoke.py imports, load in a fresh interpreter with no
-``jax`` and no ``miotts_tpu``/``miotts_tpu.*`` in sys.modules. Also the
-device rule: explicit, TF32 off, no CPU fallback."""
+module (the C client bridge's among them), and what chip_smoke.py imports,
+load in a fresh interpreter, which then decodes an mp3 reference natively,
+with no ``jax`` and no ``miotts_tpu``/``miotts_tpu.*`` in sys.modules. Also
+the device rule: explicit, TF32 off, no CPU fallback."""
 
 import os
 import subprocess
@@ -24,6 +25,9 @@ names = [m.name for m in pkgutil.walk_packages(miotts_tpu_torch.__path__, "miott
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from miotts_tpu_torch.runtime import audio_io, native
+x, rate = audio_io.load_audio("tests/torch_assets/ref3.mp3")  # the mp3 route, native
+assert rate == 24000 and x.size and native.calls["mio_mp3_decode"] == 1, native.calls
 bad = sorted(m for m in sys.modules
              if m in ("jax", "miotts_tpu") or m.startswith(("jax.", "jaxlib", "miotts_tpu.")))
 assert not bad, bad
@@ -51,6 +55,8 @@ def test_no_module_imports_jax():
         f"miotts_tpu_torch.runtime.{m}" for m in ("flac", "mp3", "mp3_tables", "llm_api",
                                                   "tracing", "device_dequant", "native",
                                                   "build_native")} <= set(names)
+    assert {"miotts_tpu_torch.bindings", "miotts_tpu_torch.bindings.client",
+            "miotts_tpu_torch.bindings.build_client"} <= set(names)
 
 
 def test_select_device(monkeypatch):
