@@ -44,8 +44,9 @@ is ignored. ``--sequence-parallel N`` splits the codec decode's time axis
 over the first N of ``parallel/mesh.py logical_devices()`` (one a card, or
 ``MIOTTS_LOGICAL_DEVICES`` ranks of one), codec only, as in the JAX CLI;
 more than there are exits 1 with the JAX CLI's error.
-MIOTTS_PROFILE_DIR leaves a ``torch.profiler`` trace of the codec decode
-(``runtime/tracing.py``). ``-fa`` has no effect:
+MIOTTS_PROFILE_DIR leaves a ``torch.profiler`` trace of the codec decode,
+MIOTTS_SPAN_DIR the span recorder's spans (``runtime/tracing.py``). ``-fa``
+has no effect:
 on CUDA the codec attention always runs the banded-attention kernel.
 
 The device comes from MIOTTS_PLATFORM=cuda|cpu (default cuda); asking for

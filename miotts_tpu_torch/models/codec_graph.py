@@ -60,6 +60,7 @@ import torch
 
 from ..device import to_device, to_host
 from ..ops.cuda import graphs
+from ..runtime import tracing
 
 
 @dataclasses.dataclass
@@ -137,8 +138,10 @@ class CodecGraph:
         """Copy ``host``'s arrays into the input buffers of the same names
         (each rewritten whole), replay, and return ``out`` on the host."""
         t0 = time.perf_counter()
-        for name, value in host.items():
-            self.inputs[name].copy_(to_device(value, self.inputs[name].device))
-        out = to_host(self.replay())
+        with tracing.on_device():
+            for name, value in host.items():
+                self.inputs[name].copy_(to_device(value, self.inputs[name].device))
+            out = self.replay()
+        out = to_host(out)
         self.counters.replay_ms += (time.perf_counter() - t0) * 1e3
         return out

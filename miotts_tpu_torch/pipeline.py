@@ -80,6 +80,7 @@ from .ops.masking import time_mask
 from .ops.precision import codec_matmul_mode
 from .parallel import sequence as seq
 from .parallel.mesh import make_sp_mesh, same_device, tree_to
+from .runtime import tracing
 from .runtime.tracing import maybe_start_profiler, trace_phase
 
 DEFAULT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -444,11 +445,13 @@ class MioTTSPipeline:
         and on CUDA a key's first decode (any host sync inside it an error)
         or a reference asked for by name. Returns the packed rows."""
         with self._on_stream():
-            inputs = {k: to_device(v, self.device) for k, v in host.items()}
-            if self.device.type != "cuda":
-                return self._body(key)(inputs).numpy()
-            codec_graph.codec.eager += 1
-            return to_host(codec_graph.run_checked(self._body(key), inputs, self.check_syncs))
+            with tracing.on_device():
+                inputs = {k: to_device(v, self.device) for k, v in host.items()}
+                if self.device.type != "cuda":
+                    return self._body(key)(inputs).numpy()
+                codec_graph.codec.eager += 1
+                out = codec_graph.run_checked(self._body(key), inputs, self.check_syncs)
+            return to_host(out)
 
     @property
     def sp(self) -> int:

@@ -97,6 +97,7 @@ from ..models.llm import (
 from ..models.sampling import BatchSamplerParams, SamplerParams
 from ..ops.cuda import graphs
 from ..parallel.mesh import replicate_tree, shard_gen_state, shard_llm_weights
+from ..runtime import tracing
 from ..runtime.tracing import trace_phase
 
 _PROMPT_BUCKETS = (32, 64, 128, 256, 512)
@@ -115,6 +116,8 @@ class _Lane:
     early: bool = True
     # written into the chunk graphs' sampler buffers at the lane's attach
     sampler: SamplerParams = dataclasses.field(default_factory=SamplerParams)
+    rid: int = 0  # the request's id (runtime/tracing.py), 0 for none
+    t_submit: int = 0  # time.monotonic_ns() when submit began waiting for the lane
 
 
 class GenerationHandle:
@@ -261,9 +264,14 @@ class ContinuousBatcher:
         self.depth = max(1, int(os.environ.get("MIOTTS_CHUNK_DEPTH", "1")))
         self._attach_hold_t0: float | None = None
         # how often, and for how long, the worker held a dispatch for a
-        # burst's attaches (read by chip_smoke.py and the trace script)
+        # burst's attaches (read by chip_smoke.py, the trace script and
+        # /metrics)
         self.attach_holds = 0
         self.attach_hold_ms = 0.0
+        # lanes attached, and their seconds from submit to the worker's
+        # attach (/metrics)
+        self.attach_waits = 0
+        self.attach_wait_s = 0.0
         # chunks dispatched at each width (n_lanes: full width), counted
         # once a dispatch whatever the number of dp ranks it ran on
         self.width_counts: dict[int, int] = {}
@@ -282,8 +290,9 @@ class ContinuousBatcher:
         # attaches are queued and applied only by the worker, between
         # chunks: (dp rank, host lane list, apply(state) -> state, finish
         # list of (lane, needs set_lane_done) already delivered in the
-        # fused steps); lanes are global
-        self._pending: list[tuple[int, list[int], object, list]] = []
+        # fused steps, time.monotonic_ns() at the group's finish); lanes
+        # are global
+        self._pending: list[tuple[int, list[int], object, list, int]] = []
         self._prefill_q: "queue.Queue[tuple | None]" = queue.Queue()
         self._prefill_thread = threading.Thread(target=self._prefill_loop, daemon=True,
                                                 name="batcher-prefill")
@@ -343,7 +352,10 @@ class ContinuousBatcher:
 
     def submit(self, text: str, sampler: SamplerParams | None = None,
                n_predict: int = 400, timeout: float | None = None,
-               early_tokens: bool = True) -> GenerationHandle:
+               early_tokens: bool = True, rid: int = 0) -> GenerationHandle:
+        """Queue a request's prefill on a free lane (waiting for one) and
+        return its token stream; ``rid`` is the request's id, which the
+        recorder's spans of its lane name (``runtime/tracing.py``)."""
         sampler = sampler or SamplerParams()
         ids = self.engine.tokenizer.encode(CHAT_TEMPLATE.format(text=text), parse_special=True)
         T = len(ids)
@@ -356,13 +368,16 @@ class ContinuousBatcher:
         n_predict = min(n_predict, self.max_ctx - T - 1)
 
         handle = GenerationHandle()
+        t_submit = time.monotonic_ns()
         with self._cv:
             while (lane_idx := self._free_lane()) is None:
                 if not self._cv.wait(timeout=timeout):
                     raise TimeoutError("no free generation lane")
             self.lanes[lane_idx] = _Lane(handle=handle, n_predict=n_predict, early=early_tokens,
-                                         sampler=sampler)
-        self._prefill_q.put((lane_idx, ids, T, bucket, sampler.seed))
+                                         sampler=sampler, rid=rid, t_submit=t_submit)
+        t_put = tracing.now_ns()
+        tracing.record("lane_wait", t_submit, t_put, rid=rid)
+        self._prefill_q.put((lane_idx, ids, T, bucket, sampler.seed, rid, t_put))
         return handle
 
     # -- batched prefill --------------------------------------------------------
@@ -387,6 +402,10 @@ class ContinuousBatcher:
                     self._prefill_q.put(None)  # re-post shutdown
                     break
                 items.append(nxt)
+            t_taken = tracing.now_ns()
+            if t_taken:
+                for it in items:
+                    tracing.record("prefill_queue", it[6], t_taken, rid=it[5])
             groups: dict[tuple[int, int], list[tuple]] = {}
             for it in items:
                 groups.setdefault((it[3], it[0] // self.per_rank), []).append(it)
@@ -430,7 +449,7 @@ class ContinuousBatcher:
         lens = np.ones(kp, np.int32)
         lanes = np.full(kp, rank.n_lanes, np.int64)
         seeds = np.zeros(kp, np.int64)
-        for i, (lane_idx, ids, T, _b, seed) in enumerate(group):
+        for i, (lane_idx, ids, T, _b, seed, _rid, _t) in enumerate(group):
             toks[i, :T] = ids
             lens[i] = T
             lanes[i] = self._where(lane_idx)[1]
@@ -439,7 +458,8 @@ class ContinuousBatcher:
         try:
             if self._work_started is None:
                 self._work_started = time.monotonic()
-            with trace_phase(f"prefill_group bucket={bucket} k={kp} fused={int(fused)}"):
+            with trace_phase("prefill_group", bucket=bucket, k=kp, fused=int(fused),
+                             rids=[it[5] for it in group]):
                 if fused:
                     fetch, gst, event = self._prefill_fused(toks, lens, seeds,
                                                             self._group_sampler(kp, group), rank)
@@ -460,7 +480,8 @@ class ContinuousBatcher:
             out_np = n_np = done_np = None
             if fused:
                 out_np, n_np, done_np = finish_chunk_fetch(fetch)
-            self._last_progress = time.monotonic()
+            t_done = time.monotonic_ns()
+            self._last_progress = t_done / 1e9  # time.monotonic()'s clock
             with self._warm_lock:
                 self._warm_prefills = self._warm_prefills | {(bucket, kp)}
             finish: list[tuple[int, bool]] = []
@@ -483,7 +504,8 @@ class ContinuousBatcher:
                             # finished inside the fused steps: the worker
                             # frees the lane right after the attach applies
                             finish.append((lane_idx, not bool(done_np[i])))
-                self._pending.append((rank.index, [it[0] for it in group], apply_fn, finish))
+                self._pending.append((rank.index, [it[0] for it in group], apply_fn, finish,
+                                      t_done))
                 self._cv.notify_all()
 
         return [finish_group]
@@ -513,7 +535,9 @@ class ContinuousBatcher:
                 return (*llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev),
                                         to_device(lens, dev)), None)
             with torch.cuda.stream(rank.prefill_stream):
-                out = llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev), to_device(lens, dev))
+                with tracing.on_device():
+                    out = llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev),
+                                         to_device(lens, dev))
                 event = torch.cuda.Event()
                 event.record(rank.prefill_stream)
         return (*out, event)
@@ -542,7 +566,7 @@ class ContinuousBatcher:
                 self.cfg, rank.w, rank.eog_ids, self.first_chunk, to_device(toks, dev),
                 to_device(lens, dev), seeds, BatchSamplerParams.make(*sampler_np, dev))
             return start_chunk_fetch(out, n_new, gst), gst, None
-        with rank.fused_lock, rank.scope(), _on(rank.prefill_stream):
+        with rank.fused_lock, rank.scope(), _on(rank.prefill_stream), tracing.on_device():
             tokens, lengths = to_device(toks, dev), to_device(lens, dev)
             if rank.use_graph:
                 graph, sampler = self._fused_graph(k, rank)
@@ -812,10 +836,12 @@ class ContinuousBatcher:
         """Apply the queued attaches (the caller holds _cv): a failed one
         fails its group only; lanes that finished inside their fused steps
         are freed right after their attach."""
-        for rank_index, lane_list, apply_fn, finish in self._pending:
+        now = time.monotonic_ns() if self._pending else 0
+        for rank_index, lane_list, apply_fn, finish, t_done in self._pending:
             rank = self.ranks[rank_index]
+            rids = [self.lanes[i].rid for i in lane_list if self.lanes[i] is not None]
             try:
-                with trace_phase(f"attach k={len(lane_list)}"), _on(rank.stream):
+                with trace_phase("attach", k=len(lane_list), rids=rids), _on(rank.stream):
                     rank.state = apply_fn(rank.state)
             except Exception as e:
                 print(f"mio: lane attach failed: {e!r}", file=sys.stderr)
@@ -832,6 +858,9 @@ class ContinuousBatcher:
                 if lane is not None:
                     lane.started = True
                     rank.sampler.set_lane(self._where(lane_idx)[1], lane.sampler)
+                    self.attach_waits += 1
+                    self.attach_wait_s += (now - lane.t_submit) / 1e9
+                    tracing.record("attach_wait", t_done, now, rid=lane.rid)
             for lane_idx, needs_done in finish:
                 lane = self.lanes[lane_idx]
                 if lane is None:
@@ -854,8 +883,9 @@ class ContinuousBatcher:
             if not any(lo <= i < lo + self.per_rank for i in live):
                 continue
             with _on(rank.stream):
-                rank.rem.copy_(to_device(rem_np[lo:lo + self.per_rank], rank.device))
-                out, n_new = self._chunk(rank, steps, width, lanes_np)
+                with tracing.on_device():
+                    rank.rem.copy_(to_device(rem_np[lo:lo + self.per_rank], rank.device))
+                    out, n_new = self._chunk(rank, steps, width, lanes_np)
                 fetches.append((rank, start_chunk_fetch(out, n_new, rank.state)))
         return fetches
 
@@ -945,8 +975,9 @@ class ContinuousBatcher:
                 try:
                     if self._work_started is None:
                         self._work_started = time.monotonic()
-                    with trace_phase(f"chunk_dispatch steps={steps} "
-                                     f"width={width or self.n_lanes} live={len(snapshot)}"):
+                    with trace_phase("chunk_dispatch", steps=steps, width=width or self.n_lanes,
+                                     live=len(snapshot),
+                                     rids=[lane.rid for _, lane in snapshot]):
                         fetches = self._dispatch(steps, width, lanes_np, rem_np,
                                                  {i for i, _ in snapshot})
                     key = (steps, width or self.n_lanes)
@@ -967,7 +998,7 @@ class ContinuousBatcher:
                 fetches_k, snap_k, _size_k, steps_k = inflight.popleft()
                 tf = time.monotonic()
                 try:
-                    with trace_phase("chunk_fetch"):
+                    with trace_phase("chunk_fetch", rids=[lane.rid for _, lane in snap_k]):
                         out_np, n_np, done_np = self._finish(fetches_k, steps_k)
                 except Exception as e:  # device failure: fail the cohort, keep serving
                     self._fail_active_lanes(sorted({i for i, _ in snap_k} | {
@@ -975,10 +1006,11 @@ class ContinuousBatcher:
                     inflight.clear()
                     continue
                 dt_fetch = time.monotonic() - tf
+                tracing.resolve_device()
                 if dt_fetch > self.stall_event_s:
                     self.stall_events += 1
                 self.longest_fetch_s = max(self.longest_fetch_s, dt_fetch)
-                with trace_phase("chunk_deliver"):
+                with trace_phase("chunk_deliver", rids=[lane.rid for _, lane in snap_k]):
                     self._deliver_chunk(out_np, n_np, done_np, snap_k)
                 self._last_progress = time.monotonic()
                 if not inflight:

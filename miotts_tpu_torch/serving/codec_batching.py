@@ -33,6 +33,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 
 from ..pipeline import MioTTSPipeline, SynthesisResult, pick_bucket
+from ..runtime import tracing
 from ..runtime.tracing import trace_phase
 
 
@@ -58,6 +59,10 @@ class CodecMicroBatcher:
         # decodes each dp rank ran (a group decodes once on each rank with a
         # share of it)
         self.rank_decodes = [0] * len(self.pipelines)
+        # calls decoded, and their seconds from synthesize's queueing to the
+        # start of their group's decode (/metrics)
+        self.queue_waits = 0
+        self.queue_wait_s = 0.0
         self.max_batch = max_batch
         self.gather_window_s = gather_window_s
         self._q: "queue.Queue[tuple | None]" = queue.Queue()
@@ -69,7 +74,7 @@ class CodecMicroBatcher:
                    peak_normalize: bool = True,
                    pcm16: bool = False,
                    window: tuple[int, int] | None = None,
-                   priority: bool = False) -> SynthesisResult:
+                   priority: bool = False, rid: int = 0) -> SynthesisResult:
         """Blocking call; batches with concurrent callers that share the same
         (interp_anchor, peak_normalize, pcm16, window length) options.
         ``pcm16=True`` quantizes to 16-bit PCM on the device and brings half
@@ -78,14 +83,16 @@ class CodecMicroBatcher:
         float). ``window=(start, len)`` brings back only that slice of each
         lane. ``priority=True`` (a fresh stream's first feed) runs the group
         holding the call before same-gather groups without one; it never
-        splits a group. Raises like ``MioTTSPipeline.synthesize`` on invalid
-        inputs."""
+        splits a group. ``rid`` is the caller's request id, which the
+        recorder's spans of the call name (``runtime/tracing.py``). Raises
+        like ``MioTTSPipeline.synthesize`` on invalid inputs."""
         codes_arr, embedding = self.pipeline.validate_request(codes, embedding)
         fut: Future = Future()
         wlen = None if window is None else int(window[1])
         wstart = 0 if window is None else int(window[0])
         opts = (interp_anchor, peak_normalize, pcm16, wlen)
-        self._q.put((codes_arr.tolist(), embedding, opts, fut, wstart, bool(priority)))
+        self._q.put((codes_arr.tolist(), embedding, opts, fut, wstart, bool(priority), rid,
+                     time.monotonic_ns()))
         return fut.result()
 
     def warm(self, bucket: int,
@@ -172,6 +179,11 @@ class CodecMicroBatcher:
         pipe = self.pipelines[rank]
         cfg = pipe.config
         interp_anchor, peak_normalize, pcm16, wlen = opts
+        t_start = time.monotonic_ns()
+        for item in batch:
+            self.queue_waits += 1
+            self.queue_wait_s += (t_start - item[7]) / 1e9
+            tracing.record("codec_queue", item[7], t_start, rid=item[6], priority=int(item[5]))
         try:
             B = _pow2_lanes(len(batch))
             tokens = np.zeros((B, bucket), np.int64)
@@ -185,12 +197,14 @@ class CodecMicroBatcher:
                 starts[i] = item[4]
                 if cond is not None:
                     cond[i] = np.asarray(item[1], np.float32).reshape(-1)
-            with trace_phase(f"codec_group B={B} bucket={bucket}"):
+            with trace_phase("codec_group", B=B, bucket=bucket, rids=[it[6] for it in batch],
+                             tags={"priority": int(any(it[5] for it in batch))}):
                 audio, counts, decode_ms = pipe.decode(
                     tokens, lengths, cond, interp_anchor=interp_anchor,
                     peak_normalize=peak_normalize, window=wlen,
                     starts=starts if wlen is not None else None, pcm16=pcm16,
                     as_int16=pcm16 and wlen is None)
+            tracing.resolve_device()
             self.rank_decodes[rank] += 1
             for i, item in enumerate(batch):
                 n_valid = int(counts[i])

@@ -28,7 +28,9 @@ device as n ranks (the one-card check of ``chip_smoke.py``).
 
 With ``--llm-api-url`` a text request's codes come from the external LLM
 (``runtime/llm_api.py``), not the batcher. ``MIOTTS_PROFILE_DIR`` starts a
-``torch.profiler`` trace of the process (``runtime/tracing.py``).
+``torch.profiler`` trace of the process, ``MIOTTS_SPAN_DIR`` the span
+recorder (``runtime/tracing.py``); the request flows take the server's
+request id (``rid``) down to the batcher's lane and the codec's queue.
 
 With ``--tts-wavlm-model`` the pipeline also loads WavLM, and
 ``generate_reference`` turns a reference recording into a speaker
@@ -43,6 +45,7 @@ buffers one chain at a time may use).
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -54,10 +57,11 @@ import numpy as np
 import torch
 
 from ..device import select_device
+from ..models import codec_graph
 from ..pipeline import MioTTSPipeline, pick_bucket
 from ..runtime.audio_io import save_wav16
 from ..runtime.codes_io import load_codes, save_codes
-from ..runtime.tracing import maybe_start_profiler
+from ..runtime.tracing import maybe_start_profiler, trace_phase
 from .state import ReferenceCache, RequestError, RequestParams, ServerConfig
 
 
@@ -84,7 +88,7 @@ class SlotPool:
         """Blocks for a free slot; with a timeout, raises RequestError 503
         when the pool stays exhausted."""
         deadline = None if timeout is None else time.perf_counter() + timeout
-        with self._cv:
+        with trace_phase("slot_wait", profiled=False), self._cv:
             while not self._free:
                 remaining = None if deadline is None else deadline - time.perf_counter()
                 if remaining is not None and remaining <= 0:
@@ -398,19 +402,45 @@ class ServingEngine:
             ("miotts_synth_ms_total", self.synth_ms_total,
              "milliseconds spent in codec synthesis"),
         ]
+        codec, cb = codec_graph.codec, self.codec_batcher
+        counters += [
+            ("miotts_codec_graph_replays_total", codec.replays,
+             "codec decodes replayed as a graph"),
+            ("miotts_codec_eager_decodes_total", codec.eager,
+             "codec decodes run eagerly (a key's first decode)"),
+            ("miotts_codec_graph_captures_total", codec.captures, "codec graphs captured"),
+        ]
+        # (name, sum of seconds, count, help): Prometheus summaries without quantiles
+        summaries = [("miotts_codec_queue_seconds", cb.queue_wait_s, cb.queue_waits,
+                      "codec calls' wait from queueing to the start of their group's decode")]
+        labelled = []
         if self.batcher is not None:
-            counters.append(
-                ("miotts_device_stall_events_total", self.batcher.stall_events,
+            b = self.batcher
+            counters += [
+                ("miotts_device_stall_events_total", b.stall_events,
                  "chunk fetches slower than MIOTTS_STALL_EVENT_S "
-                 "(intermittent device-link pauses)"))
+                 "(intermittent device-link pauses)"),
+                ("miotts_batcher_attach_holds_total", b.attach_holds,
+                 "dispatches held for a burst's attaches"),
+            ]
             gauges.append(
-                ("miotts_longest_chunk_fetch_seconds", round(self.batcher.longest_fetch_s, 3),
+                ("miotts_longest_chunk_fetch_seconds", round(b.longest_fetch_s, 3),
                  "slowest chunk fetch observed since start"))
+            summaries.append(("miotts_batcher_attach_wait_seconds", b.attach_wait_s,
+                              b.attach_waits, "requests' wait from submit to their lane's attach"))
+            labelled.append(("miotts_batcher_chunks_total", "width", sorted(b.width_counts.items()),
+                             "chunks dispatched, by width (lanes run)"))
         lines = []
         for name, val, help_ in gauges:
             lines += [f"# HELP {name} {help_}", f"# TYPE {name} gauge", f"{name} {val}"]
         for name, val, help_ in counters:
             lines += [f"# HELP {name} {help_}", f"# TYPE {name} counter", f"{name} {val}"]
+        for name, label, items, help_ in labelled:
+            lines += [f"# HELP {name} {help_}", f"# TYPE {name} counter"]
+            lines += [f'{name}{{{label}="{k}"}} {v}' for k, v in items]
+        for name, total, n, help_ in summaries:
+            lines += [f"# HELP {name} {help_}", f"# TYPE {name} summary",
+                      f"{name}_sum {total}", f"{name}_count {n}"]
         return "\n".join(lines) + "\n"
 
     # -- reference preload (tts-mio-server.cpp:2608-2629) ------------------------
@@ -427,7 +457,8 @@ class ServingEngine:
 
     # -- codes acquisition --------------------------------------------------------
 
-    def _generate_codes(self, rp: RequestParams, out: dict, on_token=None) -> list[int]:
+    def _generate_codes(self, rp: RequestParams, out: dict, on_token=None,
+                        rid: int = 0) -> list[int]:
         from ..models.sampling import SamplerParams
 
         t0 = now_ms()
@@ -447,7 +478,7 @@ class ServingEngine:
             # only incremental consumers (SSE token stream, stream_audio,
             # overlap synthesis) ask for the small first chunk
             handle = self.batcher.submit(rp.text, sampler=sampler, n_predict=rp.n_predict,
-                                         early_tokens=on_token is not None)
+                                         early_tokens=on_token is not None, rid=rid)
         except ValueError as e:
             if "prompt is too long" in str(e):
                 # beyond the batcher's fixed KV budget: a dedicated
@@ -524,8 +555,8 @@ class ServingEngine:
     # -- streaming request flow ---------------------------------------------------
 
     def run_streaming_request(self, rp: RequestParams, out: dict, on_token=None,
-                              on_audio=None, on_codes=None,
-                              embedding: np.ndarray | None = None) -> tuple[np.ndarray, int]:
+                              on_audio=None, on_codes=None, embedding: np.ndarray | None = None,
+                              rid: int = 0) -> tuple[np.ndarray, int]:
         """Incremental synthesis: token generation (a batcher lane)
         interleaved with prefix re-decodes, so PCM leaves the server while
         the LLM still generates. ``on_audio(pcm)`` fires per stabilized
@@ -537,7 +568,9 @@ class ServingEngine:
         if embedding is None:
             embedding = self._resolve_embedding(rp)
         ss = StreamingSynthesizer(self.pipeline, embedding,
-                                  synth_fn=self.codec_batcher.synthesize, transfer_pcm16=True)
+                                  synth_fn=functools.partial(self.codec_batcher.synthesize,
+                                                             rid=rid),
+                                  transfer_pcm16=True)
         pieces: list[np.ndarray] = []
         pending: list[int] = []
         t_synth = 0.0
@@ -582,7 +615,7 @@ class ServingEngine:
                 raise RequestError(f"mio_tts_codes_load failed: {e}")
             out["codes"] = len(codes)
         elif rp.text:
-            codes = self._generate_codes(rp, out, on_token=tok_cb)
+            codes = self._generate_codes(rp, out, on_token=tok_cb, rid=rid)
             out["codes"] = len(codes)
         else:
             raise RequestError("either text/prompt, codes, or codes_in is required")
@@ -623,8 +656,8 @@ class ServingEngine:
         out["key"] = rp.reference_key
         return audio, sr
 
-    def _run_overlapped(self, rp: RequestParams, out: dict,
-                        on_token=None) -> tuple[np.ndarray, int]:
+    def _run_overlapped(self, rp: RequestParams, out: dict, on_token=None,
+                        rid: int = 0) -> tuple[np.ndarray, int]:
         """Non-streaming response, streaming-interleaved synthesis: codec
         prefix re-decodes run while the LLM lane still generates; the
         reference's final peak normalization is applied to the whole
@@ -632,7 +665,8 @@ class ServingEngine:
         embedding = self._resolve_embedding(rp)
         if rp.embedding_out and (embedding is None or embedding.size == 0):
             raise RequestError("--embedding_out requested but no embedding available")
-        audio, sr = self.run_streaming_request(rp, out, on_token=on_token, embedding=embedding)
+        audio, sr = self.run_streaming_request(rp, out, on_token=on_token, embedding=embedding,
+                                               rid=rid)
         if rp.embedding_out:
             self.pipeline.save_embedding(rp.embedding_out, embedding)
         peak = float(np.max(np.abs(audio))) if audio.size else 0.0
@@ -645,15 +679,15 @@ class ServingEngine:
 
     # -- main request flow (run_tts_request parity) -------------------------------
 
-    def run_tts_request(self, rp: RequestParams, out: dict,
-                        on_token=None) -> tuple[np.ndarray, int] | None:
+    def run_tts_request(self, rp: RequestParams, out: dict, on_token=None,
+                        rid: int = 0) -> tuple[np.ndarray, int] | None:
         """Fills ``out`` with the reference's JSON fields. Returns (audio,
         sample_rate) for synthesis requests (int16 PCM from a full decode),
         None for codes/embedding-only."""
         if (rp.overlap_synthesis and rp.text and not rp.inline_codes and not rp.codes_in
                 and not rp.codes_only and not rp.embedding_only and not self.cfg.llm_api_enabled
                 and self.llm is not None):
-            return self._run_overlapped(rp, out, on_token=on_token)
+            return self._run_overlapped(rp, out, on_token=on_token, rid=rid)
         need_codes = (not rp.embedding_only) or rp.codes_only or bool(rp.codes_out)
 
         codes: list[int] | None = None
@@ -666,7 +700,7 @@ class ServingEngine:
                 except (OSError, ValueError) as e:
                     raise RequestError(f"mio_tts_codes_load failed: {e}")
             elif rp.text:
-                codes = self._generate_codes(rp, out, on_token=on_token)
+                codes = self._generate_codes(rp, out, on_token=on_token, rid=rid)
                 if not codes:
                     raise RequestError("token generation produced no audio codes")
             else:
@@ -709,7 +743,7 @@ class ServingEngine:
         try:
             # micro-batched; quantized to PCM16 on the device (served as
             # WAV16 either way)
-            result = self.codec_batcher.synthesize(codes, embedding, pcm16=True)
+            result = self.codec_batcher.synthesize(codes, embedding, pcm16=True, rid=rid)
         except ValueError as e:
             raise RequestError(f"mio_tts_synthesize failed: {e}")
         out["synth_ms"] = now_ms() - t0
@@ -720,10 +754,10 @@ class ServingEngine:
         out["duration_sec"] = result.audio.size / result.sample_rate
         return result.audio, result.sample_rate
 
-    def run_tts_request_to_file(self, rp: RequestParams, out: dict) -> None:
+    def run_tts_request_to_file(self, rp: RequestParams, out: dict, rid: int = 0) -> None:
         """Non-stream /mio/tts: writes a wav under output_dir like the
         reference (tts-mio-server.cpp:2420-2447)."""
-        res = self.run_tts_request(rp, out)
+        res = self.run_tts_request(rp, out, rid=rid)
         if res is None:
             return
         audio, sr = res
@@ -732,7 +766,8 @@ class ServingEngine:
         parent = os.path.dirname(output_file)
         if parent:
             os.makedirs(parent, exist_ok=True)
-        save_wav16(output_file, audio, sr)
+        with trace_phase("respond", profiled=False):
+            save_wav16(output_file, audio, sr)
         out["output_file"] = output_file
 
     # -- reference generation (voice cloning) -----------------------------------

@@ -20,11 +20,15 @@ Routes:
 Error shape: {"ok": false, "error": {"message", "code"}} (:2455-2463).
 
 Stdlib-only (ThreadingHTTPServer); the card's work runs in the batchers'
-threads (``engine.py``). Reference generation needs ``--tts-wavlm-model``
-(without it the route answers as the JAX server does); it takes a JSON
-body naming a file or a multipart upload (field ``audio``), at most
-``--parallel-reference-generation`` at once. Every flag of the JAX
-server is ported.
+threads (``engine.py``). Each synthesis request gets an id
+(``runtime/tracing.py`` ``new_id``) that its flow carries down to the
+batchers; while the span recorder runs, the request is a ``request`` span
+holding its ``slot_wait`` and each write of its audio (``respond``).
+Reference generation needs ``--tts-wavlm-model`` (without it the route
+answers as the JAX server does); it takes a JSON body naming a file or a
+multipart upload (field ``audio``), at most
+``--parallel-reference-generation`` at once. Every flag of the JAX server
+is ported.
 
 Run: ``python -m miotts_tpu_torch.serving.server -mv CODEC.gguf -m LLM.gguf
 -np 8 ...`` (``MIOTTS_PLATFORM=cpu`` for the CPU).
@@ -42,6 +46,7 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..runtime import tracing
 from ..runtime.audio_io import encode_wav16
 from .engine import ServingEngine, check_mesh_flags, now_ms
 from .state import RequestError, ServerConfig, is_valid_reference_key, parse_request_json
@@ -268,9 +273,13 @@ class MioTTSServer:
                 path = self.path.split("?")[0]
                 try:
                     if path in ("/mio/tts", "/v1/audio/speech"):
-                        self._handle_tts()
+                        rid = tracing.new_id()
+                        with tracing.request_span(rid, route=path):
+                            self._handle_tts(rid)
                     elif path in ("/mio/tts/stream", "/v1/audio/speech/stream"):
-                        self._handle_tts_stream()
+                        rid = tracing.new_id()
+                        with tracing.request_span(rid, route=path):
+                            self._handle_tts_stream(rid)
                     elif path in ("/mio/generate_reference", "/v1/audio/generate_reference"):
                         self._handle_generate_reference()
                     elif path in ("/mio/add_reference", "/v1/audio/add_reference"):
@@ -306,7 +315,7 @@ class MioTTSServer:
 
             # -- handlers ------------------------------------------------------
 
-            def _handle_tts(self):
+            def _handle_tts(self, rid):
                 t_begin = now_ms()
                 body = self._json_body()
                 rp = parse_request_json(body, server.cfg)
@@ -316,7 +325,7 @@ class MioTTSServer:
                 out: dict = {}
                 ok = False
                 try:
-                    eng.run_tts_request_to_file(rp, out)
+                    eng.run_tts_request_to_file(rp, out, rid=rid)
                     ok = True
                 except RequestError:
                     raise
@@ -334,7 +343,7 @@ class MioTTSServer:
                       file=sys.stderr)
                 self._send_json(out)
 
-            def _handle_tts_stream(self):
+            def _handle_tts_stream(self, rid):
                 t_begin = now_ms()
                 body = self._json_body()
                 rp = parse_request_json(body, server.cfg)
@@ -343,10 +352,10 @@ class MioTTSServer:
                 if rp.stream_tokens:
                     if not rp.text:
                         raise RequestError("stream_tokens requires text input")
-                    self._sse_stream(rp, t_begin)
+                    self._sse_stream(rp, t_begin, rid)
                     return
                 if rp.stream_audio and not rp.codes_only and not rp.embedding_only:
-                    self._binary_audio_stream(rp, t_begin)
+                    self._binary_audio_stream(rp, t_begin, rid)
                     return
 
                 slot = eng.slots.acquire(timeout=server.cfg.slot_timeout or None)
@@ -354,7 +363,7 @@ class MioTTSServer:
                 out: dict = {}
                 ok = False
                 try:
-                    res = eng.run_tts_request(rp, out)
+                    res = eng.run_tts_request(rp, out, rid=rid)
                     ok = True
                 finally:
                     eng.slots.release(slot)
@@ -374,10 +383,11 @@ class MioTTSServer:
                     self.send_header("X-Reference-Key", rp.reference_key)
                 self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
-                for off in range(0, len(wav), 64 * 1024):
-                    chunk = wav[off:off + 64 * 1024]
-                    self.wfile.write(f"{len(chunk):X}\r\n".encode() + chunk + b"\r\n")
-                self.wfile.write(b"0\r\n\r\n")
+                with tracing.trace_phase("respond", profiled=False):
+                    for off in range(0, len(wav), 64 * 1024):
+                        chunk = wav[off:off + 64 * 1024]
+                        self.wfile.write(f"{len(chunk):X}\r\n".encode() + chunk + b"\r\n")
+                    self.wfile.write(b"0\r\n\r\n")
                 total = now_ms() - t_begin
                 print(f"generate: path={self.path} slot={slot} ok=true "
                       f"llm_ms={out.get('llm_ms', 0.0):.2f} "
@@ -386,7 +396,7 @@ class MioTTSServer:
                       f"ref={rp.reference_key or '-'} mode=binary_stream",
                       file=sys.stderr)
 
-            def _sse_stream(self, rp, t_begin):
+            def _sse_stream(self, rp, t_begin, rid):
                 eng = server.engine
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream; charset=utf-8")
@@ -452,12 +462,13 @@ class MioTTSServer:
                                 from ..runtime.audio_io import encode_pcm16
 
                                 chunk_state["seq"] += 1
-                                sse("audio_chunk", json.dumps({
-                                    "seq": chunk_state["seq"] - 1,
-                                    "n_samples": int(pcm.size),
-                                    "sr": eng.pipeline.sample_rate,
-                                    "pcm16": base64.b64encode(
-                                        encode_pcm16(pcm)).decode()}))
+                                with tracing.trace_phase("respond", profiled=False):
+                                    sse("audio_chunk", json.dumps({
+                                        "seq": chunk_state["seq"] - 1,
+                                        "n_samples": int(pcm.size),
+                                        "sr": eng.pipeline.sample_rate,
+                                        "pcm16": base64.b64encode(
+                                            encode_pcm16(pcm)).decode()}))
 
                             def on_codes(codes):
                                 sse("generation_complete", json.dumps({
@@ -468,7 +479,7 @@ class MioTTSServer:
 
                             audio, sr = eng.run_streaming_request(
                                 rp, out, on_token=on_token, on_audio=on_audio,
-                                on_codes=on_codes, embedding=emb)
+                                on_codes=on_codes, embedding=emb, rid=rid)
                             total_ms = now_ms() - t_begin
                             sse("audio_meta", json.dumps({
                                 "sample_rate": sr,
@@ -482,7 +493,8 @@ class MioTTSServer:
                             # (concurrent SSE streams share chunk steps, vs
                             # the reference's llm_gen_mutex serialization,
                             # tts-mio-server.cpp:3786-3807)
-                            codes = eng._generate_codes(rp, out, on_token=on_token)
+                            codes = eng._generate_codes(rp, out, on_token=on_token,
+                                                        rid=rid)
                             sse("generation_complete", json.dumps({
                                 "n_tokens": out.get("n_tokens", len(codes)),
                                 "n_codes": len(codes),
@@ -494,7 +506,7 @@ class MioTTSServer:
                             # the binary path; encode_wav16 passes int16
                             # through untouched)
                             result = eng.codec_batcher.synthesize(
-                                codes, emb, pcm16=True)
+                                codes, emb, pcm16=True, rid=rid)
                             synth_ms = now_ms() - t_synth
                             out["synth_ms"] = synth_ms
                             out["codes"] = len(codes)
@@ -507,7 +519,8 @@ class MioTTSServer:
                                 "n_audio": int(result.audio.size),
                                 "synth_ms": synth_ms, "total_ms": total_ms,
                                 "wav_size": len(wav)}))
-                            sse("audio_data", base64.b64encode(wav).decode())
+                            with tracing.trace_phase("respond", profiled=False):
+                                sse("audio_data", base64.b64encode(wav).decode())
                     except Exception as e:
                         # headers are gone — any failure (including device
                         # errors re-raised through GenerationHandle/codec
@@ -536,7 +549,7 @@ class MioTTSServer:
                     eng._count("inflight", -1)
                     eng.record_request(out, error=not ok)
 
-            def _binary_audio_stream(self, rp, t_begin):
+            def _binary_audio_stream(self, rp, t_begin, rid):
                 """stream_audio without stream_tokens: chunked streaming WAV —
                 PCM bytes leave the socket while generation is still running
                 (the reference sends audio only after full synthesis,
@@ -576,11 +589,12 @@ class MioTTSServer:
                     write_chunk(wav16_streaming_header(sr))
 
                     def on_audio(pcm):
-                        write_chunk(encode_pcm16(pcm))
+                        with tracing.trace_phase("respond", profiled=False):
+                            write_chunk(encode_pcm16(pcm))
 
                     try:
                         audio, _sr = eng.run_streaming_request(
-                            rp, out, on_audio=on_audio, embedding=emb)
+                            rp, out, on_audio=on_audio, embedding=emb, rid=rid)
                         ok = True
                     except Exception as e:
                         # headers are gone (any failure here, including

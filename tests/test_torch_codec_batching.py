@@ -5,6 +5,7 @@ CPU every decode is eager; a group decodes at B = the power of two at or
 above its size."""
 
 import concurrent.futures
+import time
 
 import numpy as np
 import pytest
@@ -142,8 +143,8 @@ def test_group_decodes_at_pow2_lanes(setup, monkeypatch):
     rng = np.random.RandomState(6)
     items = [(rng.randint(0, cfg.vocab_size, n).tolist(),
               rng.randn(cfg.decoder_adanorm_dim).astype(np.float32)) for n in (9, 14, 30)]
-    batch = [(codes, emb, (None, True, False, None), concurrent.futures.Future(), 0, False)
-             for codes, emb in items]
+    batch = [(codes, emb, (None, True, False, None), concurrent.futures.Future(), 0, False, 0,
+              time.monotonic_ns()) for codes, emb in items]
     batcher._run_group((None, True, False, None), batch)
     assert seen == [(4, [9, 14, 30, 1])]
     for (codes, emb), item in zip(items, batch):

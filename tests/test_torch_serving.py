@@ -13,6 +13,7 @@ import struct
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -24,6 +25,7 @@ import torch
 from miotts_tpu.serving.server import MioTTSServer as JaxServer
 from miotts_tpu.serving.state import ServerConfig as JaxServerConfig
 from miotts_tpu_torch.gguf.writer import save_embedding_gguf
+from miotts_tpu_torch.runtime import tracing
 from miotts_tpu_torch.serving import server as server_mod
 from miotts_tpu_torch.serving.engine import ServingEngine, SlotPool
 from miotts_tpu_torch.serving.server import MioTTSServer, _parse_multipart, build_arg_parser
@@ -269,6 +271,112 @@ def test_metrics_endpoint(server):
     assert float(lines["miotts_inflight"]) == 0
     assert float(lines["miotts_device_stall_events_total"]) == 0
     assert "miotts_longest_chunk_fetch_seconds" in lines
+
+
+def _metrics(srv) -> dict[str, float]:
+    with urllib.request.urlopen(_url(srv, "/metrics"), timeout=30) as r:
+        body = r.read().decode()
+    return {k: float(v) for k, v in (l.split(" ", 1) for l in body.splitlines()
+                                     if l and not l.startswith("#"))}
+
+
+def test_metrics_count_codec_decodes_widths_and_waits(server):
+    """/metrics exposes the codec graph counters, the batcher's chunks by
+    width and attach holds, and the sums and counts of the codec queue's
+    and the submit-to-attach waits: one text request adds one attach wait,
+    at least one codec call and one chunk."""
+    srv, *_ = server
+    before = _metrics(srv)
+    with _post_json(srv, "/mio/tts", {"text": "count me", "reference_key": "preset"}) as r:
+        assert json.loads(r.read())["ok"]
+    after = _metrics(srv)
+    for name in ("miotts_codec_graph_replays_total", "miotts_codec_eager_decodes_total",
+                 "miotts_codec_graph_captures_total"):
+        assert after[name] == 0  # the CPU decodes eagerly, outside the graph counters
+    assert "miotts_batcher_attach_holds_total" in after
+    wait = "miotts_batcher_attach_wait_seconds"
+    assert after[f"{wait}_count"] == before[f"{wait}_count"] + 1
+    assert after[f"{wait}_sum"] > before[f"{wait}_sum"]
+    queue = "miotts_codec_queue_seconds"
+    assert after[f"{queue}_count"] >= before[f"{queue}_count"] + 1
+    assert after[f"{queue}_sum"] > before[f"{queue}_sum"]
+
+    def chunks(m):
+        return sum(v for k, v in m.items() if k.startswith('miotts_batcher_chunks_total{width="'))
+    assert chunks(after) >= chunks(before) + 1
+
+
+# spans every synthesis request of text leaves, each caused by its request
+REQUEST_SPANS = {"slot_wait", "lane_wait", "prefill_queue", "attach_wait", "codec_queue",
+                 "respond"}
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["tts", "sse"])
+def test_a_request_is_one_span_tree(server, stream):
+    """With the recorder on, one /mio/tts request, or one SSE stream with
+    its audio, is one tree under one request id: its root ``request`` and
+    every per-request span name it as parent; the prefill group, the
+    attach, the chunks and the codec groups that served it list it."""
+    srv, *_ = server
+    body = {"text": "a traced request", "reference_key": "preset", "n_predict": 32}
+    if stream:
+        body.update(stream_tokens=True, stream_audio=True)
+    spans = []
+    with tracing.recording() as rec:
+        with _post_json(srv, "/mio/tts/stream" if stream else "/mio/tts", body) as r:
+            answer = r.read().decode()
+        deadline = time.monotonic() + 30  # the handler closes its root span after the answer
+        while time.monotonic() < deadline:
+            spans += rec.collect()
+            if any(s.name == "request" for s in spans):
+                break
+            time.sleep(0.01)
+    spans += rec.collect()
+    (root,) = [s for s in spans if s.name == "request"]
+    rid = root.sid
+    assert root.rids == (rid,) and root.parent is None
+    mine = [s for s in spans if rid in s.rids]
+    names = {s.name for s in mine}
+    assert REQUEST_SPANS <= names
+    assert {"prefill_group", "attach", "chunk_dispatch", "chunk_fetch", "chunk_deliver",
+            "codec_group"} <= names
+    assert all(s.parent == rid for s in mine if s.name in REQUEST_SPANS)
+    assert all(s.end_ns >= s.start_ns for s in spans)
+    assert all(root.start_ns <= s.start_ns and s.end_ns <= root.end_ns
+               for s in mine if s.name in REQUEST_SPANS)
+    n_audio = len(_parse_sse(answer)[0].get("audio_chunk", [])) if stream else 1
+    assert sum(s.name == "respond" for s in mine) == n_audio  # each audio write (the WAV's)
+    if stream:  # the stream's first decode is a priority one
+        assert any(s.name == "codec_group" and s.attrs["priority"] for s in mine)
+
+
+def test_profiler_ranges_of_a_served_request_keep_their_text(server, tmp_path, monkeypatch):
+    """The batcher's and the codec's ranges reach the module's profiler
+    (every thread) from their real call sites with the text a trace was
+    read by before the recorder existed: a fixed name, then key=value of
+    the same attributes, no request ids or tags; the recorder-only spans
+    stay out."""
+    import re
+
+    srv, *_ = server
+    monkeypatch.setenv("MIOTTS_PROFILE_DIR", str(tmp_path / "prof"))
+    assert tracing.maybe_start_profiler()
+    try:
+        with _post_json(srv, "/mio/tts/stream", {"text": "profiled", "reference_key": "preset",
+                                                 "stream_tokens": True,
+                                                 "stream_audio": True}) as r:
+            r.read()
+    finally:
+        path = tracing.stop_profiler()
+    names = {e.get("name", "") for e in json.loads(Path(path).read_text())["traceEvents"]}
+    patterns = [r"prefill_group bucket=\d+ k=\d+ fused=[01]", r"attach k=\d+",
+                r"chunk_dispatch steps=\d+ width=\d+ live=\d+", r"chunk_fetch", r"chunk_deliver",
+                r"codec_group B=\d+ bucket=\d+"]
+    for pat in patterns:
+        assert any(re.fullmatch(pat, n) for n in names), pat
+    first = {n.split(" ", 1)[0] for n in names}
+    assert not first & (REQUEST_SPANS | {"request"})
+    assert not any("rids" in n or "priority" in n for n in names)
 
 
 def test_slot_pool_timeout_503():
