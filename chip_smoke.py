@@ -47,6 +47,14 @@ Phases, in order; any failure exits nonzero and prints no result:
    bit-equal valid rows and zeros beyond; also its small-tile plan (k=11)
    and its generic-tap activation (16/20 taps). Timed at the rows of each
    of the five vocoder stages of a 400-code request, each beside its bound.
+   Then K7-K9, the decode step's fused glue (``ops/cuda/llm_fused.py``),
+   against their plain versions at the served step's shapes (D 768, 12/2
+   heads, HD 64, S 1024, F 2048) at B = 1, 2, 4, 8: K8 (q, k, v and the
+   cache row it writes, NEOX and adjacent pairs, with and without bias,
+   pos at 0, S - 1 and S) and K9 bit-equal, K7 within one bf16 ulp (its sum
+   order); each timed beside its plain version and its bound. Every path
+   that decodes on the card launches K7, K8 and K9 25 : 12 : 12 (a step's
+   norms, q/k/v and MLPs), counted apart from K1-K6.
 9. assets: synthetic GGUFs from a seed: the 24 kHz MioCodec at full width
    in wave mode and in mel mode (100 mels, the 5x4x4x3x2 vocoder at 128
    channels, bench.py's geometry; its vocoder weights scaled by fixed
@@ -326,6 +334,7 @@ from miotts_tpu_torch.ops.cuda import banded_attention as k1
 from miotts_tpu_torch.ops.cuda import build, graphs
 from miotts_tpu_torch.ops.cuda import conv1d as k4
 from miotts_tpu_torch.ops.cuda import decode_attention as k2
+from miotts_tpu_torch.ops.cuda import llm_fused
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.ops.cuda import resblock as k6
 from miotts_tpu_torch.parallel.mesh import logical_devices
@@ -338,6 +347,12 @@ from miotts_tpu_torch.testing import (
     write_synthetic_mel_vocoder_gguf, write_synthetic_miocodec_gguf, write_synthetic_wavlm_gguf)
 
 MODS = (k1, k2, k3, k4, k5, k6)
+FUSED = llm_fused.KERNELS  # K7-K9, counted apart from MODS: every LLM path launches them
+# the served decode step's shapes (LLM_WIDTHS, --ctx-size 1024)
+FUSED_SHAPE = {"D": 768, "H": 12, "KVH": 2, "HD": 64, "S": 1024, "F": 2048}
+# bf16 ulps a fused kernel may lie from its plain version: K7 1, for the
+# order of its f32 sum of squares against ATen's reduction; K8 and K9 none
+FUSED_ULPS = {"add_rms_norm": 1, "qkv_rope_cache": 0, "silu_mul": 0}
 K1_TOL = 1e-5
 K1_WINDOW = 65  # the codec transformers' window
 # K1 at the codec's attention shapes (D = 64): (name, B, H, T, lengths); a
@@ -438,7 +453,7 @@ def cuda_ms(fn, iters: int = 20) -> float:
 def uncounted():
     """Launches inside are a check's or a reference's, not the path's own:
     every kernel's count is put back on exit."""
-    saved = {m: m.launches for m in MODS}
+    saved = {m: m.launches for m in graphs.counters()}
     try:
         yield
     finally:
@@ -667,6 +682,114 @@ def check_k3(dev, gen) -> dict:
             # per leaf: [kernel, plain, dense bf16 cuBLAS, bound] ms
             "by_leaf_ms": {f"{leaf} T={T}": [round(t, 5) for t in r]
                            for (leaf, T), r in rows.items()}}
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance between two bf16 tensors in units in the last
+    place (adjacent bf16 values are 1 apart, across zero too)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def check_fused(dev, gen) -> dict:
+    """K7-K9 (``ops/cuda/llm_fused.py``) against their plain versions at the
+    served decode step's shapes (FUSED_SHAPE) and B = 1, 2, 4, 8, within
+    FUSED_ULPS: K9 and K8 bit-equal (K8's q, k, v and the cache it leaves),
+    K7 within 1 bf16 ulp; each timed at every B beside its plain version and its bound
+    (bytes: each input read once, each output written once)."""
+    bf = torch.bfloat16
+    D, H, KVH, HD, S, Fd = (FUSED_SHAPE[k] for k in ("D", "H", "KVH", "HD", "S", "F"))
+    N = (H + 2 * KVH) * HD
+    inv = llm_fused.rope_inv_freq(HD, 10000.0, dev)
+    rows, worst = {}, {"add_rms_norm": 0, "qkv_rope_cache": 0, "silu_mul": 0}
+    for B in (1, 2, 4, 8):
+        x = (torch.randn(B, 1, D, generator=gen) * 2).to(dev, bf)
+        delta = torch.randn(B, 1, D, generator=gen).to(dev, bf)
+        w = (1 + torch.randn(D, generator=gen) * 0.05).to(bf).float().to(dev)
+        for d in (delta, None):
+            xk, xp = x.clone(), x.clone()
+            got = llm_fused.add_rms_norm(xk, d, w, 1e-6)
+            want = llm_fused.add_rms_norm_plain(xp, d, w, 1e-6)
+            torch.cuda.synchronize()
+            if not torch.equal(xk, xp):
+                raise AssertionError(f"K7 B={B}: the residual x + delta differs from the plain's")
+            worst["add_rms_norm"] = max(worst["add_rms_norm"], bf16_ulps(got, want))
+        # the QKV product's rows; lanes at 0, mid, S - 1 and S (no row written)
+        qkv = (torch.randn(B, 1, N, generator=gen) * 2).to(dev, bf)
+        bias = (torch.randn(N, generator=gen) * 0.05).to(dev, bf)
+        pos = torch.tensor([0, 700, S - 1, S, 13, 511, 1000, 64][:B], dtype=torch.int32,
+                           device=dev)
+        ck, cv = (torch.randn(B, S, KVH, HD, generator=gen).to(dev, bf) for _ in range(2))
+        for b_ in (bias, None):
+            for neox in (True, False):
+                kk, kv_, pk, pv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+                got = llm_fused.qkv_rope_cache(qkv, b_, inv, pos, kk, kv_, H, neox)
+                want = llm_fused.qkv_rope_cache_plain(qkv, b_, inv, pos, pk, pv, H, neox)
+                torch.cuda.synchronize()
+                ulps = max([bf16_ulps(a, b) for a, b in zip(got, want)]
+                           + [bf16_ulps(kk, pk), bf16_ulps(kv_, pv)])
+                worst["qkv_rope_cache"] = max(worst["qkv_rope_cache"], ulps)
+        gu = (torch.randn(B, 1, 2 * Fd, generator=gen) * 3).to(dev, bf)
+        got = llm_fused.silu_mul(gu, Fd)
+        want = llm_fused.silu_mul_plain(gu, Fd)
+        torch.cuda.synchronize()
+        worst["silu_mul"] = max(worst["silu_mul"], bf16_ulps(got, want))
+
+        kk, kvv = ck.clone(), cv.clone()
+        times = {
+            "add_rms_norm": (lambda: llm_fused.add_rms_norm(x, delta, w, 1e-6),
+                             lambda: llm_fused.add_rms_norm_plain(x, delta, w, 1e-6),
+                             2 * 4 * B * D + 4 * D),
+            "qkv_rope_cache": (lambda: llm_fused.qkv_rope_cache(qkv, bias, inv, pos, kk, kvv, H,
+                                                                True),
+                               lambda: llm_fused.qkv_rope_cache_plain(qkv, bias, inv, pos, kk, kvv,
+                                                                      H, True),
+                               2 * (B * N + N + B * H * HD + 4 * B * KVH * HD) + 4 * (HD // 2 + B)),
+            "silu_mul": (lambda: llm_fused.silu_mul(gu, Fd),
+                         lambda: llm_fused.silu_mul_plain(gu, Fd), 2 * 3 * B * Fd)}
+        for name, (kern, plain, nbytes) in times.items():
+            ms, pms = cuda_ms(kern), cuda_ms(plain)
+            rows[f"{name} B={B}"] = {"ms": ms, "plain_ms": pms,
+                                     **least_time(nbytes, 0, BF16_FLOP_S)}
+    for key, r in rows.items():
+        log(f"[fused] {key}: kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+            f"bound={r['bound_ms']:.6f}ms ({r['bound_by']})")
+    for name, n in worst.items():
+        log(f"[fused] {name}: largest distance from the plain version {n} bf16 ulp "
+            f"(limit {FUSED_ULPS[name]}) at D={D} H={H} KVH={KVH} HD={HD} S={S} F={Fd}, "
+            "B = 1, 2, 4, 8")
+    for name, n in worst.items():
+        if n > FUSED_ULPS[name]:
+            raise AssertionError(f"{name}: {n} bf16 ulp from its plain version "
+                                 f"(limit {FUSED_ULPS[name]})")
+    out = {}
+    for name in worst:
+        r = rows[f"{name} B=1"]
+        out[name] = {"max_bf16_ulps": worst[name], **r, "library_ms": None,
+                     "at": f"B=1 D={D} H={H} KVH={KVH} HD={HD} S={S} F={Fd}",
+                     "by_B_ms": {k.split(" ")[1]: [round(v["ms"], 5), round(v["plain_ms"], 5)]
+                                 for k, v in rows.items() if k.startswith(name)}}
+    return out
+
+
+# the request paths that decode on the card and so must launch K7-K9
+FUSED_PATHS = ("bf16", "quant", "mel", "wave441", "stream", "clone", "server", "mesh")
+
+
+def check_fused_ratio(what: str, grew: dict, required: bool) -> None:
+    """A decode step launches K7, K8 and K9 as 25 : 12 : 12 (LLM_WIDTHS' 12
+    layers: two norms a layer and the output norm; one q/k/v and one MLP a
+    layer); ``required``: at least once. The mesh path mixes tp = 2 groups,
+    whose every rank launches K8 and K9 (25 : 24 : 24), with mesh-less
+    servers: there K8 and K9 only must match."""
+    n7, n8, n9 = (grew[k] for k in FUSED)
+    layers = LLM_WIDTHS["n_layers"]
+    ratio = what == "mesh" or n7 * layers == n8 * (2 * layers + 1)
+    if (required and n8 == 0) or n8 != n9 or not ratio:
+        raise AssertionError(f"[{what}] K7/K8/K9 launched {n7}/{n8}/{n9}: not 25:12:12 a step"
+                             + (" or none" if required else ""))
 
 
 def voc_inputs(dev, gen, B: int, T: int, lens: list[int]):
@@ -2597,6 +2720,39 @@ def pct(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs) * 1e3, q))
 
 
+def fused_metrics(eng) -> dict:
+    """``miotts_llm_fused_launches_total`` by kernel, as /metrics reads it."""
+    prefix = 'miotts_llm_fused_launches_total{kernel="'
+    return {line[len(prefix):].split('"', 1)[0]: int(float(line.rsplit(" ", 1)[1]))
+            for line in eng.metrics_text().splitlines() if line.startswith(prefix)}
+
+
+def served_fused(eng, grew: dict, scraped0: dict) -> dict:
+    """The served requests' K7-K9 launches: 25 : 12 : 12 a step, as
+    /metrics reads them, and every chunk graph and fused first chunk of the
+    batcher counts 25 / 12 / 12 a step into each replay."""
+    b = eng.batcher
+    check_fused_ratio("server", grew, True)
+    scraped = {k: n - scraped0.get(k, 0) for k, n in fused_metrics(eng).items()}
+    if scraped != {k.name: n for k, n in grew.items()}:
+        raise AssertionError(f"/metrics read K7-K9 {scraped}, the counters {launch_text(grew)}")
+    graphs_ = [(f"chunk {key}", g) for key, g in b.graphs.items()]
+    graphs_ += [(f"fused first chunk k={k}", g) for k, (g, _) in b._fused.items()]
+    layers = LLM_WIDTHS["n_layers"]
+    for name, g in graphs_:
+        per = [g.launches_per_replay[k] for k in FUSED]
+        want = [(2 * layers + 1) * g.n_steps, layers * g.n_steps, layers * g.n_steps]
+        if per != want:
+            raise AssertionError(f"{name}: K7/K8/K9 {per} a replay of {g.n_steps} steps, "
+                                 f"not {want}")
+    steps = grew[FUSED[1]] / layers
+    log(f"[server] the served requests launched K7/K8/K9 {launch_text(grew)} (/metrics the "
+        f"same): {steps:.0f} decode steps at 25/12/12; each of {len(graphs_)} chunk and fused "
+        f"graphs 25/12/12 a step a replay")
+    return {"launches": {k.name: n for k, n in grew.items()}, "steps": steps,
+            "graphs_checked": len(graphs_)}
+
+
 def check_server(dev, tmp: Path, emb) -> dict:
     """The port's HTTP server at full width (0.1B dense bf16 LLM, 24 kHz
     wave codec, -np 8 -n 250 --ctx-size 512, the JAX batcher's defaults:
@@ -2614,7 +2770,10 @@ def check_server(dev, tmp: Path, emb) -> dict:
     their plain versions at the server's shapes; a second server with
     --warmup off, and a -np 4 q8_0 server (K3 at widths 1 and 2). The
     served requests of each server must launch its kernels at the new
-    widths; the references and checks run between them are not counted."""
+    widths; the references and checks run between them are not counted.
+    The served requests' K7/K8/K9 launches go 25 : 12 : 12 a step, and
+    /metrics reads the same; every chunk and fused first-chunk graph
+    counts 25 / 12 / 12 a step into each replay (``served_fused``)."""
     import concurrent.futures
 
     from miotts_tpu_torch.models.llm import CHAT_TEMPLATE
@@ -2661,7 +2820,8 @@ def check_server(dev, tmp: Path, emb) -> dict:
             health = json.loads(r.read())
         if health["status"] != "ok" or not health["warmup_complete"]:
             raise AssertionError(f"health: {health}")
-        served0 = {m: m.launches for m in MODS}
+        served0 = {m: m.launches for m in MODS + FUSED}
+        scraped0 = fused_metrics(eng)
         widths0 = dict(b.width_counts)
 
         # inline codes against pipeline.synthesize, within one PCM16 step
@@ -2805,6 +2965,8 @@ def check_server(dev, tmp: Path, emb) -> dict:
         if grew[k1] <= 0 or grew[k2] <= 0 or not {1, 2, 4, b.n_lanes} <= set(widths):
             raise AssertionError(f"the served requests launched no K1 or no K2, or not at every "
                                  f"width: {launch_text(grew)}, widths {widths}")
+        out["served_fused"] = served_fused(eng, {k: k.launches - served0[k] for k in FUSED},
+                                           scraped0)
 
         with uncounted():
             out["chunk_device_ms"] = {occ: chunk_device_ms(srv, occ) for occ in (1, 2, 4, 8)}
@@ -3019,8 +3181,8 @@ def check_mesh(dev, tmp: Path, server_rows: dict | None = None) -> dict:
     ``--mio-backend-devices all -tp 2 -np 8 -n 250 --warmup off``) at full
     width, dense and q8_0: concurrency 1/4/8 at 250 tokens (audio-s per s
     beside the mesh-less server's rounds of the server phase, ``server_rows``);
-    required: K2 (and in q8_0 K3) launched by every tp rank in the
-    concurrency-8 round and /mio/health's backend_devices 4 and
+    required: K2, K8 and K9 (and in q8_0 K3) launched by every tp rank in
+    the concurrency-8 round and /mio/health's backend_devices 4 and
     tensor_parallel 2. The greedy check: a -np 2 int8 server with and
     without the mesh, whose tp sums are exact (int32 dots), give equal codes
     (required); the dense mesh's greedy codes are held to the server phase's
@@ -3039,7 +3201,8 @@ def check_mesh(dev, tmp: Path, server_rows: dict | None = None) -> dict:
         if meshed["health"] != {"backend_devices": 4, "tensor_parallel": 2}:
             raise AssertionError(f"[mesh] {mode}: health {meshed['health']}")
         by_rank = meshed["rounds"][8]["rank_launches_per_request"]
-        for kern in ("decode_attention",) + (("q8_matmul",) if mode == "q8_0" else ()):
+        for kern in (("decode_attention", "qkv_rope_cache", "silu_mul")
+                     + (("q8_matmul",) if mode == "q8_0" else ())):
             if set(by_rank.get(kern, {})) != {0, 1, 2, 3}:
                 raise AssertionError(f"[mesh] {mode}: {kern} launched by ranks "
                                      f"{by_rank.get(kern)} at concurrency 8, not all four")
@@ -3970,6 +4133,10 @@ def main() -> int:
     results = {k1: check_k1(dev, gen), k2: check_k2(dev, gen), k3: check_k3(dev, gen)}
     log(f"[checks] K1-K3 in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    fused_rows = check_fused(dev, gen)
+    results.update({k: fused_rows[k.name] for k in FUSED})
+    log(f"[checks] K7-K9 in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     results.update({k4: check_k4(dev, gen), k5: check_k5(dev, gen), k6: check_k6(dev, gen)})
     log(f"[checks] K4-K6 in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
@@ -4019,7 +4186,7 @@ def main() -> int:
                            ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
                            ("mesh", None), ("sp", None), ("llm_api", None),
                            ("cpu_native", None)):
-            for m in MODS:
+            for m in MODS + FUSED:
                 m.launches = 0
             t0 = time.perf_counter()
             if path == "load":
@@ -4058,9 +4225,10 @@ def main() -> int:
                 for i, (prompt, n_predict, extra, kernels) in enumerate(reqs):
                     run_request(f"{path}-{i}", tmp, prompt, n_predict, extra, ccfg,
                                 "llm.gguf" if path == "bf16" else "llm_q8_0.gguf", kernels)
-            launches[path] = {m: m.launches for m in MODS}
+            launches[path] = {m: m.launches for m in MODS + FUSED}
             log(f"[{path} path] {time.perf_counter() - t0:.1f}s, launches: "
                 f"{launch_text(launches[path])}")
+            check_fused_ratio(path, launches[path], path in FUSED_PATHS)
 
         native_rows["reread"] = native_reread(load_rows, clone_rows)
 
@@ -4083,6 +4251,11 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": mod.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[mod]})
+    for kern in FUSED:
+        by_path = {path: n[kern] for path, n in launches.items()}
+        kernels.append({"name": kern.name, "route": "cuda", "source": llm_fused.SOURCE,
+                        "replaces": llm_fused.REPLACES, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **results[kern]})
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     log(smi.stdout.strip().splitlines()[0])  # again, for readers of the output's tail
     print(json.dumps({"decode_graph": graph_rows, "codec_graph": codec_rows,

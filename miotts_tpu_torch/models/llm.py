@@ -16,8 +16,12 @@ Q8_0 leaves run on kernel K3 (``ops/cuda/q8_matmul.py``), W8A8 and W4A8
 leaves on exact int8 dots (``ops/quant_matmul.py``).
 
 The decode step keeps the JAX operand contract: attention reads the cache
-STRICTLY below ``pos`` and takes the current token's k/v as operands, and
-the step scatters one [L, B] row pair into the cache after the layer stack.
+STRICTLY below ``pos`` and takes the current token's k/v as operands; each
+layer writes its row pair into the cache before its attention (JAX
+scatters all layers' rows after the stack: the same cache, since no layer
+reads its row at ``pos``). The step's glue runs as the fused kernels K7-K9
+on CUDA (``ops/cuda/llm_fused.py``): the residual add and RMSNorm, the QKV
+bias, RoPE and cache row, and silu(gate) * up.
 The port updates the KV cache IN PLACE (prefill and decode step), where
 JAX returns new caches. On CUDA the decode attention is kernel K2
 (``ops/cuda/decode_attention.py``). Prefill attention is plain torch, as
@@ -58,6 +62,8 @@ from ..device import to_device
 from ..gguf import GGUFReader
 from ..ops.cuda import graphs
 from ..ops.cuda.decode_attention import decode_attention
+from ..ops.cuda.llm_fused import (
+    add_rms_norm, qkv_rope_cache, rms_norm, rope_inv_freq, silu_mul, write_kv_row)
 from ..ops.cuda.q8_matmul import q8_matmul
 from ..ops.quant_matmul import (
     act_scale, int8_dot, int_scale, maybe_quant_matmul as _mm, quantize_int4_percol,
@@ -346,12 +352,6 @@ def _finalize_packed(pk: PackedLoader, w: dict, dtype: torch.dtype, art) -> dict
 # forward
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * scale * weight).to(x.dtype)
-
-
 def _dense_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """x [N, D] against a dense [V, D] head -> f32 [N, V], accumulated
     straight into f32. On CUDA one cuBLAS call writes f32 from bf16
@@ -535,8 +535,8 @@ def _layer_qkv(cfg: LLMConfig, blk: dict, xn: torch.Tensor):
     return q, k, v
 
 
-def _ffn_act(cfg: LLMConfig, blk: dict, x: torch.Tensor) -> torch.Tensor:
-    fn = rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
+def _ffn_act(cfg: LLMConfig, blk: dict, fn: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up of the normed input ``fn``, as plain expressions."""
     if blk["w_gateup"] is not None:
         gu = _mm(fn, blk["w_gateup"])
         gate, up = gu[..., :cfg.ffn_dim], gu[..., cfg.ffn_dim:2 * cfg.ffn_dim]
@@ -552,7 +552,7 @@ def _ffn(cfg: LLMConfig, cfgs: list, g: TPGroup | None, blks: list,
     acts = []
     for r, (rc, blk) in enumerate(zip(cfgs, blks)):
         with _rank_scope(g, r):
-            acts.append(_ffn_act(rc, blk, _to(g, x, r)))
+            acts.append(_ffn_act(rc, blk, rms_norm(_to(g, x, r), blk["ffn_norm"], cfg.rms_eps)))
     return _row_parallel(g, acts, blks, "w_down")[..., :cfg.dim]
 
 
@@ -635,56 +635,80 @@ def llm_prefill(cfg: LLMConfig, w, tokens: torch.Tensor, lengths: torch.Tensor,
     return last
 
 
+def _decode_qkv(cfg: LLMConfig, blk: dict, h: torch.Tensor, pos: torch.Tensor,
+                cache_k: torch.Tensor, cache_v: torch.Tensor):
+    """One rank's decode-step attention operands from the normed input h
+    [B, 1, D]: (qh [B, KVH, G, HD], k1, v1 [B, KVH, HD]) for K2, with this
+    step's k/v written into row ``pos`` of the layer's cache (``cache_k``
+    [B, S, KVH, HD]) IN PLACE. A layer with the fused q|k|v leaf and no
+    q_norm/k_norm takes ``qkv_rope_cache`` (K8 on CUDA) after its GEMM;
+    any other keeps the unfused expressions."""
+    if blk["wqkv"] is not None and blk["q_norm"] is None:
+        inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_base, h.device)
+        return qkv_rope_cache(_mm(h, blk["wqkv"]), blk["bqkv"], inv_freq, pos, cache_k, cache_v,
+                              cfg.n_heads, cfg.rope_neox)
+    positions = pos[:, None]
+    q, k, v = _layer_qkv(cfg, blk, h)
+    q = apply_rope(q, positions, cfg.rope_base, cfg.rope_neox)
+    k = apply_rope(k, positions, cfg.rope_base, cfg.rope_neox)
+    # rounded to the cache dtype first: attention sees exactly the values
+    # the cache stores
+    k1 = k[:, 0].to(cache_k.dtype).contiguous()
+    v1 = v[:, 0].to(cache_v.dtype).contiguous()
+    qh = q[:, 0].reshape(h.shape[0], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                         cfg.head_dim).contiguous()
+    write_kv_row(cache_k, cache_v, k1, v1, pos)
+    return qh, k1, v1
+
+
+def _decode_ffn_act(cfg: LLMConfig, blk: dict, h: torch.Tensor) -> torch.Tensor:
+    """One rank's MLP activation silu(gate) * up from the normed input h:
+    ``silu_mul`` (K9 on CUDA) over the fused gate|up product, or the
+    unfused expressions."""
+    if blk["w_gateup"] is not None:
+        return silu_mul(_mm(h, blk["w_gateup"]), cfg.ffn_dim)
+    return _ffn_act(cfg, blk, h)
+
+
 def llm_decode_step(cfg: LLMConfig, w, token: torch.Tensor, pos: torch.Tensor,
                     cache_k, cache_v) -> torch.Tensor:
     """One decode step for lanes token/pos [B] (pos int32). Returns logits
-    [B, V] f32; this step's k/v land in the cache at ``pos`` IN PLACE (a
-    pos past the cache end writes nothing). For a ``TPGroup`` each rank
-    runs K2 over its own kv heads (its part of the cache) and its own leaf
-    shards, with the sums of ``_row_parallel`` between."""
+    [B, V] f32; this step's k/v land in the cache at ``pos`` IN PLACE, each
+    layer's row before its attention, which reads the cache below pos
+    only (a pos past the cache end writes nothing). The residual stream x
+    lives on the lead device, where each residual add and the norm after it
+    run as one ``add_rms_norm`` (K7 on CUDA), whose output goes to each
+    rank; for a ``TPGroup`` each rank runs K8 and K2 over its own kv heads
+    (its part of the cache) and its own leaf shards, with the sums of
+    ``_row_parallel`` between."""
     cfgs, shards, g = _ranks(cfg, w)
-    B = token.shape[0]
     ck, cv = kv_parts(cache_k), kv_parts(cache_v)
-    S = ck[0].shape[2]
-    x = _embed(cfg, w, token)[:, None, :]  # [B, 1, D]
+    x = _embed(cfg, w, token)[:, None, :]  # [B, 1, D], the residual stream
     pos_rs = [_to(g, pos, r) for r in range(len(shards))]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    lead = shards[0]
 
-    new_ks, new_vs = [[] for _ in shards], [[] for _ in shards]
+    delta = None  # the last block's output, added to x by the next norm
     for li in range(cfg.n_layers):
+        h = add_rms_norm(x, delta, lead["attn_norm"][li], cfg.rms_eps)
         blks, acts = [], []
         for r, (rc, sh) in enumerate(zip(cfgs, shards)):
             with _rank_scope(g, r):
                 blk = _layer(sh, li)
-                positions = pos_rs[r][:, None]
-                q, k, v = _layer_qkv(rc, blk, rms_norm(_to(g, x, r), blk["attn_norm"],
-                                                       cfg.rms_eps))
-                q = apply_rope(q, positions, cfg.rope_base, cfg.rope_neox)
-                k = apply_rope(k, positions, cfg.rope_base, cfg.rope_neox)
-                # rounded to the cache dtype first: attention sees exactly
-                # the values the scatter stores
-                k1 = k[:, 0].to(ck[r].dtype).contiguous()
-                v1 = v[:, 0].to(cv[r].dtype).contiguous()
-                new_ks[r].append(k1)
-                new_vs[r].append(v1)
-                qh = q[:, 0].reshape(B, rc.n_kv_heads, rc.n_heads // rc.n_kv_heads,
-                                     cfg.head_dim).contiguous()
+                qh, k1, v1 = _decode_qkv(rc, blk, _to(g, h, r), pos_rs[r], ck[r][li], cv[r][li])
                 att = decode_attention(qh, k1, v1, ck[r][li], cv[r][li], scale,
                                        pos_rs[r]).to(x.dtype)
                 acts.append(att[:, None, :])
                 blks.append(blk)
-        x = x + _row_parallel(g, acts, blks, "wo")[..., :cfg.dim]
-        x = x + _ffn(cfg, cfgs, g, blks, x)
+        h = add_rms_norm(x, _row_parallel(g, acts, blks, "wo")[..., :cfg.dim],
+                         lead["ffn_norm"][li], cfg.rms_eps)
+        acts = []
+        for r, (rc, blk) in enumerate(zip(cfgs, blks)):
+            with _rank_scope(g, r):
+                acts.append(_decode_ffn_act(rc, blk, _to(g, h, r)))
+        delta = _row_parallel(g, acts, blks, "w_down")[..., :cfg.dim]
 
-    for r in range(len(shards)):
-        p_r = pos_rs[r]
-        b_idx = torch.arange(B, device=p_r.device)
-        in_range = (p_r < S)[None, :, None, None]
-        p = torch.clamp(p_r.long(), max=S - 1)
-        for cache, new in ((ck[r], torch.stack(new_ks[r])), (cv[r], torch.stack(new_vs[r]))):
-            cache[:, b_idx, p] = torch.where(in_range, new, cache[:, b_idx, p])
-
-    xn = rms_norm(x, shards[0]["output_norm"], cfg.rms_eps)
+    xn = add_rms_norm(x, delta, lead["output_norm"], cfg.rms_eps)
     return _logits(cfg, w, xn[:, 0])
 
 

@@ -2,7 +2,9 @@
 replays, and the capture check of first-use caches.
 
 Each wrapper (``ops/cuda/*.py``) calls ``launched`` where it launches its
-kernel, and a replay calls no Python. While a thread records a capture
+kernel, and a replay calls no Python. A counter is a kernel module's
+``launches`` (K1-K6) or a fused kernel's (``llm_fused.KERNELS``, K7-K9),
+named by its ``__name__`` (``counters``). While a thread records a capture
 (``record_launches``), its calls count into the graph's per-replay counts
 and leave the module's ``launches`` alone (the capture ran nothing); the
 graph module (``models/decode_graph.py``, ``models/codec_graph.py``) adds
@@ -45,7 +47,6 @@ each logical rank can be told apart when several share one card.
 from __future__ import annotations
 
 import contextlib
-import sys
 import threading
 
 import torch
@@ -56,6 +57,7 @@ _tls = threading.local()
 _lock = threading.Lock()
 _capture_streams: dict = {}
 _capture_locks: dict = {}
+_by_name: dict = {}  # counters by __name__, filled at first launch
 # launches a logical rank made, by (kernel module name, rank id); callers
 # may clear it
 rank_launches: dict = {}
@@ -92,10 +94,25 @@ def kernel_modules() -> tuple:
     return (banded_attention, decode_attention, q8_matmul, conv1d, activation1d, resblock)
 
 
+def counters() -> tuple:
+    """Every launch counter: the six kernel modules and the three fused
+    kernels K7-K9, each with its ``__name__`` and ``launches``."""
+    from . import llm_fused
+    return kernel_modules() + llm_fused.KERNELS
+
+
+def _counter(name: str):
+    c = _by_name.get(name)
+    if c is None:
+        c = _by_name[name] = next(c for c in counters() if c.__name__ == name)
+    return c
+
+
 def launched(module_name: str) -> None:
-    """A wrapper launched its kernel: count it in the module's ``launches``
-    (and, inside ``on_rank``, in ``rank_launches``), or, while this thread
-    records a capture, in the graph's counts."""
+    """A wrapper launched its kernel: count it in the counter of that name
+    (a module's or a fused kernel's ``launches``; inside ``on_rank``, also
+    in ``rank_launches``), or, while this thread records a capture, in the
+    graph's counts."""
     rank = getattr(_tls, "rank", None)
     rec = getattr(_tls, "recording", None)
     if rec is not None:
@@ -104,7 +121,7 @@ def launched(module_name: str) -> None:
             rec[(module_name, rank)] = rec.get((module_name, rank), 0) + 1
         return
     with _lock:
-        sys.modules[module_name].launches += 1
+        _counter(module_name).launches += 1
         if rank is not None:
             rank_launches[(module_name, rank)] = rank_launches.get((module_name, rank), 0) + 1
 
@@ -124,14 +141,14 @@ def on_rank(rank: int | None):
 @contextlib.contextmanager
 def record_launches():
     """Around a capture in this thread: yields a dict that, on exit, maps
-    each kernel module to the launches made inside."""
+    each counter (``counters``) to the launches made inside."""
     per_replay: dict = {}
     _tls.recording = rec = {}
     try:
         yield per_replay
     finally:
         _tls.recording = None
-        for m in kernel_modules():
+        for m in counters():
             per_replay[m] = rec.get(m.__name__, 0)
         per_replay.update((k, n) for k, n in rec.items() if isinstance(k, tuple))
 

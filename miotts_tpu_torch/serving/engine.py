@@ -58,6 +58,7 @@ import torch
 
 from ..device import select_device
 from ..models import codec_graph
+from ..ops.cuda import llm_fused
 from ..pipeline import MioTTSPipeline, pick_bucket
 from ..runtime.audio_io import save_wav16
 from ..runtime.codes_io import load_codes, save_codes
@@ -413,7 +414,9 @@ class ServingEngine:
         # (name, sum of seconds, count, help): Prometheus summaries without quantiles
         summaries = [("miotts_codec_queue_seconds", cb.queue_wait_s, cb.queue_waits,
                       "codec calls' wait from queueing to the start of their group's decode")]
-        labelled = []
+        labelled = [("miotts_llm_fused_launches_total", "kernel",
+                     [(k.name, k.launches) for k in llm_fused.KERNELS],
+                     "launches of the decode step's fused kernels K7-K9, graph replays counted")]
         if self.batcher is not None:
             b = self.batcher
             counters += [

@@ -4,6 +4,7 @@ card, and what kernels K2 (decode attention) and K3 (Q8_0 matmul) take of it.
 
     python3 scripts/profile_torch_decode.py [--steps 64] [--prompt 32] [--cache 700]
                                             [--llm-quant q8_0] [--graph]
+    python3 scripts/profile_torch_decode.py --served 4 [--prompt 142] [--cache 1024]
 
 Writes the full-width synthetic 0.1B LLM (``chip_smoke.LLM_WIDTHS``: qwen2,
 dim 768, 12 layers, 12 heads, 2 KV heads) to a temporary directory, loads
@@ -31,6 +32,16 @@ body (``llm_generate_chunk``) and once on replays of its CUDA graph
 chunk ended by its one host read), device busy ms a step and idle share
 under the profiler, CUDA-event ms a chunk, the capture's host time, and
 K2's and K3's launches and time a step.
+
+With ``--served W`` it profiles the server's decode instead: an 8-lane
+batched state over ``--cache`` rows (``-np 8 --ctx-size``), W lanes
+prefilled and attached (the cell's sampler, temp 0.8 top-k 50), and the
+width-W graph of the batcher's largest rung (``SERVED_STEPS`` steps,
+``capture_chunk_batched_sliced``; the full width at W = 8): device kernels
+a step and device busy ms a step from one profiled replay, CUDA-event ms
+a replay (median of 5), and the fused kernels' launches a replay where the
+package has them (``ops/cuda/llm_fused.py``). It runs on any tree of the
+port whose ``models/llm.py`` has the batched chunk graphs.
 
 Prints the card's name and power limit, then one JSON object as the last
 line. Needs a CUDA card; exits 2 without one.
@@ -74,6 +85,8 @@ def main() -> int:
     ap.add_argument("--llm-quant", default="", help="a --llm-quant mode (default: dense bf16)")
     ap.add_argument("--graph", action="store_true",
                     help="also profile chunks of the generation loop, eager and as a CUDA graph")
+    ap.add_argument("--served", type=int, default=0, metavar="W",
+                    help="profile the server's width-W chunk graph instead (1, 2, 4 or 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_decode: needs a CUDA card", file=sys.stderr)
@@ -88,6 +101,12 @@ def main() -> int:
         quant = args.llm_quant
         write_synthetic_llm_gguf(path, quant="q8_0" if quant else "f32", **LLM_WIDTHS)
         cfg, w, _ = load_llm_gguf(path, dev, torch.bfloat16, quantize=quant or "bf16")
+    if args.served:
+        result = profile_served(args, cfg, w, dev)
+        result.update(device=torch.cuda.get_device_name(0),
+                      power_limit=smi.stdout.strip().split(", ")[-1])
+        print(json.dumps(result))
+        return 0
 
     rng = np.random.RandomState(0)
     tokens = torch.from_numpy(rng.randint(0, 1000, (1, args.prompt))).to(dev)
@@ -173,6 +192,73 @@ def kernel_share(by_name: dict, busy: float, mod, marks: tuple[str, ...], steps:
             "device_launches_per_step": len(us) / steps,
             "us_per_launch": sum(us) / max(1, len(us)),
             "ms_per_step": sum(us) / 1e3 / steps, "share_of_device": sum(us) / 1e3 / max(busy, 1e-9)}
+
+
+SERVED_LANES = 8  # -np 8
+SERVED_STEPS = 64  # the batcher's largest rung (its chunk_max)
+
+
+def profile_served(args, cfg, w, dev) -> dict:
+    """One replay of the server's width-``args.served`` chunk graph of
+    SERVED_STEPS steps over an 8-lane state, ``args.served`` lanes live:
+    device kernels and busy ms a step under the profiler, event ms a
+    replay, the fused kernels' launches a replay (where they exist)."""
+    from miotts_tpu_torch.models import llm
+    from miotts_tpu_torch.models.sampling import BatchSamplerParams
+
+    width, n = args.served, SERVED_LANES
+    rng = np.random.RandomState(1)
+    st = llm.init_batched_state(cfg, n, args.cache, dev)
+    tokens = torch.from_numpy(rng.randint(0, 1000, (width, args.prompt))).to(dev)
+    lengths = np.full(width, args.prompt, np.int32)
+    logits, new_k, new_v = llm.llm_prefill_kv(cfg, w, tokens, torch.from_numpy(lengths).to(dev))
+    llm.attach_lanes(st, np.arange(width), logits, new_k, new_v, lengths, np.arange(width) + 7)
+    sampler = BatchSamplerParams.make([0.8] * n, [50] * n, [1.0] * n, [1.0] * n, dev)
+    no_eog = torch.tensor([-1], dtype=torch.int64, device=dev)
+    rem = torch.full((n,), 1 << 30, dtype=torch.int32, device=dev)
+    warm = llm.init_batched_state(cfg, n, args.cache, dev)
+    if width >= n:
+        graph = llm.capture_chunk_batched(cfg, w, no_eog, SERVED_STEPS, sampler, rem, st,
+                                          warm_state=warm)
+    else:
+        lanes = torch.arange(width, dtype=torch.int64, device=dev)
+        graph = llm.capture_chunk_batched_sliced(cfg, w, no_eog, SERVED_STEPS, sampler, rem,
+                                                 lanes, st, warm_state=warm)
+    pos0 = int(st.pos[0])
+    events = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.run()
+        end.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.run()
+        torch.cuda.synchronize()
+    by_name, busy = device_kernels(prof)
+    kernels = sum(len(t) for t in by_name.values())
+    fused = {getattr(k, "name", str(k)): c for k, c in graph.launches_per_replay.items()
+             if not isinstance(k, tuple) and ".llm_fused." in getattr(k, "__name__", "")}
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
+    res = {"served_width": width, "lanes": n, "steps": SERVED_STEPS, "cache_rows": args.cache,
+           "prompt": args.prompt,
+           "pos_range": [pos0 + 5 * SERVED_STEPS, pos0 + 6 * SERVED_STEPS - 1],
+           "device_kernels_per_step": kernels / SERVED_STEPS,
+           "device_busy_ms_per_step": busy / SERVED_STEPS,
+           "event_ms_per_replay": {"median": statistics.median(events), "min": min(events)},
+           "fused_launches_per_replay": fused,
+           "by_kernel_ms": [{"name": name[:90], "calls": len(t), "ms": sum(t) / 1e3}
+                            for name, t in top]}
+    print(f"served width {width} ({n} lanes, {args.cache} rows): "
+          f"{res['device_kernels_per_step']:.1f} device kernels a step, busy "
+          f"{res['device_busy_ms_per_step']:.4f} ms a step, events "
+          f"{res['event_ms_per_replay']['median']:.3f} ms a {SERVED_STEPS}-step replay; fused "
+          f"launches a replay {fused}", flush=True)
+    for k in res["by_kernel_ms"]:
+        print(f"  {k['ms']:9.3f} ms {k['calls']:5d}x {k['name']}", flush=True)
+    return res
 
 
 def profile_chunks(args, cfg, w, tokens, lengths, dev, eager: bool) -> dict:

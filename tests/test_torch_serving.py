@@ -282,9 +282,10 @@ def _metrics(srv) -> dict[str, float]:
 
 def test_metrics_count_codec_decodes_widths_and_waits(server):
     """/metrics exposes the codec graph counters, the batcher's chunks by
-    width and attach holds, and the sums and counts of the codec queue's
-    and the submit-to-attach waits: one text request adds one attach wait,
-    at least one codec call and one chunk."""
+    width and attach holds, the fused decode kernels' launches, and the
+    sums and counts of the codec queue's and the submit-to-attach waits:
+    one text request adds one attach wait, at least one codec call and one
+    chunk."""
     srv, *_ = server
     before = _metrics(srv)
     with _post_json(srv, "/mio/tts", {"text": "count me", "reference_key": "preset"}) as r:
@@ -304,6 +305,10 @@ def test_metrics_count_codec_decodes_widths_and_waits(server):
     def chunks(m):
         return sum(v for k, v in m.items() if k.startswith('miotts_batcher_chunks_total{width="'))
     assert chunks(after) >= chunks(before) + 1
+    # the fused kernels' counters: the CPU runs their plain versions, no launch
+    for kernel in ("add_rms_norm", "qkv_rope_cache", "silu_mul"):
+        name = f'miotts_llm_fused_launches_total{{kernel="{kernel}"}}'
+        assert after[name] == before[name]
 
 
 # spans every synthesis request of text leaves, each caused by its request
