@@ -54,7 +54,12 @@ Phases, in order; any failure exits nonzero and prints no result:
    pos at 0, S - 1 and S) and K9 bit-equal, K7 within one bf16 ulp (its sum
    order); each timed beside its plain version and its bound. Every path
    that decodes on the card launches K7, K8 and K9 25 : 12 : 12 (a step's
-   norms, q/k/v and MLPs), counted apart from K1-K6.
+   norms, q/k/v and MLPs), counted apart from K1-K6. Then K10, the served
+   step's sampler (``check_sampler``), against ``sample_step_plain`` at B =
+   1, 2, 4, 8 and V = 151 759 over the knob grid: equal but for sampled
+   top-p lanes at f32 rounding of top_p (at most 1%), timed beside its
+   plain version and its bound; every path with a server launches it once
+   a served step (1 : 12 against K8), the CLI's single lane never.
 9. assets: synthetic GGUFs from a seed: the 24 kHz MioCodec at full width
    in wave mode and in mel mode (100 mels, the 5x4x4x3x2 vocoder at 128
    channels, bench.py's geometry; its vocoder weights scaled by fixed
@@ -328,6 +333,7 @@ from miotts_tpu_torch.models import codec_graph, decode_graph
 from miotts_tpu_torch.models.llm import (
     CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, finish_chunk_fetch, init_kv_cache,
     llm_generate_chunk, llm_start, load_llm_gguf)
+from miotts_tpu_torch.models import sampling
 from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key
 from miotts_tpu_torch.ops.cuda import activation1d as k5
 from miotts_tpu_torch.ops.cuda import banded_attention as k1
@@ -347,12 +353,23 @@ from miotts_tpu_torch.testing import (
     write_synthetic_mel_vocoder_gguf, write_synthetic_miocodec_gguf, write_synthetic_wavlm_gguf)
 
 MODS = (k1, k2, k3, k4, k5, k6)
-FUSED = llm_fused.KERNELS  # K7-K9, counted apart from MODS: every LLM path launches them
+FUSED = llm_fused.KERNELS  # K7-K10, counted apart from MODS: every LLM path launches K7-K9
 # the served decode step's shapes (LLM_WIDTHS, --ctx-size 1024)
 FUSED_SHAPE = {"D": 768, "H": 12, "KVH": 2, "HD": 64, "S": 1024, "F": 2048}
 # bf16 ulps a fused kernel may lie from its plain version: K7 1, for the
 # order of its f32 sum of squares against ATen's reduction; K8 and K9 none
 FUSED_ULPS = {"add_rms_norm": 1, "qkv_rope_cache": 0, "silu_mul": 0}
+# K10 (llm_fused.sample_step) at the 0.1B LLM's vocabulary, every lane one
+# (temp, top_k, top_p, repeat penalty) of this grid
+SAMPLER_V = 151759
+SAMPLER_GRID = tuple((t, k, p, r) for t in (0.0, 0.8) for k in (1, 50, 256, 0, 300)
+                     for p in (1.0, 0.9) for r in (1.0, 1.3))
+SAMPLER_PASSES = 3  # passes over the grid at each B
+# a sampled top-p lane may differ from the plain version only where a
+# candidate's cum - prob lies within this many f32 ulps of top_p (the sums
+# run in another order), and at most this share of such lanes
+SAMPLER_ULPS = 4
+SAMPLER_EXCUSED_MAX = 0.01
 K1_TOL = 1e-5
 K1_WINDOW = 65  # the codec transformers' window
 # K1 at the codec's attention shapes (D = 64): (name, B, H, T, lengths); a
@@ -776,20 +793,211 @@ def check_fused(dev, gen) -> dict:
 
 # the request paths that decode on the card and so must launch K7-K9
 FUSED_PATHS = ("bf16", "quant", "mel", "wave441", "stream", "clone", "server", "mesh")
+# the paths with a server of the LLM, whose batcher's chunks launch K10 once
+# a step beside the CLI's single-lane requests, which keep the plain sampler
+SERVED_PATHS = ("load", "clone", "server", "mesh")
 
 
-def check_fused_ratio(what: str, grew: dict, required: bool) -> None:
+def check_fused_ratio(what: str, grew: dict, required: bool, served_only: bool = False) -> None:
     """A decode step launches K7, K8 and K9 as 25 : 12 : 12 (LLM_WIDTHS' 12
     layers: two norms a layer and the output norm; one q/k/v and one MLP a
     layer); ``required``: at least once. The mesh path mixes tp = 2 groups,
     whose every rank launches K8 and K9 (25 : 24 : 24), with mesh-less
-    servers: there K8 and K9 only must match."""
-    n7, n8, n9 = (grew[k] for k in FUSED)
+    servers: there K8 and K9 only must match. K10 runs once a served step
+    (a tp group's lead alone): 1 : 12 against K8 where only the batcher
+    decoded (``served_only``), at most that on a path with a server (at
+    least once where ``required``), never on a path of CLI requests alone."""
+    n7, n8, n9, n10 = (grew[k] for k in FUSED)
     layers = LLM_WIDTHS["n_layers"]
     ratio = what == "mesh" or n7 * layers == n8 * (2 * layers + 1)
     if (required and n8 == 0) or n8 != n9 or not ratio:
         raise AssertionError(f"[{what}] K7/K8/K9 launched {n7}/{n8}/{n9}: not 25:12:12 a step"
                              + (" or none" if required else ""))
+    if served_only:
+        k10 = n10 > 0 and n10 * layers == n8
+    elif what in SERVED_PATHS:
+        k10 = (n10 > 0 or not required) and n10 * layers <= n8
+    else:
+        k10 = n10 == 0
+    if not k10:
+        raise AssertionError(f"[{what}] K10 launched {n10} times beside K8's {n8}: not once a "
+                             "served step" + (" alone" if served_only else ""))
+
+
+def sampler_penalized(logits, ring, pen):
+    """``sample_token_batched``'s penalised logits."""
+    B, V = logits.shape
+    presence = torch.zeros((B, V + 1), dtype=torch.bool, device=logits.device)
+    presence.scatter_(1, torch.where(ring >= 0, ring, torch.full_like(ring, V)), True)
+    penalized = torch.where(logits > 0, logits / pen[:, None], logits * pen[:, None])
+    return torch.where(presence[:, :V] & (pen[:, None] != 1.0), penalized, logits)
+
+
+def sampler_inputs(dev, gen, B: int, V: int, knobs: list, rnd: int, untied: bool = True) -> dict:
+    """One step's inputs for K10 and its plain version: logits (randn x 3,
+    drawn again until no lane's 257 highest penalised values tie, where
+    ``untied``), rings empty, part filled from the lane's top 300 or
+    holding duplicates of 5 of its top 10, some lanes already done, keys at
+    random draws, counts 0-4 and one lane's budget reached on this step."""
+    K = min(sampling.MAX_TOP_K, V)
+    temp, top_k, top_p, pen = (torch.tensor([kn[i] for kn in knobs], dtype=dt)
+                               for i, dt in enumerate((torch.float32, torch.int32, torch.float32,
+                                                       torch.float32)))
+    for _ in range(20):
+        logits = torch.randn(B, V, generator=gen) * 3
+        top = torch.topk(logits, min(300, V), dim=-1).indices
+        ring = torch.full((B, sampling.PENALTY_LAST_N), -1, dtype=torch.int64)
+        for b in range(B):
+            kind = (rnd + b) % 3
+            if kind == 1:
+                pick = torch.randint(0, top.shape[1], (20,), generator=gen)
+                ring[b, :20] = top[b, pick]
+                ring[b, 20:40] = torch.randint(0, V, (20,), generator=gen)
+            elif kind == 2:
+                five = top[b, torch.randperm(min(10, V), generator=gen)[:5]]
+                ring[b] = five[torch.randint(0, 5, (sampling.PENALTY_LAST_N,), generator=gen)]
+        vals = torch.topk(sampler_penalized(logits, ring, pen), min(K + 1, V), dim=-1).values
+        if not untied or bool((vals[:, 1:] != vals[:, :-1]).all()):
+            break
+    else:
+        raise AssertionError("sampler inputs: no untied logits in 20 draws")
+    done = torch.tensor([(rnd + b) % 5 == 4 for b in range(B)])
+    count = torch.randint(0, 5, (B,), generator=gen, dtype=torch.int32)
+    rem = torch.full((B,), 1 << 30, dtype=torch.int32)
+    rem[(rnd + 1) % B] = count[(rnd + 1) % B] + 1
+    key = torch.stack([torch.randint(0, 2**32, (B,), generator=gen, dtype=torch.int64),
+                       torch.randint(0, 10_000, (B,), generator=gen, dtype=torch.int64)], dim=1)
+    t = {"logits": logits, "ring": ring, "idx": torch.tensor(rnd * 37 % 1000, dtype=torch.int32),
+         "key": key, "done": done, "count": count, "rem": rem}
+    t = {k: v.to(dev) for k, v in t.items()}
+    t["params"] = sampling.BatchSamplerParams(*(x.to(dev) for x in (temp, top_k, top_p, pen)))
+    t["eog"] = torch.tensor([V + 3], dtype=torch.int64, device=dev)
+    return t
+
+
+def sampler_run(fn, t: dict) -> dict:
+    """One call of ``fn`` (K10 or the plain version) on copies of ``t``."""
+    B = t["logits"].shape[0]
+    st = sampling.SamplerState(t["ring"].clone(), t["idx"].clone())
+    key, done, count = t["key"].clone(), t["done"].clone(), t["count"].clone()
+    out = torch.full((B, 3), -5, dtype=torch.int64, device=t["logits"].device)
+    tok, adv = fn(t["logits"], t["params"], st, key, t["eog"], t["rem"], done, count, out[:, 1])
+    torch.cuda.synchronize()
+    return {"tok": tok, "adv": adv, "ring": st.ring, "key": key, "done": done, "count": count,
+            "out": out, "idx": st.idx}
+
+
+def sampler_excused(t: dict, b: int) -> bool:
+    """Whether lane b's top-p mask may differ: one of its kept candidates'
+    cum - prob lies within SAMPLER_ULPS f32 ulps of top_p."""
+    p = t["params"]
+    K = min(sampling.MAX_TOP_K, t["logits"].shape[1])
+    vals = torch.topk(sampler_penalized(t["logits"][b:b + 1], t["ring"][b:b + 1],
+                                        p.repeat_penalty[b:b + 1]), K, dim=-1).values[0]
+    k = int(p.top_k[b]) if int(p.top_k[b]) > 0 else K
+    vals[min(k, K):] = float("-inf")
+    probs = torch.softmax(vals, dim=-1)
+    edge = torch.cumsum(probs, dim=-1) - probs
+    tp = float(p.top_p[b])
+    ulp = float(np.spacing(np.float32(tp)))
+    return bool(((edge - tp).abs() <= SAMPLER_ULPS * ulp).any())
+
+
+def sampler_compare(t: dict, what: str) -> tuple[int, int]:
+    """K10 against the plain version on ``t``: every lane equal, but a
+    sampled top-p lane that ``sampler_excused`` excuses. Returns (top-p
+    sampled lanes, excused lanes that differed)."""
+    got = sampler_run(llm_fused.sample_step, t)
+    want = sampler_run(sampling.sample_step_plain, t)
+    if not torch.equal(got["idx"], want["idx"]):
+        raise AssertionError(f"[sampler] {what}: cursor {int(got['idx'])}, plain "
+                             f"{int(want['idx'])}")
+    p = t["params"]
+    top_p_lanes, excused = 0, 0
+    for b in range(t["logits"].shape[0]):
+        top_p_on = float(p.temp[b]) > 0 and 0 < float(p.top_p[b]) < 1
+        top_p_lanes += top_p_on
+        same = all(torch.equal(got[k][b], want[k][b])
+                   for k in ("tok", "adv", "ring", "key", "done", "count", "out"))
+        if same:
+            continue
+        if top_p_on and sampler_excused(t, b):
+            excused += 1
+            continue
+        raise AssertionError(
+            f"[sampler] {what} lane {b} (temp {float(p.temp[b])}, top_k {int(p.top_k[b])}, "
+            f"top_p {float(p.top_p[b])}, penalty {float(p.repeat_penalty[b])}): K10 token "
+            f"{int(got['tok'][b])}, plain {int(want['tok'][b])}; "
+            + ", ".join(f"{k} {got[k][b].tolist()} vs {want[k][b].tolist()}"
+                        for k in ("adv", "key", "done", "count", "out")))
+    return top_p_lanes, excused
+
+
+def check_sampler(dev, gen) -> dict:
+    """K10 (``llm_fused.sample_step``) against ``sampling.sample_step_plain``
+    at B = 1, 2, 4 and 8 lanes of the 0.1B LLM's vocabulary: SAMPLER_PASSES
+    passes over SAMPLER_GRID (temp 0 / 0.8, top_k 1 / 50 / 256 / 0 / 300,
+    top_p 1 / 0.9, penalty 1 / 1.3), rings empty, part filled and holding
+    duplicates, lanes already done, an EOG (lane 0's token) and a budget
+    reached on the step: tokens, output column, pos advance, ring, cursor,
+    key, done and count equal, but sampled top-p lanes excused within
+    SAMPLER_ULPS of top_p (at most SAMPLER_EXCUSED_MAX of them). Also V =
+    100 (a pool of V), V = 200 003 (32 slices) and all-equal logits (ties
+    to the lower index). Times K10 at each B beside the plain version and
+    its bound (the logits read once)."""
+    rows, top_p_lanes, excused, calls = {}, 0, 0, 0
+    n = len(SAMPLER_GRID)
+    for B in (1, 2, 4, 8):
+        rounds = SAMPLER_PASSES * -(-n // B)
+        for rnd in range(rounds):
+            knobs = [SAMPLER_GRID[(rnd * B + b) % n] for b in range(B)]
+            t = sampler_inputs(dev, gen, B, SAMPLER_V, knobs, rnd)
+            # lane 0's own token is the EOG: its done flag flips on this step
+            t["eog"] = torch.cat([sampler_run(sampling.sample_step_plain, t)["tok"][:1],
+                                  t["eog"]])
+            a, e = sampler_compare(t, f"B={B} V={SAMPLER_V} round {rnd}")
+            top_p_lanes, excused, calls = top_p_lanes + a, excused + e, calls + 1
+        # timed on the served cell's knobs (temp 0.8, top_k 50), in place
+        t = sampler_inputs(dev, gen, B, SAMPLER_V, [(0.8, 50, 1.0, 1.0)] * B, 0)
+        times = {}
+        for name, fn in (("ms", llm_fused.sample_step), ("plain_ms", sampling.sample_step_plain)):
+            st = sampling.SamplerState(t["ring"].clone(), t["idx"].clone())
+            key, done, count = t["key"].clone(), t["done"].clone(), t["count"].clone()
+            out = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+            with uncounted():
+                times[name] = cuda_ms(lambda: fn(t["logits"], t["params"], st, key, t["eog"],
+                                                 t["rem"], done, count, out[:, 1]))
+        rows[f"B={B}"] = {**times, **least_time(4 * B * SAMPLER_V, 0, F32_FLOP_S)}
+    for B, V in ((4, 100), (2, 200_003)):
+        for rnd in range(-(-n // B)):
+            knobs = [SAMPLER_GRID[(rnd * B + b) % n] for b in range(B)]
+            a, e = sampler_compare(sampler_inputs(dev, gen, B, V, knobs, rnd),
+                                   f"B={B} V={V} round {rnd}")
+            top_p_lanes, excused, calls = top_p_lanes + a, excused + e, calls + 1
+    # all-equal logits (a free lane's zeros): greedy takes index 0, a draw
+    # one of the first K
+    t = sampler_inputs(dev, gen, 2, SAMPLER_V, [(0.0, 50, 1.0, 1.0), (0.8, 0, 0.9, 1.3)], 0,
+                       untied=False)
+    t["logits"].zero_()
+    tied = sampler_run(llm_fused.sample_step, t)
+    if int(tied["tok"][0]) != 0 or not 0 <= int(tied["tok"][1]) < sampling.MAX_TOP_K:
+        raise AssertionError(f"[sampler] all-equal logits: K10 tokens {tied['tok'].tolist()}")
+    share = excused / max(top_p_lanes, 1)
+    for key, r in rows.items():
+        log(f"[sampler] sample_step {key} V={SAMPLER_V}: kernel={r['ms']:.4f}ms "
+            f"plain={r['plain_ms']:.4f}ms bound={r['bound_ms']:.6f}ms ({r['bound_by']})")
+    log(f"[sampler] K10 equal to the plain version on {calls} steps (B = 1, 2, 4, 8 at V = "
+        f"{SAMPLER_V}, B = 4 at V = 100, B = 2 at V = 200 003): every greedy and top-p-off lane "
+        f"bit for bit; {excused} of {top_p_lanes} sampled top-p lanes excused within "
+        f"{SAMPLER_ULPS} ulps of top_p (limit {SAMPLER_EXCUSED_MAX:.0%}); all-equal logits: "
+        f"tokens {tied['tok'].tolist()}")
+    if share > SAMPLER_EXCUSED_MAX:
+        raise AssertionError(f"[sampler] {excused} of {top_p_lanes} top-p lanes excused: over "
+                             f"{SAMPLER_EXCUSED_MAX:.0%}")
+    r = rows["B=1"]
+    return {"steps_checked": calls, "top_p_lanes": top_p_lanes, "excused": excused, **r,
+            "library_ms": None, "at": f"B=1 V={SAMPLER_V}",
+            "by_B_ms": {k: [round(v["ms"], 5), round(v["plain_ms"], 5)] for k, v in rows.items()}}
 
 
 def voc_inputs(dev, gen, B: int, T: int, lens: list[int]):
@@ -2732,23 +2940,23 @@ def served_fused(eng, grew: dict, scraped0: dict) -> dict:
     /metrics reads them, and every chunk graph and fused first chunk of the
     batcher counts 25 / 12 / 12 a step into each replay."""
     b = eng.batcher
-    check_fused_ratio("server", grew, True)
+    check_fused_ratio("server", grew, True, served_only=True)
     scraped = {k: n - scraped0.get(k, 0) for k, n in fused_metrics(eng).items()}
     if scraped != {k.name: n for k, n in grew.items()}:
-        raise AssertionError(f"/metrics read K7-K9 {scraped}, the counters {launch_text(grew)}")
+        raise AssertionError(f"/metrics read K7-K10 {scraped}, the counters {launch_text(grew)}")
     graphs_ = [(f"chunk {key}", g) for key, g in b.graphs.items()]
     graphs_ += [(f"fused first chunk k={k}", g) for k, (g, _) in b._fused.items()]
     layers = LLM_WIDTHS["n_layers"]
     for name, g in graphs_:
         per = [g.launches_per_replay[k] for k in FUSED]
-        want = [(2 * layers + 1) * g.n_steps, layers * g.n_steps, layers * g.n_steps]
+        want = [(2 * layers + 1) * g.n_steps, layers * g.n_steps, layers * g.n_steps, g.n_steps]
         if per != want:
-            raise AssertionError(f"{name}: K7/K8/K9 {per} a replay of {g.n_steps} steps, "
+            raise AssertionError(f"{name}: K7/K8/K9/K10 {per} a replay of {g.n_steps} steps, "
                                  f"not {want}")
     steps = grew[FUSED[1]] / layers
-    log(f"[server] the served requests launched K7/K8/K9 {launch_text(grew)} (/metrics the "
-        f"same): {steps:.0f} decode steps at 25/12/12; each of {len(graphs_)} chunk and fused "
-        f"graphs 25/12/12 a step a replay")
+    log(f"[server] the served requests launched K7/K8/K9/K10 {launch_text(grew)} (/metrics the "
+        f"same): {steps:.0f} decode steps at 25/12/12/1; each of {len(graphs_)} chunk and fused "
+        f"graphs 25/12/12/1 a step a replay")
     return {"launches": {k.name: n for k, n in grew.items()}, "steps": steps,
             "graphs_checked": len(graphs_)}
 
@@ -3022,9 +3230,12 @@ def check_server(dev, tmp: Path, emb) -> dict:
     del srv
     torch.cuda.empty_cache()
 
-    # a short q8_0 server: K3 at T = 1, 2 (width graphs) and 4 (all lanes)
+    # a q8_0 server: K3 at T = 1, 2 (width graphs) and 4 (all lanes); its
+    # requests run SERVER_TOKENS, so those sent together still overlap at a
+    # chunk boundary when a step is fast
     srv = start_server(dev, tmp, "llm_q8_0.gguf",
-                       ["-np", "4", "-n", "120", "--ctx-size", "512", "--llm-quant", "q8_0"])
+                       ["-np", "4", "-n", str(SERVER_TOKENS), "--ctx-size", "512",
+                        "--llm-quant", "q8_0"])
     try:
         b = srv.engine.batcher
         k3_0 = k3.launches
@@ -4134,8 +4345,11 @@ def main() -> int:
     log(f"[checks] K1-K3 in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     fused_rows = check_fused(dev, gen)
-    results.update({k: fused_rows[k.name] for k in FUSED})
     log(f"[checks] K7-K9 in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fused_rows["sample_step"] = check_sampler(dev, gen)
+    results.update({k: fused_rows[k.name] for k in FUSED})
+    log(f"[checks] K10 in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     results.update({k4: check_k4(dev, gen), k5: check_k5(dev, gen), k6: check_k6(dev, gen)})
     log(f"[checks] K4-K6 in {time.perf_counter() - t0:.1f}s")
@@ -4253,7 +4467,8 @@ def main() -> int:
                         "launches_by_path": by_path, **results[mod]})
     for kern in FUSED:
         by_path = {path: n[kern] for path, n in launches.items()}
-        kernels.append({"name": kern.name, "route": "cuda", "source": llm_fused.SOURCE,
+        source = llm_fused.SAMPLE_SOURCE if kern is llm_fused.SAMPLE_STEP else llm_fused.SOURCE
+        kernels.append({"name": kern.name, "route": "cuda", "source": source,
                         "replaces": llm_fused.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[kern]})
     log(f"[total] {time.perf_counter() - t_start:.1f}s")

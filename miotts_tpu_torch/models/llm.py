@@ -21,7 +21,8 @@ layer writes its row pair into the cache before its attention (JAX
 scatters all layers' rows after the stack: the same cache, since no layer
 reads its row at ``pos``). The step's glue runs as the fused kernels K7-K9
 on CUDA (``ops/cuda/llm_fused.py``): the residual add and RMSNorm, the QKV
-bias, RoPE and cache row, and silu(gate) * up.
+bias, RoPE and cache row, and silu(gate) * up; a served step's sampler
+and bookkeeping are K10 (``sample_step``).
 The port updates the KV cache IN PLACE (prefill and decode step), where
 JAX returns new caches. On CUDA the decode attention is kernel K2
 (``ops/cuda/decode_attention.py``). Prefill attention is plain torch, as
@@ -63,7 +64,7 @@ from ..gguf import GGUFReader
 from ..ops.cuda import graphs
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.cuda.llm_fused import (
-    add_rms_norm, qkv_rope_cache, rms_norm, rope_inv_freq, silu_mul, write_kv_row)
+    add_rms_norm, qkv_rope_cache, rms_norm, rope_inv_freq, sample_step, silu_mul, write_kv_row)
 from ..ops.cuda.q8_matmul import q8_matmul
 from ..ops.quant_matmul import (
     act_scale, int8_dot, int_scale, maybe_quant_matmul as _mm, quantize_int4_percol,
@@ -77,8 +78,7 @@ from ..runtime.device_dequant import (
 from ..runtime.tokenizer import BPETokenizer
 from . import decode_graph
 from .sampling import (
-    BatchSamplerParams, SamplerParams, SamplerState, sample_token, sample_token_batched,
-    sampler_key, sampler_keys)
+    BatchSamplerParams, SamplerParams, SamplerState, sample_token, sampler_key, sampler_keys)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -975,23 +975,16 @@ def _chunk_body_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps:
     and keys, and ``rem`` [B] int32, each lane's remaining token budget: a
     lane whose ``rem``-th token of this chunk was just emitted is done, as
     after an EOG. No early exit and no host read: the graph of a
-    ``n_steps`` rung stands in for JAX's run-time ``step_cap``."""
+    ``n_steps`` rung stands in for JAX's run-time ``step_cap``. A step's
+    sampler and bookkeeping are one call of ``sample_step`` (K10 on CUDA),
+    which updates ``state.done``, ``n_new`` and ``out``'s column in place."""
     sstate = SamplerState(state.ring, state.ring_idx)
-    done = state.done
-    count = torch.zeros_like(n_new)
-    toks = []
-    for _ in range(n_steps):
-        tok = sample_token_batched(state.logits, sampler, sstate, state.key)
-        state.key[:, 1].add_(1)
-        sstate.update(tok)
-        toks.append(torch.where(done, torch.zeros_like(tok), tok))
-        count = count + (~done).to(count.dtype)
-        done = done | (tok[:, None] == eog_ids[None, :]).any(dim=-1) | (count >= rem)
+    n_new.zero_()
+    for s in range(n_steps):
+        tok, adv = sample_step(state.logits, sampler, sstate, state.key, eog_ids, rem,
+                               state.done, n_new, out[:, s])
         state.logits.copy_(llm_decode_step(cfg, w, tok, state.pos, state.cache_k, state.cache_v))
-        state.pos.add_((~done).to(torch.int32))
-    state.done.copy_(done)
-    out.copy_(torch.stack(toks, dim=1))
-    n_new.copy_(count)
+        state.pos.add_(adv)
 
 
 def llm_generate_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,

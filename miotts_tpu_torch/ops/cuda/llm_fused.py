@@ -1,4 +1,5 @@
-"""Kernels K7-K9: the LLM decode step's per-layer glue, fused.
+"""Kernels K7-K10: the LLM decode step's per-layer glue, fused, and the
+served step's sampler.
 
 Wraps ``csrc/llm_fused.cu``. These kernels replace no Pallas kernel: on
 the TPU, XLA fused the norms, RoPE, the bias and residual adds and silu
@@ -13,12 +14,18 @@ GEMM -> K7 -> gate|up GEMM -> K9 -> down GEMM.
   this step's k/v, and their row of the layer's KV cache at pos.
 - K9 ``silu_mul``: silu(gate) * up over the gate|up product.
 
+K10 ``sample_step`` (``csrc/llm_sample.cu``) runs the served chunk body's
+sampler and bookkeeping once a step, for every lane: the repeat penalty,
+the 256-candidate pool, top-p, the draw, the key, the ring, the output
+token, the count and done flags, and each lane's pos advance.
+
 Each has a plain PyTorch version that repeats the expressions it replaces
-(``models/llm.py``'s decode step before the fusion, ``ops/rope.py``),
-dtype promotions included: a CPU tensor takes it; a CUDA tensor launches
-the kernel, or raises on anything the kernel does not take. Each kernel
-counts its launches (``KERNELS``), through ``graphs.launched``, so a chunk
-graph's replays count.
+(``models/llm.py``'s decode step before the fusion, ``ops/rope.py``,
+``models/sampling.py``'s ``sample_step_plain``), dtype promotions
+included: a CPU tensor takes it; a CUDA tensor launches the kernel, or
+raises on anything the kernel does not take. Each kernel counts its
+launches (``KERNELS``; K10 one a call of its two launches), through
+``graphs.launched``, so a chunk graph's replays count.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...models import sampling
 from . import build, graphs
 
 SOURCE = "miotts_tpu_torch/csrc/llm_fused.cu"
-REPLACES = None  # no Pallas kernel: XLA fused this glue on the TPU
+SAMPLE_SOURCE = "miotts_tpu_torch/csrc/llm_sample.cu"
+REPLACES = None  # no Pallas kernel: XLA fused this glue, and the sampler, on the TPU
 
 
 class Kernel:
@@ -49,7 +58,8 @@ class Kernel:
 ADD_RMS_NORM = Kernel("add_rms_norm")  # K7
 QKV_ROPE_CACHE = Kernel("qkv_rope_cache")  # K8
 SILU_MUL = Kernel("silu_mul")  # K9
-KERNELS = (ADD_RMS_NORM, QKV_ROPE_CACHE, SILU_MUL)
+SAMPLE_STEP = Kernel("sample_step")  # K10
+KERNELS = (ADD_RMS_NORM, QKV_ROPE_CACHE, SILU_MUL, SAMPLE_STEP)
 
 _fns: dict = {}
 # RoPE inverse frequencies by (device, head_dim, base): computed once
@@ -300,3 +310,90 @@ def silu_mul(gu: torch.Tensor, ffn_dim: int) -> torch.Tensor:
     build.check(status, what)
     graphs.launched(SILU_MUL.__name__)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K10: one served decode step's sampler and bookkeeping
+# ---------------------------------------------------------------------------
+
+SAMPLE_MAX_LANES = 1024
+_MAX_SLICES = 32  # select blocks a lane, of at most 12 288 values (csrc/llm_sample.cu)
+SAMPLE_MAX_VOCAB = _MAX_SLICES * 512 * 24
+
+
+def check_sample_step(logits: torch.Tensor, params: sampling.BatchSamplerParams,
+                      state: sampling.SamplerState, key: torch.Tensor, eog_ids: torch.Tensor,
+                      rem: torch.Tensor, done: torch.Tensor, count: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Raise ValueError unless K10 takes these tensors (``sample_step``'s
+    arguments): logits [B, V] f32 contiguous with 1 <= B <= 1024 and V <=
+    393 216; the ring [B, 64] and key [B, 2] int64, the four knob tensors
+    [B] (f32, top_k int32), rem and count [B] int32, done [B] bool, each
+    contiguous; the cursor an int32 scalar; eog_ids 1-D int64 contiguous;
+    out [B] int64 at any stride; all on logits' device."""
+    what = "sample_step"
+    dev = logits.device
+    if logits.dim() != 2 or logits.dtype != torch.float32 or not logits.is_contiguous():
+        _refuse(what, f"logits must be contiguous f32 [B, V], got {logits.dtype} "
+                      f"{tuple(logits.shape)}")
+    B, V = logits.shape
+    if not 1 <= B <= SAMPLE_MAX_LANES or not 1 <= V <= SAMPLE_MAX_VOCAB:
+        _refuse(what, f"B={B}, V={V}: K10 takes 1-{SAMPLE_MAX_LANES} lanes and a vocabulary of "
+                      f"at most {SAMPLE_MAX_VOCAB}")
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    for name, t, dtype, shape in (
+            ("ring", state.ring, i64, (B, sampling.PENALTY_LAST_N)), ("key", key, i64, (B, 2)),
+            ("temp", params.temp, f32, (B,)), ("top_k", params.top_k, i32, (B,)),
+            ("top_p", params.top_p, f32, (B,)), ("repeat_penalty", params.repeat_penalty, f32, (B,)),
+            ("rem", rem, i32, (B,)), ("done", done, torch.bool, (B,)), ("count", count, i32, (B,)),
+            ("ring_idx", state.idx, i32, ())):
+        if t.dtype != dtype or t.device != dev or tuple(t.shape) != shape or not t.is_contiguous():
+            _refuse(what, f"{name} must be contiguous {dtype} {list(shape)} on {dev}, got "
+                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if (eog_ids.dtype != i64 or eog_ids.device != dev or eog_ids.dim() != 1
+            or not eog_ids.is_contiguous()):
+        _refuse(what, f"eog_ids must be contiguous 1-D int64 on {dev}")
+    if out.dtype != i64 or out.device != dev or tuple(out.shape) != (B,):
+        _refuse(what, f"out must be int64 [{B}] on {dev}")
+
+
+def sample_step(logits: torch.Tensor, params: sampling.BatchSamplerParams,
+                state: sampling.SamplerState, key: torch.Tensor, eog_ids: torch.Tensor,
+                rem: torch.Tensor, done: torch.Tensor, count: torch.Tensor, out: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One served decode step's sampler and bookkeeping for every lane
+    (``sampling.sample_step_plain``, whose meaning it has): returns (tok [B]
+    int64, the step's sampled tokens; adv [B] int32, 1 where the lane goes
+    on) and updates the ring and its cursor, ``key``'s draw counts,
+    ``done``, ``count`` and ``out`` IN PLACE. On CUDA one call of K10 (two
+    launches), checked by ``check_sample_step``. Greedy lanes, and sampled
+    lanes with top-p off, pick the plain version's tokens bit for bit; a
+    top-p mask may differ at a candidate whose cum - prob lies within f32
+    rounding of top_p (the sums run in another order)."""
+    if logits.device.type == "cpu":
+        return sampling.sample_step_plain(logits, params, state, key, eog_ids, rem, done, count,
+                                          out)
+    what = "sample_step"
+    dev = logits.device
+    if dev.type != "cuda":
+        _refuse(what, f"unsupported device {dev}")
+    check_sample_step(logits, params, state, key, eog_ids, rem, done, count, out)
+    B, V = logits.shape
+    scratch = torch.empty((B * _MAX_SLICES * min(V, sampling.MAX_TOP_K) + 1,), dtype=torch.int64,
+                          device=dev)
+    tok = torch.empty((B,), dtype=torch.int64, device=dev)
+    adv = torch.empty((B,), dtype=torch.int32, device=dev)
+    fn = _entry("miotts_sample_step",
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8
+                + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                + [ctypes.c_void_p] * 4)
+    status = build.launch(dev, fn, logits.data_ptr(), B, V, state.ring.data_ptr(),
+                          params.repeat_penalty.data_ptr(), params.temp.data_ptr(),
+                          params.top_k.data_ptr(), params.top_p.data_ptr(), key.data_ptr(),
+                          state.idx.data_ptr(), eog_ids.data_ptr(), eog_ids.numel(),
+                          rem.data_ptr(), done.data_ptr(), count.data_ptr(), out.data_ptr(),
+                          out.stride(0), tok.data_ptr(), adv.data_ptr(), scratch.data_ptr(),
+                          _stream(logits))
+    build.check(status, what)
+    graphs.launched(SAMPLE_STEP.__name__)
+    return tok, adv

@@ -416,7 +416,7 @@ class ServingEngine:
                       "codec calls' wait from queueing to the start of their group's decode")]
         labelled = [("miotts_llm_fused_launches_total", "kernel",
                      [(k.name, k.launches) for k in llm_fused.KERNELS],
-                     "launches of the decode step's fused kernels K7-K9, graph replays counted")]
+                     "launches of the decode step's fused kernels K7-K10, graph replays counted")]
         if self.batcher is not None:
             b = self.batcher
             counters += [

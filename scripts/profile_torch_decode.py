@@ -40,8 +40,14 @@ width-W graph of the batcher's largest rung (``SERVED_STEPS`` steps,
 ``capture_chunk_batched_sliced``; the full width at W = 8): device kernels
 a step and device busy ms a step from one profiled replay, CUDA-event ms
 a replay (median of 5), and the fused kernels' launches a replay where the
-package has them (``ops/cuda/llm_fused.py``). It runs on any tree of the
-port whose ``models/llm.py`` has the batched chunk graphs.
+package has them (``ops/cuda/llm_fused.py``). Then the step's sampler
+and bookkeeping alone, as the chunk body runs them on the W lanes' logits:
+``llm_fused.sample_step`` (K10) where the package has it, else the inline
+chain the chunk body ran before it (``sample_token_batched`` and its
+bookkeeping, copied here), SERVED_STEPS steps captured in one graph and
+replayed once under the profiler: its device kernels and busy ms a step,
+and the rest of the step (the whole less the sampler). It runs on any tree
+of the port whose ``models/llm.py`` has the batched chunk graphs.
 
 Prints the card's name and power limit, then one JSON object as the last
 line. Needs a CUDA card; exits 2 without one.
@@ -258,7 +264,85 @@ def profile_served(args, cfg, w, dev) -> dict:
           f"launches a replay {fused}", flush=True)
     for k in res["by_kernel_ms"]:
         print(f"  {k['ms']:9.3f} ms {k['calls']:5d}x {k['name']}", flush=True)
+    idx = torch.arange(width, dtype=torch.int64, device=dev)
+    samp = profile_sampler(st.logits.index_select(0, idx), sampler, st, idx, no_eog,
+                           rem.index_select(0, idx), dev)
+    res["sampler"] = samp
+    res["rest"] = {"device_kernels_per_step": res["device_kernels_per_step"]
+                   - samp["device_kernels_per_step"],
+                   "device_busy_ms_per_step": res["device_busy_ms_per_step"]
+                   - samp["device_busy_ms_per_step"]}
+    print(f"sampler and bookkeeping alone ({samp['path']}): "
+          f"{samp['device_kernels_per_step']:.1f} device kernels a step, busy "
+          f"{samp['device_busy_ms_per_step'] * 1e3:.2f} us a step; the rest of the step "
+          f"{res['rest']['device_kernels_per_step']:.1f} kernels, "
+          f"{res['rest']['device_busy_ms_per_step'] * 1e3:.2f} us", flush=True)
+    for k in samp["by_kernel_ms"]:
+        print(f"  {k['ms']:9.3f} ms {k['calls']:5d}x {k['name']}", flush=True)
     return res
+
+
+def profile_sampler(logits, sampler, st, idx, eog, rem, dev) -> dict:
+    """SERVED_STEPS steps of the served step's sampler and bookkeeping on
+    ``logits`` [W, V] (the lanes ``idx`` of ``st``), captured in one graph
+    and replayed once under the profiler (one replay warms it up)."""
+    from miotts_tpu_torch.models import sampling
+    from miotts_tpu_torch.ops.cuda import llm_fused
+
+    sub = sampling.BatchSamplerParams(*(t.index_select(0, idx) for t in
+                                        (sampler.temp, sampler.top_k, sampler.top_p,
+                                         sampler.repeat_penalty)))
+    sstate = sampling.SamplerState(st.ring.index_select(0, idx), st.ring_idx.clone())
+    key, pos = st.key.index_select(0, idx), st.pos.index_select(0, idx)
+    done = st.done.index_select(0, idx)
+    W = logits.shape[0]
+    out = torch.zeros((W, SERVED_STEPS), dtype=torch.int64, device=dev)
+    n_new = torch.zeros((W,), dtype=torch.int32, device=dev)
+    step = getattr(llm_fused, "sample_step", None)
+
+    def body():
+        if step is not None:  # K10
+            n_new.zero_()
+            for s in range(SERVED_STEPS):
+                _, adv = step(logits, sub, sstate, key, eog, rem, done, n_new, out[:, s])
+                pos.add_(adv)
+            return
+        # the chunk body's inline chain before K10
+        d = done
+        count = torch.zeros_like(n_new)
+        toks = []
+        for _ in range(SERVED_STEPS):
+            tok = sampling.sample_token_batched(logits, sub, sstate, key)
+            key[:, 1].add_(1)
+            sstate.update(tok)
+            toks.append(torch.where(d, torch.zeros_like(tok), tok))
+            count = count + (~d).to(count.dtype)
+            d = d | (tok[:, None] == eog[None, :]).any(dim=-1) | (count >= rem)
+            pos.add_((~d).to(torch.int32))
+        done.copy_(d)
+        out.copy_(torch.stack(toks, dim=1))
+        n_new.copy_(count)
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        body()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        body()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    by_name, busy = device_kernels(prof)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    return {"path": "K10" if step is not None else "inline chain",
+            "device_kernels_per_step": sum(len(t) for t in by_name.values()) / SERVED_STEPS,
+            "device_busy_ms_per_step": busy / SERVED_STEPS,
+            "by_kernel_ms": [{"name": name[:90], "calls": len(t), "ms": sum(t) / 1e3}
+                             for name, t in top]}
 
 
 def profile_chunks(args, cfg, w, tokens, lengths, dev, eager: bool) -> dict:

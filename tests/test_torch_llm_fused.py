@@ -356,7 +356,8 @@ def test_fused_counters_count_launches_and_replays():
     """``graphs.launched`` counts a fused kernel by its name; inside a
     capture it counts into the graph's per-replay counts, which each replay
     adds; the CPU's plain versions count nothing."""
-    assert [k.name for k in KERNELS] == ["add_rms_norm", "qkv_rope_cache", "silu_mul"]
+    assert [k.name for k in KERNELS] == ["add_rms_norm", "qkv_rope_cache", "silu_mul",
+                                         "sample_step"]
     assert all(k in graphs.counters() for k in KERNELS)
     before = [k.launches for k in KERNELS]
     x = torch.zeros((2, 1, 16), dtype=BF16)
