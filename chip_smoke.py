@@ -113,11 +113,12 @@ generates through replays of its engine's CUDA graph of 16 decode steps
 (``llm.CHUNK``); each request must run no eager step on the card and
 exactly ceil(tokens / 16) replays. Before the requests, a graph phase, at
 the full width of the 0.1B LLM for each of bf16, q8_0, output and int8:
-120 greedy tokens from a 32-token prompt through the eager chunk body and
-through one graph captured on empty buffers (two runs in a row, each
-loaded into its buffers) are bit-equal, the largest difference of the
-final logits is printed, K2 launched 12 and K3 49 (q8_0) or 1 (output)
-times a step that ran (warm-up and replays counted); ms a token, tok/s,
+120 greedy tokens from a 32-token prompt through one chunk captured on
+empty buffers (``llm.chunk``), run eagerly (``Chunk.run_eager``) and as
+replays (two runs in a row, each loaded into its buffers), are
+bit-equal, the largest difference of the final logits is printed, K2
+launched 12 and K3 49 (q8_0) or 1 (output) times a step that ran (warm-up
+and replays counted); ms a token, tok/s,
 device ms a step (CUDA events around a replay; the profiler's busy time
 for both) and the capture's time are printed; and sampled runs (temp 0.8,
 top-k 50) for seeds 1, 1, 2 in a row on one graph each equal the eager
@@ -331,8 +332,8 @@ from miotts_tpu_torch import pipeline as pipeline_mod
 from miotts_tpu_torch.device import select_device, to_host
 from miotts_tpu_torch.models import codec_graph, decode_graph
 from miotts_tpu_torch.models.llm import (
-    CHUNK, capture_chunk, empty_gen_state, fetch_chunk_result, finish_chunk_fetch, init_kv_cache,
-    llm_generate_chunk, llm_start, load_llm_gguf)
+    CHUNK, chunk, empty_gen_state, fetch_chunk_result, finish_chunk_fetch, llm_start,
+    load_llm_gguf)
 from miotts_tpu_torch.models import sampling
 from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key
 from miotts_tpu_torch.ops.cuda import activation1d as k5
@@ -1347,47 +1348,42 @@ def busy_ms(fn) -> float | None:
     return total / 1e3 if spans else None
 
 
-def chunk_run(cfg, w, prompt, no_eog, sampler: SamplerParams, seed: int, graph=None) -> dict:
-    """GRAPH_TOKENS tokens from a fresh prefill of ``prompt`` through the
-    chunk API (``no_eog`` holds no token: every chunk runs whole): on the
-    eager body, or loaded into ``graph`` and replayed there (one graph's
-    buffers serve run after run, as they serve an engine's requests).
-    Returns the tokens, the host wall time of the chunks, the final logits,
-    the decode steps that ran (eager and replayed) and the K2/K3 launches
-    and graph counters of the run."""
+def chunk_run(cfg, w, prompt, sampler: SamplerParams, seed: int, ch, eager=False) -> dict:
+    """GRAPH_TOKENS tokens from a fresh prefill of ``prompt`` into the
+    buffers of the chunk ``ch`` (its ``no_eog`` holds no token: every chunk
+    runs whole), as replays of its graph or, with ``eager``, as eager runs
+    of its body (one chunk's buffers serve run after run, as they serve an
+    engine's requests). Returns the tokens, the host wall time of the
+    chunks, the final logits, the decode steps that ran (eager and
+    replayed) and the K2/K3 launches and graph counters of the run."""
     dev = prompt.device
     lengths = torch.tensor([prompt.shape[1]], dtype=torch.int32, device=dev)
-    ck, cv = ((graph.state.cache_k, graph.state.cache_v) if graph is not None
-              else init_kv_cache(cfg, 1, GRAPH_CACHE, dev))
-    state = llm_start(cfg, w, prompt, lengths, ck, cv, sampler_key(seed, dev))
-    if graph is not None:
-        graph.load(state)
-        state = graph.state
+    ch.load(llm_start(cfg, w, prompt, lengths, ch.state.cache_k, ch.state.cache_v,
+                      sampler_key(seed, dev)))
     torch.cuda.synchronize()
     g0, l0 = graph_counts(), (k2.launches, k3.launches)
     toks: list[int] = []
     t0 = time.perf_counter()
     while len(toks) < GRAPH_TOKENS:
-        if graph is None:
-            out, n_new, _ = llm_generate_chunk(cfg, w, no_eog, CHUNK, sampler, state)
-        else:
-            out, n_new = graph.run()
-        o, n, _ = fetch_chunk_result(out, n_new, state)
+        out, n_new = ch.run_eager() if eager else ch.run()
+        o, n, _ = fetch_chunk_result(out, n_new, ch.state)
         toks.extend(int(t) for t in o[0, :int(n[0])])
     wall = (time.perf_counter() - t0) * 1e3
     g = {k: v - g0[k] for k, v in graph_counts().items()}
-    return {"tokens": toks[:GRAPH_TOKENS], "wall_ms": wall, "logits": state.logits.clone(),
+    return {"tokens": toks[:GRAPH_TOKENS], "wall_ms": wall, "logits": ch.state.logits.clone(),
             "steps": g["eager_steps"] + CHUNK * g["replays"], "k2": k2.launches - l0[0],
             "k3": k3.launches - l0[1], **g}
 
 
 def capture(cfg, w, no_eog, sampler: SamplerParams, dev):
-    """A chunk graph captured on empty buffers, as an engine captures its
-    own, with the launches its warm-up made and its counters."""
+    """A chunk made on empty buffers, as an engine makes its own (captured
+    on the card), with the launches its warm-up made and its counters."""
     g0, l0 = graph_counts(), (k2.launches, k3.launches)
-    graph = capture_chunk(cfg, w, no_eog, CHUNK, sampler, empty_gen_state(cfg, 1, GRAPH_CACHE, dev))
-    return graph, {"k2": k2.launches - l0[0], "k3": k3.launches - l0[1],
-                   **{k: v - g0[k] for k, v in graph_counts().items()}}
+    ch = chunk(cfg, w, no_eog, CHUNK, sampler, empty_gen_state(cfg, 1, GRAPH_CACHE, dev))
+    if not ch.captured:
+        raise AssertionError("a chunk on one card was not captured")
+    return ch, {"k2": k2.launches - l0[0], "k3": k3.launches - l0[1],
+                **{k: v - g0[k] for k, v in graph_counts().items()}}
 
 
 def check_penalty_graph(cfg, w, prompt, no_eog, dev) -> dict:
@@ -1399,9 +1395,9 @@ def check_penalty_graph(cfg, w, prompt, no_eog, dev) -> dict:
     for name, sampler, seed in (("greedy", SamplerParams(temp=0.0, repeat_penalty=1.1), 0),
                                 ("sampled", SamplerParams(temp=0.8, top_k=50,
                                                           repeat_penalty=1.1), 5)):
-        eager = chunk_run(cfg, w, prompt, no_eog, sampler, seed)
         graph, _ = capture(cfg, w, no_eog, sampler, dev)
-        run = chunk_run(cfg, w, prompt, no_eog, sampler, seed, graph)
+        eager = chunk_run(cfg, w, prompt, sampler, seed, graph, eager=True)
+        run = chunk_run(cfg, w, prompt, sampler, seed, graph)
         same_logits = bool(torch.equal(eager["logits"], run["logits"]))
         if eager["tokens"] != run["tokens"] or (name == "greedy" and not same_logits):
             n_same = next((i for i, (a, b) in enumerate(zip(eager["tokens"], run["tokens"]))
@@ -1430,10 +1426,10 @@ def check_graph(dev, tmp: Path) -> dict:
         # K2 once a layer; K3 on every quantized leaf (four a layer) and the head
         k2_per_step = cfg.n_layers
         k3_per_step = {"q8_0": 4 * cfg.n_layers + 1, "output": 1}.get(mode, 0)
-        eager = chunk_run(cfg, w, prompt, no_eog, greedy, 0)
         graph, cap = capture(cfg, w, no_eog, greedy, dev)
-        first = chunk_run(cfg, w, prompt, no_eog, greedy, 0, graph)
-        timed = chunk_run(cfg, w, prompt, no_eog, greedy, 0, graph)  # the buffers' second run
+        eager = chunk_run(cfg, w, prompt, greedy, 0, graph, eager=True)
+        first = chunk_run(cfg, w, prompt, greedy, 0, graph)
+        timed = chunk_run(cfg, w, prompt, greedy, 0, graph)  # the buffers' second run
         if not eager["tokens"] == first["tokens"] == timed["tokens"]:
             raise AssertionError(f"graph {mode}: greedy tokens differ from the eager body's")
         logit_diff = (eager["logits"] - first["logits"]).abs().max().item()
@@ -1449,13 +1445,8 @@ def check_graph(dev, tmp: Path) -> dict:
                 or any(r["captures"] or r["eager_steps"] or r["warmup_steps"]
                        or r["replays"] != replays for r in (first, timed))):
             raise AssertionError(f"graph {mode}: counters {eager}, {cap}, {first}, {timed}")
-        state = graph.state
-
-        def eager_chunk():
-            llm_generate_chunk(cfg, w, no_eog, CHUNK, greedy, state)
-
         event_ms = cuda_ms(graph.run, iters=5) / CHUNK
-        busy_graph, busy_eager = busy_ms(graph.run), busy_ms(eager_chunk)
+        busy_graph, busy_eager = busy_ms(graph.run), busy_ms(graph.run_eager)
         row = {"eager_ms_per_token": eager["wall_ms"] / GRAPH_TOKENS,
                "graph_ms_per_token": timed["wall_ms"] / GRAPH_TOKENS,
                "graph_event_ms_per_step": event_ms,
@@ -1476,14 +1467,15 @@ def check_graph(dev, tmp: Path) -> dict:
             f"tok/s), device {event_ms:.4f} ms/step (events around a replay), busy "
             f"{fmt(row['graph_busy_ms_per_step'])} ms/step, capture {cap['capture_ms']:.1f} ms")
         if mode == "bf16":
-            del graph, state
+            del graph
             # a repeat penalty of 1.1: the replay equals the eager body
             row["repeat_penalty_1.1"] = check_penalty_graph(cfg, w, prompt, no_eog, dev)
             # sampled: the draws follow the key, in the graph and eagerly
             graph, _ = capture(cfg, w, no_eog, sampled, dev)
             seeds = (1, 1, 2)  # three runs in a row on one graph's buffers
-            runs = [chunk_run(cfg, w, prompt, no_eog, sampled, s, graph)["tokens"] for s in seeds]
-            eagers = [chunk_run(cfg, w, prompt, no_eog, sampled, s)["tokens"] for s in seeds]
+            runs = [chunk_run(cfg, w, prompt, sampled, s, graph)["tokens"] for s in seeds]
+            eagers = [chunk_run(cfg, w, prompt, sampled, s, graph, eager=True)["tokens"]
+                      for s in seeds]
             same = sum(a == b for a, b in zip(runs[0], runs[2]))
             if runs != eagers or runs[0] != runs[1] or same == GRAPH_TOKENS:
                 raise AssertionError(f"graph: sampled tokens do not follow the seed (graph runs "
@@ -2587,7 +2579,7 @@ def chunk_device_ms(srv, occupancy: int) -> dict:
     b = srv.engine.batcher
     st, rung = b.state, b.chunk_max
     width = b._pick_width(rung, occupancy) or b.n_lanes
-    g = b.graphs[(rung, width)]
+    g = b.chunks[(rung, width)]
     times = []
     with b._cv:
         if width < b.n_lanes:
@@ -2625,21 +2617,14 @@ def check_width_graphs(srv) -> dict:
     bit: tokens, counts and every state tensor. Then, reported: the width-1
     body against the full-width body from the one-lane state (tokens in
     common, the lane's final logits' max abs gap)."""
-    from miotts_tpu_torch.models.llm import (
-        CHAT_TEMPLATE, attach_lanes, llm_generate_chunk_batched,
-        llm_generate_chunk_batched_sliced, llm_prefill_kv)
+    from miotts_tpu_torch.models.llm import CHAT_TEMPLATE, attach_lanes, llm_prefill_kv
 
     b, llm = srv.engine.batcher, srv.engine.llm
-    cfg, w, eog, dev, rung = b.cfg, llm.weights, llm.eog_ids, b.device, b.chunk
+    cfg, w, dev, rung = b.cfg, llm.weights, b.device, b.chunk
     out, one_lane = {}, None
 
-    def eager(width, st):
-        if width < b.n_lanes:
-            o, n, _ = llm_generate_chunk_batched_sliced(cfg, w, eog, rung, width, b.sampler, st,
-                                                        b._lanes_bufs[width], b.rem)
-        else:
-            o, n, _ = llm_generate_chunk_batched(cfg, w, eog, rung, b.sampler, st, b.rem)
-        return o.clone(), n.clone()
+    def eager(width):
+        return tuple(t.clone() for t in b.chunks[(rung, width)].run_eager())
 
     def load(values):
         for k, t in vars(b.state).items():
@@ -2666,10 +2651,10 @@ def check_width_graphs(srv) -> dict:
             if width < b.n_lanes:
                 b._lanes_bufs[width].copy_(torch.from_numpy(width_lanes(b, live, width)))
             s0 = {k: t.clone() for k, t in vars(b.state).items()}
-            o1, n1 = (t.clone() for t in b.graphs[(rung, width)].run())
+            o1, n1 = (t.clone() for t in b.chunks[(rung, width)].run())
             s1 = {k: t.clone() for k, t in vars(b.state).items()}
             load(s0)
-            o2, n2 = eager(width, b.state)
+            o2, n2 = eager(width)
             torch.cuda.synchronize()
             diff = [k for k, t in vars(b.state).items() if not torch.equal(t, s1[k])]
             if not (torch.equal(o1, o2) and torch.equal(n1, n2)) or diff:
@@ -2686,7 +2671,7 @@ def check_width_graphs(srv) -> dict:
         # width 1 against the full width from the one-lane state (reported)
         s0, o_w1, logits_w1 = one_lane
         load(s0)
-        o_full, _ = eager(b.n_lanes, b.state)
+        o_full, _ = eager(b.n_lanes)
         gap = (b.state.logits[0] - logits_w1).abs().max().item()
         a, c = o_w1[0].tolist(), o_full[0].tolist()
         same = next((i for i, (x, y) in enumerate(zip(a, c)) if x != y), len(a))
@@ -2705,8 +2690,7 @@ def check_fused_graphs(srv) -> dict:
     equals its eager body from the same prefill into a fresh state of the
     same max_ctx rows, bit for bit: tokens, counts, done, pos, ring, key,
     logits and each lane's cache rows below its pos."""
-    from miotts_tpu_torch.models.llm import (
-        CHAT_TEMPLATE, NO_BUDGET, fused_state, llm_generate_chunk_batched, prefill_into)
+    from miotts_tpu_torch.models.llm import CHAT_TEMPLATE, NO_BUDGET, fused_state, prefill_into
     from miotts_tpu_torch.models.sampling import BatchSamplerParams
 
     b, llm = srv.engine.batcher, srv.engine.llm
@@ -2729,9 +2713,8 @@ def check_fused_graphs(srv) -> dict:
                                           [p.repeat_penalty for p in params], dev)
         st = prefill_into(cfg, w, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
                           seeds, fused_state(cfg, k, b.max_ctx, dev))
-        o2, n2, _ = llm_generate_chunk_batched(
-            cfg, w, eog, b.first_chunk, sampler, st,
-            torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev))
+        o2, n2 = chunk(cfg, w, eog, b.first_chunk, sampler, st,
+                       rem=torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev)).run_eager()
         torch.cuda.synchronize()
         # a lane's cache rows below its pos: the rows decode reads (those at
         # or above it hold an earlier group's values in the graph's state,
@@ -2944,7 +2927,7 @@ def served_fused(eng, grew: dict, scraped0: dict) -> dict:
     scraped = {k: n - scraped0.get(k, 0) for k, n in fused_metrics(eng).items()}
     if scraped != {k.name: n for k, n in grew.items()}:
         raise AssertionError(f"/metrics read K7-K10 {scraped}, the counters {launch_text(grew)}")
-    graphs_ = [(f"chunk {key}", g) for key, g in b.graphs.items()]
+    graphs_ = [(f"chunk {key}", g) for key, g in b.chunks.items()]
     graphs_ += [(f"fused first chunk k={k}", g) for k, (g, _) in b._fused.items()]
     layers = LLM_WIDTHS["n_layers"]
     for name, g in graphs_:
@@ -2998,7 +2981,7 @@ def check_server(dev, tmp: Path, emb) -> dict:
     out["startup_s"] = time.perf_counter() - t0
     out["warmup_s"] = eng.warmup_s
     out["max_memory_reserved_listen_mib"] = torch.cuda.max_memory_reserved() / 2 ** 20
-    out["warm_graphs_listen"] = {"codec": len(eng.pipeline.graphs), "chunk": len(b.graphs),
+    out["warm_graphs_listen"] = {"codec": len(eng.pipeline.graphs), "chunk": len(b.chunks),
                                  "fused": len(b._fused)}
     log(f"[server] -np 8 -n 250 --ctx-size 512 --warmup on: listening after "
         f"{out['startup_s']:.2f}s (foreground warm-up {eng.warmup_s:.2f}s, "
@@ -3014,11 +2997,12 @@ def check_server(dev, tmp: Path, emb) -> dict:
         out["ready_s"] = time.perf_counter() - t0
         out["warmup_tail_s"] = eng.warmup_bg_s
         out["max_memory_reserved_mib"] = torch.cuda.max_memory_reserved() / 2 ** 20
-        out["warm_graphs"] = {"codec": len(eng.pipeline.graphs), "chunk": len(b.graphs),
+        out["warm_graphs"] = {"codec": len(eng.pipeline.graphs), "chunk": len(b.chunks),
                               "fused": len(b._fused)}
         want = {(r, wd) for r in b.ladder for wd in b.widths()}
-        if set(b.graphs) != want or set(b._fused) != {1, 2, 4, 8}:
-            raise AssertionError(f"warm-up: chunk graphs {sorted(b.graphs)}, fused graphs "
+        if (set(b.chunks) != want or set(b._fused) != {1, 2, 4, 8}
+                or not all(ch.captured for ch in b.chunks.values())):
+            raise AssertionError(f"warm-up: chunk graphs {sorted(b.chunks)}, fused graphs "
                                  f"{sorted(b._fused)}")
         log(f"[server] background tail ({eng.warmup_bg_calls} calls) done in "
             f"{eng.warmup_bg_s:.2f}s, {out['ready_s']:.2f}s after the start: "
@@ -3339,7 +3323,7 @@ def mesh_server_run(dev, tmp: Path, llm: str, flags: list[str], mesh: bool,
             out["rounds"][n] = stats
         with uncounted():
             out["chunk_device_ms"] = {occ: chunk_device_ms(srv, occ) for occ in (1, 4)}
-        g = b.graphs[(b.chunk_max, out["chunk_device_ms"][4]["width"])]
+        g = b.chunks[(b.chunk_max, out["chunk_device_ms"][4]["width"])]
         out["step_launches_by_rank"] = {
             f"{k[0].rsplit('.', 1)[1]}@{k[1]}": n / g.n_steps
             for k, n in g.launches_per_replay.items() if isinstance(k, tuple)}

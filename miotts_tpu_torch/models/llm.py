@@ -3,11 +3,12 @@
 
 Prefill is one batched forward; generation runs in chunks of decode steps
 with the sampler chain between them (the JAX package's resumable
-``GenState`` / ``llm_start`` / ``llm_generate_chunk``). A chunk body runs
-its steps with no early exit and no read back to the host; on CUDA it is
-captured once as a CUDA graph and replayed (``models/decode_graph.py``;
-``LLMEngine`` keeps one graph and loads each request into it), on the CPU
-it runs eagerly. The host reads one packed result a chunk
+``GenState`` / ``llm_start`` / chunk loop). ``chunk`` makes every chunk,
+the CLI's and the server's: one body that runs its steps with no early exit
+and no read back to the host, captured once as a CUDA graph and replayed
+where it can be, run eagerly on the same buffers everywhere else
+(``models/decode_graph.py``; ``LLMEngine`` keeps one chunk and loads each
+request into it). The host reads one packed result a chunk
 (``fetch_chunk_result``). Norms are f32, logits f32. Matmul weights are dense bf16 (GGUF
 Q8_0/f16/f32 tensors dequantized and cast, on the host or, by the packed
 route of ``runtime/device_dequant.py``, on the device) or, by the
@@ -78,7 +79,7 @@ from ..runtime.device_dequant import (
 from ..runtime.tokenizer import BPETokenizer
 from . import decode_graph
 from .sampling import (
-    BatchSamplerParams, SamplerParams, SamplerState, sample_token, sampler_key, sampler_keys)
+    BatchSamplerParams, SamplerParams, SamplerState, sample_chain_step, sampler_key, sampler_keys)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -723,8 +724,7 @@ CHUNK = 16  # decode steps a chunk runs (the JAX package's streaming chunk)
 class GenState:
     """Carry state between generation chunks (miotts_tpu/models/llm.py
     GenState): device tensors the chunk body updates IN PLACE. A chunk
-    graph keeps the state it was captured on as its static buffers
-    (``decode_graph.ChunkGraph``)."""
+    keeps the state it was made on as its buffers (``decode_graph.Chunk``)."""
     logits: torch.Tensor  # [B, V] f32, the logits of the next sample
     # [L, B, S, KVH, HD]; for a TPGroup a tuple, each rank's kv heads
     cache_k: torch.Tensor | tuple
@@ -734,6 +734,13 @@ class GenState:
     ring_idx: torch.Tensor  # [] int32 ring cursor
     done: torch.Tensor  # [B] bool
     key: torch.Tensor  # [2] int64 sampler key: seed, draws so far (JAX: the PRNG key)
+
+    def head(self, T: int) -> "GenState":
+        """A copy of this state with its cache's first T rows (the ring
+        cursor shared)."""
+        return GenState(self.logits.clone(), kv_map(lambda c: c[:, :, :T].clone(), self.cache_k),
+                        kv_map(lambda c: c[:, :, :T].clone(), self.cache_v), self.pos.clone(),
+                        self.ring.clone(), self.ring_idx, self.done.clone(), self.key.clone())
 
 
 def llm_start(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
@@ -750,56 +757,10 @@ def llm_start(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
                     torch.zeros((B,), dtype=torch.bool, device=prompt_tokens.device), key.clone())
 
 
-def _chunk_body(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                sampler: SamplerParams, state: GenState, out: torch.Tensor,
-                n_new: torch.Tensor) -> None:
-    """``n_steps`` decode steps from ``state``, IN PLACE, with no early exit
-    and no read back to the host: the body that runs eagerly and that a
-    CUDA graph captures. Writes this chunk's tokens into ``out`` [B,
-    n_steps] and each lane's count of new tokens into ``n_new`` [B]. A done
-    lane emits 0, keeps its pos and does not count, as the JAX body does;
-    its decode step still runs (its k/v land at its unchanging pos)."""
-    sstate = SamplerState(state.ring, state.ring_idx)
-    done = state.done
-    count = torch.zeros_like(n_new)
-    toks = []
-    for _ in range(n_steps):
-        tok = sample_token(state.logits, sampler, sstate, state.key)
-        state.key[1:].add_(1)
-        sstate.update(tok)
-        toks.append(torch.where(done, torch.zeros_like(tok), tok))
-        count = count + (~done).to(count.dtype)
-        done = done | (tok[:, None] == eog_ids[None, :]).any(dim=-1)
-        state.logits.copy_(llm_decode_step(cfg, w, tok, state.pos, state.cache_k, state.cache_v))
-        state.pos.add_((~done).to(torch.int32))
-    state.done.copy_(done)
-    out.copy_(torch.stack(toks, dim=1))
-    n_new.copy_(count)
-
-
-def llm_generate_chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                       sampler: SamplerParams, state: GenState
-                       ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
-    """Run ``n_steps`` decode steps from ``state`` eagerly. Returns (tokens
-    [B, n_steps] int64, n_new [B] int32, state); already-done lanes emit 0s.
-
-    This is the plain version of a chunk graph's replay (``capture_chunk``):
-    the port's generation paths replay a graph on CUDA, and run this on the
-    CPU."""
-    dev = state.logits.device
-    B = state.pos.shape[0]
-    out = torch.empty((B, n_steps), dtype=torch.int64, device=dev)
-    n_new = torch.empty((B,), dtype=torch.int32, device=dev)
-    _chunk_body(cfg, w, eog_ids, n_steps, sampler, state, out, n_new)
-    if dev.type == "cuda":
-        decode_graph.eager_steps += n_steps
-    return out, n_new, state
-
-
 def empty_gen_state(cfg: LLMConfig, B: int, S: int, device: torch.device, w=None) -> GenState:
     """A zeroed state of B lanes over a cache of S rows: the buffers a chunk
-    graph is captured on before any request is loaded into them. ``device``
-    is the lead device of a ``TPGroup`` ``w``, whose cache is split."""
+    is made on before any request is loaded into them. ``device`` is the
+    lead device of a ``TPGroup`` ``w``, whose cache is split."""
     ck, cv = init_kv_cache(cfg, B, S, device, w=w)
     s0 = SamplerState.init(B, device)
     return GenState(torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=device),
@@ -808,229 +769,40 @@ def empty_gen_state(cfg: LLMConfig, B: int, S: int, device: torch.device, w=None
                     sampler_key(0, device))
 
 
-def capture_chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                  sampler: SamplerParams, state: GenState) -> decode_graph.ChunkGraph:
-    """Capture ``n_steps`` steps of the chunk body on ``state`` (CUDA), which
-    becomes the graph's. The sampler's seed is not baked in: it lives in
-    the state's key."""
-    def body(st, out, n_new):
-        _chunk_body(cfg, w, eog_ids, n_steps, sampler, st, out, n_new)
-
-    return decode_graph.ChunkGraph(body, state, n_steps)
-
-
-class ChunkFetch:
-    """A chunk's host-visible results on their way to the host
-    (miotts_tpu/models/llm.py ``start_chunk_fetch``): [n_new | done |
-    tokens] packed on the device into one int32 [B, 2 + n_steps] tensor. On
-    CUDA the pack, an asynchronous copy into pinned host memory and an event
-    are queued on the current stream, so a graph's static ``out``/``n_new``
-    may be overwritten by the next replay queued after them, and ``result``
-    waits for this chunk's event only."""
-
-    def __init__(self, out: torch.Tensor, n_new: torch.Tensor, state: GenState):
-        packed = torch.cat([n_new.to(torch.int32)[:, None],
-                            state.done.to(torch.int32)[:, None], out.to(torch.int32)], dim=1)
-        self.event = None
-        if packed.device.type == "cuda":
-            self.host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = packed.clone()
-
-    def result(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Block for the copy; returns (out, n_new, done) as numpy arrays."""
-        if self.event is not None:
-            self.event.synchronize()
-        packed = self.host.numpy()
-        return packed[:, 2:], packed[:, 0], packed[:, 1].astype(bool)
-
-
-# JAX's names for the two halves of a chunk's read
-start_chunk_fetch = ChunkFetch
-finish_chunk_fetch = ChunkFetch.result
-
-
-def fetch_chunk_result(out: torch.Tensor, n_new: torch.Tensor, state: GenState
-                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """A chunk's one device -> host copy, waited for: (out, n_new, done)."""
-    return ChunkFetch(out, n_new, state).result()
-
-
-def _chunks(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, sampler: SamplerParams,
-            state: GenState, graph: decode_graph.ChunkGraph | None):
-    """Chunks of CHUNK steps from ``state``, each fetched as (tokens, n_new,
-    done): replays of ``graph`` after ``state`` is loaded into it, else the
-    eager body, which only the CPU runs here."""
-    if graph is not None:
-        graph.load(state)
-        state = graph.state
-    elif state.logits.device.type == "cuda" and not spans_devices(w):
-        raise ValueError("generation on CUDA replays a chunk graph (capture_chunk)")
-    while True:
-        if graph is not None:
-            out, n_new = graph.run()
-        else:
-            out, n_new, _ = llm_generate_chunk(cfg, w, eog_ids, CHUNK, sampler, state)
-        yield fetch_chunk_result(out, n_new, state)
-
-
-def llm_generate(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
-                 prompt_lengths: torch.Tensor, eog_ids: torch.Tensor,
-                 key: torch.Tensor, n_predict: int, sampler: SamplerParams,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 graph: decode_graph.ChunkGraph | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill + generation in chunks of CHUNK steps, reading ``done`` once
-    a chunk. Returns (tokens [B, n_predict], n_generated [B]) on the host,
-    as int64 tensors; a lane stops at its first EOG token, which is
-    included. Done lanes emit 0s.
-
-    On CUDA the chunks are replays of ``graph``, a ``capture_chunk`` of
-    CHUNK steps with this sampler whose state holds ``cache_k``/``cache_v``
-    (the prefill writes there); on the CPU they run eagerly."""
-    B = prompt_tokens.shape[0]
-    state = llm_start(cfg, w, prompt_tokens, prompt_lengths, cache_k, cache_v, key)
-    outs, total = [np.zeros((B, 0), np.int32)], np.zeros(B, np.int64)
-    chunks = _chunks(cfg, w, eog_ids, sampler, state, graph)
-    for _ in range(-(-n_predict // CHUNK)):
-        out_np, n_np, done_np = next(chunks)
-        outs.append(out_np)
-        total += n_np
-        if done_np.all():
-            break
-    tokens = np.concatenate(outs, axis=1)[:, :n_predict]
-    tokens = np.pad(tokens, ((0, 0), (0, n_predict - tokens.shape[1])))
-    return (torch.from_numpy(tokens.astype(np.int64)),
-            torch.from_numpy(np.minimum(total, n_predict)))
-
-
-# ---------------------------------------------------------------------------
-# continuous batching: each lane of one state is its own request
-# ---------------------------------------------------------------------------
-
-def init_batched_state(cfg: LLMConfig, n_lanes: int, max_ctx: int, device: torch.device,
-                       seed: int = 0, w=None) -> GenState:
-    """A state of ``n_lanes`` lanes over a cache of ``max_ctx`` rows, every
-    lane done (miotts_tpu/models/llm.py:1145); the key is per lane, [B, 2].
-    ``w``: as in ``empty_gen_state``."""
-    st = empty_gen_state(cfg, n_lanes, max_ctx, device, w=w)
-    st.done.fill_(True)
-    st.key = sampler_keys(np.arange(n_lanes) + seed, device)
-    return st
-
-
-def attach_lanes(state: GenState, lanes, logits_k: torch.Tensor, new_k: torch.Tensor,
-                 new_v: torch.Tensor, lengths, seeds) -> GenState:
-    """Install k prefilled requests into lanes ``lanes`` of ``state`` IN
-    PLACE (miotts_tpu/models/llm.py:1110): row i of ``llm_prefill_kv``'s
-    result (logits [k, V], K/V [L, k, T, KVH, HD]) goes to lane
-    ``lanes[i]``, with pos = lengths[i], an empty penalty ring, done False
-    and a fresh key from seeds[i]. ``lanes``, ``lengths`` and ``seeds`` are
-    host arrays; a row whose lane is out of range (a pad row) is dropped.
-    Only the prompt span [0, T) of a lane's cache is written: decode never
-    reads past pos, and writes each row before pos reaches it. The ring
-    cursor stays shared."""
-    B, S = state.pos.shape[0], kv_parts(state.cache_k)[0].shape[2]
-    lanes = np.asarray(lanes).reshape(-1)
-    rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
-    if not rows:
-        return state
-    dev = state.pos.device
-    r = to_device(np.asarray(rows, np.int64), dev)
-    ln = to_device(lanes[rows].astype(np.int64), dev)
-    T = min(kv_parts(new_k)[0].shape[2], S)
-    state.logits.index_copy_(0, ln, logits_k.index_select(0, r).to(state.logits.dtype))
-    _copy_rows(state, new_k, new_v, T, ln, r)
-    state.pos.index_copy_(0, ln, to_device(np.asarray(lengths).reshape(-1)[rows].astype(np.int32),
-                                           dev))
-    state.ring.index_fill_(0, ln, -1)
-    state.done.index_fill_(0, ln, False)
-    state.key.index_copy_(0, ln, sampler_keys(np.asarray(seeds).reshape(-1)[rows], dev))
-    return state
-
-
-def _copy_rows(state: GenState, new_k, new_v, T: int, ln: torch.Tensor, r: torch.Tensor) -> None:
-    """Rows [0, T) of the new K/V's rows ``r`` into lanes ``ln`` of the
-    state's cache, part by part (each on its own device)."""
-    for cache, new in zip(kv_parts(state.cache_k) + kv_parts(state.cache_v),
-                          kv_parts(new_k) + kv_parts(new_v)):
-        cache.narrow(2, 0, T).index_copy_(
-            1, ln.to(cache.device), new[:, :, :T].index_select(1, r.to(new.device)).to(cache.dtype))
-
-
-def set_lane_done(state: GenState, lane: int) -> GenState:
-    """Mark lane ``lane`` done in place: it emits nothing and keeps its pos."""
-    state.done[int(lane)] = True
-    return state
-
-
-def _chunk_body_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                        sampler: BatchSamplerParams, rem: torch.Tensor, state: GenState,
-                        out: torch.Tensor, n_new: torch.Tensor) -> None:
-    """The continuous-batching chunk (miotts_tpu/models/llm.py:891
-    ``_chunk_loop_batched``): ``_chunk_body`` with per-lane sampler tensors
-    and keys, and ``rem`` [B] int32, each lane's remaining token budget: a
-    lane whose ``rem``-th token of this chunk was just emitted is done, as
-    after an EOG. No early exit and no host read: the graph of a
-    ``n_steps`` rung stands in for JAX's run-time ``step_cap``. A step's
-    sampler and bookkeeping are one call of ``sample_step`` (K10 on CUDA),
-    which updates ``state.done``, ``n_new`` and ``out``'s column in place."""
+def _chunk_body(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int, step,
+                sampler, rem: torch.Tensor | None, state: GenState, out: torch.Tensor,
+                n_new: torch.Tensor) -> None:
+    """``n_steps`` decode steps from ``state``, IN PLACE, with no early exit
+    and no read back to the host (miotts_tpu/models/llm.py:891
+    ``_chunk_loop_batched``): the body a chunk runs eagerly or captures. A
+    step's sampler and bookkeeping are one call of ``step``: ``sample_step``
+    for the server's lanes (K10 on CUDA; per-lane settings and keys) or
+    ``sampling.sample_chain_step`` for the CLI's (one ``SamplerParams``,
+    one key), either of which writes ``out``'s column and updates
+    ``state.done`` and ``n_new`` in place. ``rem`` [B] int32 is each lane's
+    remaining budget (None: none): a lane whose ``rem``-th token of this
+    chunk was just emitted is done, as after an EOG; the chunk of an
+    ``n_steps`` rung stands in for JAX's run-time ``step_cap``. A done lane
+    emits 0, keeps its pos and does not count, as the JAX body does; its
+    decode step still runs (its k/v land at its unchanging pos)."""
     sstate = SamplerState(state.ring, state.ring_idx)
     n_new.zero_()
     for s in range(n_steps):
-        tok, adv = sample_step(state.logits, sampler, sstate, state.key, eog_ids, rem,
-                               state.done, n_new, out[:, s])
+        tok, adv = step(state.logits, sampler, sstate, state.key, eog_ids, rem, state.done, n_new,
+                        out[:, s])
         state.logits.copy_(llm_decode_step(cfg, w, tok, state.pos, state.cache_k, state.cache_v))
         state.pos.add_(adv)
 
 
-def llm_generate_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                               sampler: BatchSamplerParams, state: GenState, rem: torch.Tensor
-                               ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
-    """``n_steps`` batched steps from ``state`` eagerly (the plain version
-    of a ``capture_chunk_batched`` replay): (tokens [B, n_steps], n_new
-    [B] int32, state). On CUDA the server replays graphs instead."""
-    dev = state.logits.device
-    B = state.pos.shape[0]
-    out = torch.empty((B, n_steps), dtype=torch.int64, device=dev)
-    n_new = torch.empty((B,), dtype=torch.int32, device=dev)
-    _chunk_body_batched(cfg, w, eog_ids, n_steps, sampler, rem, state, out, n_new)
-    if dev.type == "cuda":
-        decode_graph.eager_steps += n_steps
-    return out, n_new, state
-
-
-def capture_chunk_batched(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                          sampler: BatchSamplerParams, rem: torch.Tensor, state: GenState,
-                          warm_state: GenState | None = None) -> decode_graph.ChunkGraph:
-    """Capture ``n_steps`` batched steps on ``state`` (CUDA). ``sampler``'s
-    four tensors and ``rem`` are static buffers of the graph too: a caller
-    writes each dispatch's settings into them before the replay, so one
-    capture serves any mix of requests. ``warm_state`` (a throwaway state of
-    ``state``'s shapes) takes the warm-up run instead of ``state``
-    (``decode_graph.ChunkGraph``)."""
-    def body(st, out, n_new):
-        _chunk_body_batched(cfg, w, eog_ids, n_steps, sampler, rem, st, out, n_new)
-
-    return decode_graph.ChunkGraph(body, state, n_steps, warm_state=warm_state)
-
-
-# ---------------------------------------------------------------------------
-# width-sliced chunks: the chunk runs on ``width`` gathered lanes only
-# ---------------------------------------------------------------------------
-
 def _chunk_body_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
                        sampler: BatchSamplerParams, rem: torch.Tensor, lanes: torch.Tensor,
                        state: GenState, out: torch.Tensor, n_new: torch.Tensor) -> None:
-    """The width-sliced chunk (miotts_tpu/models/llm.py:978-1049,
-    ``llm_generate_chunk_batched_sliced``), IN PLACE: gather the lanes of
-    ``lanes`` [w] into a width-w sub-state, run ``_chunk_body_batched`` on
-    it with the gathered sampler settings and budgets, and scatter it back
-    into ``state``. ``out`` [B, n_steps] and ``n_new`` [B] stay full width,
-    zero outside the gathered lanes, so delivery reads them as it reads a
+    """The width-sliced chunk (miotts_tpu/models/llm.py:978-1049), IN
+    PLACE: gather the lanes of
+    ``lanes`` [w] into a width-w sub-state, run ``_chunk_body`` on it with
+    the gathered sampler settings and budgets, and scatter it back into
+    ``state``. ``out`` [B, n_steps] and ``n_new`` [B] stay full width, zero
+    outside the gathered lanes, so delivery reads them as it reads a
     full-width chunk. The ring cursor is the state's, advanced as the
     full-width chunk advances it, so a live lane's tokens are the
     full-width chunk's.
@@ -1066,7 +838,8 @@ def _chunk_body_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: 
     width = lanes.shape[0]
     out_w = torch.empty((width, n_steps), dtype=out.dtype, device=out.device)
     n_new_w = torch.empty((width,), dtype=n_new.dtype, device=n_new.device)
-    _chunk_body_batched(cfg, w, eog_ids, n_steps, sub_sampler, take(rem), sub, out_w, n_new_w)
+    _chunk_body(cfg, w, eog_ids, n_steps, sample_step, sub_sampler, take(rem), sub, out_w,
+                n_new_w)
     for name in ("logits", "pos", "ring", "done", "key"):
         getattr(state, name).index_copy_(0, idx, getattr(sub, name))
     for cache, new in zip(kv_parts(state.cache_k) + kv_parts(state.cache_v),
@@ -1076,41 +849,186 @@ def _chunk_body_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: 
     n_new.zero_().index_copy_(0, idx, n_new_w)
 
 
-def llm_generate_chunk_batched_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor,
-                                      n_steps: int, width: int, sampler: BatchSamplerParams,
-                                      state: GenState, lanes, rem: torch.Tensor
-                                      ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
-    """``n_steps`` steps of the ``width`` lanes ``lanes`` (pad rows ``B +
-    lane``, see ``_chunk_body_sliced``) eagerly: the plain version of a
-    ``capture_chunk_batched_sliced`` replay. Returns full-width (tokens [B,
-    n_steps], n_new [B] int32, state)."""
-    dev = state.logits.device
-    B = state.pos.shape[0]
-    lanes = torch.as_tensor(np.asarray(lanes, np.int64) if not torch.is_tensor(lanes) else lanes,
-                            dtype=torch.int64, device=dev)
-    if tuple(lanes.shape) != (width,):
-        raise ValueError(f"lanes {tuple(lanes.shape)} for a width-{width} chunk")
-    out = torch.empty((B, n_steps), dtype=torch.int64, device=dev)
-    n_new = torch.empty((B,), dtype=torch.int32, device=dev)
-    _chunk_body_sliced(cfg, w, eog_ids, n_steps, sampler, rem, lanes, state, out, n_new)
-    if dev.type == "cuda":
-        decode_graph.eager_steps += n_steps
-    return out, n_new, state
+def chunk(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
+          sampler: SamplerParams | BatchSamplerParams, state: GenState, *,
+          rem: torch.Tensor | None = None, lanes: torch.Tensor | None = None,
+          warm_state=None) -> decode_graph.Chunk:
+    """A chunk of ``n_steps`` decode steps on ``state``, which becomes the
+    chunk's; ``run()`` runs them. The body follows from the arguments: a
+    ``SamplerParams`` gives the CLI's step (``sample_chain_step``, the state's
+    one key), a ``BatchSamplerParams`` the server's (``sample_step``, a key
+    per lane), with ``rem`` [B] each lane's budget (None: none); ``lanes``
+    [width] int64 makes it width-sliced (``_chunk_body_sliced``). The
+    sampler's tensors, ``rem`` and ``lanes`` are read at every run, so a
+    caller writes each dispatch's values into them first and one chunk
+    serves any mix of requests. The sampler's seed is not baked in: it lives
+    in the state's key.
+
+    Where the state is on CUDA and ``w`` is not a tensor-parallel group over
+    several cards (``spans_devices``), the chunk is captured as a CUDA graph
+    here and every run is one replay; everywhere else a run is one eager
+    call of the body on the same buffers. ``warm_state``: as in
+    ``decode_graph.Chunk``."""
+    if lanes is not None:
+        def body(st, out, n_new):
+            _chunk_body_sliced(cfg, w, eog_ids, n_steps, sampler, rem, lanes, st, out, n_new)
+    else:
+        step = sample_step if isinstance(sampler, BatchSamplerParams) else sample_chain_step
+
+        def body(st, out, n_new):
+            _chunk_body(cfg, w, eog_ids, n_steps, step, sampler, rem, st, out, n_new)
+
+    capture = state.logits.device.type == "cuda" and not spans_devices(w)
+    return decode_graph.Chunk(body, state, n_steps, capture=capture, warm_state=warm_state)
 
 
-def capture_chunk_batched_sliced(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                                 sampler: BatchSamplerParams, rem: torch.Tensor,
-                                 lanes: torch.Tensor, state: GenState,
-                                 warm_state: GenState | None = None) -> decode_graph.ChunkGraph:
-    """Capture ``n_steps`` width-sliced steps on ``state`` (CUDA): one replay
-    gathers the lanes of ``lanes`` (a static [width] int64 buffer the
-    caller writes before each replay, as it writes ``sampler`` and
-    ``rem``), runs them and scatters them back. The gathered sub-state's
-    tensors are the graph's own (its memory pool)."""
-    def body(st, out, n_new):
-        _chunk_body_sliced(cfg, w, eog_ids, n_steps, sampler, rem, lanes, st, out, n_new)
+class ChunkFetch:
+    """A chunk's host-visible results on their way to the host
+    (miotts_tpu/models/llm.py ``start_chunk_fetch``): [n_new | done |
+    tokens] packed on the device into one int32 [B, 2 + n_steps] tensor. On
+    CUDA the pack, an asynchronous copy into pinned host memory and an event
+    are queued on the current stream, so a chunk's ``out``/``n_new`` may be
+    overwritten by the next run queued after them, and ``result`` waits for
+    this chunk's event only."""
 
-    return decode_graph.ChunkGraph(body, state, n_steps, warm_state=warm_state)
+    def __init__(self, out: torch.Tensor, n_new: torch.Tensor, state: GenState):
+        packed = torch.cat([n_new.to(torch.int32)[:, None],
+                            state.done.to(torch.int32)[:, None], out.to(torch.int32)], dim=1)
+        self.event = None
+        if packed.device.type == "cuda":
+            self.host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            self.host.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = packed.clone()
+
+    def result(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Block for the copy; returns (out, n_new, done) as numpy arrays."""
+        if self.event is not None:
+            self.event.synchronize()
+        packed = self.host.numpy()
+        return packed[:, 2:], packed[:, 0], packed[:, 1].astype(bool)
+
+
+# JAX's names for the two halves of a chunk's read
+start_chunk_fetch = ChunkFetch
+finish_chunk_fetch = ChunkFetch.result
+
+
+def fetch_chunk_result(out: torch.Tensor, n_new: torch.Tensor, state: GenState
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A chunk's one device -> host copy, waited for: (out, n_new, done)."""
+    return ChunkFetch(out, n_new, state).result()
+
+
+def _chunks(ch: decode_graph.Chunk, state: GenState):
+    """Runs of ``ch`` after ``state`` is loaded into it, each fetched as
+    (tokens, n_new, done)."""
+    ch.load(state)
+    while True:
+        out, n_new = ch.run()
+        yield fetch_chunk_result(out, n_new, ch.state)
+
+
+def llm_generate(cfg: LLMConfig, w: dict, prompt_tokens: torch.Tensor,
+                 prompt_lengths: torch.Tensor, eog_ids: torch.Tensor,
+                 key: torch.Tensor, n_predict: int, sampler: SamplerParams,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 kept: decode_graph.Chunk | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill + generation in chunks of CHUNK steps, reading ``done`` once
+    a chunk. Returns (tokens [B, n_predict], n_generated [B]) on the host,
+    as int64 tensors; a lane stops at its first EOG token, which is
+    included. Done lanes emit 0s.
+
+    The chunks are runs of ``kept``, a ``chunk`` of CHUNK steps with this
+    sampler whose state holds ``cache_k``/``cache_v`` (the prefill writes
+    there), which the caller keeps from request to request; None makes one
+    on the prefilled state."""
+    B = prompt_tokens.shape[0]
+    state = llm_start(cfg, w, prompt_tokens, prompt_lengths, cache_k, cache_v, key)
+    outs, total = [np.zeros((B, 0), np.int32)], np.zeros(B, np.int64)
+    chunks = _chunks(kept or chunk(cfg, w, eog_ids, CHUNK, sampler, state), state)
+    for _ in range(-(-n_predict // CHUNK)):
+        out_np, n_np, done_np = next(chunks)
+        outs.append(out_np)
+        total += n_np
+        if done_np.all():
+            break
+    tokens = np.concatenate(outs, axis=1)[:, :n_predict]
+    tokens = np.pad(tokens, ((0, 0), (0, n_predict - tokens.shape[1])))
+    return (torch.from_numpy(tokens.astype(np.int64)),
+            torch.from_numpy(np.minimum(total, n_predict)))
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: each lane of one state is its own request
+# ---------------------------------------------------------------------------
+
+def init_batched_state(cfg: LLMConfig, n_lanes: int, max_ctx: int, device: torch.device,
+                       seed: int = 0, w=None) -> GenState:
+    """A state of ``n_lanes`` lanes over a cache of ``max_ctx`` rows, every
+    lane done (miotts_tpu/models/llm.py:1145); the key is per lane, [B, 2].
+    ``w``: as in ``empty_gen_state``."""
+    st = empty_gen_state(cfg, n_lanes, max_ctx, device, w=w)
+    st.done.fill_(True)
+    st.key = sampler_keys(np.arange(n_lanes) + seed, device)
+    return st
+
+
+def prefilled(logits: torch.Tensor, new_k, new_v, lengths: torch.Tensor, seeds) -> GenState:
+    """The group state of k prefilled requests, ``llm_prefill_kv``'s
+    result (logits [k, V], K/V [L, k, T, KVH, HD]) with pos = lengths [k]
+    (a device tensor), an empty ring at cursor 0, not done and a fresh key
+    from each seed."""
+    k, dev = logits.shape[0], logits.device
+    s0 = SamplerState.init(k, dev)
+    return GenState(logits, new_k, new_v, lengths.to(torch.int32), s0.ring, s0.idx,
+                    torch.zeros((k,), dtype=torch.bool, device=dev), sampler_keys(seeds, dev))
+
+
+def attach_group(state: GenState, lanes, gst: GenState) -> GenState:
+    """Install a group state's k lanes into lanes ``lanes`` of ``state`` IN
+    PLACE (miotts_tpu/models/llm.py:620-640 ``attach_lanes_gen``): row i of
+    ``gst`` (a ``prefilled`` group, or a fused group mid-generation) goes
+    to lane ``lanes[i]``: its logits, cache rows [0, T) for the group's T
+    rows, pos, ring, done and key. ``lanes`` is a host array; a row whose
+    lane is out of range (a pad row) is dropped. Decode never reads past
+    pos, and writes each row before pos reaches it. The batched state's
+    ring cursor stays as it is."""
+    B, S = state.pos.shape[0], kv_parts(state.cache_k)[0].shape[2]
+    lanes = np.asarray(lanes).reshape(-1)
+    rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
+    if not rows:
+        return state
+    dev = state.pos.device
+    r = to_device(np.asarray(rows, np.int64), dev)
+    ln = to_device(lanes[rows].astype(np.int64), dev)
+    T = min(kv_parts(gst.cache_k)[0].shape[2], S)
+    state.logits.index_copy_(0, ln, gst.logits.index_select(0, r).to(state.logits.dtype))
+    for cache, new in zip(kv_parts(state.cache_k) + kv_parts(state.cache_v),
+                          kv_parts(gst.cache_k) + kv_parts(gst.cache_v)):
+        cache.narrow(2, 0, T).index_copy_(
+            1, ln.to(cache.device), new[:, :, :T].index_select(1, r.to(new.device)).to(cache.dtype))
+    for name in ("pos", "ring", "done", "key"):
+        getattr(state, name).index_copy_(0, ln, getattr(gst, name).index_select(0, r))
+    return state
+
+
+def attach_lanes(state: GenState, lanes, logits_k: torch.Tensor, new_k: torch.Tensor,
+                 new_v: torch.Tensor, lengths, seeds) -> GenState:
+    """Install k prefilled requests into lanes ``lanes`` of ``state`` IN
+    PLACE (miotts_tpu/models/llm.py:1110): ``attach_group`` of their
+    ``prefilled`` group, from host ``lengths`` and ``seeds``."""
+    lengths = to_device(np.asarray(lengths, np.int32).reshape(-1), logits_k.device)
+    return attach_group(state, lanes, prefilled(logits_k, new_k, new_v, lengths, seeds))
+
+
+def set_lane_done(state: GenState, lane: int) -> GenState:
+    """Mark lane ``lane`` done in place: it emits nothing and keeps its pos."""
+    state.done[int(lane)] = True
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -1123,8 +1041,8 @@ NO_BUDGET = 1 << 30  # a ``rem`` no chunk reaches: the fused steps run unbudgete
 def prefill_into(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.Tensor,
                  seeds, state: GenState) -> GenState:
     """Prefill a padded group [k, T] into the k lanes of ``state`` IN PLACE
-    (the start of miotts_tpu/models/llm.py:579-617
-    ``llm_prefill_generate_jit``): logits of each last prompt token, the
+    (the start of miotts_tpu/models/llm.py:579-617, JAX's fused prefill):
+    logits of each last prompt token, the
     prompt's K/V at [0, T) (rows at t >= length carry garbage that decode
     never reads), pos = length, an empty ring at cursor 0, not done, and a
     fresh key from each seed."""
@@ -1144,59 +1062,13 @@ def prefill_into(cfg: LLMConfig, w: dict, tokens: torch.Tensor, lengths: torch.T
 
 def fused_state(cfg: LLMConfig, k: int, S: int, device: torch.device, w=None) -> GenState:
     """A k-lane state over S cache rows with per-lane keys: the buffers of a
-    fused first chunk (``prefill_into``, then the batched chunk body);
-    ``w`` as in ``empty_gen_state``."""
+    fused first chunk (``prefill_into``, then a chunk with no budget, whose
+    first rows ``GenState.head`` hands to ``attach_group``, as JAX's fused
+    prefill, miotts_tpu/models/llm.py:579-617); ``w`` as in
+    ``empty_gen_state``."""
     st = empty_gen_state(cfg, k, S, device, w=w)
     st.key = sampler_keys(np.zeros(k, np.int64), device)
     return st
-
-
-def llm_prefill_generate(cfg: LLMConfig, w: dict, eog_ids: torch.Tensor, n_steps: int,
-                         tokens: torch.Tensor, lengths: torch.Tensor, seeds,
-                         sampler: BatchSamplerParams
-                         ) -> tuple[torch.Tensor, torch.Tensor, GenState]:
-    """Prefill + each request's FIRST ``n_steps`` decode steps, eagerly
-    (miotts_tpu/models/llm.py:579-617 ``llm_prefill_generate_jit``).
-    Returns (out [k, n_steps], n_new [k], mini state); the mini state's
-    cache holds T + n_steps rows, as JAX's, and ``attach_lanes_gen``
-    installs it into the batched state. The steps run with no budget (the
-    batcher clamps the delivered tokens). At repeat penalty 1 a lane's
-    tokens are the unfused path's; otherwise the ring crosses the attach
-    with its entries at mini-loop positions (the ring cursor stays the
-    batched state's), so the 64-token window is approximate across that
-    boundary, exactly as in JAX.
-
-    The server's CUDA path runs the same steps as a replay of a graph on a
-    ``fused_state`` of ``max_ctx`` rows (``capture_chunk_batched``)."""
-    k, T = tokens.shape
-    state = prefill_into(cfg, w, tokens, lengths, seeds,
-                         fused_state(cfg, k, T + n_steps, tokens.device, w=w))
-    rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=tokens.device)
-    out, n_new, state = llm_generate_chunk_batched(cfg, w, eog_ids, n_steps, sampler, state, rem)
-    return out, n_new, state
-
-
-def attach_lanes_gen(state: GenState, lanes, gst: GenState) -> GenState:
-    """Install k fused lanes (``llm_prefill_generate``) into ``state`` IN
-    PLACE (miotts_tpu/models/llm.py:620-640): row i of the mini state goes
-    to lane ``lanes[i]`` mid-generation (its logits, cache rows [0, T') for
-    the mini state's T' rows, pos, ring, done and key); ``lanes`` is a host
-    array, and a row whose lane is out of range (a pad row) is dropped. The
-    batched state's ring cursor stays as it is."""
-    B, S = state.pos.shape[0], kv_parts(state.cache_k)[0].shape[2]
-    lanes = np.asarray(lanes).reshape(-1)
-    rows = [i for i, lane in enumerate(lanes) if 0 <= int(lane) < B]
-    if not rows:
-        return state
-    dev = state.pos.device
-    r = to_device(np.asarray(rows, np.int64), dev)
-    ln = to_device(lanes[rows].astype(np.int64), dev)
-    T = min(kv_parts(gst.cache_k)[0].shape[2], S)
-    state.logits.index_copy_(0, ln, gst.logits.index_select(0, r).to(state.logits.dtype))
-    _copy_rows(state, gst.cache_k, gst.cache_v, T, ln, r)
-    for name in ("pos", "ring", "done", "key"):
-        getattr(state, name).index_copy_(0, ln, getattr(gst, name).index_select(0, r))
-    return state
 
 
 # ---------------------------------------------------------------------------
@@ -1222,11 +1094,9 @@ class LLMEngine:
         self.quantize = (quantize if quantize is not None
                          else os.environ.get("MIOTTS_LLM_QUANT", "")) or "bf16"
         self._init_vocab_maps()
-        # generation replays a chunk graph (CUDA's path); the graph it keeps
-        # and the (cache rows, sampler) that graph serves
-        self.use_graph = device.type == "cuda"
-        self._graph: decode_graph.ChunkGraph | None = None
-        self._graph_key = None
+        # the chunk generation runs on and the (cache rows, sampler) it serves
+        self._chunk: decode_graph.Chunk | None = None
+        self._chunk_key = None
 
     def _init_vocab_maps(self) -> None:
         pat = re.compile(r"^<\|s_(\d+)\|>$")
@@ -1248,43 +1118,32 @@ class LLMEngine:
 
     def _prompt(self, text: str, n_predict: int, n_ctx: int, sampler: SamplerParams):
         """Chat-templated prompt ids padded to their bucket, on the device,
-        with its length, a KV cache of max(n_ctx, T + n_predict + 32) rows
-        and, under ``use_graph``, the chunk graph whose state holds that
-        cache."""
+        with its length, and the engine's chunk for a KV cache of max(n_ctx,
+        T + n_predict + 32) rows and this sampler (its seed aside): the one
+        it keeps, or a new one that replaces it. The prefill writes into the
+        chunk's cache."""
         ids = self.tokenizer.encode(CHAT_TEMPLATE.format(text=text), parse_special=True)
         T = len(ids)
         bucket = next((b for b in _PROMPT_BUCKETS if T <= b), ((T + 127) // 128) * 128)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :T] = ids
         S = max(n_ctx, T + n_predict + 32)
-        graph = self._chunk_graph(S, sampler) if self.use_graph else None
-        if graph is not None:
-            cache_k, cache_v = graph.state.cache_k, graph.state.cache_v
-        else:
-            cache_k, cache_v = init_kv_cache(self.config, 1, S, self.device, w=self.weights)
-        return (torch.from_numpy(toks).to(self.device),
-                torch.tensor([T], dtype=torch.int32, device=self.device), cache_k, cache_v, graph)
-
-    def _chunk_graph(self, S: int, sampler: SamplerParams) -> decode_graph.ChunkGraph | None:
-        """The engine's chunk graph for a cache of S rows and this sampler
-        (its seed aside): the one it holds, or a new capture that replaces
-        it."""
         key = (S, dataclasses.replace(sampler, seed=0))
-        if self._graph_key != key:
-            self._graph = self._graph_key = None  # its buffers go before the next ones
-            self._graph = capture_chunk(self.config, self.weights, self.eog_ids, CHUNK, sampler,
-                                        empty_gen_state(self.config, 1, S, self.device,
-                                                        w=self.weights))
-            self._graph_key = key
-        return self._graph
+        if self._chunk_key != key:
+            self._chunk = self._chunk_key = None  # its buffers go before the next ones
+            self._chunk = chunk(self.config, self.weights, self.eog_ids, CHUNK, sampler,
+                                empty_gen_state(self.config, 1, S, self.device, w=self.weights))
+            self._chunk_key = key
+        return (torch.from_numpy(toks).to(self.device),
+                torch.tensor([T], dtype=torch.int32, device=self.device), self._chunk)
 
     def generate_audio_tokens(self, text: str, n_predict: int = 400, n_ctx: int = 700,
                               sampler: SamplerParams | None = None) -> list[int]:
         sampler = sampler or SamplerParams()
-        toks, lengths, cache_k, cache_v, graph = self._prompt(text, n_predict, n_ctx, sampler)
+        toks, lengths, ch = self._prompt(text, n_predict, n_ctx, sampler)
         out, n_gen = llm_generate(self.config, self.weights, toks, lengths, self.eog_ids,
                                   sampler_key(sampler.seed, self.device), n_predict, sampler,
-                                  cache_k, cache_v, graph)
+                                  ch.state.cache_k, ch.state.cache_v, ch)
         n = int(n_gen[0])
         return [int(t) for t in out[0, :n].tolist()]
 
@@ -1292,16 +1151,16 @@ class LLMEngine:
                                         n_ctx: int = 700,
                                         sampler: SamplerParams | None = None) -> list[int]:
         """Streaming variant (miotts_tpu/models/llm.py:1254-1300): generation
-        runs in chunks of CHUNK steps, always whole chunks (one graph)
+        runs in chunks of CHUNK steps, always whole chunks (one chunk's runs)
         truncated on the host; ``on_token(token_id, index, is_eog) -> bool``
         is called per token and may return False to cancel."""
         sampler = sampler or SamplerParams()
-        toks, lengths, cache_k, cache_v, graph = self._prompt(text, n_predict, n_ctx, sampler)
-        state = llm_start(self.config, self.weights, toks, lengths, cache_k, cache_v,
-                          sampler_key(sampler.seed, self.device))
+        toks, lengths, ch = self._prompt(text, n_predict, n_ctx, sampler)
+        state = llm_start(self.config, self.weights, toks, lengths, ch.state.cache_k,
+                          ch.state.cache_v, sampler_key(sampler.seed, self.device))
         generated: list[int] = []
         eog = set(self.eog_ids.tolist())
-        chunks = _chunks(self.config, self.weights, self.eog_ids, sampler, state, graph)
+        chunks = _chunks(ch, state)
         while len(generated) < n_predict:
             out_np, n_np, done_np = next(chunks)
             n = int(n_np[0])

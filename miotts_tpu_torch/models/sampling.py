@@ -236,24 +236,44 @@ def sample_token_batched(logits: torch.Tensor, params: BatchSamplerParams,
     return torch.gather(idx, 1, choice[:, None])[:, 0]
 
 
+def advance(tok: torch.Tensor, key: torch.Tensor, state: SamplerState, eog_ids: torch.Tensor,
+            rem: torch.Tensor | None, done: torch.Tensor, count: torch.Tensor, out: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A chunk step's bookkeeping after its draw of ``tok`` [B], IN PLACE:
+    the draw count in ``key`` (the CLI's one key [2], or a key per lane [B,
+    2]), the ring at the shared cursor and the cursor, ``out`` [B] (this
+    step's output token: 0 for a lane already done), ``count`` [B] (+1
+    where not done) and ``done`` [B] (an EOG token, or ``count`` reaching
+    the lane's budget ``rem`` [B]; None: no budget). Returns (tok, adv [B]
+    int32: 1 where the lane is not done, its pos advance after the decode
+    step)."""
+    key[..., 1].add_(1)
+    state.update(tok)
+    out.copy_(torch.where(done, torch.zeros_like(tok), tok))
+    count.add_((~done).to(count.dtype))
+    stop = (tok[:, None] == eog_ids[None, :]).any(dim=-1)
+    done |= stop if rem is None else stop | (count >= rem)
+    return tok, (~done).to(torch.int32)
+
+
 def sample_step_plain(logits: torch.Tensor, params: BatchSamplerParams, state: SamplerState,
                       key: torch.Tensor, eog_ids: torch.Tensor, rem: torch.Tensor,
                       done: torch.Tensor, count: torch.Tensor, out: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step of the served chunk body's sampler and bookkeeping
     (miotts_tpu/models/llm.py ``_chunk_loop_batched``): the lanes' tokens
-    from ``logits`` [B, V] (``sample_token_batched``), then, IN PLACE, each
-    lane's draw count in ``key`` [B, 2], the ring at the shared cursor and
-    the cursor, ``out`` [B] (this step's output token: 0 for a lane already
-    done), ``count`` [B] (+1 where not done) and ``done`` [B] (an EOG token,
-    or ``count`` reaching the lane's budget ``rem`` [B]). Returns (tok [B]
-    int64, adv [B] int32: 1 where the lane is not done, its pos advance
-    after the decode step). The plain version of K10
-    (``ops/cuda/llm_fused.py sample_step``)."""
-    tok = sample_token_batched(logits, params, state, key)
-    key[:, 1].add_(1)
-    state.update(tok)
-    out.copy_(torch.where(done, torch.zeros_like(tok), tok))
-    count.add_((~done).to(count.dtype))
-    done |= (tok[:, None] == eog_ids[None, :]).any(dim=-1) | (count >= rem)
-    return tok, (~done).to(torch.int32)
+    from ``logits`` [B, V] (``sample_token_batched``), then ``advance``.
+    The plain version of K10 (``ops/cuda/llm_fused.py sample_step``)."""
+    return advance(sample_token_batched(logits, params, state, key), key, state, eog_ids, rem,
+                   done, count, out)
+
+
+def sample_chain_step(logits: torch.Tensor, params: SamplerParams, state: SamplerState,
+                      key: torch.Tensor, eog_ids: torch.Tensor, rem: torch.Tensor | None,
+                      done: torch.Tensor, count: torch.Tensor, out: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the CLI's chunk body: ``sample_token`` with one
+    ``SamplerParams`` and one key [2] (the whole vocabulary where top_k >
+    MAX_TOP_K, or top_k = 0 with top-p), then ``advance``."""
+    return advance(sample_token(logits, params, state, key), key, state, eog_ids, rem, done,
+                   count, out)

@@ -8,32 +8,33 @@ decode steps, each lane with its own sampler settings, and streams each
 lane's tokens back. New requests join at the next chunk boundary; no
 request waits for another to finish.
 
-On CUDA a chunk is one replay of a CUDA graph (``models/decode_graph.py``),
-all captured on the same state, with the per-lane sampler tensors, the
-per-lane remaining budget ``rem`` and each width's lane list as static
-buffers, so one capture serves any mix of requests. JAX's run-time
-``step_cap`` becomes a choice of graph: the smallest rung of the ladder
+A chunk is the ``run()`` of one ``llm.chunk`` (``models/decode_graph.py``:
+a replay of a CUDA graph on the card, the eager body elsewhere), all made
+on the same state, with the per-lane sampler tensors, the per-lane
+remaining budget ``rem`` and each width's lane list as buffers the chunk
+reads at each run, so one chunk serves any mix of requests. JAX's run-time
+``step_cap`` becomes a choice of chunk: the smallest rung of the ladder
 (``first_chunk``, ``chunk``, ``chunk_max``) at or above the dispatch
 size; ``rem`` marks a lane done the step its budget runs out, and the
-delivery clamp keeps the delivered tokens JAX's. On the CPU the same
-bodies run eagerly. The JAX batcher's knobs, with its names and defaults:
+delivery clamp keeps the delivered tokens JAX's. The JAX batcher's knobs,
+with its names and defaults:
 
 - width-sliced chunks (``MIOTTS_CHUNK_SLICE``, default on): below full
   occupancy a chunk gathers the live lanes into the smallest power-of-two
-  width that covers them, runs only those and scatters them back
-  (``llm_generate_chunk_batched_sliced``), so a lone request pays for one
-  lane, not all of them. The port keeps one graph per (rung, width)
-  (``graphs``, ``_warm_chunks``) where JAX keeps one executable per width.
+  width that covers them, runs only those and scatters them back, so a
+  lone request pays for one lane, not all of them. The port keeps one
+  chunk per (rung, width) (``chunks``, ``_warm_chunks``) where JAX keeps
+  one executable per width.
   Pad rows of a sliced chunk are distinct lanes outside the live set
   (``models/llm.py _chunk_body_sliced``).
 - the fused prefill (``MIOTTS_FUSED_PREFILL``, default on): the prefill
   thread runs a group's prefill (eager, on its own stream) and its first
   ``first_chunk`` steps, then delivers those tokens at once; the worker
-  attaches the lanes mid-generation (``attach_lanes_gen``). On CUDA the
-  first chunk replays one graph per power-of-two group size k on a k-lane
-  state of ``max_ctx`` cache rows, which serves every prompt bucket.
+  attaches the lanes mid-generation (``attach_group``). The first steps
+  run on one chunk per power-of-two group size k, on a k-lane state of
+  ``max_ctx`` cache rows, which serves every prompt bucket.
   ``MIOTTS_FUSED_PREFILL=0`` is the unfused path: ``llm_prefill_kv``,
-  an attach, and a first chunk in the cohort.
+  the same attach, and a first chunk in the cohort.
 - the attach hold (``MIOTTS_ATTACH_HOLD_S``, default 1.0 s): while a
   strict majority of reserved lanes is still being prefilled, the worker
   waits (in steps of at most 50 ms) for their attach instead of running a
@@ -53,22 +54,21 @@ bodies run eagerly. The JAX batcher's knobs, with its names and defaults:
 
 The worker runs on a CUDA stream of its own: no other thread's work (a
 codec decode, a prefill) is ordered behind a chunk in flight. A width
-graph captured while the worker replays runs its warm-up on a throwaway
+chunk captured while the worker replays runs its warm-up on a throwaway
 state (``_warm_state``), since a capture executes nothing.
 
 On a mesh (``mesh=``, ``parallel/``; miotts_tpu/serving/batching.py:129-152)
 the lanes split over the dp ranks in contiguous blocks, each block a state
 of its own on its rank's device (``_DPRank``: its weights, replicated or a
-tensor-parallel ``TPGroup``, its chunk and fused graphs, its worker and
+tensor-parallel ``TPGroup``, its chunks and fused chunks, its worker and
 prefill streams), and a global lane maps to (dp rank, local lane) at the
-attach, ``set_lane_done`` and the reset. A dispatch replays the chunk graph
-of every dp rank with a live lane, each on its stream, and reads their
+attach, ``set_lane_done`` and the reset. A dispatch runs the chunk of
+every dp rank with a live lane, each on its stream, and reads their
 results back into global lane order; a prefill group is one dp rank's
 lanes. Width slicing is off; the fused prefill and the attach hold keep
 their conditions. A new request takes a free lane of the dp rank with the
-fewest lanes taken. A tensor-parallel group over distinct cards runs its
-chunks eagerly (``spans_devices``); one whose ranks share a card is one
-graph.
+fewest lanes taken. (``llm.chunk`` runs a tensor-parallel group over
+distinct cards eagerly; one whose ranks share a card is one graph.)
 """
 
 from __future__ import annotations
@@ -88,11 +88,9 @@ import torch
 from ..device import to_device
 from ..models import decode_graph
 from ..models.llm import (
-    CHAT_TEMPLATE, NO_BUDGET, GenState, LLMEngine, kv_parts, attach_lanes, attach_lanes_gen,
-    capture_chunk_batched, capture_chunk_batched_sliced, finish_chunk_fetch, fused_state,
-    init_batched_state, kv_map, llm_generate_chunk_batched, llm_generate_chunk_batched_sliced,
-    llm_prefill_generate, llm_prefill_kv, prefill_into, set_lane_done, spans_devices,
-    start_chunk_fetch,
+    CHAT_TEMPLATE, NO_BUDGET, GenState, LLMEngine, attach_group, chunk as make_chunk,
+    finish_chunk_fetch, fused_state, init_batched_state, kv_parts, llm_prefill_kv, prefill_into,
+    prefilled, set_lane_done, start_chunk_fetch,
 )
 from ..models.sampling import BatchSamplerParams, SamplerParams
 from ..ops.cuda import graphs
@@ -114,7 +112,7 @@ class _Lane:
     # stream_audio, overlap synthesis): only such lanes pull the cohort's
     # dispatch down to first_chunk
     early: bool = True
-    # written into the chunk graphs' sampler buffers at the lane's attach
+    # written into the chunks' sampler buffers at the lane's attach
     sampler: SamplerParams = dataclasses.field(default_factory=SamplerParams)
     rid: int = 0  # the request's id (runtime/tracing.py), 0 for none
     t_submit: int = 0  # time.monotonic_ns() when submit began waiting for the lane
@@ -154,6 +152,15 @@ def _on(stream):
     return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
+def _recorded(stream) -> "torch.cuda.Event | None":
+    """An event recorded on ``stream`` (None without a stream)."""
+    if stream is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
 def _after(event, device: torch.device, tensors) -> None:
     """``device``'s current stream waits for a prefill's ``event``, and the
     prefill's tensors there are marked as used on it."""
@@ -168,7 +175,7 @@ class _DPRank:
     """One dp rank of the batcher: its block of ``n_lanes`` lanes as a
     state of their own on its device (a tensor-parallel group's lead), its
     weights (a dict, or a ``TPGroup``) and everything a chunk of its lanes
-    replays: the sampler and budget buffers, its chunk and fused graphs
+    runs: the sampler and budget buffers, its chunks and fused chunks
     (each under its own lock), the worker's and the prefill's streams on
     its device. Without a mesh the batcher has one, over all lanes."""
 
@@ -181,21 +188,19 @@ class _DPRank:
         self.state = state
         self.device = device
         self.n_lanes = n = state.pos.shape[0]
-        # the chunk's per-lane inputs, static buffers of every chunk graph:
-        # a lane's sampler settings are written at its attach, ``rem``
-        # before each dispatch, a width's lane list before its replay
+        # the chunk's per-lane inputs, read by every chunk at each run: a
+        # lane's sampler settings are written at its attach, ``rem`` before
+        # each dispatch, a width's lane list before its run
         self.sampler = BatchSamplerParams.make(np.full(n, 0.8), np.full(n, 50), np.ones(n),
                                                np.ones(n), device)
         self.rem = torch.zeros((n,), dtype=torch.int32, device=device)
         self.lanes_bufs = ({1 << i: torch.zeros((1 << i,), dtype=torch.int64, device=device)
                             for i in range(max(0, n - 1).bit_length())} if slicing else {})
-        # chunk graphs by (rung, width) on CUDA, captured at first use or by
-        # warm_chunk; replaced whole under capture_lock, read lock-free. A
-        # tensor-parallel group over distinct cards runs its chunks eagerly.
-        self.use_graph = device.type == "cuda" and not spans_devices(weights)
-        self.graphs: dict[tuple[int, int], decode_graph.ChunkGraph] = {}
+        # chunks by (rung, width), made at first use or by warm_chunk;
+        # replaced whole under capture_lock, read lock-free
+        self.chunks: dict[tuple[int, int], decode_graph.Chunk] = {}
         self.capture_lock = threading.Lock()
-        # fused first-chunk graphs by group size k: (graph, its sampler)
+        # fused first chunks by group size k: (chunk, its sampler)
         self.fused: dict[int, tuple] = {}
         self.fused_lock = threading.Lock()
         self.warm_state: GenState | None = None
@@ -241,7 +246,6 @@ class ContinuousBatcher:
             leads = [row[0] for row in mesh.devices]
             eogs = [engine.eog_ids.to(d.device) for d in leads]
             engine.weights, engine.eog_ids, engine.device = weights[0], eogs[0], leads[0].device
-            engine.use_graph = engine.device.type == "cuda" and not spans_devices(weights[0])
             state = init_batched_state(self.cfg, n_lanes, max_ctx, leads[0].device, seed)
             states = shard_gen_state(mesh, state, weights)
             del state
@@ -314,7 +318,7 @@ class ContinuousBatcher:
     # dp rank 0's parts under the names of the one-state batcher (its only
     # rank without a mesh)
     state = property(lambda self: self.ranks[0].state)
-    graphs = property(lambda self: self.ranks[0].graphs)
+    chunks = property(lambda self: self.ranks[0].chunks)
     sampler = property(lambda self: self.ranks[0].sampler)
     rem = property(lambda self: self.ranks[0].rem)
     _fused = property(lambda self: self.ranks[0].fused)
@@ -323,16 +327,6 @@ class ContinuousBatcher:
     _prefill_stream = property(lambda self: self.ranks[0].prefill_stream)
     _lanes_bufs = property(lambda self: self.ranks[0].lanes_bufs)
     _warm_state = property(lambda self: self.ranks[0].warm_state)
-
-    @property
-    def use_graph(self) -> bool:
-        """Whether dp rank 0's chunks replay CUDA graphs."""
-        return self.ranks[0].use_graph
-
-    @use_graph.setter
-    def use_graph(self, value: bool) -> None:
-        for rank in self.ranks:
-            rank.use_graph = value
 
     def _where(self, lane: int) -> tuple["_DPRank", int]:
         """A global lane's dp rank and its lane there."""
@@ -463,18 +457,15 @@ class ContinuousBatcher:
                 if fused:
                     fetch, gst, event = self._prefill_fused(toks, lens, seeds,
                                                             self._group_sampler(kp, group), rank)
-
-                    def apply_fn(state):
-                        return self._attach_gen(state, lanes, gst, event)
                 else:
-                    prefill = self._prefill(toks, lens, rank)
-
-                    def apply_fn(state):
-                        return self._attach(state, lanes, lens, seeds, *prefill)
+                    gst, event = self._prefill(toks, lens, seeds, rank)
         except Exception as e:  # fail this group's requests; keep serving
             print(f"mio: batched prefill failed: {e!r}", file=sys.stderr)
             self._fail_unstarted([it[0] for it in group], e)
             return []
+
+        def apply_fn(state):
+            return self._attach(state, lanes, gst, event)
 
         def finish_group() -> None:
             out_np = n_np = done_np = None
@@ -511,7 +502,7 @@ class ContinuousBatcher:
         return [finish_group]
 
     def _use_fused(self, bucket: int) -> bool:
-        # the mini state's rows [0, bucket + first_chunk) scatter into
+        # the group state's rows [0, bucket + first_chunk) scatter into
         # [*, max_ctx]: no fusing when the prompt bucket leaves no room
         return self.fused_prefill and bucket + self.first_chunk <= self.max_ctx
 
@@ -524,77 +515,45 @@ class ContinuousBatcher:
                 params[i] = lane.sampler
         return params
 
-    def _prefill(self, toks: np.ndarray, lens: np.ndarray, rank: "_DPRank | None" = None):
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray, seeds: np.ndarray,
+                 rank: "_DPRank | None" = None):
         """``llm_prefill_kv`` of padded prompts on dp rank ``rank`` (default
-        0), on its prefill stream on CUDA: (logits, K, V, the event the
-        worker waits on or None)."""
+        0), on its prefill stream: (the ``prefilled`` group state for
+        ``attach_group``, the event the worker waits on or None)."""
         rank = rank or self.ranks[0]
         dev = rank.device
-        with rank.scope():
-            if rank.prefill_stream is None:
-                return (*llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev),
-                                        to_device(lens, dev)), None)
-            with torch.cuda.stream(rank.prefill_stream):
-                with tracing.on_device():
-                    out = llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev),
-                                         to_device(lens, dev))
-                event = torch.cuda.Event()
-                event.record(rank.prefill_stream)
-        return (*out, event)
+        with rank.scope(), _on(rank.prefill_stream), tracing.on_device():
+            lengths = to_device(lens, dev)
+            gst = prefilled(*llm_prefill_kv(self.cfg, rank.w, to_device(toks, dev), lengths),
+                            lengths, seeds)
+            return gst, _recorded(rank.prefill_stream)
 
     def _prefill_fused(self, toks: np.ndarray, lens: np.ndarray, seeds: np.ndarray,
                        params: list[SamplerParams], rank: "_DPRank | None" = None):
         """The prefill and first ``first_chunk`` steps of a group of k rows
-        on dp rank ``rank`` (default 0): (the tokens' ``ChunkFetch``, the
-        mini state for ``attach_lanes_gen``, the event the worker waits on
-        or None). On CUDA the steps run on a k-lane state of ``max_ctx``
-        rows: a replay of the rank's graph of k lanes, or, for a
-        tensor-parallel group over distinct cards, the same body eagerly on
-        a fresh state, which gives the graph's bits (K2 splits the cache
-        rows by the cache's length); the mini state handed on is a copy of
-        its first bucket + first_chunk rows (the next group may reuse the
-        graph before the worker attaches). On the CPU, whose attention does
-        not depend on the cache's length, ``llm_prefill_generate`` runs
-        them on JAX's mini state of bucket + first_chunk rows."""
+        on dp rank ``rank`` (default 0), on its prefill stream: (the tokens'
+        ``ChunkFetch``, the group state for ``attach_group``, the event the
+        worker waits on or None). The steps run on the rank's fused chunk of
+        k lanes over ``max_ctx`` rows, under its fused_lock; the group state
+        handed on is a copy of that chunk's first bucket + first_chunk rows,
+        since the next group may run the chunk before the worker attaches."""
         rank = rank or self.ranks[0]
         dev = rank.device
-        k = toks.shape[0]
-        sampler_np = [[p.temp for p in params], [p.top_k for p in params],
-                      [p.top_p for p in params], [p.repeat_penalty for p in params]]
-        if not rank.use_graph and dev.type == "cpu":
-            out, n_new, gst = llm_prefill_generate(
-                self.cfg, rank.w, rank.eog_ids, self.first_chunk, to_device(toks, dev),
-                to_device(lens, dev), seeds, BatchSamplerParams.make(*sampler_np, dev))
-            return start_chunk_fetch(out, n_new, gst), gst, None
         with rank.fused_lock, rank.scope(), _on(rank.prefill_stream), tracing.on_device():
-            tokens, lengths = to_device(toks, dev), to_device(lens, dev)
-            if rank.use_graph:
-                graph, sampler = self._fused_graph(k, rank)
-                sampler.copy_(BatchSamplerParams.make(*sampler_np, dev))
-                st = prefill_into(self.cfg, rank.w, tokens, lengths, seeds, graph.state)
-                out, n_new = graph.run()
-            else:
-                st = prefill_into(self.cfg, rank.w, tokens, lengths, seeds,
-                                  fused_state(self.cfg, k, self.max_ctx, dev, w=rank.w))
-                rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev)
-                out, n_new, _ = llm_generate_chunk_batched(
-                    self.cfg, rank.w, rank.eog_ids, self.first_chunk,
-                    BatchSamplerParams.make(*sampler_np, dev), st, rem)
-            fetch = start_chunk_fetch(out, n_new, st)
-            T = min(toks.shape[1] + self.first_chunk, self.max_ctx)
-            gst = GenState(st.logits.clone(), kv_map(lambda c: c[:, :, :T].clone(), st.cache_k),
-                           kv_map(lambda c: c[:, :, :T].clone(), st.cache_v), st.pos.clone(),
-                           st.ring.clone(), st.ring_idx, st.done.clone(), st.key.clone())
-            event = None
-            if rank.prefill_stream is not None:
-                event = torch.cuda.Event()
-                event.record(rank.prefill_stream)
-        return fetch, gst, event
+            ch, sampler = self._fused_chunk(toks.shape[0], rank)
+            sampler.copy_(BatchSamplerParams.make(
+                [p.temp for p in params], [p.top_k for p in params], [p.top_p for p in params],
+                [p.repeat_penalty for p in params], dev))
+            st = prefill_into(self.cfg, rank.w, to_device(toks, dev), to_device(lens, dev), seeds,
+                              ch.state)
+            fetch = start_chunk_fetch(*ch.run(), st)
+            gst = st.head(min(toks.shape[1] + self.first_chunk, self.max_ctx))
+            return fetch, gst, _recorded(rank.prefill_stream)
 
-    def _fused_graph(self, k: int, rank: "_DPRank"):
-        """The fused first chunk's graph for k lanes of ``rank`` and its
-        sampler buffers, captured at first use (the caller holds the rank's
-        fused_lock); the graph keeps its unbudgeted ``rem`` through its
+    def _fused_chunk(self, k: int, rank: "_DPRank"):
+        """The fused first chunk for k lanes of ``rank`` and its sampler
+        buffers, made at first use (the caller holds the rank's
+        fused_lock); the chunk keeps its unbudgeted ``rem`` through its
         body."""
         entry = rank.fused.get(k)
         if entry is None:
@@ -602,32 +561,24 @@ class ContinuousBatcher:
             sampler = BatchSamplerParams.make(np.full(k, 0.8), np.full(k, 50), np.ones(k),
                                               np.ones(k), dev)
             rem = torch.full((k,), NO_BUDGET, dtype=torch.int32, device=dev)
-            graph = capture_chunk_batched(self.cfg, rank.w, rank.eog_ids, self.first_chunk,
-                                          sampler, rem,
-                                          fused_state(self.cfg, k, self.max_ctx, dev, w=rank.w))
-            entry = rank.fused[k] = (graph, sampler)
+            ch = make_chunk(self.cfg, rank.w, rank.eog_ids, self.first_chunk, sampler,
+                            fused_state(self.cfg, k, self.max_ctx, dev, w=rank.w), rem=rem)
+            entry = rank.fused[k] = (ch, sampler)
         return entry
 
     @staticmethod
-    def _attach(state, lanes, lens, seeds, logits, new_k, new_v, event):
-        """The worker's attach of a prefilled group: on CUDA its stream
-        first waits for the prefill, and the prefill's tensors are marked as
-        used there, so the prefill stream cannot reuse their memory before
-        the copies ran. (A tensor-parallel rank on another card prefilled
-        and attaches on that card's current stream, one stream.)"""
-        if event is not None:
-            _after(event, logits.device, (logits, *kv_parts(new_k), *kv_parts(new_v)))
-        return attach_lanes(state, lanes, logits, new_k, new_v, lens, seeds)
-
-    @staticmethod
-    def _attach_gen(state, lanes, gst: GenState, event):
-        """The worker's attach of a fused group (``attach_lanes_gen``), after
-        the prefill stream's event, as ``_attach``."""
+    def _attach(state, lanes, gst: GenState, event):
+        """The worker's attach of a prefilled or fused group
+        (``attach_group``): on CUDA its stream first waits for the prefill
+        stream's event, and the group's tensors are marked as used there, so
+        the prefill stream cannot reuse their memory before the copies ran.
+        (A tensor-parallel rank on another card prefilled and attaches on
+        that card's current stream, one stream.)"""
         if event is not None:
             _after(event, gst.logits.device, (gst.logits, *kv_parts(gst.cache_k),
                                               *kv_parts(gst.cache_v), gst.pos, gst.ring,
                                               gst.done, gst.key))
-        return attach_lanes_gen(state, lanes, gst)
+        return attach_group(state, lanes, gst)
 
     @property
     def device_stalled(self) -> bool:
@@ -658,9 +609,9 @@ class ContinuousBatcher:
     def warm_prefill(self, bucket: int, n_lanes: int = 1) -> None:
         """Run one prefill group of this prompt bucket at ``n_lanes`` lanes
         on every dp rank, without a request: the fused prefill and first
-        chunk when that is what submits dispatch (capturing the first
-        chunk's graph for this group size at its first use), else
-        ``llm_prefill_kv``; then registers (bucket, n_lanes) as warm."""
+        chunk when that is what submits dispatch (making the fused chunk
+        for this group size at its first use), else ``llm_prefill_kv``;
+        then registers (bucket, n_lanes) as warm."""
         bucket = min(bucket, self.max_ctx)
         toks = np.ones((n_lanes, bucket), np.int64)
         lens = np.full(n_lanes, min(4, bucket), np.int32)
@@ -670,7 +621,7 @@ class ContinuousBatcher:
                     toks, lens, np.zeros(n_lanes, np.int64), [SamplerParams()] * n_lanes, rank)
                 finish_chunk_fetch(fetch)
             else:
-                event = self._prefill(toks, lens, rank)[3]
+                event = self._prefill(toks, lens, np.zeros(n_lanes, np.int64), rank)[1]
                 if event is not None:
                     event.synchronize()
         with self._warm_lock:
@@ -680,7 +631,7 @@ class ContinuousBatcher:
         """The chunk width for ``need`` live lanes at rung ``size``, or None
         for the full width (miotts_tpu/serving/batching.py:522-550): the
         smallest power of two covering them; if that one is not warm but a
-        wider one is, the wider one runs (a warm 2x-width graph beats a
+        wider one is, the wider one runs (a warm 2x-width chunk beats a
         capture stalling the cohort). A width is captured on demand only
         when nothing warm covers it, and never while the warm-up tail still
         runs (``split_cold_until_warm``): the full width, warmed in the
@@ -702,19 +653,15 @@ class ContinuousBatcher:
 
     def warm_chunk(self, size: int | None = None, width: int | None = None) -> None:
         """Make the chunk of ``size`` steps (default ``chunk_max``) at
-        ``width`` lanes (None or >= n_lanes: the full width) warm on every
-        dp rank without touching live generation: on CUDA its graph is
-        captured with the warm-up run on the throwaway ``warm_state``, so
-        this may run while the worker serves
-        (miotts_tpu/serving/batching.py:552-593). Nothing to compile
-        otherwise: the key is registered. Thread-safe."""
+        ``width`` lanes (None or >= n_lanes: the full width) on every dp
+        rank without touching live generation: a capture runs its warm-up
+        on the throwaway ``warm_state``, so this may run while the worker
+        serves (miotts_tpu/serving/batching.py:552-593); then registers
+        (size, width) as warm. Thread-safe."""
         size = self.chunk_max if size is None else size
         width = self.n_lanes if width is None or width >= self.n_lanes else width
         for rank in self.ranks:
-            if rank.use_graph:
-                self._graph(rank, size, width)
-            else:
-                self._warm_state_now(rank)
+            self._chunk_for(rank, size, width)
         with self._warm_lock:
             self._warm_chunks = self._warm_chunks | {(size, width)}
 
@@ -728,32 +675,29 @@ class ContinuousBatcher:
     def _warm_state_now(self, rank: "_DPRank") -> GenState:
         """The throwaway state of ``rank``'s state's shapes (all lanes done)
         that captures run their warm-up on; the caller holds the rank's
-        capture_lock or tolerates a race that makes two."""
+        capture_lock."""
         ws = rank.warm_state
         if ws is None:
             ws = rank.warm_state = init_batched_state(self.cfg, rank.n_lanes, self.max_ctx,
                                                       rank.device, self.seed, w=rank.w)
         return ws
 
-    def _graph(self, rank: "_DPRank", size: int, width: int) -> decode_graph.ChunkGraph:
-        """``rank``'s chunk graph of (size, width) (width >= n_lanes: the
-        rank's full width), captured at first use on the rank's live state,
-        its warm-up run on the rank's ``warm_state``."""
-        graph = rank.graphs.get((size, width))
-        if graph is not None:
-            return graph
+    def _chunk_for(self, rank: "_DPRank", size: int, width: int) -> decode_graph.Chunk:
+        """``rank``'s chunk of (size, width) (width >= n_lanes: the rank's
+        full width) on the rank's live state, made at first use; a capture's
+        warm-up runs on the rank's ``warm_state``."""
+        ch = rank.chunks.get((size, width))
+        if ch is not None:
+            return ch
         with rank.capture_lock, rank.scope():
-            graph = rank.graphs.get((size, width))
-            if graph is None:
-                ws = self._warm_state_now(rank)
-                args = (self.cfg, rank.w, rank.eog_ids, size, rank.sampler, rank.rem)
-                if width >= self.n_lanes:
-                    graph = capture_chunk_batched(*args, rank.state, warm_state=ws)
-                else:
-                    graph = capture_chunk_batched_sliced(*args, rank.lanes_bufs[width],
-                                                         rank.state, warm_state=ws)
-                rank.graphs = {**rank.graphs, (size, width): graph}
-        return graph
+            ch = rank.chunks.get((size, width))
+            if ch is None:
+                ch = make_chunk(self.cfg, rank.w, rank.eog_ids, size, rank.sampler, rank.state,
+                                rem=rank.rem,
+                                lanes=rank.lanes_bufs[width] if width < self.n_lanes else None,
+                                warm_state=lambda: self._warm_state_now(rank))
+                rank.chunks = {**rank.chunks, (size, width): ch}
+        return ch
 
     def _rung(self, size: int) -> int:
         """The chunk size that runs a dispatch of ``size`` steps: the
@@ -763,23 +707,11 @@ class ContinuousBatcher:
     def _chunk(self, rank: "_DPRank", steps: int, width: int | None,
                lanes_np: np.ndarray | None) -> tuple[torch.Tensor, torch.Tensor]:
         """One chunk of ``steps`` steps on ``rank``'s state at ``width``
-        lanes (None: all): a replay where the rank replays graphs, else the
-        eager body."""
-        if width is None:
-            if rank.use_graph:
-                return self._graph(rank, steps, self.n_lanes).run()
-            with rank.scope():
-                out, n_new, _ = llm_generate_chunk_batched(self.cfg, rank.w, rank.eog_ids, steps,
-                                                           rank.sampler, rank.state, rank.rem)
-            return out, n_new
-        lanes = rank.lanes_bufs[width]
-        lanes.copy_(to_device(lanes_np, rank.device))
-        if rank.use_graph:
-            return self._graph(rank, steps, width).run()
-        out, n_new, _ = llm_generate_chunk_batched_sliced(
-            self.cfg, rank.w, rank.eog_ids, steps, width, rank.sampler, rank.state, lanes,
-            rank.rem)
-        return out, n_new
+        lanes (None: all), the width's lane list written first."""
+        if width is not None:
+            rank.lanes_bufs[width].copy_(to_device(lanes_np, rank.device))
+        with rank.scope():
+            return self._chunk_for(rank, steps, width or self.n_lanes).run()
 
     def _free_lane(self) -> int | None:
         """A free lane: the first, or, on a mesh, the first of the dp rank
@@ -809,7 +741,7 @@ class ContinuousBatcher:
 
     def _fail_active_lanes(self, snapshot: list[int], exc: Exception) -> None:
         """Deliver a device failure to every in-flight request and reset
-        each dp rank's state (in place: the chunk graphs own its buffers)
+        each dp rank's state (in place: the chunks own its buffers)
         so later submits start clean (miotts_tpu/serving/batching.py:628)."""
         print(f"mio: generation chunk failed, resetting lanes: {exc!r}", file=sys.stderr)
         self._work_started = None
@@ -875,8 +807,8 @@ class ContinuousBatcher:
     def _dispatch(self, steps: int, width: int | None, lanes_np: np.ndarray | None,
                   rem_np: np.ndarray, live: set[int]) -> list:
         """One chunk on every dp rank with a live lane, each on its stream:
-        its budgets written, its replay (or eager body) queued and its
-        result's read started. Returns [(rank, ChunkFetch)]."""
+        its budgets written, its run queued and its result's read started.
+        Returns [(rank, ChunkFetch)]."""
         fetches = []
         for rank in self.ranks:
             lo = rank.index * self.per_rank

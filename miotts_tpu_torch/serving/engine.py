@@ -324,7 +324,7 @@ class ServingEngine:
             b.release_warm_state()
         reserved = (torch.cuda.max_memory_reserved(self.device)
                     if self.device.type == "cuda" else 0)
-        n_chunk = len(b.graphs) if b is not None else 0
+        n_chunk = sum(ch.captured for ch in b.chunks.values()) if b is not None else 0
         print(f"warmup: {len(fg_calls)} foreground calls ({len(self.pipeline.graphs)} codec "
               f"graphs, {n_chunk} chunk graphs) in {self.warmup_s:.1f}s; {len(bg_calls)} "
               f"warming in background; max_memory_reserved={reserved / 2**20:.0f} MiB",

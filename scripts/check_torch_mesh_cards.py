@@ -88,7 +88,9 @@ def serve(dev, tmp: Path, name: str, flags: list[str]) -> dict:
                "greedy": json.loads(raw)["codes_values"],
                "round_s": time.perf_counter() - tr, "audio_s": sum(r["audio_s"] for r in res),
                "k2_by_rank": cs.rank_counts(r0).get("decode_attention", {}),
-               "dp_ranks": [(str(r.device), r.use_graph) for r in eng.batcher.ranks],
+               "dp_ranks": [(str(r.device), bool(r.chunks)
+                             and all(ch.captured for ch in r.chunks.values()))
+                            for r in eng.batcher.ranks],
                "codec": [str(p.device) for p in eng.codec_batcher.pipelines],
                "codec_decodes": list(eng.codec_batcher.rank_decodes),
                "wall_s": time.perf_counter() - t0}

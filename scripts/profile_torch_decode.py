@@ -26,9 +26,9 @@ greedy tokens, without the sampler:
 
 With ``--graph`` it then does the same for chunks of ``llm.CHUNK`` steps of
 the generation loop (``llm_start`` / ``fetch_chunk_result``, the CLI's
-default sampler, no EOG so every chunk runs whole), once on the eager chunk
-body (``llm_generate_chunk``) and once on replays of its CUDA graph
-(``capture_chunk``): host ms a step (each
+default sampler, no EOG so every chunk runs whole) on one ``llm.chunk``,
+once as eager runs of its body (``Chunk.run_eager``) and once as replays
+of its CUDA graph (``Chunk.run``): host ms a step (each
 chunk ended by its one host read), device busy ms a step and idle share
 under the profiler, CUDA-event ms a chunk, the capture's host time, and
 K2's and K3's launches and time a step.
@@ -37,7 +37,7 @@ With ``--served W`` it profiles the server's decode instead: an 8-lane
 batched state over ``--cache`` rows (``-np 8 --ctx-size``), W lanes
 prefilled and attached (the cell's sampler, temp 0.8 top-k 50), and the
 width-W graph of the batcher's largest rung (``SERVED_STEPS`` steps,
-``capture_chunk_batched_sliced``; the full width at W = 8): device kernels
+``llm.chunk`` with the lane list; the full width at W = 8): device kernels
 a step and device busy ms a step from one profiled replay, CUDA-event ms
 a replay (median of 5), and the fused kernels' launches a replay where the
 package has them (``ops/cuda/llm_fused.py``). Then the step's sampler
@@ -46,8 +46,7 @@ and bookkeeping alone, as the chunk body runs them on the W lanes' logits:
 chain the chunk body ran before it (``sample_token_batched`` and its
 bookkeeping, copied here), SERVED_STEPS steps captured in one graph and
 replayed once under the profiler: its device kernels and busy ms a step,
-and the rest of the step (the whole less the sampler). It runs on any tree
-of the port whose ``models/llm.py`` has the batched chunk graphs.
+and the rest of the step (the whole less the sampler).
 
 Prints the card's name and power limit, then one JSON object as the last
 line. Needs a CUDA card; exits 2 without one.
@@ -73,8 +72,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import LLM_WIDTHS  # noqa: E402
 from miotts_tpu_torch.device import select_device  # noqa: E402
 from miotts_tpu_torch.models.llm import (  # noqa: E402
-    CHUNK, capture_chunk, fetch_chunk_result, init_kv_cache, llm_decode_step,
-    llm_generate_chunk, llm_prefill, llm_start, load_llm_gguf)
+    CHUNK, chunk, fetch_chunk_result, init_kv_cache, llm_decode_step, llm_prefill, llm_start,
+    load_llm_gguf)
 from miotts_tpu_torch.models.sampling import SamplerParams, sampler_key  # noqa: E402
 from miotts_tpu_torch.ops.cuda import build  # noqa: E402
 from miotts_tpu_torch.ops.cuda import decode_attention as k2  # noqa: E402
@@ -222,14 +221,9 @@ def profile_served(args, cfg, w, dev) -> dict:
     sampler = BatchSamplerParams.make([0.8] * n, [50] * n, [1.0] * n, [1.0] * n, dev)
     no_eog = torch.tensor([-1], dtype=torch.int64, device=dev)
     rem = torch.full((n,), 1 << 30, dtype=torch.int32, device=dev)
-    warm = llm.init_batched_state(cfg, n, args.cache, dev)
-    if width >= n:
-        graph = llm.capture_chunk_batched(cfg, w, no_eog, SERVED_STEPS, sampler, rem, st,
-                                          warm_state=warm)
-    else:
-        lanes = torch.arange(width, dtype=torch.int64, device=dev)
-        graph = llm.capture_chunk_batched_sliced(cfg, w, no_eog, SERVED_STEPS, sampler, rem,
-                                                 lanes, st, warm_state=warm)
+    lanes = torch.arange(width, dtype=torch.int64, device=dev) if width < n else None
+    graph = llm.chunk(cfg, w, no_eog, SERVED_STEPS, sampler, st, rem=rem, lanes=lanes,
+                      warm_state=lambda: llm.init_batched_state(cfg, n, args.cache, dev))
     pos0 = int(st.pos[0])
     events = []
     for _ in range(5):
@@ -353,21 +347,17 @@ def profile_chunks(args, cfg, w, tokens, lengths, dev, eager: bool) -> dict:
     no_eog = torch.tensor([-1], dtype=torch.int64, device=dev)
     ck, cv = init_kv_cache(cfg, 1, args.cache, dev)
     state = llm_start(cfg, w, tokens, lengths, ck, cv, sampler_key(0, dev))
-    n, capture = CHUNK, None
-    if eager:
-        def chunk():
-            return llm_generate_chunk(cfg, w, no_eog, n, sampler, state)[:2]
-    else:
-        graph = capture_chunk(cfg, w, no_eog, n, sampler, state)
-        chunk, capture = graph.run, graph.capture_ms
-    fetch_chunk_result(*chunk(), state)
+    n = CHUNK
+    ch = chunk(cfg, w, no_eog, n, sampler, state)
+    run, capture = (ch.run_eager, None) if eager else (ch.run, ch.capture_ms)
+    fetch_chunk_result(*run(), state)
     n_chunks = max(1, args.steps // n)
     walls, events = [], []
     for _ in range(n_chunks):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = chunk()
+        out = run()
         end.record()
         fetch_chunk_result(*out, state)
         walls.append((time.perf_counter() - t0) * 1e3 / n)
@@ -377,7 +367,7 @@ def profile_chunks(args, cfg, w, tokens, lengths, dev, eager: bool) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_chunks):
-            fetch_chunk_result(*chunk(), state)
+            fetch_chunk_result(*run(), state)
         wall = (time.perf_counter() - t0) * 1e3
     by_name, busy = device_kernels(prof)
     steps = n_chunks * n

@@ -5,8 +5,10 @@ sampler (``sample_token_batched``), the batched chunk API (``attach_lanes``,
 
 Greedy lanes give JAX's tokens exactly. A sampled lane's tokens depend only
 on its seed, never on its neighbours: its key is its own and its uniforms
-are indexed within its row. On the CPU a chunk runs the eager body; a
-stand-in chunk graph drives the CUDA path's choice of graph per dispatch."""
+are indexed within its row. The batcher runs the route the card runs: an
+``llm.chunk`` per (rung, width) and per fused group size, eager here. The
+tests read which chunks exist from its registry (``chunks``, ``_fused``)
+and which ran from a spy on ``Chunk.run``."""
 
 import concurrent.futures
 import threading
@@ -143,7 +145,7 @@ def test_attach_chunk_and_lane_done_match_jax(tiny_llm):
     steps with ``rem``; after the second chunk lane 2 is set done and a
     fourth prompt attaches to lane 3. Tokens, n_new, done and pos equal
     JAX's attach_lanes / set_lane_done / llm_generate_chunk_batched after
-    every chunk."""
+    every chunk (the port's: one ``llm.chunk`` run again and again)."""
     jcfg, jw, _ = jllm.load_llm_gguf(tiny_llm, dtype=jnp.float32)
     cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
     B, S, steps = 4, 64, 6
@@ -168,6 +170,8 @@ def test_attach_chunk_and_lane_done_match_jax(tiny_llm):
         llm_mod.attach_lanes(state, lanes, lg, k, v, lengths, seeds)
 
     attach([0, 1, 2], [11, 5, 17], [1, 2, 3], seed=0)
+    rem_t = torch.zeros(B, dtype=torch.int32)
+    ch = llm_mod.chunk(cfg, w, torch.tensor(eog), steps, sampler, state, rem=rem_t)
     budgets = np.array([9, 14, 20, 0], np.int32)
     sent = np.zeros(B, np.int32)
     for i in range(4):
@@ -182,8 +186,8 @@ def test_attach_chunk_and_lane_done_match_jax(tiny_llm):
             jcfg, jw, jnp.asarray(eog, jnp.int32), steps, jsampler, jstate,
             jnp.asarray(steps, jnp.int32), jnp.asarray(rem))
         jo, jn_np, jdone = jllm.fetch_chunk_result(jout, jn, jstate)
-        out, n_new, _ = llm_mod.llm_generate_chunk_batched(
-            cfg, w, torch.tensor(eog), steps, sampler, state, torch.from_numpy(rem))
+        rem_t.copy_(torch.from_numpy(rem))
+        out, n_new = ch.run()
         o, n_np, done = llm_mod.fetch_chunk_result(out, n_new, state)
         np.testing.assert_array_equal(o, jo)
         np.testing.assert_array_equal(n_np, jn_np)
@@ -231,6 +235,25 @@ def jax_engine(batcher):
 
 def _own(eng, **kw):
     return ContinuousBatcher(eng, **{"n_lanes": 2, "max_ctx": 160, "chunk": 8, "seed": 0, **kw})
+
+
+def _spy_runs(monkeypatch) -> list:
+    """The chunks that run from now on (``Chunk.run``), in order."""
+    ran = []
+    real = decode_graph.Chunk.run
+
+    def run(self):
+        ran.append(self)
+        return real(self)
+
+    monkeypatch.setattr(decode_graph.Chunk, "run", run)
+    return ran
+
+
+def _worker_steps(b, ran) -> list[int]:
+    """The steps of the worker's chunks among ``ran`` (the fused chunks
+    have states of their own)."""
+    return [ch.n_steps for ch in ran if ch.state is b.state]
 
 
 def test_single_request(batcher):
@@ -331,27 +354,18 @@ def test_worker_survives_chunk_failure(batcher, monkeypatch):
     eng = batcher[0]
     b = _own(eng)
     try:
-        real = bmod.llm_generate_chunk_batched
-        real_sliced = bmod.llm_generate_chunk_batched_sliced
+        real = b._chunk
         calls = {"n": 0}
 
-        def maybe_boom():
+        def boom(*a, **k):
             calls["n"] += 1
             if calls["n"] == 1:
                 raise RuntimeError("injected device failure")
-
-        def boom(*a, **k):
-            maybe_boom()
             return real(*a, **k)
 
-        def boom_sliced(*a, **k):
-            maybe_boom()
-            return real_sliced(*a, **k)
-
-        monkeypatch.setattr(bmod, "llm_generate_chunk_batched", boom)
-        monkeypatch.setattr(bmod, "llm_generate_chunk_batched_sliced", boom_sliced)
+        monkeypatch.setattr(b, "_chunk", boom)
         # n_predict beyond first_chunk: the fused prefill serves the first
-        # tokens without a chunk, and the failure targets a chunk
+        # tokens, and the failure targets the worker's chunk
         with pytest.raises(RuntimeError, match="injected device failure"):
             b.submit("fail me", n_predict=40).collect()
         assert len(b.submit("works again", n_predict=40).collect()) > 0
@@ -418,8 +432,7 @@ def _attach_failure(batcher, monkeypatch, fused):
         monkeypatch.setenv("MIOTTS_FUSED_PREFILL", "0")
     b = _own(eng)
     try:
-        name = "attach_lanes_gen" if fused else "attach_lanes"
-        real = getattr(bmod, name)
+        real = bmod.attach_group
         calls = {"n": 0}
 
         def boom(state, *args, **kwargs):
@@ -428,7 +441,7 @@ def _attach_failure(batcher, monkeypatch, fused):
                 raise RuntimeError("injected attach failure")
             return real(state, *args, **kwargs)
 
-        monkeypatch.setattr(bmod, name, boom)
+        monkeypatch.setattr(bmod, "attach_group", boom)
         with pytest.raises(RuntimeError, match="injected attach failure"):
             b.submit("fail in attach", n_predict=8).collect()
         assert len(b.submit("works again", n_predict=8).collect()) > 0
@@ -437,13 +450,14 @@ def _attach_failure(batcher, monkeypatch, fused):
 
 
 def test_worker_survives_attach_failure(batcher, monkeypatch):
-    """A failed attach (the fused path's ``attach_lanes_gen``) fails only
-    that group; the worker keeps serving."""
+    """A failed attach (``attach_group`` of a fused group) fails only that
+    group; the worker keeps serving."""
     _attach_failure(batcher, monkeypatch, True)
 
 
 def test_worker_survives_unfused_attach_failure(batcher, monkeypatch):
-    """The same with MIOTTS_FUSED_PREFILL=0 (``attach_lanes``)."""
+    """The same with MIOTTS_FUSED_PREFILL=0 (``attach_group`` of a
+    ``prefilled`` group)."""
     _attach_failure(batcher, monkeypatch, False)
 
 
@@ -465,22 +479,6 @@ def test_device_stall_watchdog(batcher):
         b.shutdown()
 
 
-class _EagerGraph(decode_graph.ChunkGraph):
-    """A chunk graph without CUDA: it keeps the state and runs the body on
-    it where a replay would. Records the sizes made and replayed."""
-
-    def __init__(self, body, state, n_steps, warm_state=None):
-        self.state, self.body, self.n_steps = state, body, n_steps
-        self.out = torch.zeros((state.pos.shape[0], n_steps), dtype=torch.int64)
-        self.n_new = torch.zeros((state.pos.shape[0],), dtype=torch.int32)
-        _EagerGraph.made.append(n_steps)
-
-    def run(self):
-        _EagerGraph.replayed.append(self.n_steps)
-        self.body(self.state, self.out, self.n_new)
-        return self.out, self.n_new
-
-
 @pytest.mark.parametrize("early,first_chunk,expect", [
     # a streaming lane: the TTFA-first chunk, then (solo, uncontended)
     # chunk_max, and the last budget-shrunk dispatch runs the rung above it
@@ -489,48 +487,41 @@ class _EagerGraph(decode_graph.ChunkGraph):
     (False, 4, [16, 8]),
 ])
 def test_graph_per_rung_matches_eager(batcher, monkeypatch, early, first_chunk, expect):
-    """The CUDA path on stand-in graphs, unfused and at full width: one
-    graph per ladder size over one shared state, each dispatch replays the
-    smallest rung at or above its size, and the tokens equal the eager
-    batcher's."""
+    """Unfused and at full width: one chunk per ladder size over one shared
+    state (the chunks the card captures), each dispatch runs the smallest
+    rung at or above its size, and the tokens equal the single-request
+    path's."""
     eng = batcher[0]
     monkeypatch.setenv("MIOTTS_FUSED_PREFILL", "0")
     monkeypatch.setenv("MIOTTS_CHUNK_SLICE", "0")
-    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
-    _EagerGraph.made, _EagerGraph.replayed = [], []
     b = _own(eng, first_chunk=first_chunk)
-    b.use_graph = True
     try:
         assert b.ladder == (first_chunk, 8, 16) and b.widths() == [b.n_lanes]
         for rung in b.ladder:
             b.warm_chunk(rung)
-        assert _EagerGraph.made == [first_chunk, 8, 16]
-        assert all(g.state is b.state for g in b.graphs.values())
+        assert list(b.chunks) == [(first_chunk, 2), (8, 2), (16, 2)]
+        assert all(ch.state is b.state and not ch.captured for ch in b.chunks.values())
+        ran = _spy_runs(monkeypatch)
         got = b.submit("hi", SamplerParams(temp=0.0), n_predict=24, early_tokens=early).collect()
+        steps = _worker_steps(b, ran)
     finally:
         b.shutdown()
     assert got == eng.generate_audio_tokens("hi", n_predict=24, n_ctx=64,
                                             sampler=SamplerParams(temp=0.0))
     if len(got) == 24:  # no early EOG: the walk is fixed
-        assert _EagerGraph.replayed == expect
+        assert steps == expect
 
 
 def test_contended_lanes_keep_middle_rung(batcher, monkeypatch):
     """Two streaming requests in flight: the middle rung (8) stays in use."""
     eng = batcher[0]
-    sizes = []
-    real = bmod.llm_generate_chunk_batched
-
-    def spy(cfg, w, eog, steps, sampler, state, rem):
-        sizes.append(steps)
-        return real(cfg, w, eog, steps, sampler, state, rem)
-
-    monkeypatch.setattr(bmod, "llm_generate_chunk_batched", spy)
+    ran = _spy_runs(monkeypatch)
     b = _own(eng)
     try:
         h1 = b.submit("hi", SamplerParams(temp=0.0), n_predict=40)
         h2 = b.submit("hi there", SamplerParams(temp=0.0), n_predict=40)
         got1, got2 = h1.collect(), h2.collect()
+        sizes = _worker_steps(b, ran)
     finally:
         b.shutdown()
     assert got1 == eng.generate_audio_tokens("hi", n_predict=40, n_ctx=64,
@@ -596,6 +587,10 @@ def test_sliced_chunk_matches_jax_and_leaves_other_lanes(tiny_llm, penalty):
         state.done, state.key)))
     eog = [-1]
     rem = np.array([20, 0, 0, 3, 0, 20, 20, 0], np.int32)
+    rem_t = torch.zeros(B, dtype=torch.int32)
+    sliced = llm_mod.chunk(cfg, w, torch.tensor(eog), steps, sampler, state, rem=rem_t,
+                           lanes=torch.tensor([0, 3, 5, B + 1]))
+    full_chunk = llm_mod.chunk(cfg, w, torch.tensor(eog), steps, sampler, full, rem=rem_t)
     for chunk in range(2):
         before = {k: v.clone() for k, v in vars(state).items()}
         jout, jn, jstate = jllm.llm_generate_chunk_batched_sliced(
@@ -603,9 +598,8 @@ def test_sliced_chunk_matches_jax_and_leaves_other_lanes(tiny_llm, penalty):
             jnp.asarray([0, 3, 5, 8], jnp.int32), jnp.asarray(steps, jnp.int32),
             jnp.asarray(rem))
         jo, jn_np, jdone = jllm.fetch_chunk_result(jout, jn, jstate)
-        out, n_new, _ = llm_mod.llm_generate_chunk_batched_sliced(
-            cfg, w, torch.tensor(eog), steps, 4, sampler, state, [0, 3, 5, B + 1],
-            torch.from_numpy(rem))
+        rem_t.copy_(torch.from_numpy(rem))
+        out, n_new = sliced.run()
         o, n_np, done = llm_mod.fetch_chunk_result(out, n_new, state)
         np.testing.assert_array_equal(o, jo)
         np.testing.assert_array_equal(n_np, jn_np)
@@ -627,10 +621,21 @@ def test_sliced_chunk_matches_jax_and_leaves_other_lanes(tiny_llm, penalty):
                 assert torch.equal(t.select(dim, lane), before[name].select(dim, lane)), (
                     name, lane)
         # the full-width chunk gives the gathered lanes the same tokens
-        fo, fn, _ = llm_mod.llm_generate_chunk_batched(cfg, w, torch.tensor(eog), steps, sampler,
-                                                       full, torch.from_numpy(rem))
+        fo, _fn = full_chunk.run()
         np.testing.assert_array_equal(fo.numpy()[live], o[live])
         rem = np.maximum(0, rem - n_np).astype(np.int32)
+
+
+def _fused(cfg, w, eog, n, toks, lengths, seeds, sampler, S=64):
+    """The batcher's fused route: ``prefill_into`` a k-lane state of S
+    rows, one run of an unbudgeted n-step chunk on it, and the group state
+    of its first T + n rows. Returns (out, n_new, group state)."""
+    k = toks.shape[0]
+    st = llm_mod.prefill_into(cfg, w, torch.from_numpy(toks).long(), torch.from_numpy(lengths),
+                              seeds, llm_mod.fused_state(cfg, k, S, CPU))
+    out, n_new = llm_mod.chunk(cfg, w, torch.tensor(eog), n, sampler, st,
+                               rem=torch.full((k,), llm_mod.NO_BUDGET, dtype=torch.int32)).run()
+    return out, n_new, st.head(toks.shape[1] + n)
 
 
 @pytest.mark.parametrize("penalty", [1.0, 1.1])
@@ -638,9 +643,11 @@ def test_fused_prefill_and_attach_match_jax(tiny_llm, penalty):
     """Greedy f32: the fused prefill + 5 steps of a padded group of 3 (k =
     4; prompts 11, 5 and 17 long) gives JAX's llm_prefill_generate_jit
     tokens, n_new, done, pos, ring and key, its logits and cache rows within
-    tolerance; attach_lanes_gen into lanes 2, 0 and 3 of a 4-lane state and
-    two more chunks give JAX's tokens (at penalty 1.1 the ring crosses the
-    attach with its entries at mini-loop positions, as in JAX)."""
+    tolerance (the port's steps run on a state of 64 cache rows, JAX's on
+    its mini state of 32 + 5); ``attach_group`` (JAX's attach_lanes_gen)
+    into lanes 2, 0 and 3 of a 4-lane state and two more chunks give JAX's
+    tokens (at penalty 1.1 the ring crosses the attach with its entries at
+    mini-loop positions, as in JAX)."""
     jcfg, jw, _ = jllm.load_llm_gguf(tiny_llm, dtype=jnp.float32)
     cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
     toks, lengths, lanes = _group([2, 0, 3], [11, 5, 17], 4, 32, 4, seed=3)
@@ -651,9 +658,8 @@ def test_fused_prefill_and_attach_match_jax(tiny_llm, penalty):
         jcfg, jw, jnp.asarray(eog, jnp.int32), n, jnp.asarray(toks), jnp.asarray(lengths),
         jnp.asarray(seeds), jsampling.BatchSamplerParams.make([0.0] * 4, [50] * 4, [1.0] * 4,
                                                               pens))
-    out, n_new, g = llm_mod.llm_prefill_generate(
-        cfg, w, torch.tensor(eog), n, torch.from_numpy(toks).long(), torch.from_numpy(lengths),
-        seeds, BatchSamplerParams.make([0.0] * 4, [50] * 4, [1.0] * 4, pens, CPU))
+    out, n_new, g = _fused(cfg, w, eog, n, toks, lengths, seeds,
+                           BatchSamplerParams.make([0.0] * 4, [50] * 4, [1.0] * 4, pens, CPU))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
     np.testing.assert_array_equal(n_new.numpy(), np.asarray(jn))
     for name in ("pos", "done", "ring"):
@@ -667,37 +673,35 @@ def test_fused_prefill_and_attach_match_jax(tiny_llm, penalty):
     jstate = jllm.init_batched_state(jcfg, B, S)
     state = llm_mod.init_batched_state(cfg, B, S, CPU)
     jstate = jllm.attach_lanes_gen(jstate, jnp.asarray(lanes), jg)
-    llm_mod.attach_lanes_gen(state, lanes, g)
+    llm_mod.attach_group(state, lanes, g)
     np.testing.assert_array_equal(state.pos.numpy(), np.asarray(jstate.pos))
     np.testing.assert_array_equal(state.ring.numpy(), np.asarray(jstate.ring))
     assert state.done.tolist() == [False, True, False, False]
     jsampler = jsampling.BatchSamplerParams.make([0.0] * B, [50] * B, [1.0] * B, pens)
     sampler = BatchSamplerParams.make([0.0] * B, [50] * B, [1.0] * B, pens, CPU)
     rem = np.full(B, 30, np.int32)
+    ch = llm_mod.chunk(cfg, w, torch.tensor(eog), 6, sampler, state, rem=torch.from_numpy(rem))
     for _ in range(2):
         jo, jn2, jstate = jllm.llm_generate_chunk_batched(
             jcfg, jw, jnp.asarray(eog, jnp.int32), 6, jsampler, jstate,
             jnp.asarray(6, jnp.int32), jnp.asarray(rem))
-        o, n2, _ = llm_mod.llm_generate_chunk_batched(cfg, w, torch.tensor(eog), 6, sampler,
-                                                      state, torch.from_numpy(rem))
+        o, n2 = ch.run()
         np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
         np.testing.assert_array_equal(n2.numpy(), np.asarray(jn2))
 
 
 def test_attach_lanes_gen_drops_pad_rows(tiny_llm):
-    """A fused row whose lane is out of range writes nothing; the others
-    take the mini state's rows mid-generation, and the ring cursor stays
-    the batched state's."""
+    """A fused row whose lane is out of range writes nothing
+    (``attach_group``); the others take the group state's rows
+    mid-generation, and the ring cursor stays the batched state's."""
     cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
     toks, lengths, lanes = _group([1], [7], 2, 32, 3)
     sampler = BatchSamplerParams.make([0.0] * 2, [50] * 2, [1.0] * 2, [1.0] * 2, CPU)
-    _out, _n, g = llm_mod.llm_prefill_generate(cfg, w, torch.tensor([-1]), 4,
-                                               torch.from_numpy(toks).long(),
-                                               torch.from_numpy(lengths), [9, 0], sampler)
+    _out, _n, g = _fused(cfg, w, [-1], 4, toks, lengths, [9, 0], sampler)
     state = llm_mod.init_batched_state(cfg, 3, 64, CPU)
     state.ring_idx.fill_(17)
     before = {k: v.clone() for k, v in vars(state).items()}
-    llm_mod.attach_lanes_gen(state, lanes, g)
+    llm_mod.attach_group(state, lanes, g)
     assert state.pos[1] == 7 + 4 and not state.done[1] and int(state.ring_idx) == 17
     assert state.key[1].tolist() == [9, 4]
     assert torch.equal(state.cache_k[:, 1, :36], g.cache_k[:, 0])
@@ -714,28 +718,16 @@ def test_width_sliced_chunk_used_and_identical(batcher, jax_engine, monkeypatch)
     a sampled lane is seed-reproducible through the sliced path."""
     eng, b, _ = batcher
     assert b.slice_chunks
-    widths, full_calls = [], []
-    real_sliced = bmod.llm_generate_chunk_batched_sliced
-    real_full = bmod.llm_generate_chunk_batched
-
-    def spy_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem):
-        widths.append(width)
-        assert tuple(lanes.shape) == (width,)
-        return real_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem)
-
-    def spy_full(*a, **k):
-        full_calls.append(1)
-        return real_full(*a, **k)
-
-    monkeypatch.setattr(bmod, "llm_generate_chunk_batched_sliced", spy_sliced)
-    monkeypatch.setattr(bmod, "llm_generate_chunk_batched", spy_full)
+    ran = _spy_runs(monkeypatch)
     got = b.submit("slice me", SamplerParams(temp=0.0), n_predict=24).collect()
+    widths = [key[1] for c in ran for key, ch in b.chunks.items() if ch is c]
+    assert all(tuple(b.ranks[0].lanes_bufs[wd].shape) == (wd,) for wd in widths)
     assert got == jax_engine.generate_audio_tokens("slice me", n_predict=24, n_ctx=64,
                                                    sampler=jsampling.SamplerParams(temp=0.0))
     assert got == eng.generate_audio_tokens("slice me", n_predict=24, n_ctx=64,
                                             sampler=SamplerParams(temp=0.0))
     assert widths and set(widths) == {1}
-    assert not full_calls
+    assert len(widths) == len(_worker_steps(b, ran))  # every worker chunk sliced, none full
     s = SamplerParams(temp=0.9, top_k=40, seed=7)
     assert b.submit("vary", s, n_predict=20).collect() == b.submit("vary", s, n_predict=20).collect()
 
@@ -765,14 +757,19 @@ def test_pick_width_warm_gate(batcher):
 
 
 def test_warm_chunk_registers_and_releases(batcher):
-    """warm_chunk registers (size, width) (the full width for None) without
-    touching the live state, and release_warm_state drops the throwaway
-    state."""
+    """warm_chunk makes the chunk of (size, width) on the live state and
+    registers it (the full width for None); a throwaway state is made only
+    for a capture (none on the CPU), and release_warm_state drops it."""
     b = batcher[1]
     b.warm_chunk(width=2)
     b.warm_chunk()
-    assert {(b.chunk_max, 2), (b.chunk_max, b.n_lanes)} <= set(b._warm_chunks)
-    assert b._warm_state is not None and b._warm_state.pos is not b.state.pos
+    keys = {(b.chunk_max, 2), (b.chunk_max, b.n_lanes)}
+    assert keys <= set(b._warm_chunks) and keys <= set(b.chunks)
+    assert all(b.chunks[k].state is b.state and not b.chunks[k].captured for k in keys)
+    assert b._warm_state is None
+    with b.ranks[0].capture_lock:
+        ws = b._warm_state_now(b.ranks[0])
+    assert b._warm_state is ws and ws.pos is not b.state.pos
     b.release_warm_state()
     assert b._warm_state is None
 
@@ -822,24 +819,11 @@ def test_binary_lane_skips_first_chunk(batcher, monkeypatch):
     b = _own(eng, first_chunk=4)
     try:
         assert b.first_chunk == 4 and b.ladder == (4, 8, 16)
-        sizes = []
-        real = bmod.llm_generate_chunk_batched
-        real_sliced = bmod.llm_generate_chunk_batched_sliced
-
-        def spy(cfg, w, eog, steps, sampler, state, rem):
-            sizes.append(steps)
-            return real(cfg, w, eog, steps, sampler, state, rem)
-
-        def spy_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem):
-            sizes.append(steps)
-            return real_sliced(cfg, w, eog, steps, width, sampler, state, lanes, rem)
-
-        monkeypatch.setattr(bmod, "llm_generate_chunk_batched", spy)
-        monkeypatch.setattr(bmod, "llm_generate_chunk_batched_sliced", spy_sliced)
+        ran = _spy_runs(monkeypatch)
         got = b.submit("hi", SamplerParams(temp=0.0), n_predict=24, early_tokens=False).collect()
-        binary_sizes, sizes[:] = list(sizes), []
+        binary_sizes, ran[:] = _worker_steps(b, ran), []
         got_early = b.submit("hi", SamplerParams(temp=0.0), n_predict=24).collect()
-        early_sizes = list(sizes)
+        early_sizes = _worker_steps(b, ran)
     finally:
         b.shutdown()
     expect = eng.generate_audio_tokens("hi", n_predict=24, n_ctx=64,
@@ -861,14 +845,7 @@ def test_cold_group_sizes_split_to_warmed_during_warmup_tail(batcher, monkeypatc
         b.warm_prefill(32, n_lanes=2)
         assert {(32, 1), (32, 2)} <= set(b._warm_prefills)
         b.split_cold_until_warm = True
-        seen = []
-        real = bmod.llm_prefill_generate
-
-        def spy(cfg, w, eog, n_steps, toks, lens, seeds, sampler):
-            seen.append(int(toks.shape[0]))
-            return real(cfg, w, eog, n_steps, toks, lens, seeds, sampler)
-
-        monkeypatch.setattr(bmod, "llm_prefill_generate", spy)
+        ran = _spy_runs(monkeypatch)
         texts = ["a", "bb", "ccc", "dddd"]
         barrier = threading.Barrier(len(texts))
 
@@ -878,7 +855,8 @@ def test_cold_group_sizes_split_to_warmed_during_warmup_tail(batcher, monkeypatc
 
         with concurrent.futures.ThreadPoolExecutor(len(texts)) as ex:
             results = list(ex.map(one, texts))
-        assert seen and max(seen) <= 2
+        seen = [int(ch.state.pos.shape[0]) for ch in ran if ch.state is not b.state]
+        assert seen and max(seen) <= 2 and set(b._fused) <= {1, 2}
         for text, got in zip(texts, results):
             assert got == eng.generate_audio_tokens(text, n_predict=8, n_ctx=64,
                                                     sampler=SamplerParams(temp=0.0)), text
@@ -887,28 +865,27 @@ def test_cold_group_sizes_split_to_warmed_during_warmup_tail(batcher, monkeypatc
 
 
 def test_graph_per_rung_width_and_fused_match_eager(batcher, monkeypatch):
-    """The CUDA path on stand-in graphs with slicing and the fused prefill
-    on: the fused first chunk replays a graph of k = 1 lanes on its own
-    state of max_ctx rows, then width-1 graphs of the live state run 16 and
-    4 steps, and the tokens equal the eager path's."""
+    """Slicing and the fused prefill on: the fused first chunk of k = 1
+    lanes runs on its own state of max_ctx rows, then width-1 chunks of the
+    live state run 16 and 4 steps, and the tokens equal the single-request
+    path's."""
     eng = batcher[0]
-    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
-    _EagerGraph.made, _EagerGraph.replayed = [], []
+    ran = _spy_runs(monkeypatch)
     b = _own(eng, first_chunk=4)
-    b.use_graph = True
     try:
         got = b.submit("hi", SamplerParams(temp=0.0), n_predict=24, early_tokens=False).collect()
-        fused_graph = b._fused[1][0]
-        assert fused_graph.state.cache_k.shape[2] == b.max_ctx
-        assert set(b.graphs) <= {(16, 1), (4, 1)}
-        assert all(g.state is b.state for g in b.graphs.values())
+        runs = list(ran)
+        fused = b._fused[1][0]
+        assert fused.state.cache_k.shape[2] == b.max_ctx and not fused.captured
+        assert set(b.chunks) <= {(16, 1), (4, 1)}
+        assert all(ch.state is b.state for ch in b.chunks.values())
     finally:
         b.shutdown()
     expect = eng.generate_audio_tokens("hi", n_predict=24, n_ctx=64,
                                        sampler=SamplerParams(temp=0.0))
     assert got == expect
     if len(got) == 24:
-        assert _EagerGraph.replayed == [4, 16, 4]
+        assert [ch.n_steps for ch in runs] == [4, 16, 4] and runs[0] is fused
 
 
 def _slow_prefill(b, monkeypatch, delay):
@@ -950,7 +927,8 @@ def test_attach_hold_waits_for_a_burst(batcher, monkeypatch):
 def test_attach_hold_skips_a_trickle_and_is_bounded(batcher, monkeypatch):
     """One new lane beside one running lane never holds (not a strict
     majority); with MIOTTS_ATTACH_HOLD_S=0.1 a hold ends after its cap
-    while the burst's prefill still runs."""
+    while the burst's prefill still waits: the running lane runs to its
+    end with the burst unattached, and only then is the prefill let go."""
     eng = batcher[0]
     b = _own(eng, n_lanes=4)
     try:
@@ -966,20 +944,33 @@ def test_attach_hold_skips_a_trickle_and_is_bounded(batcher, monkeypatch):
     monkeypatch.undo()  # the slow prefill above
     monkeypatch.setenv("MIOTTS_ATTACH_HOLD_S", "0.1")
     b = _own(eng, n_lanes=4)
+    release = threading.Event()
     try:
         assert b.attach_hold_s == 0.1
         first = b.submit("bounded a", SamplerParams(temp=0.0), n_predict=60)
         toks = first.tokens()
         next(toks)
-        _slow_prefill(b, monkeypatch, 1.0)
+        real = b._prefill_group
+
+        def gated(bucket, group):
+            # a hold that never ends would keep the running lane from its
+            # end, and so this prefill from its release: fail, not hang
+            if not release.wait(30):
+                raise AssertionError("the burst's prefill was not released in 30 s")
+            return real(bucket, group)
+
+        monkeypatch.setattr(b, "_prefill_group", gated)
         others = [b.submit(t, SamplerParams(temp=0.0), n_predict=4) for t in ("b", "c")]
-        t0 = time.monotonic()
-        list(toks)  # runs on after the 0.1 s hold, before the 1 s prefill ends
-        assert time.monotonic() - t0 < 0.9
+        list(toks)  # runs on after the 0.1 s hold, while the burst's prefill waits
+        with b._cv:
+            burst = [lane for lane in b.lanes if lane is not None]
+        assert len(burst) == 2 and not any(lane.started for lane in burst)
+        release.set()
         for h in others:
             h.collect()
         assert b.attach_holds >= 1 and b.attach_hold_ms < 300
     finally:
+        release.set()
         b.shutdown()
 
 
@@ -1040,19 +1031,17 @@ def test_delivery_skips_a_lane_attached_again(batcher):
 
 
 def test_fused_graph_runs_unbudgeted(batcher, monkeypatch):
-    """The fused first chunk's graph runs its steps with no budget, as
-    JAX's (rem None): its body reads a ``rem`` buffer of NO_BUDGET that
-    only the graph holds, through the body it keeps. Checked on the CPU
-    with a stand-in for the capture."""
+    """The fused first chunk runs its steps with no budget, as JAX's (rem
+    None): its body reads a ``rem`` buffer of NO_BUDGET that only the chunk
+    holds, through the body it keeps (the body the card captures)."""
     eng = batcher[0]
-    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
-    _EagerGraph.made, _EagerGraph.replayed = [], []
+    ran = _spy_runs(monkeypatch)
     b = _own(eng, first_chunk=4)
-    b.use_graph = True
     try:
         b.submit("hi", SamplerParams(temp=0.0), n_predict=6).collect()
-        graph = b._fused[1][0]
-        rems = [c.cell_contents for c in graph.body.__closure__
+        fused = b._fused[1][0]
+        assert ran[0] is fused
+        rems = [c.cell_contents for c in fused.body.__closure__
                 if torch.is_tensor(c.cell_contents) and c.cell_contents.dtype == torch.int32]
         assert rems and all(int(r.min()) == llm_mod.NO_BUDGET for r in rems)
     finally:

@@ -253,10 +253,10 @@ def _eog_inside_chunk(jcfg, jw, toks, lens):
 @pytest.mark.parametrize("B", [1, 2])
 @pytest.mark.parametrize("stop", [False, True])
 def test_chunk_api_matches_jax(tiny_llm, B, stop):
-    """llm_start + llm_generate_chunk in chunks of 5 up to 16 tokens, f32
-    greedy, one lane and a ragged pair (prompt lengths 12 and 7); with
-    ``stop`` lane 0 meets an EOG inside a chunk. Tokens, n_new, pos and
-    done equal JAX's after every chunk."""
+    """llm_start + runs of one chunk of 5 steps (``llm.chunk``) up to 16
+    tokens, f32 greedy, one lane and a ragged pair (prompt lengths 12 and
+    7); with ``stop`` lane 0 meets an EOG inside a chunk. Tokens, n_new,
+    pos and done equal JAX's after every chunk."""
     jcfg, jw, cfg, w = _f32_pair(tiny_llm)
     toks, lens = _lanes(B)
     eog = _eog_inside_chunk(jcfg, jw, toks, lens) if stop else [-1]
@@ -267,13 +267,14 @@ def test_chunk_api_matches_jax(tiny_llm, B, stop):
     ck, cv = init_kv_cache(cfg, B, 48, CPU)
     state = llm_mod.llm_start(cfg, w, torch.from_numpy(toks), torch.from_numpy(lens), ck, cv,
                               sampler_key(0, CPU))
-    eog_t = torch.tensor(eog, dtype=torch.int64)
+    ch = llm_mod.chunk(cfg, w, torch.tensor(eog, dtype=torch.int64), 5, greedy, state)
+    assert ch.state is state and not ch.captured
     got_tokens, total = 0, np.zeros(B, np.int64)
     while got_tokens < 16:
         jout, jn, jstate = jllm.llm_generate_chunk(jcfg, jw, jnp.asarray(eog, jnp.int32), 5,
                                                    greedy_j, jstate)
         jo, jn_np, jdone = jllm.fetch_chunk_result(jout, jn, jstate)
-        out, n_new, state = llm_mod.llm_generate_chunk(cfg, w, eog_t, 5, greedy, state)
+        out, n_new = ch.run()
         o, n_np, done = llm_mod.fetch_chunk_result(out, n_new, state)
         np.testing.assert_array_equal(o, jo)
         np.testing.assert_array_equal(n_np, jn_np)
@@ -287,50 +288,38 @@ def test_chunk_api_matches_jax(tiny_llm, B, stop):
 
 
 def test_chunk_graph_needs_cuda(tiny_llm):
-    """The graph path is CUDA only: on the CPU, capturing a chunk raises."""
+    """The graph path is CUDA only: on the CPU ``llm.chunk`` makes a chunk
+    that is not captured (read-only), and a capture asked of
+    ``decode_graph.Chunk`` there raises."""
     cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
+    state = llm_mod.empty_gen_state(cfg, 1, 32, CPU)
+    ch = llm_mod.chunk(cfg, w, torch.tensor([-1]), 4, SamplerParams(temp=0.0), state)
+    assert not ch.captured and ch.state is state
+    with pytest.raises(AttributeError):
+        ch.captured = True
     with pytest.raises(ValueError, match="CUDA"):
-        llm_mod.capture_chunk(cfg, w, torch.tensor([-1]), 4, SamplerParams(temp=0.0),
-                              llm_mod.empty_gen_state(cfg, 1, 32, CPU))
-
-
-class _EagerGraph(decode_graph.ChunkGraph):
-    """A chunk graph without CUDA: it keeps the state it is made on as its
-    buffers and runs the body on them, where a replay would run the
-    captured kernels on them. Counts the graphs made."""
-    made = 0
-
-    def __init__(self, body, state, n_steps):
-        _EagerGraph.made += 1
-        self.state, self.body = state, body
-        self.out = torch.zeros((state.pos.shape[0], n_steps), dtype=torch.int64)
-        self.n_new = torch.zeros((state.pos.shape[0],), dtype=torch.int32)
-
-    def run(self):
-        self.body(self.state, self.out, self.n_new)
-        return self.out, self.n_new
+        decode_graph.Chunk(ch.body, state, 4, capture=True)
 
 
 _SAMPLED = SamplerParams(temp=1.0, top_k=0)
 
 
-def test_chunk_graph_serves_successive_requests(tiny_llm, monkeypatch):
-    """One graph serves request after request: each is loaded into the
-    graph's buffers and gives the tokens of a run with no graph (fresh
-    cache), whatever ran in the graph before it. Sampled, seeds 1, 1, 2, 1
-    over two prompts."""
-    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
+def test_chunk_graph_serves_successive_requests(tiny_llm):
+    """One chunk serves request after request: each is loaded into the
+    chunk's buffers and gives the tokens of a run on a chunk of its own
+    (fresh cache), whatever ran in the kept chunk before it. Sampled, seeds
+    1, 1, 2, 1 over two prompts."""
     cfg, w, _ = load_llm_gguf(tiny_llm, CPU, torch.float32)
     toks, lens = _prompts()
     eog = torch.tensor([-1])
-    graph = llm_mod.capture_chunk(cfg, w, eog, llm_mod.CHUNK, _SAMPLED,
-                                  llm_mod.empty_gen_state(cfg, 1, 64, CPU))
+    kept = llm_mod.chunk(cfg, w, eog, llm_mod.CHUNK, _SAMPLED,
+                         llm_mod.empty_gen_state(cfg, 1, 64, CPU))
     runs = []
     for seed, lane in ((1, 0), (1, 0), (2, 0), (1, 1)):
         args = (cfg, w, torch.from_numpy(toks[lane:lane + 1]),
                 torch.from_numpy(lens[lane:lane + 1]), eog, sampler_key(seed, CPU), 40, _SAMPLED)
         ref, n_ref = llm_mod.llm_generate(*args, *init_kv_cache(cfg, 1, 64, CPU))
-        got, n = llm_mod.llm_generate(*args, graph.state.cache_k, graph.state.cache_v, graph)
+        got, n = llm_mod.llm_generate(*args, kept.state.cache_k, kept.state.cache_v, kept)
         assert torch.equal(got, ref) and torch.equal(n, n_ref)
         runs.append(got)
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
@@ -338,27 +327,30 @@ def test_chunk_graph_serves_successive_requests(tiny_llm, monkeypatch):
 
 
 def test_engine_keeps_one_chunk_graph(tiny_llm, monkeypatch):
-    """Under ``use_graph`` the engine generates through its own chunk graph
-    (plain and streaming) with the tokens of the eager path, reuses it
-    while the cache rows and the sampler (seed aside) stay, and captures
-    anew when either changes."""
-    monkeypatch.setattr(decode_graph, "ChunkGraph", _EagerGraph)
-    eng = LLMEngine(tiny_llm, CPU, dtype=torch.float32)
-    assert not eng.use_graph
+    """The engine generates through the one chunk it keeps (plain and
+    streaming) with the tokens of engines that each make their own for one
+    request, reuses it while the cache rows and the sampler (seed aside)
+    stay, and makes a new one when either changes."""
     cases = [(700, SamplerParams(temp=1.0, top_k=0, seed=s)) for s in (1, 2, 1)]
     cases += [(700, SamplerParams(temp=0.0)), (720, SamplerParams(temp=0.0))]
 
-    def tokens():
-        return [(eng.generate_audio_tokens("hello there", n_predict=24, n_ctx=n, sampler=s),
-                 eng.generate_audio_tokens_streaming("hello there", None, n_predict=24,
-                                                     n_ctx=n, sampler=s))
-                for n, s in cases]
+    def fresh():
+        return LLMEngine(tiny_llm, CPU, dtype=torch.float32)
 
-    ref = tokens()
-    made = _EagerGraph.made
-    eng.use_graph = True
-    assert tokens() == ref
-    assert _EagerGraph.made - made == 3
+    ref = [(fresh().generate_audio_tokens("hello there", n_predict=24, n_ctx=n, sampler=s),
+            fresh().generate_audio_tokens_streaming("hello there", None, n_predict=24, n_ctx=n,
+                                                    sampler=s))
+           for n, s in cases]
+    eng = fresh()
+    made = []
+    real = llm_mod.chunk
+    monkeypatch.setattr(llm_mod, "chunk", lambda *a, **k: made.append(real(*a, **k)) or made[-1])
+    got = [(eng.generate_audio_tokens("hello there", n_predict=24, n_ctx=n, sampler=s),
+            eng.generate_audio_tokens_streaming("hello there", None, n_predict=24, n_ctx=n,
+                                                sampler=s))
+           for n, s in cases]
+    assert got == ref
+    assert len(made) == 3 and eng._chunk is made[-1]
     assert ref[0] != ref[1] and ref[0] == ref[2]
 
 

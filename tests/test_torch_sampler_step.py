@@ -2,14 +2,17 @@
 kernel K10, ``ops/cuda/llm_fused.py sample_step``, on CUDA) on the CPU,
 where the wrapper takes the plain version.
 
-The plain version equals, bit for bit, the chain that ``models/llm.py
-_chunk_body_batched`` ran inline before K10 (copied below as the oracle,
+The plain version equals, bit for bit, the chain that the served chunk
+body of ``models/llm.py`` ran inline before K10 (copied below as the oracle,
 ``_chunk_before``, with ``sample_token_batched`` as it stands): the tokens,
 the output columns, the ring and its cursor, the keys, done, the counts and
 pos, over a chunk of steps on mixed lanes (every knob of the grid, rings
 empty, part filled and holding duplicates, lanes already done, an EOG and a
 budget hit on the way). The chunk body itself, on a tiny LLM, gives the
-oracle's tokens and state at full width and width-sliced. K10's argument
+oracle's tokens and state at full width and width-sliced, and the CLI's
+chunk (``sampling.sample_chain_step`` in the same loop) gives the tokens
+and state of the CLI's own loop before the two loops became one, its
+whole-vocabulary settings included. K10's argument
 checks run here on CPU tensors (``check_sample_step``); the kernel itself
 is held to the plain version on the card (``chip_smoke.py check_sampler``).
 """
@@ -23,8 +26,8 @@ import torch
 from miotts_tpu_torch.models import llm as llm_mod
 from miotts_tpu_torch.models.llm import GenState, llm_decode_step, load_llm_gguf
 from miotts_tpu_torch.models.sampling import (
-    MAX_TOP_K, PENALTY_LAST_N, BatchSamplerParams, SamplerState, sample_step_plain,
-    sample_token_batched, sampler_keys, uniform_lanes)
+    MAX_TOP_K, PENALTY_LAST_N, BatchSamplerParams, SamplerParams, SamplerState, sample_step_plain,
+    sample_token, sample_token_batched, sampler_key, sampler_keys, uniform_lanes)
 from miotts_tpu_torch.ops.cuda import llm_fused
 from miotts_tpu_torch.ops.cuda.llm_fused import check_sample_step, sample_step
 from miotts_tpu_torch.testing import write_synthetic_llm_gguf
@@ -69,7 +72,7 @@ def _sample_before(logits, params, state, key):
 
 
 def _chunk_before(decode, eog_ids, n_steps, sampler, rem, state, out, n_new):
-    """``_chunk_body_batched`` before K10, verbatim but for ``decode`` in
+    """The served chunk body before K10, verbatim but for ``decode`` in
     the place of ``llm_decode_step`` (``decode(tok, pos)`` -> logits)."""
     sstate = SamplerState(state.ring, state.ring_idx)
     done = state.done
@@ -90,7 +93,7 @@ def _chunk_before(decode, eog_ids, n_steps, sampler, rem, state, out, n_new):
 
 
 def _chunk_now(decode, eog_ids, n_steps, sampler, rem, state, out, n_new):
-    """``_chunk_body_batched`` as it is, with ``decode`` as above."""
+    """The served chunk body's loop as it is, with ``decode`` as above."""
     sstate = SamplerState(state.ring, state.ring_idx)
     n_new.zero_()
     for s in range(n_steps):
@@ -218,9 +221,10 @@ def tiny_llm(tmp_path_factory):
 
 @pytest.mark.parametrize("sliced", [False, True], ids=["full", "sliced"])
 def test_chunk_body_gives_the_chain_before(tiny_llm, sliced):
-    """``llm_generate_chunk_batched`` (and its width-sliced form) on a tiny
-    LLM: the tokens, counts and state of the chain before K10, with the
-    decode step between (4 lanes, mixed knobs, one lane done, budgets)."""
+    """The served chunk (``llm.chunk`` with a ``BatchSamplerParams``, and
+    its width-sliced form) on a tiny LLM: the tokens, counts and state of
+    the chain before K10, with the decode step between (4 lanes, mixed
+    knobs, one lane done, budgets)."""
     cfg, w = tiny_llm
     B, S, n_steps = 4, 64, 10
     state = llm_mod.init_batched_state(cfg, B, S, CPU, seed=3)
@@ -241,18 +245,70 @@ def test_chunk_body_gives_the_chain_before(tiny_llm, sliced):
     def decode(tok, pos):
         return llm_decode_step(cfg, w, tok, pos, ref.cache_k, ref.cache_v)
 
-    if sliced:
-        lanes = torch.tensor([0, 3, B + 2, 1], dtype=torch.int64)  # a pad row: lane 2
-        out, n_new, _ = llm_mod.llm_generate_chunk_batched_sliced(
-            cfg, w, eog, n_steps, 4, sampler, state, lanes, rem)
-    else:
-        out, n_new, _ = llm_mod.llm_generate_chunk_batched(cfg, w, eog, n_steps, sampler, state,
-                                                           rem)
+    lanes = torch.tensor([0, 3, B + 2, 1], dtype=torch.int64) if sliced else None  # pad: lane 2
+    out, n_new = llm_mod.chunk(cfg, w, eog, n_steps, sampler, state, rem=rem, lanes=lanes).run()
     _chunk_before(decode, eog, n_steps, sampler, rem, ref, out_r, n_r)
     assert torch.equal(out, out_r) and torch.equal(n_new, n_r)
     _assert_states_equal(state, ref)
     assert torch.equal(state.cache_k, ref.cache_k) and torch.equal(state.cache_v, ref.cache_v)
     assert int(n_r[1]) == 4 and int(n_r[2]) == 0
+
+
+def _cli_chunk_before(cfg, w, eog_ids, n_steps, sampler, state, out, n_new):
+    """The CLI's chunk body before the served and the CLI's loops became
+    one, verbatim."""
+    sstate = SamplerState(state.ring, state.ring_idx)
+    done = state.done
+    count = torch.zeros_like(n_new)
+    toks = []
+    for _ in range(n_steps):
+        tok = sample_token(state.logits, sampler, sstate, state.key)
+        state.key[1:].add_(1)
+        sstate.update(tok)
+        toks.append(torch.where(done, torch.zeros_like(tok), tok))
+        count = count + (~done).to(count.dtype)
+        done = done | (tok[:, None] == eog_ids[None, :]).any(dim=-1)
+        state.logits.copy_(llm_decode_step(cfg, w, tok, state.pos, state.cache_k, state.cache_v))
+        state.pos.add_((~done).to(torch.int32))
+    state.done.copy_(done)
+    out.copy_(torch.stack(toks, dim=1))
+    n_new.copy_(count)
+
+
+@pytest.mark.parametrize("sampler", [
+    SamplerParams(temp=0.8, top_k=300, repeat_penalty=1.3, seed=5),  # above the served pool
+    SamplerParams(temp=0.9, top_k=0, top_p=0.9, seed=6),  # top-p over the whole vocabulary
+    SamplerParams(temp=0.0, top_k=50, repeat_penalty=1.1),
+], ids=["top_k_300", "top_k_0_top_p", "greedy"])
+def test_cli_chunk_gives_the_loop_before(tiny_llm, sampler):
+    """The CLI's chunk (``llm.chunk`` with a ``SamplerParams``: the one loop
+    with ``sample_chain_step``) on a ragged pair of prompts and one key, two
+    chunks of 9 steps with an EOG hit on the way: the tokens, counts and
+    state, cache included, of the CLI's own loop before, bit for bit."""
+    cfg, w = tiny_llm
+    assert cfg.vocab_size > 300
+    B, S, n_steps = 2, 64, 9
+    rng = np.random.RandomState(8)
+    tokens = torch.from_numpy(rng.randint(0, 200, (B, 7)))
+    lengths = torch.tensor([7, 4], dtype=torch.int32)
+    state = llm_mod.llm_start(cfg, w, tokens, lengths, *llm_mod.init_kv_cache(cfg, B, S, CPU),
+                              sampler_key(sampler.seed, CPU))
+    ref = _clone(state)
+    ref.cache_k, ref.cache_v = state.cache_k.clone(), state.cache_v.clone()
+    probe = _clone(ref)
+    probe.cache_k, probe.cache_v = ref.cache_k.clone(), ref.cache_v.clone()
+    out_r = torch.empty((B, n_steps), dtype=torch.int64)
+    n_r = torch.empty((B,), dtype=torch.int32)
+    _cli_chunk_before(cfg, w, torch.tensor([-1]), n_steps, sampler, probe, out_r, n_r)
+    eog = torch.tensor([int(out_r[0, 4])])  # lane 0 stops at its fifth token
+    ch = llm_mod.chunk(cfg, w, eog, n_steps, sampler, state)
+    for _ in range(2):
+        out, n_new = ch.run()
+        _cli_chunk_before(cfg, w, eog, n_steps, sampler, ref, out_r, n_r)
+        assert torch.equal(out, out_r) and torch.equal(n_new, n_r)
+        _assert_states_equal(state, ref)
+        assert torch.equal(state.cache_k, ref.cache_k) and torch.equal(state.cache_v, ref.cache_v)
+    assert bool(ref.done[0])
 
 
 # -- K10's argument checks -------------------------------------------------------------
