@@ -52,9 +52,18 @@ Phases, in order; any failure exits nonzero and prints no result:
    heads, HD 64, S 1024, F 2048) at B = 1, 2, 4, 8: K8 (q, k, v and the
    cache row it writes, NEOX and adjacent pairs, with and without bias,
    pos at 0, S - 1 and S) and K9 bit-equal, K7 within one bf16 ulp (its sum
-   order); each timed beside its plain version and its bound. Every path
-   that decodes on the card launches K7, K8 and K9 25 : 12 : 12 (a step's
-   norms, q/k/v and MLPs), counted apart from K1-K6. Then K10, the served
+   order); each timed beside its plain version and its bound. Then K11
+   (``check_gemv``, ``ops/cuda/llm_gemv.py``), the decode step's GEMVs with
+   their glue, at the same shapes and V 151 759: each layer kernel's product
+   within one bf16 ulp of cuBLAS's plus the f32 sums' error, 2 K 2^-23
+   sum |x w|, and its outputs and cache rows bit-equal
+   to the plain epilogue on that product, norm_head's logits within K 2^-23
+   sum |x w| of its plain version; each timed beside its plain version,
+   cuBLAS's product and its byte bound. A decode step launches K7, K8 and
+   K9 25 : 12 : 12 (a step's norms, q/k/v and MLPs) or, a dense bf16 LLM
+   on one card, K11 12 : 24 : 12 : 1 (norm_qkv, gemv_residual, norm_gateup,
+   norm_head), counted apart from K1-K6: the dense paths on one card K11
+   alone, the tp groups and quantized leaves K7-K9. Then K10, the served
    step's sampler (``check_sampler``), against ``sample_step_plain`` at B =
    1, 2, 4, 8 and V = 151 759 over the knob grid: equal but for sampled
    top-p lanes at f32 rounding of top_p (at most 1%), timed beside its
@@ -341,7 +350,7 @@ from miotts_tpu_torch.ops.cuda import banded_attention as k1
 from miotts_tpu_torch.ops.cuda import build, graphs
 from miotts_tpu_torch.ops.cuda import conv1d as k4
 from miotts_tpu_torch.ops.cuda import decode_attention as k2
-from miotts_tpu_torch.ops.cuda import llm_fused
+from miotts_tpu_torch.ops.cuda import llm_fused, llm_gemv
 from miotts_tpu_torch.ops.cuda import q8_matmul as k3
 from miotts_tpu_torch.ops.cuda import resblock as k6
 from miotts_tpu_torch.parallel.mesh import logical_devices
@@ -354,12 +363,31 @@ from miotts_tpu_torch.testing import (
     write_synthetic_mel_vocoder_gguf, write_synthetic_miocodec_gguf, write_synthetic_wavlm_gguf)
 
 MODS = (k1, k2, k3, k4, k5, k6)
-FUSED = llm_fused.KERNELS  # K7-K10, counted apart from MODS: every LLM path launches K7-K9
+FUSED = llm_fused.KERNELS  # K7-K10, counted apart from MODS
+# K11 (norm_qkv, gemv_residual, norm_gateup, norm_head): the decode step of a
+# dense bf16 LLM on one card; K7-K9 keep every other decode step
+GEMV = llm_gemv.KERNELS
 # the served decode step's shapes (LLM_WIDTHS, --ctx-size 1024)
 FUSED_SHAPE = {"D": 768, "H": 12, "KVH": 2, "HD": 64, "S": 1024, "F": 2048}
 # bf16 ulps a fused kernel may lie from its plain version: K7 1, for the
 # order of its f32 sum of squares against ATen's reduction; K8 and K9 none
-FUSED_ULPS = {"add_rms_norm": 1, "qkv_rope_cache": 0, "silu_mul": 0}
+FUSED_ULPS = {"add_rms_norm": 1, "qkv_rope_cache": 0, "silu_mul": 0,
+              # K11's layer kernels: their product (``prod``, rounded to bf16)
+              # within 1 ulp of cuBLAS's same product plus the two f32 sums'
+              # own error, 2 K 2^-23 sum |x w| (each sum taken in its own
+              # order, the tensor cores' truncating): where the dot product
+              # cancels, a result far below sum |x w|, that error reaches
+              # whole bf16 ulps of the result (2-4 read at K 2048), so the
+              # ulps are printed and the bound is held. Each output and cache
+              # row bit-equal (0 ulps) to the plain epilogue on that product.
+              # A product's ulp moves an output of the whole plain chain by
+              # more where the bias add, RoPE's rotation or the residual add
+              # cancels, so that distance is printed, not held
+              "norm_qkv": 1, "gemv_residual": 1, "norm_gateup": 1}
+# norm_head's f32 logits are held to K * 2^-23 * sum_i |x_i w_i| of the plain version's at
+# depth K (the worst-case rounding of a K-term f32 sum). A K11 kernel is timed over
+# distinct copies of its weight, more bytes than the 50 MB L2, as the step reads them
+GEMV_COPIES_BYTES = 128 << 20
 # K10 (llm_fused.sample_step) at the 0.1B LLM's vocabulary, every lane one
 # (temp, top_k, top_p, repeat penalty) of this grid
 SAMPLER_V = 151759
@@ -792,8 +820,200 @@ def check_fused(dev, gen) -> dict:
     return out
 
 
-# the request paths that decode on the card and so must launch K7-K9
+def gemv_timing(kern, plain, library, leaves: list, nbytes: float) -> dict:
+    """A K11 kernel's mean device time over back-to-back launches, each on
+    the next of ``leaves`` (distinct copies of its weight, past the L2), beside
+    its plain version, the library's same product and the byte bound."""
+    it = iter(range(1 << 30))
+
+    def cycle(fn):
+        return lambda: fn(leaves[next(it) % len(leaves)])
+    return {"ms": cuda_ms(cycle(kern)), "plain_ms": cuda_ms(cycle(plain)),
+            "library_ms": cuda_ms(cycle(library)), **least_time(nbytes, 0, BF16_FLOP_S)}
+
+
+def product_within(got: torch.Tensor, want: torch.Tensor, absum: torch.Tensor, K: int,
+                   ulps: int) -> bool:
+    """|got - want| <= ``ulps`` bf16 ulps of the larger plus 2 K 2^-23 absum
+    (absum = sum_k |x_k w_k| of each output): two f32 sums of K terms taken
+    in other orders, each rounded once to bf16."""
+    g, w_ = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w_.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
+    return bool(((g - w_).abs() <= ulps * ulp + 2 * K * 2.0 ** -23 * absum).all())
+
+
+def check_gemv(dev, gen) -> dict:
+    """K11 (``ops/cuda/llm_gemv.py``) at the served decode step's shapes
+    (FUSED_SHAPE, V 151 759) and B = 1, 2, 4, 8. Each layer kernel's product
+    (``prod``) within FUSED_ULPS of cuBLAS's same product plus the f32 sums'
+    error (``product_within``; the largest ulps printed), and each output
+    and cache row bit-equal to the plain epilogue on that product (norm_qkv
+    with and without bias, NEOX and adjacent pairs, pos at 0, mid, S - 1 and
+    S; gemv_residual at wo's and down's shapes); the distance from the whole
+    plain chain is printed. norm_head's logits within K 2^-23 sum |x w| of
+    the plain version's. Each timed beside its plain version, cuBLAS's
+    product (``library_ms``, never called by the port) and its byte bound."""
+    bf = torch.bfloat16
+    D, H, KVH, HD, S, Fd = (FUSED_SHAPE[k] for k in ("D", "H", "KVH", "HD", "S", "F"))
+    N, V, eps = (H + 2 * KVH) * HD, SAMPLER_V, 1e-6
+    inv = llm_fused.rope_inv_freq(HD, 10000.0, dev)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, bf)
+
+    nw = (1 + torch.randn(D, generator=gen) * 0.05).to(bf).float().to(dev)
+    leaves = {"wqkv": rnd(D, N, scale=0.05), "wo": rnd(H * HD, D, scale=0.05),
+              "w_gateup": rnd(D, 2 * Fd, scale=0.05), "w_down": rnd(Fd, D, scale=0.05)}
+    bias = rnd(N, scale=0.05)
+    head = rnd(V, D, scale=0.05)
+    worst = {"norm_qkv": 0, "gemv_residual": 0, "norm_gateup": 0}
+    chain = dict(worst)
+    within = {name: True for name in worst}
+    head_err = 0.0
+    rows = {}
+    for B in (1, 2, 4, 8):
+        x = rnd(B, 1, D)
+        h = llm_fused.rms_norm(x, nw, eps)
+        pos = torch.tensor([0, 700, S - 1, S, 13, 511, 1000, 64][:B], dtype=torch.int32,
+                           device=dev)
+        ck, cv = rnd(B, S, KVH, HD), rnd(B, S, KVH, HD)
+        for b_ in (bias, None):
+            for neox in (True, False):
+                prod = torch.empty((B, N), dtype=bf, device=dev)
+                kk, kv_ = ck.clone(), cv.clone()
+                got = llm_gemv.norm_qkv(x, nw, eps, leaves["wqkv"], b_, inv, pos, kk, kv_, H,
+                                        neox, prod=prod)
+                ok_, ov_ = ck.clone(), cv.clone()
+                own = llm_fused.qkv_rope_cache_plain(prod.view(B, 1, N), b_, inv, pos, ok_, ov_,
+                                                     H, neox)
+                pk, pv = ck.clone(), cv.clone()
+                want = llm_gemv.norm_qkv_plain(x, nw, eps, leaves["wqkv"], b_, inv, pos, pk, pv,
+                                               H, neox)
+                torch.cuda.synchronize()
+                if not (all(torch.equal(a, o) for a, o in zip(got, own))
+                        and torch.equal(kk, ok_) and torch.equal(kv_, ov_)):
+                    raise AssertionError(f"norm_qkv B={B} bias={b_ is not None} neox={neox}: "
+                                         "the epilogue differs from the plain one on its product")
+                want_prod = (h @ leaves["wqkv"]).view(B, N)
+                worst["norm_qkv"] = max(worst["norm_qkv"], bf16_ulps(prod, want_prod))
+                within["norm_qkv"] &= product_within(
+                    prod, want_prod, (h.abs().float() @ leaves["wqkv"].abs().float()).view(B, N),
+                    D, FUSED_ULPS["norm_qkv"])
+                chain["norm_qkv"] = max([chain["norm_qkv"], bf16_ulps(kk, pk), bf16_ulps(kv_, pv)]
+                                        + [bf16_ulps(a, b) for a, b in zip(got, want)])
+        for leaf, K in (("wo", H * HD), ("w_down", Fd)):
+            act = rnd(B, 1, K)
+            prod = torch.empty((B, D), dtype=bf, device=dev)
+            xk = x.clone()
+            llm_gemv.gemv_residual(act, leaves[leaf], xk, prod=prod)
+            own, want = x.clone(), x.clone()
+            own.copy_(own + prod.view(B, 1, D))
+            llm_gemv.gemv_residual_plain(act, leaves[leaf], want)
+            torch.cuda.synchronize()
+            if not torch.equal(xk, own):
+                raise AssertionError(f"gemv_residual ({leaf}) B={B}: the residual add differs "
+                                     "from the plain one on its product")
+            want_prod = (act @ leaves[leaf]).view(B, D)
+            worst["gemv_residual"] = max(worst["gemv_residual"], bf16_ulps(prod, want_prod))
+            within["gemv_residual"] &= product_within(
+                prod, want_prod, (act.abs().float() @ leaves[leaf].abs().float()).view(B, D), K,
+                FUSED_ULPS["gemv_residual"])
+            chain["gemv_residual"] = max(chain["gemv_residual"], bf16_ulps(xk, want))
+        prod = torch.empty((B, 2 * Fd), dtype=bf, device=dev)
+        got = llm_gemv.norm_gateup(x, nw, eps, leaves["w_gateup"], Fd, prod=prod)
+        own = llm_fused.silu_mul_plain(prod.view(B, 1, 2 * Fd), Fd)
+        want = llm_gemv.norm_gateup_plain(x, nw, eps, leaves["w_gateup"], Fd)
+        torch.cuda.synchronize()
+        if not torch.equal(got, own):
+            raise AssertionError(f"norm_gateup B={B}: silu(gate) * up differs from the plain one "
+                                 "on its product")
+        want_prod = (h @ leaves["w_gateup"]).view(B, 2 * Fd)
+        worst["norm_gateup"] = max(worst["norm_gateup"], bf16_ulps(prod, want_prod))
+        within["norm_gateup"] &= product_within(
+            prod, want_prod,
+            (h.abs().float() @ leaves["w_gateup"].abs().float()).view(B, 2 * Fd), D,
+            FUSED_ULPS["norm_gateup"])
+        chain["norm_gateup"] = max(chain["norm_gateup"], bf16_ulps(got, want))
+        got = llm_gemv.norm_head(x, nw, eps, head)
+        want = llm_gemv.norm_head_plain(x, nw, eps, head)
+        absum = h.view(B, D).float().abs() @ head.float().abs().t()
+        torch.cuda.synchronize()
+        head_err = max(head_err, float(((got - want).abs() / (D * 2.0 ** -23 * absum)).max()))
+
+        # times: every launch on another copy of the weight, past the L2
+        att, act = rnd(B, 1, H * HD), rnd(B, 1, Fd)
+        xs = x.clone()
+
+        def copies(t):
+            n = max(2, -(-GEMV_COPIES_BYTES // (t.numel() * t.element_size())))
+            return [t] + [t.clone() for _ in range(n - 1)]
+
+        kk, kv_ = ck.clone(), cv.clone()
+        cases = {
+            "norm_qkv": (copies(leaves["wqkv"]),
+                         lambda w: llm_gemv.norm_qkv(x, nw, eps, w, bias, inv, pos, kk, kv_, H,
+                                                     True),
+                         lambda w: llm_gemv.norm_qkv_plain(x, nw, eps, w, bias, inv, pos, kk, kv_,
+                                                           H, True),
+                         lambda w: h @ w, 2 * (D * N + B * D + N + B * H * HD + 4 * B * KVH * HD)),
+            "gemv_residual wo": (copies(leaves["wo"]),
+                                 lambda w: llm_gemv.gemv_residual(att, w, xs),
+                                 lambda w: llm_gemv.gemv_residual_plain(att, w, xs),
+                                 lambda w: att @ w, 2 * (H * HD * D + B * H * HD + 2 * B * D)),
+            "gemv_residual down": (copies(leaves["w_down"]),
+                                   lambda w: llm_gemv.gemv_residual(act, w, xs),
+                                   lambda w: llm_gemv.gemv_residual_plain(act, w, xs),
+                                   lambda w: act @ w, 2 * (Fd * D + B * Fd + 2 * B * D)),
+            "norm_gateup": (copies(leaves["w_gateup"]),
+                            lambda w: llm_gemv.norm_gateup(x, nw, eps, w, Fd),
+                            lambda w: llm_gemv.norm_gateup_plain(x, nw, eps, w, Fd),
+                            lambda w: h @ w, 2 * (D * 2 * Fd + B * D + B * Fd)),
+            "norm_head": ([head],  # 233 MB: past the L2 as it is
+                          lambda w: llm_gemv.norm_head(x, nw, eps, w),
+                          lambda w: llm_gemv.norm_head_plain(x, nw, eps, w),
+                          lambda w: torch.mm(h.view(B, D), w.t(), out_dtype=torch.float32),
+                          2 * (V * D + B * D) + 4 * B * V)}
+        for name, (ws, kern, plain, library, nbytes) in cases.items():
+            rows[f"{name} B={B}"] = gemv_timing(kern, plain, library, ws, nbytes)
+            del ws
+        torch.cuda.empty_cache()
+    for key, r in rows.items():
+        log(f"[gemv] {key}: kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+            f"library={r['library_ms']:.4f}ms bound={r['bound_ms']:.5f}ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+    for name, n in worst.items():
+        log(f"[gemv] {name}: product {n} bf16 ulp from cuBLAS's, within {FUSED_ULPS[name]} ulp "
+            f"+ 2 K 2^-23 sum |x w|: {within[name]}; epilogue bit-equal to the plain one on it; "
+            f"the whole plain chain's outputs {chain[name]} ulp away, B = 1, 2, 4, 8")
+    log(f"[gemv] norm_head: largest |kernel - plain| {head_err:.3f} of K 2^-23 sum |x w| "
+        f"(limit 1) at V={V} D={D}, B = 1, 2, 4, 8")
+    for name, ok in within.items():
+        if not ok:
+            raise AssertionError(f"{name}: its product ({worst[name]} bf16 ulp) beyond "
+                                 f"{FUSED_ULPS[name]} ulp + 2 K 2^-23 sum |x w| of cuBLAS's")
+    if head_err > 1:
+        raise AssertionError(f"norm_head: {head_err:.3f} of its limit from the plain version")
+    out = {}
+    for name in ("norm_qkv", "gemv_residual", "norm_gateup", "norm_head"):
+        key = "gemv_residual down" if name == "gemv_residual" else name
+        r = rows[f"{key} B=1"]
+        out[name] = {**({"max_bf16_ulps": worst[name], "chain_bf16_ulps": chain[name]}
+                        if name in worst else {"max_err_of_limit": head_err}), **r,
+                     "at": f"B=1 D={D} H={H} KVH={KVH} HD={HD} S={S} F={Fd} V={V}",
+                     # [kernel, plain, cuBLAS's product, bound] ms
+                     "by_B_ms": {k[len(name) + 1:]: [round(v[f], 5) for f in
+                                                     ("ms", "plain_ms", "library_ms", "bound_ms")]
+                                 for k, v in rows.items() if k.startswith(name)}}
+    return out
+
+
+# the request paths that decode on the card and so must launch K7-K9 or K11
 FUSED_PATHS = ("bf16", "quant", "mel", "wave441", "stream", "clone", "server", "mesh")
+# the paths whose every decode step is a dense bf16 LLM's on one card: K11
+# alone, K7-K9 never (the server path also runs a q8_0 server; its dense
+# server's requests are held to K11 alone by ``served_fused``)
+GEMV_PATHS = ("bf16", "mel", "wave441", "clone")
 # the paths with a server of the LLM, whose batcher's chunks launch K10 once
 # a step beside the CLI's single-lane requests, which keep the plain sampler
 SERVED_PATHS = ("load", "clone", "server", "mesh")
@@ -802,27 +1022,41 @@ SERVED_PATHS = ("load", "clone", "server", "mesh")
 def check_fused_ratio(what: str, grew: dict, required: bool, served_only: bool = False) -> None:
     """A decode step launches K7, K8 and K9 as 25 : 12 : 12 (LLM_WIDTHS' 12
     layers: two norms a layer and the output norm; one q/k/v and one MLP a
-    layer); ``required``: at least once. The mesh path mixes tp = 2 groups,
-    whose every rank launches K8 and K9 (25 : 24 : 24), with mesh-less
-    servers: there K8 and K9 only must match. K10 runs once a served step
-    (a tp group's lead alone): 1 : 12 against K8 where only the batcher
-    decoded (``served_only``), at most that on a path with a server (at
-    least once where ``required``), never on a path of CLI requests alone."""
+    layer), or, on K11 (a dense bf16 LLM on one card), norm_qkv,
+    gemv_residual and norm_gateup as 12 : 24 : 12 and norm_head once (K7
+    once instead where the head is quantized); ``required``: at least one
+    step. A GEMV_PATHS path runs K11 alone; the mesh path (tp groups, int8)
+    K7-K9 alone, mixing tp = 2 groups, whose every rank launches K8 and K9
+    (25 : 24 : 24), with mesh-less servers: there K8 and K9 only must match.
+    K10 runs once a served step (a tp group's lead alone): 1 : 12 against K8
+    and norm_qkv where only the batcher decoded (``served_only``), at most
+    that on a path with a server (at least once where ``required``), never
+    on a path of CLI requests alone."""
     n7, n8, n9, n10 = (grew[k] for k in FUSED)
+    q, res, gu, hd = (grew[k] for k in GEMV)
     layers = LLM_WIDTHS["n_layers"]
-    ratio = what == "mesh" or n7 * layers == n8 * (2 * layers + 1)
-    if (required and n8 == 0) or n8 != n9 or not ratio:
-        raise AssertionError(f"[{what}] K7/K8/K9 launched {n7}/{n8}/{n9}: not 25:12:12 a step"
-                             + (" or none" if required else ""))
+    ratio = what == "mesh" or n7 * layers == n8 * (2 * layers + 1) + q - hd * layers
+    if (required and n8 + q == 0) or n8 != n9 or not ratio:
+        raise AssertionError(f"[{what}] K7/K8/K9 launched {n7}/{n8}/{n9} beside K11's "
+                             f"{q}/{res}/{gu}/{hd}: not 25:12:12 a step" +
+                             (" or none" if required else ""))
+    if gu != q or res != 2 * q or q % layers or hd * layers > q:
+        raise AssertionError(f"[{what}] K11 launched {q}/{res}/{gu}/{hd}: not 12:24:12:1 a step")
+    if what in GEMV_PATHS and (n7 or n8 or hd * layers != q):
+        raise AssertionError(f"[{what}] a dense bf16 path on one card launched K7/K8/K9 "
+                             f"{n7}/{n8}/{n9} and K11 {q}/{res}/{gu}/{hd}: not K11 alone")
+    if what == "mesh" and q:
+        raise AssertionError(f"[mesh] K11 launched {q} times: the tp and int8 routes keep K7-K9")
     if served_only:
-        k10 = n10 > 0 and n10 * layers == n8
+        k10 = n10 > 0 and n10 * layers == n8 + q
     elif what in SERVED_PATHS:
-        k10 = (n10 > 0 or not required) and n10 * layers <= n8
+        k10 = (n10 > 0 or not required) and n10 * layers <= n8 + q
     else:
         k10 = n10 == 0
     if not k10:
-        raise AssertionError(f"[{what}] K10 launched {n10} times beside K8's {n8}: not once a "
-                             "served step" + (" alone" if served_only else ""))
+        raise AssertionError(f"[{what}] K10 launched {n10} times beside K8's {n8} and "
+                             f"norm_qkv's {q}: not once a served step"
+                             + (" alone" if served_only else ""))
 
 
 def sampler_penalized(logits, ring, pen):
@@ -2919,27 +3153,29 @@ def fused_metrics(eng) -> dict:
 
 
 def served_fused(eng, grew: dict, scraped0: dict) -> dict:
-    """The served requests' K7-K9 launches: 25 : 12 : 12 a step, as
-    /metrics reads them, and every chunk graph and fused first chunk of the
-    batcher counts 25 / 12 / 12 a step into each replay."""
+    """The served requests' K7-K11 launches: K11 12 : 24 : 12 : 1 a step and
+    K7-K9 none, as /metrics reads them, and every chunk graph and fused
+    first chunk of the batcher counts norm_qkv / gemv_residual / norm_gateup
+    / norm_head 12 / 24 / 12 / 1, K7-K9 none and K10 once a step into each
+    replay."""
     b = eng.batcher
     check_fused_ratio("server", grew, True, served_only=True)
     scraped = {k: n - scraped0.get(k, 0) for k, n in fused_metrics(eng).items()}
     if scraped != {k.name: n for k, n in grew.items()}:
-        raise AssertionError(f"/metrics read K7-K10 {scraped}, the counters {launch_text(grew)}")
+        raise AssertionError(f"/metrics read K7-K11 {scraped}, the counters {launch_text(grew)}")
     graphs_ = [(f"chunk {key}", g) for key, g in b.chunks.items()]
     graphs_ += [(f"fused first chunk k={k}", g) for k, (g, _) in b._fused.items()]
     layers = LLM_WIDTHS["n_layers"]
     for name, g in graphs_:
-        per = [g.launches_per_replay[k] for k in FUSED]
-        want = [(2 * layers + 1) * g.n_steps, layers * g.n_steps, layers * g.n_steps, g.n_steps]
+        per = [g.launches_per_replay[k] for k in FUSED + GEMV]
+        want = [0, 0, 0, g.n_steps] + [n * g.n_steps for n in (layers, 2 * layers, layers, 1)]
         if per != want:
-            raise AssertionError(f"{name}: K7/K8/K9/K10 {per} a replay of {g.n_steps} steps, "
-                                 f"not {want}")
-    steps = grew[FUSED[1]] / layers
-    log(f"[server] the served requests launched K7/K8/K9/K10 {launch_text(grew)} (/metrics the "
-        f"same): {steps:.0f} decode steps at 25/12/12/1; each of {len(graphs_)} chunk and fused "
-        f"graphs 25/12/12/1 a step a replay")
+            raise AssertionError(f"{name}: K7/K8/K9/K10 and K11 {per} a replay of {g.n_steps} "
+                                 f"steps, not {want}")
+    steps = grew[GEMV[0]] / layers
+    log(f"[server] the served requests launched {launch_text(grew)} (/metrics the same): "
+        f"{steps:.0f} decode steps at K11 12/24/12/1, K7-K9 0, K10 1; each of {len(graphs_)} "
+        "chunk and fused graphs the same a step a replay")
     return {"launches": {k.name: n for k, n in grew.items()}, "steps": steps,
             "graphs_checked": len(graphs_)}
 
@@ -2962,9 +3198,9 @@ def check_server(dev, tmp: Path, emb) -> dict:
     --warmup off, and a -np 4 q8_0 server (K3 at widths 1 and 2). The
     served requests of each server must launch its kernels at the new
     widths; the references and checks run between them are not counted.
-    The served requests' K7/K8/K9 launches go 25 : 12 : 12 a step, and
-    /metrics reads the same; every chunk and fused first-chunk graph
-    counts 25 / 12 / 12 a step into each replay (``served_fused``)."""
+    The served requests' K11 launches go 12 : 24 : 12 : 1 a step and K7-K9
+    none, and /metrics reads the same; every chunk and fused first-chunk
+    graph counts the same a step into each replay (``served_fused``)."""
     import concurrent.futures
 
     from miotts_tpu_torch.models.llm import CHAT_TEMPLATE
@@ -3012,7 +3248,7 @@ def check_server(dev, tmp: Path, emb) -> dict:
             health = json.loads(r.read())
         if health["status"] != "ok" or not health["warmup_complete"]:
             raise AssertionError(f"health: {health}")
-        served0 = {m: m.launches for m in MODS + FUSED}
+        served0 = {m: m.launches for m in MODS + FUSED + GEMV}
         scraped0 = fused_metrics(eng)
         widths0 = dict(b.width_counts)
 
@@ -3157,7 +3393,8 @@ def check_server(dev, tmp: Path, emb) -> dict:
         if grew[k1] <= 0 or grew[k2] <= 0 or not {1, 2, 4, b.n_lanes} <= set(widths):
             raise AssertionError(f"the served requests launched no K1 or no K2, or not at every "
                                  f"width: {launch_text(grew)}, widths {widths}")
-        out["served_fused"] = served_fused(eng, {k: k.launches - served0[k] for k in FUSED},
+        out["served_fused"] = served_fused(eng, {k: k.launches - served0[k]
+                                                 for k in FUSED + GEMV},
                                            scraped0)
 
         with uncounted():
@@ -4335,6 +4572,11 @@ def main() -> int:
     results.update({k: fused_rows[k.name] for k in FUSED})
     log(f"[checks] K10 in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    gemv_rows = check_gemv(dev, gen)
+    results.update({k: gemv_rows[k.name] for k in GEMV})
+    log(f"[checks] K11 in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     results.update({k4: check_k4(dev, gen), k5: check_k5(dev, gen), k6: check_k6(dev, gen)})
     log(f"[checks] K4-K6 in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
@@ -4384,7 +4626,7 @@ def main() -> int:
                            ("stream", STREAM_REQUESTS), ("clone", None), ("server", None),
                            ("mesh", None), ("sp", None), ("llm_api", None),
                            ("cpu_native", None)):
-            for m in MODS + FUSED:
+            for m in MODS + FUSED + GEMV:
                 m.launches = 0
             t0 = time.perf_counter()
             if path == "load":
@@ -4423,7 +4665,7 @@ def main() -> int:
                 for i, (prompt, n_predict, extra, kernels) in enumerate(reqs):
                     run_request(f"{path}-{i}", tmp, prompt, n_predict, extra, ccfg,
                                 "llm.gguf" if path == "bf16" else "llm_q8_0.gguf", kernels)
-            launches[path] = {m: m.launches for m in MODS + FUSED}
+            launches[path] = {m: m.launches for m in MODS + FUSED + GEMV}
             log(f"[{path} path] {time.perf_counter() - t0:.1f}s, launches: "
                 f"{launch_text(launches[path])}")
             check_fused_ratio(path, launches[path], path in FUSED_PATHS)
@@ -4449,9 +4691,10 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                         "replaces": mod.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[mod]})
-    for kern in FUSED:
+    for kern in FUSED + GEMV:
         by_path = {path: n[kern] for path, n in launches.items()}
-        source = llm_fused.SAMPLE_SOURCE if kern is llm_fused.SAMPLE_STEP else llm_fused.SOURCE
+        source = (llm_fused.SAMPLE_SOURCE if kern is llm_fused.SAMPLE_STEP
+                  else llm_gemv.SOURCE if kern in GEMV else llm_fused.SOURCE)
         kernels.append({"name": kern.name, "route": "cuda", "source": source,
                         "replaces": llm_fused.REPLACES, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **results[kern]})

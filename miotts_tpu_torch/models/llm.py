@@ -20,10 +20,12 @@ The decode step keeps the JAX operand contract: attention reads the cache
 STRICTLY below ``pos`` and takes the current token's k/v as operands; each
 layer writes its row pair into the cache before its attention (JAX
 scatters all layers' rows after the stack: the same cache, since no layer
-reads its row at ``pos``). The step's glue runs as the fused kernels K7-K9
-on CUDA (``ops/cuda/llm_fused.py``): the residual add and RMSNorm, the QKV
-bias, RoPE and cache row, and silu(gate) * up; a served step's sampler
-and bookkeeping are K10 (``sample_step``).
+reads its row at ``pos``). On one card a dense bf16 step runs as the K11
+family (``ops/cuda/llm_gemv.py``, ``gemv_route``): each GEMV with the glue
+on either side of it. Every other CUDA step runs its glue as the fused
+kernels K7-K9 (``ops/cuda/llm_fused.py``): the residual add and RMSNorm,
+the QKV bias, RoPE and cache row, and silu(gate) * up. A served step's
+sampler and bookkeeping are K10 (``sample_step``).
 The port updates the KV cache IN PLACE (prefill and decode step), where
 JAX returns new caches. On CUDA the decode attention is kernel K2
 (``ops/cuda/decode_attention.py``). Prefill attention is plain torch, as
@@ -66,6 +68,9 @@ from ..ops.cuda import graphs
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.cuda.llm_fused import (
     add_rms_norm, qkv_rope_cache, rms_norm, rope_inv_freq, sample_step, silu_mul, write_kv_row)
+from ..ops.cuda.llm_gemv import dense_logits as _dense_logits
+from ..ops.cuda.llm_gemv import (
+    HEAD_DIM, MAX_K, MAX_NORM_DIM, MAX_ROWS, gemv_residual, norm_gateup, norm_head, norm_qkv)
 from ..ops.cuda.q8_matmul import q8_matmul
 from ..ops.quant_matmul import (
     act_scale, int8_dot, int_scale, maybe_quant_matmul as _mm, quantize_int4_percol,
@@ -352,18 +357,6 @@ def _finalize_packed(pk: PackedLoader, w: dict, dtype: torch.dtype, art) -> dict
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-
-def _dense_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x [N, D] against a dense [V, D] head -> f32 [N, V], accumulated
-    straight into f32. On CUDA one cuBLAS call writes f32 from bf16
-    operands; the CPU build has no such matmul, so it multiplies the bf16
-    values as f32, which gives the same exact products."""
-    if x.dtype == torch.float32 and head.dtype == torch.float32:
-        return x @ head.t()
-    if x.device.type == "cuda":
-        return torch.mm(x, head.t(), out_dtype=torch.float32)
-    return x.float() @ head.float().t()
-
 
 def _head_logits(cfg: LLMConfig, w: dict, x: torch.Tensor) -> torch.Tensor:
     """x [B, D] -> f32 logits [B, V] from one weight dict. A dense head is
@@ -671,6 +664,54 @@ def _decode_ffn_act(cfg: LLMConfig, blk: dict, h: torch.Tensor) -> torch.Tensor:
     return _ffn_act(cfg, blk, h)
 
 
+def _bf16_leaf(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+
+
+def gemv_route(cfg: LLMConfig, w, rows: int, device) -> bool:
+    """Whether a decode step of ``rows`` lanes on ``device`` takes the K11
+    family (``_decode_step_gemv``), from what the step can observe: a CUDA
+    device, no ``TPGroup`` (whose row-parallel sums sit between a product
+    and the residual add), dense bf16 layer leaves with the fused q|k|v and
+    gate|up leaves, no q_norm, at most 8 rows, and shapes the kernels take
+    (head_dim 64, widths within their limits). Every other step keeps the
+    K7-K9 route."""
+    if torch.device(device).type != "cuda" or isinstance(w, TPGroup) or not 1 <= rows <= MAX_ROWS:
+        return False
+    if w.get("q_norm") is not None or not all(
+            _bf16_leaf(w.get(k)) for k in ("wqkv", "wo", "w_gateup", "w_down", "token_embd")):
+        return False
+    return (cfg.head_dim == HEAD_DIM and cfg.dim % 64 == 0 and cfg.dim <= MAX_NORM_DIM
+            and cfg.ffn_dim % 32 == 0 and max(cfg.ffn_dim, cfg.n_heads * cfg.head_dim) <= MAX_K)
+
+
+def _decode_step_gemv(cfg: LLMConfig, w: dict, token: torch.Tensor, pos: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor) -> torch.Tensor:
+    """``llm_decode_step`` on the K11 family (``ops/cuda/llm_gemv.py``): a
+    layer is ``norm_qkv`` -> K2 -> ``gemv_residual`` (wo) -> ``norm_gateup``
+    -> ``gemv_residual`` (down), the residual stream x updated in place; the
+    step ends with ``norm_head`` on a dense head, or the output norm (K7)
+    and ``_head_logits`` on a quantized one. Taken where ``gemv_route``
+    says so; on the CPU each call is its plain version, the unfused
+    step's expressions."""
+    x = _embed(cfg, w, token)[:, None, :]  # [B, 1, D], the residual stream
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    for li in range(cfg.n_layers):
+        ck, cv = cache_k[li], cache_v[li]
+        qh, k1, v1 = norm_qkv(x, w["attn_norm"][li], cfg.rms_eps, w["wqkv"][li],
+                              None if w["bqkv"] is None else w["bqkv"][li], inv_freq, pos, ck, cv,
+                              cfg.n_heads, cfg.rope_neox)
+        att = decode_attention(qh, k1, v1, ck, cv, scale, pos)[:, None, :]
+        gemv_residual(att, w["wo"][li], x)
+        act = norm_gateup(x, w["ffn_norm"][li], cfg.rms_eps, w["w_gateup"][li], cfg.ffn_dim)
+        gemv_residual(act, w["w_down"][li], x)
+    head = w["output"] if w["output"] is not None else w["token_embd"]
+    if _bf16_leaf(head):
+        return norm_head(x, w["output_norm"], cfg.rms_eps, head)
+    return _head_logits(cfg, w, add_rms_norm(x, None, w["output_norm"], cfg.rms_eps)[:, 0])
+
+
 def llm_decode_step(cfg: LLMConfig, w, token: torch.Tensor, pos: torch.Tensor,
                     cache_k, cache_v) -> torch.Tensor:
     """One decode step for lanes token/pos [B] (pos int32). Returns logits
@@ -681,7 +722,10 @@ def llm_decode_step(cfg: LLMConfig, w, token: torch.Tensor, pos: torch.Tensor,
     run as one ``add_rms_norm`` (K7 on CUDA), whose output goes to each
     rank; for a ``TPGroup`` each rank runs K8 and K2 over its own kv heads
     (its part of the cache) and its own leaf shards, with the sums of
-    ``_row_parallel`` between."""
+    ``_row_parallel`` between. Where ``gemv_route`` says so, the step runs
+    on the K11 family instead (``_decode_step_gemv``)."""
+    if gemv_route(cfg, w, token.shape[0], token.device):
+        return _decode_step_gemv(cfg, w, token, pos, cache_k, cache_v)
     cfgs, shards, g = _ranks(cfg, w)
     ck, cv = kv_parts(cache_k), kv_parts(cache_v)
     x = _embed(cfg, w, token)[:, None, :]  # [B, 1, D], the residual stream

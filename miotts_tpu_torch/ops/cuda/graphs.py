@@ -3,7 +3,8 @@ replays, and the capture check of first-use caches.
 
 Each wrapper (``ops/cuda/*.py``) calls ``launched`` where it launches its
 kernel, and a replay calls no Python. A counter is a kernel module's
-``launches`` (K1-K6) or a fused kernel's (``llm_fused.KERNELS``, K7-K10),
+``launches`` (K1-K6) or a fused kernel's (``llm_fused.KERNELS``, K7-K10;
+``llm_gemv.KERNELS``, the K11 family),
 named by its ``__name__`` (``counters``). While a thread records a capture
 (``record_launches``), its calls count into the graph's per-replay counts
 and leave the module's ``launches`` alone (the capture ran nothing); the
@@ -96,9 +97,9 @@ def kernel_modules() -> tuple:
 
 def counters() -> tuple:
     """Every launch counter: the six kernel modules and the fused kernels
-    K7-K10, each with its ``__name__`` and ``launches``."""
-    from . import llm_fused
-    return kernel_modules() + llm_fused.KERNELS
+    K7-K11, each with its ``__name__`` and ``launches``."""
+    from . import llm_fused, llm_gemv
+    return kernel_modules() + llm_fused.KERNELS + llm_gemv.KERNELS
 
 
 def _counter(name: str):

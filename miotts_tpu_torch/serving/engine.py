@@ -58,7 +58,7 @@ import torch
 
 from ..device import select_device
 from ..models import codec_graph
-from ..ops.cuda import llm_fused
+from ..ops.cuda import llm_fused, llm_gemv
 from ..pipeline import MioTTSPipeline, pick_bucket
 from ..runtime.audio_io import save_wav16
 from ..runtime.codes_io import load_codes, save_codes
@@ -415,8 +415,8 @@ class ServingEngine:
         summaries = [("miotts_codec_queue_seconds", cb.queue_wait_s, cb.queue_waits,
                       "codec calls' wait from queueing to the start of their group's decode")]
         labelled = [("miotts_llm_fused_launches_total", "kernel",
-                     [(k.name, k.launches) for k in llm_fused.KERNELS],
-                     "launches of the decode step's fused kernels K7-K10, graph replays counted")]
+                     [(k.name, k.launches) for k in llm_fused.KERNELS + llm_gemv.KERNELS],
+                     "launches of the decode step's fused kernels K7-K11, graph replays counted")]
         if self.batcher is not None:
             b = self.batcher
             counters += [

@@ -530,8 +530,10 @@ def write_synthetic_llm_gguf(
     n_filler_vocab: int = 0,
     audio_logit_scale: float = 1.0,
     quant: str = "f32",
+    tied: bool = False,
 ) -> None:
-    """``audio_logit_scale > 1`` scales the output-head rows of the
+    """``tied`` writes no ``output.weight``: the logits head is the token
+    embedding. ``audio_logit_scale > 1`` scales the output-head rows of the
     ``<|s_N|>`` audio tokens so sampled generations are code-dense like the
     real MioTTS model (whose outputs are nearly all audio codes). With
     random weights only ~n_audio/vocab of samples are codes, which makes
@@ -594,5 +596,6 @@ def write_synthetic_llm_gguf(
     out_w = rnd(vocab, dim)
     if audio_logit_scale != 1.0:
         out_w[audio_lo:audio_hi] *= np.float32(audio_logit_scale)
-    mm("output.weight", out_w)
+    if not tied:
+        mm("output.weight", out_w)
     w.write()

@@ -40,7 +40,8 @@ width-W graph of the batcher's largest rung (``SERVED_STEPS`` steps,
 ``llm.chunk`` with the lane list; the full width at W = 8): device kernels
 a step and device busy ms a step from one profiled replay, CUDA-event ms
 a replay (median of 5), and the fused kernels' launches a replay where the
-package has them (``ops/cuda/llm_fused.py``). Then the step's sampler
+package has them (``ops/cuda/llm_fused.py``, K7-K10; ``ops/cuda/llm_gemv.py``,
+K11). Then the step's sampler
 and bookkeeping alone, as the chunk body runs them on the W lanes' logits:
 ``llm_fused.sample_step`` (K10) where the package has it, else the inline
 chain the chunk body ran before it (``sample_token_batched`` and its
@@ -240,7 +241,9 @@ def profile_served(args, cfg, w, dev) -> dict:
     by_name, busy = device_kernels(prof)
     kernels = sum(len(t) for t in by_name.values())
     fused = {getattr(k, "name", str(k)): c for k, c in graph.launches_per_replay.items()
-             if not isinstance(k, tuple) and ".llm_fused." in getattr(k, "__name__", "")}
+             if not isinstance(k, tuple)
+             and (".llm_fused." in getattr(k, "__name__", "")
+                  or ".llm_gemv." in getattr(k, "__name__", ""))}
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
     res = {"served_width": width, "lanes": n, "steps": SERVED_STEPS, "cache_rows": args.cache,
            "prompt": args.prompt,

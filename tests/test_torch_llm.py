@@ -26,6 +26,7 @@ from miotts_tpu_torch.models.llm import (
     load_llm_gguf)
 from miotts_tpu_torch.models.sampling import (
     SamplerParams, SamplerState, sample_token, sampler_key, uniform)
+from miotts_tpu_torch.ops.cuda import llm_gemv
 from miotts_tpu_torch.testing import write_synthetic_llm_gguf
 
 torch.set_num_threads(1)
@@ -160,6 +161,104 @@ def test_decode_step_at_cache_end(tiny_llm):
         np.testing.assert_array_equal(got[:, 0, :S - 1].float().numpy(), ref[:, 0, :S - 1])
         np.testing.assert_allclose(got[:, 0, S - 1].float().numpy(), ref[:, 0, S - 1],
                                    atol=2e-2, rtol=0)
+
+
+# The K11 route (``_decode_step_gemv``, taken on one card for dense bf16
+# fused leaves) against JAX's step, bf16 on both sides. On the CPU its
+# wrappers run their plain versions, which the card holds the kernels to.
+# With XLA:CPU's silu patched in, the logits agree to the f32 head's
+# tolerance and every cache row is equal; with the port's own silu, to the
+# bf16 tolerances above.
+GEMV_CONFIGS = {
+    # qwen2: NEOX pairs, q|k|v bias, a dense head
+    "qwen2": dict(dim=32, n_layers=2, n_heads=4, n_kv_heads=2, ffn=64, seed=0),
+    # head_dim 64, the shapes the kernels take
+    "hd64": dict(dim=128, n_layers=2, n_heads=2, n_kv_heads=1, ffn=128, seed=5),
+    # llama: adjacent pairs, the head tied to the embedding
+    "llama_tied": dict(dim=32, n_layers=2, n_heads=4, n_kv_heads=2, ffn=64, seed=4,
+                       arch="llama", tied=True),
+}
+GEMV_CASES = [("qwen2", ""), ("hd64", ""), ("llama_tied", ""), ("qwen2", "output"),
+              ("hd64", "output")]
+
+
+@pytest.fixture(scope="module")
+def gemv_llms(tmp_path_factory):
+    root = tmp_path_factory.mktemp("gemv_llms")
+    paths = {}
+    for name, kw in GEMV_CONFIGS.items():
+        paths[name] = str(root / f"{name}.gguf")
+        write_synthetic_llm_gguf(paths[name], n_audio=64, **kw)
+    return paths
+
+
+def _gemv_pair(gemv_llms, name, quant):
+    jcfg, jw, _ = jllm.load_llm_gguf(gemv_llms[name], dtype=jnp.bfloat16, quantize=quant)
+    cfg, w, _ = load_llm_gguf(gemv_llms[name], CPU, torch.bfloat16, quantize=quant)
+    assert w["wqkv"].dtype == torch.bfloat16 and w["w_gateup"] is not None
+    assert isinstance(w["output"], dict) == (quant == "output")
+    assert cfg.tie_embeddings == (w["output"] is None) == (name == "llama_tied")
+    assert cfg.rope_neox == (name != "llama_tied")
+    if cfg.head_dim == llm_gemv.HEAD_DIM:  # the card would take this route
+        assert llm_mod.gemv_route(cfg, w, 2, "cuda")
+    return jcfg, jw, cfg, w
+
+
+def _to_torch(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("xla_silu", [True, False], ids=["xla_silu", "port_silu"])
+@pytest.mark.parametrize("name,quant", GEMV_CASES)
+def test_gemv_decode_step_matches_jax(gemv_llms, name, quant, xla_silu, monkeypatch):
+    """JAX prefills a bf16 cache; from the same cache, three decode steps
+    with ragged pos by JAX's step and by the K11 route."""
+    jcfg, jw, cfg, w = _gemv_pair(gemv_llms, name, quant)
+    if xla_silu:
+        monkeypatch.setattr(llm_mod.F, "silu", _xla_cpu_silu)
+    toks, lens = _prompts()
+    jck, jcv = jllm.init_kv_cache(jcfg, 2, 24)
+    _, jck, jcv = jllm.llm_prefill(jcfg, jw, jnp.asarray(toks), jnp.asarray(lens), jck, jcv)
+    ck, cv = _to_torch(jck), _to_torch(jcv)
+    pos = lens.copy()
+    for step in range(3):
+        tok = np.array([5 + step, 70 + step], np.int32)
+        jlog, jck, jcv = jllm.llm_decode_step(jcfg, jw, jnp.asarray(tok), jnp.asarray(pos),
+                                              jck, jcv)
+        log = llm_mod._decode_step_gemv(cfg, w, torch.from_numpy(tok), torch.from_numpy(pos),
+                                        ck, cv)
+        assert log.dtype == torch.float32
+        np.testing.assert_allclose(log.numpy(), np.asarray(jlog),
+                                   atol=1e-5 if xla_silu else 0.05, rtol=0)
+        pos += 1
+    for got, ref in ((ck, jck), (cv, jcv)):
+        ref = np.asarray(ref, np.float32)
+        if xla_silu:
+            np.testing.assert_array_equal(got.float().numpy(), ref)
+        else:
+            np.testing.assert_allclose(got.float().numpy(), ref, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("name,quant", GEMV_CASES)
+def test_gemv_decode_step_at_cache_end(gemv_llms, name, quant, monkeypatch):
+    """The K11 route at pos = S-1 (the last row written) and pos = S
+    (nothing written, JAX's mode="drop"), from the same random cache."""
+    jcfg, jw, cfg, w = _gemv_pair(gemv_llms, name, quant)
+    monkeypatch.setattr(llm_mod.F, "silu", _xla_cpu_silu)
+    S = 12
+    rng = np.random.RandomState(2)
+    shape = (cfg.n_layers, 2, S, cfg.n_kv_heads, cfg.head_dim)
+    jck, jcv = (jnp.asarray(rng.randn(*shape), jnp.bfloat16) for _ in range(2))
+    ck, cv = _to_torch(jck), _to_torch(jcv)
+    before = ck.clone(), cv.clone()
+    tok, pos = np.array([3, 4], np.int32), np.array([S - 1, S], np.int32)
+    jlog, jck, jcv = jllm.llm_decode_step(jcfg, jw, jnp.asarray(tok), jnp.asarray(pos), jck, jcv)
+    log = llm_mod._decode_step_gemv(cfg, w, torch.from_numpy(tok), torch.from_numpy(pos), ck, cv)
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), atol=1e-5, rtol=0)
+    for got, ref, old in ((ck, jck, before[0]), (cv, jcv, before[1])):
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+        assert torch.equal(got[:, 1], old[:, 1])  # dropped
+        assert torch.equal(got[:, 0, :S - 1], old[:, 0, :S - 1])
 
 
 def test_greedy_tokens_match_jax_f32(tiny_llm):

@@ -306,7 +306,8 @@ def test_metrics_count_codec_decodes_widths_and_waits(server):
         return sum(v for k, v in m.items() if k.startswith('miotts_batcher_chunks_total{width="'))
     assert chunks(after) >= chunks(before) + 1
     # the fused kernels' counters: the CPU runs their plain versions, no launch
-    for kernel in ("add_rms_norm", "qkv_rope_cache", "silu_mul", "sample_step"):
+    for kernel in ("add_rms_norm", "qkv_rope_cache", "silu_mul", "sample_step", "norm_qkv",
+                   "gemv_residual", "norm_gateup", "norm_head"):
         name = f'miotts_llm_fused_launches_total{{kernel="{kernel}"}}'
         assert after[name] == before[name]
 
